@@ -1,0 +1,12 @@
+"""PyTorch / CUDA port of `nerfsafetyvalidation_tpu` for one NVIDIA H100.
+
+The JAX package beside this one is the reference. This package imports
+`torch` and numpy only, never `jax` and nothing of the JAX package. Every
+TPU kernel on a ported path is a kernel written by hand for Hopper under
+`csrc/`, bound by `ops/hopper/`; on a CPU tensor its wrapper runs the plain
+PyTorch version instead, which is what the tests use.
+
+Ported so far: the baked-student guided frame (`models.renderer.
+render_frame_guided` in scout mode with natural tile order), with the
+points-in MLP chain as the CUDA kernel `ops.hopper.points_mlp`.
+"""

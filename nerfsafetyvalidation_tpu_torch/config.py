@@ -1,0 +1,27 @@
+"""Network configuration: the fields of the JAX package's `NetworkConfig`
+(nerfsafetyvalidation_tpu/config.py) that the ported paths read."""
+
+import math
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class NetworkConfig:
+    encoding: str = "hashgrid"          # the port runs 'frequency' only
+    num_layers: int = 2
+    hidden_dim: int = 64
+    geo_feat_dim: int = 15
+    num_layers_color: int = 3
+    hidden_dim_color: int = 64
+    bound: float = 1.0
+    sh_degree: int = 4
+    multires: int = 6                   # frequency encoding degree
+    density_scale: float = 1.0
+    min_near: float = 0.2
+    grid_size: int = 128
+    compute_dtype: str = "float32"      # 'float32' | 'bfloat16'
+    fused: bool = False                 # route apply through the MLP kernel
+
+    @property
+    def cascade(self) -> int:
+        return 1 + math.ceil(math.log2(max(self.bound, 1.0)))

@@ -1,0 +1,38 @@
+"""Pinhole rays and pose convention (nerfsafetyvalidation_tpu/data/rays.py:
+`get_rays` without subsampling, `nerf_matrix_to_ngp`)."""
+
+import numpy as np
+import torch
+
+
+def nerf_matrix_to_ngp(pose, scale=0.33, offset=(0, 0, 0)):
+    """[4, 4] nerf-convention c2w -> ngp convention (numpy float32)."""
+    pose = np.asarray(pose, dtype=np.float32)
+    return np.array([
+        [pose[1, 0], -pose[1, 1], -pose[1, 2], pose[1, 3] * scale + offset[0]],
+        [pose[2, 0], -pose[2, 1], -pose[2, 2], pose[2, 3] * scale + offset[1]],
+        [pose[0, 0], -pose[0, 1], -pose[0, 2], pose[0, 3] * scale + offset[2]],
+        [0, 0, 0, 1],
+    ], dtype=np.float32)
+
+
+def get_rays(poses, intrinsics, H: int, W: int, device="cuda"):
+    """poses: [B, 4, 4] c2w; intrinsics: (fx, fy, cx, cy). Returns
+    {'rays_o', 'rays_d'}: [B, H*W, 3] float32 on `device`, pixel centres at
+    +0.5, unit directions."""
+    poses = torch.as_tensor(np.asarray(poses), dtype=torch.float32,
+                            device=device)
+    B = poses.shape[0]
+    fx, fy, cx, cy = [float(v) for v in np.asarray(intrinsics).reshape(-1)[:4]]
+    j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                          torch.arange(W, dtype=torch.float32, device=device),
+                          indexing="ij")
+    i = i.reshape(H * W) + 0.5
+    j = j.reshape(H * W) + 0.5
+    directions = torch.stack([(i - cx) / fx, (j - cy) / fy,
+                              torch.ones_like(i)], dim=-1)
+    directions = directions / torch.linalg.norm(directions, dim=-1,
+                                                keepdim=True)
+    rays_d = torch.einsum("nk,bjk->bnj", directions, poses[:, :3, :3])
+    rays_o = poses[:, None, :3, 3].expand(rays_d.shape)
+    return {"rays_o": rays_o, "rays_d": rays_d}

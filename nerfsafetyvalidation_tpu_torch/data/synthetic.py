@@ -1,0 +1,108 @@
+"""Analytic ground truth for the "spheres" scene, a numpy copy of the JAX
+package's nerfsafetyvalidation_tpu/data/synthetic.py (`orbit_pose`,
+`camera_rays`, `trace`); the "gauntlet" tracer is not ported yet."""
+
+import numpy as np
+
+SPHERES = [
+    # (center, radius, albedo)
+    ((0.00, 0.00, -0.10), 0.35, (0.85, 0.15, 0.15)),
+    ((0.45, 0.30, 0.05), 0.20, (0.15, 0.25, 0.85)),
+    ((-0.40, 0.35, -0.20), 0.25, (0.15, 0.75, 0.25)),
+]
+GROUND_Z = -0.5
+LIGHT = np.asarray([0.4, 0.25, 0.88])
+LIGHT_DIR = LIGHT / np.linalg.norm(LIGHT)
+
+
+def camera_rays(pose, intrinsics, H, W):
+    """OpenGL-convention pinhole rays. pose: [4,4] c2w; returns o,d [H,W,3]."""
+    fx, fy, cx, cy = intrinsics
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    dirs = np.stack([(j - cx) / fx, -(i - cy) / fy, -np.ones_like(i)],
+                    axis=-1).astype(np.float64)
+    d = dirs @ pose[:3, :3].T
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(pose[:3, 3], d.shape)
+    return o, d
+
+
+def trace(o, d):
+    """Closed-form trace. o,d: [..., 3]. Returns (rgb [..., 3], alpha, depth)."""
+    shape = o.shape[:-1]
+    o = o.reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    n_rays = o.shape[0]
+    best_t = np.full(n_rays, np.inf)
+    rgb = np.zeros((n_rays, 3))
+    hit = np.zeros(n_rays, dtype=bool)
+
+    def shade(albedo, normal):
+        lam = np.clip((normal * LIGHT_DIR).sum(-1), 0.0, 1.0)
+        return np.asarray(albedo)[None] * (0.35 + 0.65 * lam)[:, None]
+
+    for center, radius, albedo in SPHERES:
+        oc = o - np.asarray(center)
+        b = (oc * d).sum(-1)
+        disc = b * b - (oc * oc).sum(-1) + radius * radius
+        ok = disc > 0
+        t = -b - np.sqrt(np.where(ok, disc, 0.0))
+        ok &= (t > 1e-4) & (t < best_t)
+        p = o + t[:, None] * d
+        n = (p - np.asarray(center)) / radius
+        col = shade(albedo, n)
+        rgb[ok] = col[ok]
+        best_t[ok] = t[ok]
+        hit |= ok
+
+    # ground plane z = GROUND_Z, checkerboard, only inside |x|,|y| < 1
+    tz = (GROUND_Z - o[:, 2]) / np.where(np.abs(d[:, 2]) > 1e-9, d[:, 2], 1e-9)
+    p = o + tz[:, None] * d
+    okg = (tz > 1e-4) & (tz < best_t) & (np.abs(p[:, 0]) < 1.0) \
+        & (np.abs(p[:, 1]) < 1.0)
+    check = ((np.floor(p[:, 0] * 4) + np.floor(p[:, 1] * 4)) % 2).astype(bool)
+    base = np.where(check[:, None], 0.82, 0.55)
+    gcol = np.broadcast_to(base, (n_rays, 3)).copy()
+    # sphere shadows on the ground (hard shadow toward the light)
+    sh = np.zeros(n_rays, dtype=bool)
+    for center, radius, _ in SPHERES:
+        oc = p - np.asarray(center)
+        b = (oc * LIGHT_DIR).sum(-1)
+        disc = b * b - (oc * oc).sum(-1) + radius * radius
+        sh |= (disc > 0) & (b < 0)
+    gcol[sh] *= 0.55
+    rgb[okg] = gcol[okg]
+    best_t[okg] = tz[okg]
+    hit |= okg
+
+    alpha = hit.astype(np.float64)
+    depth = np.where(hit, best_t, 0.0)
+    return (rgb.reshape(shape + (3,)), alpha.reshape(shape),
+            depth.reshape(shape))
+
+
+TRACERS = {"spheres": trace}
+
+
+def trace_scene(o, d, scene="spheres"):
+    if scene not in TRACERS:
+        raise NotImplementedError(f"scene {scene!r} is not ported")
+    return TRACERS[scene](o, d)
+
+
+def orbit_pose(theta, phi, radius):
+    """c2w looking at the origin from spherical (theta azimuth, phi elev)."""
+    pos = np.asarray([radius * np.cos(phi) * np.cos(theta),
+                      radius * np.cos(phi) * np.sin(theta),
+                      radius * np.sin(phi)])
+    fwd = -pos / np.linalg.norm(pos)
+    up = np.asarray([0.0, 0.0, 1.0])
+    right = np.cross(fwd, up)
+    right = right / np.linalg.norm(right)
+    up2 = np.cross(right, fwd)
+    c2w = np.eye(4)
+    c2w[:3, 0] = right
+    c2w[:3, 1] = up2
+    c2w[:3, 2] = -fwd
+    c2w[:3, 3] = pos
+    return c2w
