@@ -6,18 +6,29 @@ CUDA card.
 
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
-  2. build: kernel K1 (csrc/points_mlp.cu) with nvcc;
-  3. kernel: K1 against its plain PyTorch version on 131,072 rows of
-     points on real camera rays with the committed 160x6 student, with
-     kernel, plain, library (bf16 torch.matmul chain) and bound times;
-  4. frame: the baked-student guided 800x800 frame (bench.py's
-     baked_h160_ak8 settings) on the "spheres" scene at the four held-out
-     poses, through K1; mean PSNR against the analytic ground truth, rays/s,
-     and pose 0 rendered again through the plain version and compared.
-Then one JSON line per kernel, the nvidia-smi line, and the result line.
-
-The occupancy bitfield is the one stored in bench_assets/flagship.ckpt; the
-JAX bench refreshes it through the teacher first, which is not ported yet.
+  2. build: kernels K1 (csrc/points_mlp.cu) and K3 (csrc/sigma_color.cu),
+     one nvcc each, started together;
+  3. teacher: the mip-fold teacher of bench_assets/flagship.ckpt loaded,
+     folded, and its occupancy refreshed 4x with a seeded generator, as
+     bench.py refreshes it before every mode;
+  4. kernel K1: against its plain PyTorch version on 131,072 rows of points
+     on real camera rays with the committed 160x6 student, with kernel,
+     plain, library (bf16 torch.matmul chain) and bound times;
+  5. kernel K3: against its plain version on 262,144 rows (one guided fine
+     tile: 16,384 rays x 16 samples in windows around the surface) of the
+     teacher's own encoding, with the same four times;
+  6. fast, guided: the teacher's marched frame and its depth-guided frame
+     with the march prepass (bench.py's `fast` and `guided` settings) at
+     800x800 on the "spheres" scene at the four held-out poses, through
+     K3; mean PSNR against the analytic ground truth and its gap to the
+     JAX package's BENCH_r05 numbers, tile buckets, rays/s, and pose 0
+     rendered again through the plain version and compared;
+  7. baked_h160_ak8: the baked-student guided frame on the same poses
+     through K1, from the refreshed occupancy.
+Every launch count is set to 0 just before each of the three frame phases
+and read just after. The configurations are `nerfsafetyvalidation_tpu_torch
+/flagship.py`'s. Then one JSON line listing every kernel, the nvidia-smi
+line, and the result line.
 
 Every failed check raises and ends the run with a non-zero exit; without a
 CUDA device the script fails before printing anything.
@@ -27,37 +38,40 @@ import json
 import subprocess
 import sys
 import time
-from dataclasses import replace
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-STUDENT = ROOT / "bench_assets" / "bench_student_h160x6.pkl"
-CKPT = ROOT / "bench_assets" / "flagship.ckpt"
 
-RES = 800
-FOV_X = 0.6911
-HOLDOUT = [(0.77, 0.52), (2.31, 0.30), (3.85, 0.65), (5.40, 0.42)]
-FRAME = dict(prepass_factor=8, scout_samples=64, max_samples=16, tile=8192,
-             adaptive_k=8, adaptive_span_cells=24.0, bg_color=1.0,
-             margin_cells=6.0)
-ROWS = 8192 * 16            # one K=16 tile of the frame
+# the JAX package's spheres PSNR (mean, min) of each mode, BENCH_r05.json
+BENCH_R05 = {"fast": (31.08, 30.75), "guided": (30.74, 30.41),
+             "baked_h160_ak8": (30.04, 29.97)}
+K1_ROWS = 8192 * 16         # one K=16 tile of the student frame
+K3_RAYS, K3_K = 16384, 16   # one fine tile of the guided frame
 PSNR_BAR = 28.0             # the spheres gate of bench.py
 
 # Kernel vs plain, both bf16 with f32 sums. The two sum in different
 # orders, so an activation now and then rounds to the neighbouring bf16
-# value and the difference runs on through the later layers. Changing only
-# the sums' precision (f32 -> f64) in the plain chain, on 131,072 rows with
-# this student, moved rgb by 0.058 at most (1.4e-5 on average) and sigma by
-# 15% of max(|sigma|, 1) at most (5.6e-6 on average). The bounds below are
-# about 3x those maxima and 15x those means; a wrong kernel misses the
-# means by orders of magnitude.
-TOL_RGB_MAX, TOL_RGB_MEAN = 0.15, 2e-4
-TOL_SIGMA_MAX, TOL_SIGMA_MEAN = 0.4, 1e-4
-# Frame through K1 vs frame through the plain version (same scout, same
-# windows). The same f32 -> f64 change moved a 400x400 frame by 0.0067 at
-# most and 1.7e-6 on average.
+# value and the difference runs on through the later layers. For K1,
+# changing only the sums' precision (f32 -> f64) in the plain chain, on
+# 131,072 rows with this student, moved rgb by 0.058 at most (1.4e-5 on
+# average) and sigma by 15% of max(|sigma|, 1) at most (5.6e-6 on
+# average). The bounds below are about 3x those maxima and 15x those
+# means; a wrong kernel misses the means by orders of magnitude.
+TOL_K1 = dict(rgb=(0.15, 2e-4), sigma=(0.4, 1e-4))
+# K3 (bounds: max, mean): the same f32 -> f64 experiment on its plain chain
+# at its 262,144-row tile, printed beside its errors, moved rgb by 8.3e-4 at
+# most (3.4e-8 on average) and sigma by 0.36% of max(|sigma|, 1); the
+# kernel measured 2.3e-3 / 3.5e-8 on rgb and 0.38% / 1.3e-7 on sigma (NVIDIA
+# H100 80GB HBM3). Bounds: about 4x the maxima, 10-30x the means.
+TOL_K3 = dict(rgb=(1e-2, 1e-6), sigma=(1.5e-2, 2e-6))
+# Frame through a kernel vs frame through the plain version (same state).
+# For K1 the f32 -> f64 change moved a 400x400 frame by 0.0067 at most and
+# 1.7e-6 on average. Measured kernel vs plain frames, pose 0: fast 1.2e-3 /
+# 2.6e-8, guided 2.1e-2 / 1.2e-6 (the march prepass's depths move the
+# windows), student 1.6e-2 / 2.7e-6.
 TOL_IMG_MAX, TOL_IMG_MEAN = 0.05, 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
@@ -100,33 +114,73 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops, nbytes):
+    """The least time the card could take: (ms, 'operations' | 'bytes')."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def compare(torch, name, got, want, tol):
+    """Kernel (sigma, rgb) vs plain (sigma, rgb): prints and checks the
+    errors against tol {'rgb': (max, mean), 'sigma': (max rel, mean rel)};
+    returns the largest absolute error."""
+    s_k, c_k = got
+    s_p, c_p = want
+    n = s_p.shape[0]
+    check(s_k.shape == (n,) and c_k.shape == (n, 3), f"{name} output shapes")
+    check(bool(torch.isfinite(s_k).all() and torch.isfinite(c_k).all()),
+          f"{name} outputs are not all finite")
+    rgb_err = (c_k - c_p).abs()
+    sig_abs = (s_k - s_p).abs()
+    sig_rel = sig_abs / s_p.abs().clamp(min=1.0)
+    print(f"{name} vs plain on {n} rows: rgb max abs "
+          f"{float(rgb_err.max()):.3e} mean {float(rgb_err.mean()):.3e};"
+          f" sigma max rel {float(sig_rel.max()):.3e} mean "
+          f"{float(sig_rel.mean()):.3e} (max abs {float(sig_abs.max()):.3e}"
+          f" at sigma up to {float(s_p.max()):.3e})")
+    for what, err in (("rgb", rgb_err), ("sigma", sig_rel)):
+        t_max, t_mean = tol[what]
+        check(float(err.max()) <= t_max and float(err.mean()) <= t_mean,
+              f"{name} {what} disagrees with the plain version (tolerance "
+              f"max {t_max}, mean {t_mean})")
+    return max(float(rgb_err.max()), float(sig_abs.max()))
+
+
+def popcount(torch, bytes_u8):
+    table = torch.tensor([bin(i).count("1") for i in range(256)],
+                         device=bytes_u8.device)
+    return int(table[bytes_u8.long()].sum())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke runs on a CUDA card only")
     sys.path.insert(0, str(ROOT))
-    from nerfsafetyvalidation_tpu_torch.assets import (
-        load_renderer_state, load_student, params_from_jax)
-    from nerfsafetyvalidation_tpu_torch.config import NetworkConfig
-    from nerfsafetyvalidation_tpu_torch.data.rays import (
-        get_rays, nerf_matrix_to_ngp)
-    from nerfsafetyvalidation_tpu_torch.data.synthetic import (
-        camera_rays, orbit_pose, trace_scene)
-    from nerfsafetyvalidation_tpu_torch.models import make_network
-    from nerfsafetyvalidation_tpu_torch.models.bake import student_config
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (camera_rays,
+                                                               trace_scene)
     from nerfsafetyvalidation_tpu_torch.models.renderer import (
-        aabb_of, render_frame_guided)
+        aabb_of, render_frame_fast)
     from nerfsafetyvalidation_tpu_torch.ops.freq_encoding import freq_encode
-    from nerfsafetyvalidation_tpu_torch.ops.hopper import points_mlp
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import (points_mlp,
+                                                           sigma_color)
     from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
     from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
 
-    # float32 products in full float32 (the plain version's sums)
+    # float32 products in full float32 (the plain versions' sums)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    kernels = {"K1": points_mlp, "K3": sigma_color}
+
+    def reset_counts():
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
 
     with Phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -139,59 +193,87 @@ def main():
               f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     with Phase("build"):
+        def timed_build(mod):
+            t0 = time.perf_counter()
+            lib = mod.build()
+            return lib, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(kernels)) as pool:
+            built = dict(zip(kernels, pool.map(timed_build,
+                                               kernels.values())))
+        for name, (lib, secs) in built.items():
+            print(f"{name} built in {secs:.2f} s: {lib.relative_to(ROOT)}")
+            for line in kernels[name].BUILD_LOG.splitlines():
+                if "registers" in line or "spill" in line:
+                    print("  ptxas:", line.strip())
+
+    RES = F.RES
+    poses = F.holdout_poses()
+
+    with Phase("teacher"), torch.inference_mode():
         t0 = time.perf_counter()
-        lib = points_mlp.build()
-        print(f"K1 built in {time.perf_counter() - t0:.2f} s: "
-              f"{lib.relative_to(ROOT)}")
-        for line in points_mlp.BUILD_LOG.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        teacher, stored = F.load_teacher_net(dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        teacher.to_folded()               # timed alone: the fold again
+        torch.cuda.synchronize()
+        t_fold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = F.refresh(teacher, stored)
+        torch.cuda.synchronize()
+        t_refresh = time.perf_counter() - t0
+        n_bits = 8 * state.density_bitfield.numel()
+        flipped = popcount(torch, state.density_bitfield
+                           ^ stored.density_bitfield)
+        occupied = popcount(torch, state.density_bitfield)
+        print(f"teacher: load and fold {t_load:.2f} s, fold alone "
+              f"{t_fold:.3f} s (table {tuple(teacher.fold_table.shape)} "
+              f"{teacher.fold_table.dtype}), {F.REFRESHES} refreshes "
+              f"{t_refresh:.3f} s; mean_density stored "
+              f"{float(stored.mean_density):.4f} -> "
+              f"{float(state.mean_density):.4f}; iter_density "
+              f"{int(state.iter_density)}; occupied cells {occupied} of "
+              f"{n_bits}; bits differing from the stored bitfield "
+              f"{flipped}")
+        check(int(state.iter_density) == int(stored.iter_density)
+              + F.REFRESHES, "the refresh count")
+        check(0 < occupied < n_bits, "the refreshed grid is empty or full")
 
-    teacher = NetworkConfig(bound=1.0, compute_dtype="bfloat16",
-                            grid_size=128)
-    cfg = replace(student_config(teacher, multires=12, hidden_dim=160,
-                                 num_layers=6), fused=True)
-    net = make_network(cfg, params_from_jax(load_student(STUDENT), dev),
-                       device=dev)
-    sn, cn = list(net.sigma_net), list(net.color_net)
-    fx = 0.5 * RES / np.tan(0.5 * FOV_X)
-    intr = (fx, fx, RES / 2, RES / 2)
-    poses = [orbit_pose(th, ph, 2.4) for th, ph in HOLDOUT]
+    student = F.load_student_net(dev)
+    nets = {"teacher": teacher, "student": student}
+    tcfg, scfg = teacher.cfg, student.cfg
+    sn, cn = list(student.sigma_net), list(student.color_net)
+    bf = torch.bfloat16
 
-    def rays_of(pose):
-        r = get_rays(nerf_matrix_to_ngp(pose, scale=1.0,
-                                        offset=(0.0, 0.0, 0.0))[None],
-                     intr, RES, RES, device=dev)
-        return r["rays_o"][0].contiguous(), r["rays_d"][0].contiguous()
-
-    with Phase("kernel"), torch.inference_mode():
+    with Phase("kernel K1"), torch.inference_mode():
         # points on pose 0's rays, spread over the frame, uniform in depth
         # over each ray's [near, far] inside the box
-        o, d = rays_of(poses[0])
-        pick = torch.arange(ROWS, device=dev) * (o.shape[0] // ROWS)
+        o, d = F.pose_rays(poses[0], dev)
+        pick = torch.arange(K1_ROWS, device=dev) * (o.shape[0] // K1_ROWS)
         o, d = o[pick], d[pick]
-        near, far = near_far_from_aabb(o, d, aabb_of(cfg, dev), cfg.min_near)
+        near, far = near_far_from_aabb(o, d, aabb_of(scfg, dev),
+                                       scfg.min_near)
         inside = far > near
-        near = torch.where(inside, near, cfg.min_near)
+        near = torch.where(inside, near, scfg.min_near)
         far = torch.where(inside, far, 4.0)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        u = torch.rand(ROWS, generator=gen, device=dev)
+        g1 = torch.Generator(device=dev).manual_seed(0)
+        u = torch.rand(K1_ROWS, generator=g1, device=dev)
         x = torch.clamp(o + (near + u * (far - near))[:, None] * d,
-                        -cfg.bound, cfg.bound).contiguous()
-        sh = sh_encode(d).to(torch.bfloat16).contiguous()
+                        -scfg.bound, scfg.bound).contiguous()
+        sh = sh_encode(d).to(bf).contiguous()
 
-        def kernel():
+        def k1():
             return points_mlp.fused_points_sigma_color(x, sh, sn, cn, 12)
 
-        def plain():
+        def k1_plain():
             return points_mlp.fused_points_sigma_color_plain(x, sh, sn, cn,
                                                              12)
 
-        bf = torch.bfloat16
         sn_bf = [w.to(bf) for w in sn]
         cn_bf = [w.to(bf) for w in cn]
 
-        def library():
+        def k1_library():
             # the same chain as bf16 torch.matmul calls (a yardstick only)
             h = freq_encode(x, 12).to(bf)
             for i, w in enumerate(sn_bf):
@@ -206,62 +288,120 @@ def main():
                     g = torch.relu(g)
             return sigma, torch.sigmoid(g[:, :3].float())
 
-        s_k, c_k = kernel()
+        got = k1()
         torch.cuda.synchronize()
-        s_p, c_p = plain()
-        check(s_k.shape == (ROWS,) and c_k.shape == (ROWS, 3),
-              "K1 output shapes")
-        check(bool(torch.isfinite(s_k).all() and torch.isfinite(c_k).all()),
-              "K1 outputs are not all finite")
-        rgb_err = (c_k - c_p).abs()
-        sig_abs = (s_k - s_p).abs()
-        sig_rel = sig_abs / s_p.abs().clamp(min=1.0)
-        max_abs_err = max(float(rgb_err.max()), float(sig_abs.max()))
-        print(f"K1 vs plain on {ROWS} rows: rgb max abs "
-              f"{float(rgb_err.max()):.3e} mean {float(rgb_err.mean()):.3e};"
-              f" sigma max rel {float(sig_rel.max()):.3e} mean "
-              f"{float(sig_rel.mean()):.3e} (max abs "
-              f"{float(sig_abs.max()):.3e}"
-              f" at sigma up to {float(s_p.max()):.3e})")
-        check(float(rgb_err.max()) <= TOL_RGB_MAX
-              and float(rgb_err.mean()) <= TOL_RGB_MEAN,
-              f"K1 rgb disagrees with the plain version (tolerance max "
-              f"{TOL_RGB_MAX}, mean {TOL_RGB_MEAN})")
-        check(float(sig_rel.max()) <= TOL_SIGMA_MAX
-              and float(sig_rel.mean()) <= TOL_SIGMA_MEAN,
-              f"K1 sigma disagrees with the plain version (tolerance max rel "
-              f"{TOL_SIGMA_MAX}, mean {TOL_SIGMA_MEAN})")
-
-        kernel_ms = cuda_ms(torch, kernel, 50)
-        plain_ms = cuda_ms(torch, plain, 10)
-        library_ms = cuda_ms(torch, library, 20)
+        k1_err = compare(torch, "K1", got, k1_plain(), TOL_K1)
         macs = sum(w.shape[0] * w.shape[1] for w in sn + cn)
-        weight_bytes = 2 * sum(w.numel() for w in sn + cn)
-        flops = 2.0 * ROWS * macs
-        nbytes = ROWS * (3 * 4 + 16 * 2 + 8 * 4) + weight_bytes
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"K1 at {ROWS} rows ({macs} MAC/row, {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB): kernel_ms {kernel_ms:.4f}, plain_ms "
-              f"{plain_ms:.4f}, library_ms {library_ms:.4f}, bound_ms "
-              f"{bound_ms:.4f} ({bound_by}); {smi}")
+        k1_bound, k1_by = bound_ms(
+            2.0 * K1_ROWS * macs,
+            K1_ROWS * (3 * 4 + 16 * 2 + 8 * 4)
+            + 2 * sum(w.numel() for w in sn + cn))
+        k1_ms = cuda_ms(torch, k1, 50)
+        k1_plain_ms = cuda_ms(torch, k1_plain, 10)
+        k1_lib_ms = cuda_ms(torch, k1_library, 20)
+        print(f"K1 at {K1_ROWS} rows ({macs} MAC/row): kernel_ms "
+              f"{k1_ms:.4f}, plain_ms {k1_plain_ms:.4f}, library_ms "
+              f"{k1_lib_ms:.4f}, bound_ms {k1_bound:.4f} ({k1_by}); {smi}")
 
-    with Phase("frame"), torch.inference_mode():
-        state = load_renderer_state(CKPT, device=dev)
-        views = []
-        for pose in poses:
-            o_np, d_np = camera_rays(pose, intr, RES, RES)
-            gt_rgb, gt_alpha, _ = trace_scene(o_np, d_np, scene="spheres")
-            gt = gt_rgb * gt_alpha[..., None] + (1.0 - gt_alpha[..., None])
-            views.append(rays_of(pose) + (gt,))
+    views = []
+    for pose in poses:
+        o_np, d_np = camera_rays(pose, F.intrinsics(), RES, RES)
+        gt_rgb, gt_alpha, _ = trace_scene(o_np, d_np, scene="spheres")
+        gt = gt_rgb * gt_alpha[..., None] + (1.0 - gt_alpha[..., None])
+        views.append(F.pose_rays(pose, dev) + (gt,))
+
+    with Phase("kernel K3"), torch.inference_mode():
+        # one guided fine tile: the 16,384 rays at the centre of pose 0,
+        # 16 uniform samples in [t_hit -/+ 6 cells] around the surface the
+        # marched frame finds (the ray's [near, far] where it finds none)
+        o, d, _ = views[0]
+        mid = o.shape[0] // 2 - K3_RAYS // 2
+        o, d = o[mid:mid + K3_RAYS], d[mid:mid + K3_RAYS]
+        pre = render_frame_fast(teacher, state, o, d,
+                                **dict(F.MODES["fast"]["frame"],
+                                       tile=K3_RAYS))
+        near, far = near_far_from_aabb(o, d, aabb_of(tcfg, dev),
+                                       tcfg.min_near)
+        hit = pre["weights_sum"] > 0.1
+        t_hit = pre["depth_abs"] / pre["weights_sum"].clamp(min=0.1)
+        margin = 6.0 * 2.0 * tcfg.bound / tcfg.grid_size
+        ta = torch.where(hit, torch.maximum(t_hit - margin, near), near)
+        tb = torch.where(hit, torch.minimum(t_hit + margin, far), far)
+        jj = torch.arange(K3_K, device=dev) + 0.5
+        z = ta[:, None] + (tb - ta)[:, None] / K3_K * jj[None, :]
+        xyz = torch.clamp(o[:, None] + z[..., None] * d[:, None], -1, 1)
+        enc = teacher.encode_pos(xyz.reshape(-1, 3)).contiguous()
+        sh3 = sh_encode(d[:, None].expand(K3_RAYS, K3_K, 3)
+                        .reshape(-1, 3)).to(bf).contiguous()
+        rows = enc.shape[0]
+        print(f"K3 tile: {rows} rows, {int(hit.sum())} of {K3_RAYS} rays "
+              f"hit; enc {tuple(enc.shape)} {enc.dtype}")
+        tsn, tcn = list(teacher.sigma_net), list(teacher.color_net)
+
+        def k3():
+            return sigma_color.fused_sigma_color(enc, sh3, tsn, tcn)
+
+        def k3_plain():
+            return sigma_color.fused_sigma_color_plain(enc, sh3, tsn, tcn)
+
+        w1, w2, c1s, c1g, c2, c3 = sigma_color._prepare(tsn, tcn)
+
+        def k3_library():
+            # the same six products as bf16 torch.matmul calls
+            h = torch.relu(enc @ w1)
+            s = h @ w2
+            sigma = torch.exp(torch.clamp(s[:, 0].float(), -15.0, 15.0))
+            g = torch.relu(sh3 @ c1s + s @ c1g)
+            g = torch.relu(g @ c2)
+            return sigma, torch.sigmoid((g @ c3)[:, :3].float())
+
+        def k3_plain_f64():
+            # the plain chain with f64 sums: the spread that the sums'
+            # order and precision alone make
+            def dot(a, w):
+                return a.to(bf).double() @ w.to(bf).double()
+            h = torch.relu(dot(enc, tsn[0]))
+            s = dot(h, tsn[1])
+            sigma = torch.exp(torch.clamp(s[:, 0], -15.0, 15.0))
+            g = torch.relu(dot(torch.cat([sh3, s[:, 1:].to(bf)], -1),
+                               tcn[0]))
+            g = torch.relu(dot(g, tcn[1]))
+            return sigma.float(), torch.sigmoid(dot(g, tcn[2])).float()
+
+        got = k3()
+        torch.cuda.synchronize()
+        want = k3_plain()
+        k3_err = compare(torch, "K3", got, want, TOL_K3)
+        s64, c64 = k3_plain_f64()
+        print(f"K3 plain f32 vs f64 sums: rgb max abs "
+              f"{float((want[1] - c64).abs().max()):.3e} mean "
+              f"{float((want[1] - c64).abs().mean()):.3e}; sigma max rel "
+              f"{float(((want[0] - s64).abs() / s64.abs().clamp(min=1.0)).max()):.3e}")
+        macs3 = sum(m.shape[0] * m.shape[1] for m in (w1, w2, c1s, c1g, c2,
+                                                      c3))
+        k3_bound, k3_by = bound_ms(
+            2.0 * rows * macs3,
+            rows * (32 * 2 + 16 * 2 + 4 * 4)
+            + 2 * sum(m.numel() for m in (w1, w2, c1s, c1g, c2, c3)))
+        k3_ms = cuda_ms(torch, k3, 50)
+        k3_plain_ms = cuda_ms(torch, k3_plain, 10)
+        k3_lib_ms = cuda_ms(torch, k3_library, 20)
+        print(f"K3 at {rows} rows ({macs3} MAC/row): kernel_ms "
+              f"{k3_ms:.4f}, plain_ms {k3_plain_ms:.4f}, library_ms "
+              f"{k3_lib_ms:.4f}, bound_ms {k3_bound:.4f} ({k3_by}); {smi}")
+
+    def run_mode(name, n_buckets):
+        """Renders the four poses twice (first pass, steady pass) with
+        every count at 0 before and read after; checks PSNR; renders pose
+        0 again through the plain version and compares. Returns the
+        launches of the mode's kernel."""
+        kernel = F.MODES[name]["kernel"]
 
         def render(o, d, plain_field=False):
-            return render_frame_guided(net, state, o, d, RES, RES,
-                                       plain_field=plain_field, **FRAME)
+            return F.render(name, nets, state, o, d,
+                            plain_field=plain_field)
 
-        points_mlp.LAUNCHES = 0
+        reset_counts()
         first = []
         t0 = time.perf_counter()
         for o, d, _ in views:
@@ -273,53 +413,72 @@ def main():
             render(o, d)
         torch.cuda.synchronize()
         t_steady = time.perf_counter() - t0
-        launches = points_mlp.LAUNCHES
-        check(launches > 0, "the frames never launched K1")
-
-        n_rays = RES * RES
+        counts = {k: m.LAUNCHES for k, m in kernels.items()}
+        check(counts[kernel] > 0, f"{name} never launched {kernel}")
         psnrs = []
         for out, (_, _, gt) in zip(first, views):
             img = out["image"]
-            check(img.shape == (n_rays, 3)
+            check(img.shape == (RES * RES, 3)
                   and bool(torch.isfinite(img).all()),
-                  "frame image is not finite [N, 3]")
+                  f"{name} image is not finite [N, 3]")
             pred = img.cpu().numpy().reshape(RES, RES, 3).astype(np.float64)
             psnrs.append(float(-10.0 * np.log10(
                 max(np.mean((pred - gt) ** 2), 1e-10))))
-        buckets = [np.bincount(o["tile_bucket"], minlength=3).tolist()
-                   for o in first]
-        rays_per_s = len(views) * n_rays / t_steady
-        print(f"PSNR per pose {[round(p, 3) for p in psnrs]}, mean "
-              f"{np.mean(psnrs):.3f} dB (bar {PSNR_BAR})")
-        print(f"tile buckets [empty, K8, K16] per pose: {buckets}")
-        print(f"K1 launches: {launches} in {2 * len(views)} frames")
-        print(f"frames: first pass {t_first:.3f} s, steady pass "
+        mean, low = float(np.mean(psnrs)), float(np.min(psnrs))
+        ref_mean, ref_min = BENCH_R05[name]
+        buckets = [np.bincount(o["tile_bucket"], minlength=n_buckets)
+                   .tolist() for o in first]
+        n_frames = 2 * len(views)
+        print(f"{name}: PSNR per pose {[round(p, 3) for p in psnrs]}, mean "
+              f"{mean:.3f} min {low:.3f} dB (bar {PSNR_BAR}); BENCH_r05 "
+              f"{ref_mean}/{ref_min}, gap {mean - ref_mean:+.3f}/"
+              f"{low - ref_min:+.3f} dB")
+        print(f"{name}: tile buckets per pose {buckets}; launches in "
+              f"{n_frames} frames {counts}")
+        if first[0].get("march") is not None:
+            print(f"{name}: march per pose (phase-1 iterations, rays "
+                  f"unfinished after them, phase-2 iterations): "
+                  f"{[o['march'] for o in first]}")
+        print(f"{name}: first pass {t_first:.3f} s, steady pass "
               f"{t_steady:.3f} s for {len(views)} frames = "
-              f"{rays_per_s:.0f} rays/s on {smi}")
-        check(np.mean(psnrs) >= PSNR_BAR,
-              f"mean PSNR {np.mean(psnrs):.3f} dB under {PSNR_BAR}")
-
+              f"{t_steady / len(views):.4f} s/frame, "
+              f"{len(views) * RES * RES / t_steady:.0f} rays/s on {smi}")
+        check(mean >= PSNR_BAR, f"{name} mean PSNR {mean:.3f} dB under "
+              f"{PSNR_BAR}")
         plain = render(views[0][0], views[0][1], plain_field=True)
-        check(points_mlp.LAUNCHES == launches,
-              "the plain frame launched K1")
+        check(kernels[kernel].LAUNCHES == counts[kernel],
+              f"the plain {name} frame launched {kernel}")
         check(bool((plain["tile_bucket"] == first[0]["tile_bucket"]).all()),
-              "plain frame chose other tile buckets")
+              f"the plain {name} frame chose other tile buckets")
         err = (plain["image"] - first[0]["image"]).abs()
-        print(f"pose 0 kernel frame vs plain frame: image max abs "
+        print(f"{name}: pose 0 kernel frame vs plain frame: image max abs "
               f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
         check(float(err.max()) <= TOL_IMG_MAX
               and float(err.mean()) <= TOL_IMG_MEAN,
-              f"kernel frame disagrees with the plain frame (tolerance max "
-              f"{TOL_IMG_MAX}, mean {TOL_IMG_MEAN})")
+              f"{name} kernel frame disagrees with the plain frame "
+              f"(tolerance max {TOL_IMG_MAX}, mean {TOL_IMG_MEAN})")
+        return counts[kernel]
+
+    launches = {"K1": 0, "K3": 0}
+    for name, n_buckets in (("fast", 4), ("guided", 3),
+                            ("baked_h160_ak8", 3)):
+        with Phase(name), torch.inference_mode():
+            launches[F.MODES[name]["kernel"]] += run_mode(name, n_buckets)
 
     print(f"total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [{
-        "name": "fused_points_sigma_color", "route": "cuda",
-        "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
-        "replaces": "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py:480",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms}]}))
+    pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
+    print(json.dumps({"kernels": [
+        {"name": "fused_points_sigma_color", "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
+         "replaces": f"{pallas}:480", "launches": launches["K1"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms},
+        {"name": "fused_sigma_color", "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/sigma_color.cu",
+         "replaces": f"{pallas}:164", "launches": launches["K3"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms},
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -8,5 +8,9 @@ PyTorch version instead, which is what the tests use.
 
 Ported so far: the baked-student guided frame (`models.renderer.
 render_frame_guided` in scout mode with natural tile order), with the
-points-in MLP chain as the CUDA kernel `ops.hopper.points_mlp`.
+points-in MLP chain as the CUDA kernel `ops.hopper.points_mlp`; the
+mip-fold teacher's marched frame (`render_frame_fast`) and its guided
+frame with the march prepass, with the field chain as the CUDA kernel
+`ops.hopper.sigma_color`; and the occupancy refresh
+(`update_extra_state`).
 """

@@ -2,9 +2,12 @@
 
 `bench_assets/flagship*.ckpt` pickles `ml_dtypes.bfloat16` arrays and the
 JAX package's `RendererState`; neither package exists where the port runs.
-`_Unpickler` maps bfloat16 to its raw bits (uint16) and the state to a
-plain stand-in, and refuses every class outside numpy. The student pkls
-(`bench_student*.pkl`) hold float32 numpy `[in, out]` weight lists.
+`_Unpickler` maps bfloat16 to its raw bits (uint16; the checkpoints hold no
+other uint16 arrays) and the state to a plain stand-in, and refuses every
+class outside numpy. `load_teacher` decodes the bits to float32, as
+bench.py's `_upcast_asset` upcasts the stored bfloat16 before rendering.
+The student pkls (`bench_student*.pkl`) hold float32 numpy `[in, out]`
+weight lists.
 """
 
 import pickle
@@ -42,6 +45,23 @@ def _load(path):
         return _Unpickler(f).load()
 
 
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns (uint16) -> the same values as float32."""
+    return (np.asarray(bits, dtype=np.uint16).astype(np.uint32)
+            << 16).view(np.float32)
+
+
+def _upcast(x):
+    """Decode every bf16-bits array of a pytree (dicts and lists)."""
+    if isinstance(x, dict):
+        return {k: _upcast(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_upcast(v) for v in x)
+    if isinstance(x, np.ndarray) and x.dtype == np.uint16:
+        return _bf16_bits_to_f32(x)
+    return x
+
+
 def load_student(path):
     """Student params {'sigma_net': [...], 'color_net': [...]}, float32
     numpy [in, out] arrays."""
@@ -50,15 +70,40 @@ def load_student(path):
 
 
 def load_renderer_state(path, device="cuda") -> RendererState:
-    """The occupancy bitfield stored in a training checkpoint."""
+    """The occupancy bitfield stored in a training checkpoint (the other
+    fields are left empty)."""
     bits = _load(path)["renderer_state"].density_bitfield
     return RendererState(density_bitfield=torch.as_tensor(
         np.asarray(bits, dtype=np.uint8), device=device))
 
 
+def load_teacher(path, device="cuda"):
+    """The trained mip-fold teacher of a training checkpoint: (params,
+    state). params is the JAX package's pytree ({'encoder': {'pyramid':
+    [...], 'hash': ...}, 'sigma_net': [...], 'color_net': [...]}) as float32
+    tensors; state is the full RendererState, the density grid and mean
+    density as float32."""
+    blob = _load(path)
+    rs = _upcast(blob["renderer_state"].__dict__)
+    skip = rs.get("skip_grid")
+    state = RendererState(
+        density_bitfield=torch.as_tensor(
+            np.asarray(rs["density_bitfield"], dtype=np.uint8),
+            device=device),
+        density_grid=torch.as_tensor(rs["density_grid"], device=device),
+        mean_density=torch.as_tensor(rs["mean_density"], device=device),
+        iter_density=torch.as_tensor(
+            np.asarray(rs["iter_density"], dtype=np.int32), device=device),
+        skip_grid=None if skip is None else torch.as_tensor(
+            np.asarray(skip, dtype=np.uint8), device=device))
+    return params_from_jax(_upcast(blob["model"]), device), state
+
+
 def params_from_jax(tree, device="cuda"):
-    """The JAX package's params pytree (numpy or array-likes, lists of
-    [in, out] matrices) as float32 tensors on `device`."""
-    return {k: [torch.as_tensor(np.asarray(w, dtype=np.float32),
-                                device=device) for w in v]
-            for k, v in tree.items()}
+    """A params pytree of the JAX package (nested dicts and lists of numpy
+    or array-like leaves) as float32 tensors on `device`, same nesting."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return torch.as_tensor(np.asarray(tree, dtype=np.float32), device=device)

@@ -7,17 +7,27 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class NetworkConfig:
-    encoding: str = "hashgrid"          # the port runs 'frequency' only
+    encoding: str = "hashgrid"          # the port runs 'frequency', 'mipfold'
+    encoding_dir: str = "sphere_harmonics"
     num_layers: int = 2
     hidden_dim: int = 64
     geo_feat_dim: int = 15
     num_layers_color: int = 3
     hidden_dim_color: int = 64
     bound: float = 1.0
+    # position-encoder grid (mipfold: scales base * 2^l for l < num_levels,
+    # dense up to fold_max_scale, hashed above it)
+    num_levels: int = 16
+    level_dim: int = 2
+    base_resolution: int = 16
+    log2_hashmap_size: int = 19
+    fold_max_scale: int = 128
+    fold_scale: int = 0                 # 0: fold at the native dense scale
     sh_degree: int = 4
     multires: int = 6                   # frequency encoding degree
     density_scale: float = 1.0
     min_near: float = 0.2
+    density_thresh: float = 0.01
     grid_size: int = 128
     compute_dtype: str = "float32"      # 'float32' | 'bfloat16'
     fused: bool = False                 # route apply through the MLP kernel

@@ -1,11 +1,14 @@
-"""NeRF field and frame renderer of the port."""
+"""NeRF fields and frame renderer of the port."""
 
 from .network import NeRFNetwork
+from .network_mip import NeRFNetworkMip
 
 
 def make_network(cfg, params, device="cuda"):
-    """Backbone dispatch; the port has the frequency-encoded field only."""
+    """Backbone dispatch: the mip-fold teacher or the frequency field."""
+    if cfg.encoding == "mipfold":
+        return NeRFNetworkMip(cfg, params, device=device)
     return NeRFNetwork(cfg, params, device=device)
 
 
-__all__ = ["NeRFNetwork", "make_network"]
+__all__ = ["NeRFNetwork", "NeRFNetworkMip", "make_network"]

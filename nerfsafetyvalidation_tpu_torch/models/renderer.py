@@ -1,14 +1,17 @@
-"""Depth-guided frame render of the baked student
-(nerfsafetyvalidation_tpu/models/renderer.py `render_frame_guided`, scout
-prepass, natural tile order).
+"""Frame renderers of the port (nerfsafetyvalidation_tpu/models/
+renderer.py): the marched frame `render_frame_fast`, the depth-guided frame
+`render_frame_guided`, and the occupancy refresh `update_extra_state`.
 
-A low-resolution scout finds each block's surface depth through the field's
-density head, masked by the occupancy bitfield; the full-resolution pass
-then shades K uniform samples per ray inside a window around that depth.
-The JAX version maps over tiles with `lax.map` and `lax.switch`; here the
-tiles are a Python loop. Every tile's bucket (empty / `adaptive_k` samples /
-K samples) is computed on the device in one tensor op and copied to the
-host once per frame, so the loop never waits on the device per tile.
+`render_frame_guided` places K uniform samples per ray in a window around
+a low-resolution prepass depth: a scout (uniform samples through the
+density head, masked by the occupancy bitfield) or the marched fast frame
+of the prepass rays. `render_frame_fast` marches every ray through the
+occupancy grid, sorts the rays by sample count and shades them in tiles.
+
+The JAX versions map over tiles with `lax.map` and `lax.switch`; here the
+tiles are a Python loop. Every tile's bucket is computed on the device in
+one tensor op and copied to the host once per frame, so the loop never
+waits on the device per tile.
 """
 
 from dataclasses import dataclass
@@ -17,22 +20,199 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.marching import _mip_from_dt, _mip_from_pos
-from ..ops.ray_ops import morton3d, near_far_from_aabb
+from ..ops.marching import (SQRT3, _mip_from_dt, _mip_from_pos,
+                            composite_marched, march_rays)
+from ..ops.ray_ops import (morton3d, near_far_from_aabb,
+                           occupancy_to_skip_grid, packbits)
 
 
 @dataclass
 class RendererState:
-    """Occupancy state; the guided frame reads only the bitfield
-    ([cascade * H^3 / 8] uint8, morton order, bit i of byte n = cell
-    8n + i)."""
+    """Occupancy state. The scout frame reads only the bitfield; the
+    marcher reads the skip grid where there is one; `update_extra_state`
+    reads and writes all of it.
+
+    density_bitfield: [cascade * H^3 / 8] uint8, morton order, bit i of
+        byte n = cell 8n + i;
+    density_grid: [cascade, H^3] float32, morton order, -1 = untrained;
+    mean_density: [] float32; iter_density: [] int32;
+    skip_grid: [cascade, H^3] uint8, Chebyshev distance to occupied."""
     density_bitfield: torch.Tensor
+    density_grid: torch.Tensor = None
+    mean_density: torch.Tensor = None
+    iter_density: torch.Tensor = None
+    skip_grid: torch.Tensor = None
 
 
 def aabb_of(cfg, device):
     b = cfg.bound
     return torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32,
                         device=device)
+
+
+def update_extra_state(net, state: RendererState, generator=None,
+                       jitter=None, decay: float = 0.95,
+                       grid_size: int = 128) -> RendererState:
+    """Refresh the density grid, bitfield and skip grid from the field
+    (the JAX package's full update, n_blocks=1): every cell centre of
+    every cascade, jittered by up to half a cell, goes through
+    `net.density` in one batch; the grid decays by `decay` and takes the
+    max with the new density.
+
+    The jitter is uniform in [0, 1) per cell and axis: drawn from
+    `generator`, or handed in as `jitter` ([cascade][H^3, 3] tensors), as
+    the tests hand in the JAX package's own draws."""
+    cfg = net.cfg
+    grid = state.density_grid
+    dev = grid.device
+    cascade = grid.shape[0]
+    g = torch.arange(grid_size, dtype=torch.int32, device=dev)
+    coords = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                         dim=-1).reshape(-1, 3)
+    indices = morton3d(coords).to(torch.int64)
+    xyzs = 2.0 * coords.float() / (grid_size - 1) - 1.0
+
+    tmp = -torch.ones_like(grid)
+    for cas in range(cascade):
+        bound = min(2 ** cas, cfg.bound)
+        half = bound / grid_size
+        u = jitter[cas] if jitter is not None else torch.rand(
+            xyzs.shape, generator=generator, device=dev)
+        pts = xyzs * (bound - half) + (u.to(dev) * 2.0 - 1.0) * half
+        tmp[cas, indices] = net.density(pts)["sigma"] * cfg.density_scale
+
+    valid = (grid >= 0) & (tmp >= 0)
+    new_grid = torch.where(valid, torch.maximum(grid * decay, tmp), grid)
+    mean_density = torch.mean(torch.clamp(new_grid, min=0.0))
+    thresh = torch.clamp(mean_density, max=cfg.density_thresh)
+    return RendererState(
+        density_bitfield=packbits(new_grid, thresh), density_grid=new_grid,
+        mean_density=mean_density, iter_density=state.iter_density + 1,
+        skip_grid=occupancy_to_skip_grid(new_grid > thresh, grid_size))
+
+
+def _pad_rays(rays_o, rays_d, n):
+    """Pad to n rays with the JAX package's filler: origin 0, dir +z."""
+    pad = n - rays_o.shape[0]
+    if not pad:
+        return rays_o, rays_d
+    dev = rays_o.device
+    fill_d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)
+    return (torch.cat([rays_o, torch.zeros((pad, 3), device=dev)]),
+            torch.cat([rays_d, fill_d]))
+
+
+def _shade_marched_tile(net, cfg, o, d, ts, count, nr, fr, Kb, dt_min,
+                        dt_max, dt_gamma, bg_color, plain=False):
+    """Shade one sorted tile's first Kb sample slots and composite them.
+    Returns (img [T, 3], depth, agg, ws, depth_abs)."""
+    T = o.shape[0]
+    ts = ts[:, :Kb]
+    mask = torch.arange(Kb, device=o.device)[None, :] < count[:, None]
+    dts = torch.clamp(ts * dt_gamma, dt_min, dt_max) * mask
+    ends = ts + dts
+    rs = (ends - torch.cat([nr[:, None], ends[:, :-1]], dim=1)) * mask
+    xyzs = torch.clamp(o[:, None, :] + ts[..., None] * d[:, None, :],
+                       -cfg.bound, cfg.bound).reshape(-1, 3)
+    dirs = d[:, None, :].expand(T, Kb, 3).reshape(-1, 3)
+    sigmas, rgbs = net(xyzs, dirs, plain=plain)
+    res = composite_marched(sigmas.reshape(T, Kb), rgbs.reshape(T, Kb, 3),
+                            dts, rs, ts, mask, nr, fr,
+                            density_scale=cfg.density_scale)
+    ws = res["weights_sum"]
+    img = res["image"] + (1.0 - ws)[..., None] * bg_color
+    safe = torch.where(fr > nr, fr - nr, 1.0)
+    depth = torch.clamp(res["depth"] - nr, min=0.0) / safe
+    return img, depth, res["aggregated_density"], ws, res["depth_abs"]
+
+
+def render_frame_fast(net, state: RendererState, rays_o, rays_d,
+                      tile: int = 131072, max_samples: int = 16,
+                      max_steps: int = 512, dt_gamma: float = 0.0,
+                      bg_color: float = 1.0, plain_field: bool = False):
+    """Marched frame: march every ray, sort the rays by sample count, shade
+    the sorted rays in tiles at the smallest sufficient slot count (4, 8 or
+    K), skip tiles without samples, and unsort.
+
+    Phase 1 marches every ray exactly 24 iterations. The rays are then
+    sorted, stably, unfinished first and then by sample count; phase 2
+    resumes only the unfinished prefix, for up to `max_steps` more
+    iterations (the JAX version runs it per 32,768-ray march tile; the
+    result is the same, since the loop is a no-op for a finished ray).
+    Rays are padded to a whole number of tiles as in the JAX version.
+    Emission is paired (samples_per_hit=2), the JAX version's default.
+
+    Returns {'image' [N, 3], 'depth', 'aggregated_density', 'weights_sum',
+    'depth_abs' [N], 'tile_bucket' [n_tiles] int64 numpy: 0 empty, b > 0
+    shaded with the b-th of the slot counts (4, 8, K), 'march' (phase-1
+    iterations, rays unfinished after them, phase-2 iterations)}.
+    `plain_field` shades through the field's plain version instead of its
+    kernel."""
+    cfg = net.cfg
+    dev = rays_o.device
+    N0 = rays_o.shape[0]
+    n_tiles = (N0 + tile - 1) // tile
+    N = n_tiles * tile
+    K = max_samples
+    rays_o, rays_d = _pad_rays(rays_o, rays_d, N)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb_of(cfg, dev),
+                                     cfg.min_near)
+    march = dict(bitfield=state.density_bitfield, bound=cfg.bound,
+                 cascade=cfg.cascade, grid_size=cfg.grid_size,
+                 max_samples=K, max_steps=max_steps, dt_gamma=dt_gamma,
+                 skip_grid=state.skip_grid, samples_per_hit=2)
+
+    # ---- phase 1: a fixed budget of iterations for every ray
+    p1, (t_c, count_c, ts_c) = march_rays(
+        rays_o, rays_d, nears, fars, fixed_iters=min(24, max_steps),
+        return_carry=True, **march)
+
+    # ---- stable sort: unfinished rays first, then by sample count
+    active = (t_c < fars) & (count_c < K)
+    key_desc = (2 * K + 1) - (active.to(torch.int32) * (K + 1) + count_c)
+    order = torch.sort(key_desc, stable=True).indices
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(N, device=dev)       # the inverse permutation
+    o_s, d_s = rays_o[order], rays_d[order]
+    nr_s, fr_s = nears[order], fars[order]
+    t_s, count_s, ts_s = t_c[order], count_c[order], ts_c[order]
+
+    # ---- phase 2 on the unfinished prefix only
+    n_active = int(active.sum())
+    iters = [p1["iters"], 0]
+    if n_active:
+        a = slice(0, n_active)
+        out = march_rays(o_s[a], d_s[a], nr_s[a], fr_s[a],
+                         resume_carry=(t_s[a], count_s[a], ts_s[a]),
+                         **march)
+        ts_s = torch.cat([out["ts"], ts_s[n_active:]])
+        count_s = torch.cat([out["count"], count_s[n_active:]])
+        iters[1] = out["iters"]
+
+    # ---- count-bucketed shading: a tile's max count bounds all its rays
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * (2 ** (cfg.cascade - 1)) / cfg.grid_size
+    sizes = [k for k in (4, 8) if k < K] + [K]
+    mx = count_s.reshape(n_tiles, tile).amax(dim=1)
+    bucket = (mx > 0).to(torch.int64)
+    for b in sizes[:-1]:
+        bucket = bucket + (mx > b).to(torch.int64)
+    bucket = bucket.cpu().numpy()
+
+    img = torch.full((N, 3), float(bg_color), dtype=torch.float32,
+                     device=dev)
+    depth = torch.zeros((N,), dtype=torch.float32, device=dev)
+    agg, ws, dabs = (torch.zeros_like(depth) for _ in range(3))
+    for i in np.nonzero(bucket)[0]:
+        r = slice(i * tile, (i + 1) * tile)
+        img[r], depth[r], agg[r], ws[r], dabs[r] = _shade_marched_tile(
+            net, cfg, o_s[r], d_s[r], ts_s[r], count_s[r], nr_s[r], fr_s[r],
+            sizes[bucket[i] - 1], dt_min, dt_max, dt_gamma, bg_color,
+            plain=plain_field)
+    return {"image": img[pos][:N0], "depth": depth[pos][:N0],
+            "aggregated_density": agg[pos][:N0],
+            "weights_sum": ws[pos][:N0], "depth_abs": dabs[pos][:N0],
+            "tile_bucket": bucket, "march": (iters[0], n_active, iters[1])}
 
 
 def _scout_field(net, pre_o, pre_d, S, cfg, aabb, bitfield=None,
@@ -120,16 +300,27 @@ def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
                         bg_color: float = 1.0, margin_cells: float = 6.0,
                         scout_samples: int = 64, adaptive_k: int = 0,
                         adaptive_span_cells: float = 12.5,
+                        prepass_mode: str = "march", prepass_net=None,
+                        max_steps: int = 512, dt_gamma: float = 1.0 / 64,
                         plain_field: bool = False):
     """rays_o/d: [H*W, 3] row-major, on the device that renders. Returns
     {'image' [N, 3], 'depth', 'aggregated_density', 'weights_sum' [N],
-    'tile_bucket' [n_tiles] int64 numpy: 0 empty, 1 adaptive_k, 2 K}.
+    'tile_bucket' [n_tiles] int64 numpy: 0 empty, 1 adaptive_k, 2 K,
+    'march': the march prepass's iteration counts (render_frame_fast), or
+    None}.
 
-    The JAX version's march prepass and "partition" tile order are not
-    ported; this is its prepass_mode="scout", fine_order="natural", where
-    its tile size is min(tile, natural_tile_cap): `tile` here.
-    `plain_field` shades through K1's plain version instead of the kernel
-    (for comparing the two frames)."""
+    prepass_mode "scout" finds each block's depth with `scout_samples`
+    uniform samples through the prepass net's density head, masked by the
+    bitfield; "march" (the default, as in the JAX version) renders the
+    prepass rays with `render_frame_fast` (tile min(16384, prepass rays
+    rounded up to 1024), K samples, `max_steps`, `dt_gamma`, paired
+    emission), the JAX version's defaults. The prepass net defaults to
+    `net`; it holds its own weights, so the JAX version's separate
+    prepass_params has no counterpart. The "partition" tile order is not
+    ported: tiles are raster order, of `tile` rays (the JAX version's
+    min(tile, natural_tile_cap)). `plain_field` shades (and marches the
+    prepass) through the fields' plain versions instead of their kernels,
+    for comparing the two frames."""
     cfg = net.cfg
     dev = rays_o.device
     f = prepass_factor
@@ -142,16 +333,29 @@ def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
     cell = 2.0 * cfg.bound / cfg.grid_size
     margin = margin_cells * cell
     aabb = aabb_of(cfg, dev)
+    p_net = net if prepass_net is None else prepass_net
 
-    # ---- scout prepass: one centre ray per f x f block
+    # ---- prepass: one centre ray per f x f block
     yy = np.clip(np.arange(h) * f + f // 2, 0, H - 1)
     xx = np.clip(np.arange(w) * f + f // 2, 0, W - 1)
     pre_idx = torch.as_tensor((yy[:, None] * W + xx[None, :]).reshape(-1),
                               device=dev)
-    pre_dabs, pre_ws = _scout_field(net, rays_o[pre_idx], rays_d[pre_idx],
-                                    scout_samples, cfg, aabb,
-                                    bitfield=state.density_bitfield,
-                                    grid_size=cfg.grid_size)
+    march = None
+    if prepass_mode == "scout":
+        pre_dabs, pre_ws = _scout_field(p_net, rays_o[pre_idx],
+                                        rays_d[pre_idx], scout_samples, cfg,
+                                        aabb, bitfield=state.density_bitfield,
+                                        grid_size=cfg.grid_size)
+    elif prepass_mode == "march":
+        pre = render_frame_fast(
+            p_net, state, rays_o[pre_idx], rays_d[pre_idx],
+            tile=min(16384, (h * w + 1023) // 1024 * 1024),
+            max_samples=K, max_steps=max_steps, dt_gamma=dt_gamma,
+            bg_color=bg_color, plain_field=plain_field)
+        pre_dabs, pre_ws = pre["depth_abs"], pre["weights_sum"]
+        march = pre["march"]
+    else:
+        raise ValueError(f"unknown prepass_mode {prepass_mode!r}")
 
     # ---- per-ray windows from the 3x3-dilated scout depths
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
@@ -205,4 +409,4 @@ def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
             "depth": depth.reshape(-1)[:N],
             "aggregated_density": agg.reshape(-1)[:N],
             "weights_sum": ws.reshape(-1)[:N],
-            "tile_bucket": bucket}
+            "tile_bucket": bucket, "march": march}

@@ -11,23 +11,15 @@ package (one shared library per source hash) and bound with ctypes.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
+import os  # noqa: F401  (points_mlp.os and .NVCC_FLAGS: read by tests)
 from pathlib import Path
 
 import torch
 
 from ..freq_encoding import freq_encode
+from ._nvcc import NVCC_FLAGS, compile_source, weights_key as _weights_key
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "points_mlp.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "points_mlp.cu"
 
 HIDDEN_WIDTHS = (160, 192, 256)   # the kernel's template instances
 ENC_COLS = 80                           # encoding columns padded to 5 x 16
@@ -42,37 +34,13 @@ _lib = None
 _prepared = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: K1 builds only on a machine "
-                           "with the CUDA toolkit")
-    return path
-
-
 def build() -> Path:
     """Compile the kernel if its library for this source is missing;
     returns the library's path."""
     global BUILD_LOG
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"points_mlp_{tag[:16]}.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    lib, log = compile_source(SOURCE)
+    if log:
+        BUILD_LOG = log
     return lib
 
 
@@ -119,7 +87,7 @@ def _prepare(sigma_net, color_net):
     SH rows and the geo rows behind a zero row, the last layer to a full
     fragment. Built once per set of weights."""
     weights = list(sigma_net) + list(color_net)
-    key = tuple((w.data_ptr(), w._version, tuple(w.shape)) for w in weights)
+    key = _weights_key(weights)
     hit = _prepared.get(key)
     if hit is not None:
         return hit

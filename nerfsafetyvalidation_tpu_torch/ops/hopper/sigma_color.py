@@ -1,0 +1,153 @@
+"""Kernel K3: the mip-fold teacher's field chain from its encoding.
+
+`fused_sigma_color` is the counterpart of the JAX package's Pallas kernel of
+the same name (nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py). On a
+CUDA tensor it launches the hand-written kernel in `csrc/sigma_color.cu`
+or raises; on a CPU tensor it runs the plain PyTorch version
+`fused_sigma_color_plain` (the JAX package's `_xla_ref`, with the same
+rounding points), which the tests compare with JAX.
+
+The kernel is built at first use with `nvcc` into `_build/` beside the
+package and bound with ctypes.
+"""
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ._nvcc import compile_source, weights_key as _weights_key
+from .points_mlp import _dot
+
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sigma_color.cu"
+
+ENC, HID, GEO, SH, COLOR, LAST_COLS = 32, 64, 16, 16, 64, 8
+
+# launches of the CUDA kernel since the last reset (never the plain path)
+LAUNCHES = 0
+# nvcc's report (registers, shared memory, spills) of the last build
+BUILD_LOG = ""
+
+_lib = None
+_prepared = {}
+
+
+def build() -> Path:
+    """Compile the kernel if its library for this source is missing;
+    returns the library's path."""
+    global BUILD_LOG
+    lib, log = compile_source(SOURCE)
+    if log:
+        BUILD_LOG = log
+    return lib
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.sigma_color_forward
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def fused_sigma_color_plain(enc, sh, sigma_net, color_net,
+                            compute_dtype=torch.bfloat16):
+    """The kernel's function in plain PyTorch: operands rounded to
+    `compute_dtype`, f32 sums. Returns (sigma [N] f32, rgb [N, 3] f32)."""
+    w1, w2 = sigma_net
+    c1, c2, c3 = color_net
+    dt = compute_dtype
+    h = torch.relu(_dot(enc, w1, dt))
+    s = _dot(h, w2, dt)
+    sigma = torch.exp(torch.clamp(s[..., 0], -15.0, 15.0))
+    hin = torch.cat([sh.to(dt), s[..., 1:].to(dt)], dim=-1)
+    g = torch.relu(_dot(hin, c1, dt))
+    g = torch.relu(_dot(g, c2, dt))
+    return sigma, torch.sigmoid(_dot(g, c3, dt))
+
+
+def _prep_mats(sigma_net, color_net, sh_dim, dtype):
+    """The color net's first layer split into the (sh, geo) pair, with a
+    zero row in front of the geo rows so the whole sigma-net output feeds
+    it, and the last layer padded to 8 columns (render_mlp.py _prep_mats)."""
+    w1, w2 = sigma_net
+    c1, c2, c3 = color_net
+    c1g = torch.zeros((w2.shape[1], c1.shape[1]), dtype=c1.dtype,
+                      device=c1.device)
+    c1g[1:1 + c1.shape[0] - sh_dim] = c1[sh_dim:]
+    c3p = torch.zeros((c3.shape[0], LAST_COLS), dtype=c3.dtype,
+                      device=c3.device)
+    c3p[:, :3] = c3
+    return tuple(m.to(dtype).contiguous()
+                 for m in (w1, w2, c1[:sh_dim], c1g, c2, c3p))
+
+
+def _prepare(sigma_net, color_net):
+    """Kernel operands in bf16, built once per set of weights."""
+    weights = list(sigma_net) + list(color_net)
+    key = _weights_key(weights)
+    hit = _prepared.get(key)
+    if hit is not None:
+        return hit
+    want = [(ENC, HID), (HID, GEO), (SH + GEO - 1, COLOR), (COLOR, COLOR),
+            (COLOR, 3)]
+    if [tuple(w.shape) for w in weights] != want:
+        raise ValueError(f"K3 takes a sigma net {ENC} -> {HID} -> {GEO} and "
+                         f"a color net {SH + GEO - 1} -> {COLOR} -> {COLOR} "
+                         f"-> 3, got {[tuple(w.shape) for w in weights]}")
+    mats = _prep_mats(sigma_net, color_net, SH, torch.bfloat16)
+    if len(_prepared) >= 8:
+        _prepared.clear()
+    _prepared[key] = mats
+    return mats
+
+
+def fused_sigma_color(enc, sh, sigma_net, color_net,
+                      compute_dtype=torch.bfloat16):
+    """enc [N, 32] mip-fold encoding, sh [N, 16] encoded directions;
+    sigma_net (W1, W2), color_net (C1, C2, C3), [in, out] weights with C1's
+    rows ordered [sh | geo]. Returns (sigma [N] f32, rgb [N, 3] f32).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel,
+    which takes enc and sh bfloat16, contiguous and 16-byte aligned, and
+    bf16 compute; anything else raises."""
+    global LAUNCHES
+    if enc.device.type == "cpu":
+        return fused_sigma_color_plain(enc, sh, sigma_net, color_net,
+                                       compute_dtype)
+    if enc.device.type != "cuda":
+        raise ValueError(f"K3 runs on CUDA or CPU tensors, not {enc.device}")
+    n = enc.shape[0]
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernel computes in bfloat16 only")
+    if enc.dtype != torch.bfloat16 or tuple(enc.shape) != (n, ENC):
+        raise ValueError(f"enc must be bfloat16 [N, {ENC}], got {enc.dtype} "
+                         f"{tuple(enc.shape)}")
+    if sh.dtype != torch.bfloat16 or tuple(sh.shape) != (n, SH):
+        raise ValueError(f"sh must be bfloat16 [N, {SH}], got {sh.dtype} "
+                         f"{tuple(sh.shape)}")
+    if not (enc.is_contiguous() and sh.is_contiguous()):
+        raise ValueError("enc and sh must be contiguous")
+    if enc.data_ptr() % 16 or sh.data_ptr() % 16:
+        raise ValueError("enc and sh must start on a 16-byte boundary")
+    tensors = [enc, sh] + list(sigma_net) + list(color_net)
+    if any(t.device != enc.device for t in tensors):
+        raise ValueError("enc, sh and the weights must be on one device")
+    w1, w2, c1s, c1g, c2, c3 = _prepare(sigma_net, color_net)
+    out = torch.empty((n, 4), dtype=torch.float32, device=enc.device)
+    if n:
+        with torch.cuda.device(enc.device):
+            stream = torch.cuda.current_stream(enc.device).cuda_stream
+            err = _library().sigma_color_forward(
+                enc.data_ptr(), sh.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                c1s.data_ptr(), c1g.data_ptr(), c2.data_ptr(), c3.data_ptr(),
+                out.data_ptr(), n, stream)
+        if err != 0:
+            raise RuntimeError(f"sigma_color_forward launch failed: "
+                               f"cudaError {err}")
+        LAUNCHES += 1
+    return out[:, 0], out[:, 1:4]

@@ -1,0 +1,203 @@
+"""Mip-fold position encoding of the teacher field
+(nerfsafetyvalidation_tpu/ops/mip_encoding.py), inference path.
+
+The dense part is a Laplacian pyramid of coarse grids G_s [(s+1)^3, c],
+upsampled trilinearly to the finest dense scale F and concatenated into
+P [(F+1)^3, Cd]; `build_mip_fold_table` folds P into one row of 8 corner
+tuples per cell, [F^3, 8 * Cd]. The levels finer than F share one hashed
+row [2^log2, n_mip * 8 * c] keyed by the finest level's cell. A sample reads
+one fold row and one hash row and blends each level with its own fraction.
+
+Only the fold-table path is ported; the training corner fetches and the
+kernel-built fold belong to the training slice.
+
+Hashes are computed in int64 and masked to 32 bits, so they equal the JAX
+package's uint32 arithmetic. With a bfloat16 table the blend rounds as
+JAX does: each weight * feature product to bfloat16, then the 8-corner sum
+in float32, rounded once.
+"""
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .hash_encoding import _PRIMES, _corner_bits
+
+
+@dataclass(frozen=True)
+class MipFoldSpec:
+    pyramid_scales: Tuple[int, ...] = (16, 32, 64, 128)
+    pyramid_channels: int = 4          # channels per pyramid scale
+    mip_scales: Tuple[int, ...] = (256, 512, 1024, 2048)
+    mip_channels: int = 4              # channels per mip level
+    log2_hashmap_size: int = 19
+    fold_scale: int = 0                # 0: fold at the native dense scale
+
+    @property
+    def F(self) -> int:
+        return self.fold_scale or self.pyramid_scales[-1]
+
+    @property
+    def F_native(self) -> int:
+        return self.pyramid_scales[-1]
+
+    @property
+    def dense_channels(self) -> int:
+        return len(self.pyramid_scales) * self.pyramid_channels
+
+    @property
+    def hash_rows(self) -> int:
+        return 2 ** self.log2_hashmap_size
+
+    @property
+    def hash_width(self) -> int:
+        return len(self.mip_scales) * 8 * self.mip_channels
+
+    @property
+    def output_dim(self) -> int:
+        return self.dense_channels + len(self.mip_scales) * self.mip_channels
+
+    def validate(self):
+        for a, b in zip(self.pyramid_scales, self.pyramid_scales[1:]):
+            if b % a:
+                raise ValueError("pyramid scales must nest (each divides "
+                                 "the next)")
+        for s in self.mip_scales:
+            if s % self.mip_scales[-1] and self.mip_scales[-1] % s:
+                raise ValueError("mip scales must nest")
+            if s <= self.F_native:
+                raise ValueError("mip scales must exceed the dense scale")
+        if self.fold_scale:
+            for s in self.pyramid_scales:
+                if s % self.fold_scale and self.fold_scale % s:
+                    raise ValueError("fold_scale must nest with every "
+                                     "pyramid scale")
+            if self.fold_scale > self.F_native:
+                raise ValueError("fold_scale cannot exceed the native "
+                                 "dense scale")
+
+
+def _upsample_axis(v, factor: int, axis: int):
+    """Linear upsample of grid-point samples along one axis:
+    (n + 1) points -> (n * factor + 1) points."""
+    if factor == 1:
+        return v
+    n = v.shape[axis] - 1
+    lo = v.narrow(axis, 0, n).unsqueeze(axis + 1)
+    hi = v.narrow(axis, 1, n).unsqueeze(axis + 1)
+    w = (torch.arange(factor, dtype=v.dtype, device=v.device) / factor
+         ).reshape([1] * (axis + 1) + [factor] + [1] * (v.ndim - 1 - axis))
+    seg = lo * (1 - w) + hi * w                      # [..., n, factor, ...]
+    shape = list(v.shape)
+    shape[axis] = n * factor
+    return torch.cat([seg.reshape(shape), v.narrow(axis, n, 1)], dim=axis)
+
+
+def materialize_dense(params, spec: MipFoldSpec, dtype=None):
+    """Upsample and concatenate the pyramid into P [(F+1)^3, Cd]."""
+    F = spec.F
+    outs = []
+    for g, s in zip(params["pyramid"], spec.pyramid_scales):
+        v = g.reshape(s + 1, s + 1, s + 1, spec.pyramid_channels)
+        if s <= F:
+            f = F // s
+            for axis in range(3):
+                v = _upsample_axis(v, f, axis)
+        else:   # reduced fold_scale: exact strided grid-point sampling
+            k = s // F
+            v = v[::k, ::k, ::k]
+        outs.append(v)
+    P = torch.cat(outs, dim=-1)
+    if dtype is not None:
+        P = P.to(dtype)
+    return P.reshape((F + 1) ** 3, spec.dense_channels)
+
+
+def _hash_rows_for(cell, spec: MipFoldSpec):
+    """fast_hash (gridencoder.cu:36-51) of the finest-level cell coords
+    [..., 3] -> rows [...] int64."""
+    idx = torch.zeros(cell.shape[:-1], dtype=torch.int64, device=cell.device)
+    for d in range(3):
+        idx = idx ^ ((cell[..., d].to(torch.int64) * _PRIMES[d])
+                     & 0xFFFFFFFF)
+    return idx % spec.hash_rows
+
+
+def _blend_weights(frac):
+    """[N, 3] fractions -> [N, 8] trilinear corner weights (x fastest)."""
+    bits = torch.as_tensor(_corner_bits(3).astype(bool), device=frac.device)
+    f = frac[:, None, :]
+    w = torch.where(bits[None], f, 1.0 - f)
+    return w[..., 0] * w[..., 1] * w[..., 2]
+
+
+def _blend(w, feats):
+    """sum_c w[:, c] * feats[:, c] over the 8 corners; [N, 8] f32 weights,
+    [N, 8, C] features. In bfloat16 each product rounds to bfloat16 and
+    the sum runs in float32, rounded once (XLA's bf16 multiply and
+    reduce_sum)."""
+    if feats.dtype == torch.bfloat16:
+        prod = (w.to(torch.bfloat16).float()[..., None]
+                * feats.float()).to(torch.bfloat16)
+        return prod.float().sum(dim=1).to(torch.bfloat16)
+    return (w.to(feats.dtype)[..., None] * feats).sum(dim=1)
+
+
+def mip_fold_encode(params, x, spec: MipFoldSpec, bound: float = 1.0,
+                    fold_table=None, compute_dtype=None):
+    """Encode positions x [..., 3] in [-bound, bound] -> [..., output_dim]
+    through the fold table (from `build_mip_fold_table`): one fold row and
+    one hash row per sample. Positions outside the box encode to zero."""
+    if fold_table is None:
+        raise NotImplementedError("the port encodes through the fold table "
+                                  "only; build it with build_mip_fold_table")
+    prefix = x.shape[:-1]
+    x = x.reshape(-1, 3)
+    F = spec.F
+    S = spec.mip_scales[-1]
+    Cd = spec.dense_channels
+    Cm = spec.mip_channels
+
+    u = (x.float() + bound) / (2.0 * bound)
+    oob = ((u < 0.0) | (u > 1.0)).any(dim=-1)
+
+    # dense part: one fold row per sample
+    pos = u * float(F)
+    cell = torch.clamp(torch.floor(pos), 0.0, F - 1.0)
+    frac = pos - cell
+    ci = cell.to(torch.int64)
+    row = (ci[:, 0] * F + ci[:, 1]) * F + ci[:, 2]
+    feats = fold_table[row].reshape(-1, 8, Cd)
+    outs = [_blend(_blend_weights(frac), feats)]
+
+    # hash-fold part: one row keyed by the finest level's cell
+    cell_s = torch.clamp(torch.floor(u * float(S)), 0.0,
+                         S - 1.0).to(torch.int64)
+    htab = params["hash"]
+    if compute_dtype is not None:
+        htab = htab.to(compute_dtype)
+    hfeat = htab[_hash_rows_for(cell_s, spec)]
+    hfeat = hfeat.reshape(-1, len(spec.mip_scales), 8, Cm)
+    for li, s in enumerate(spec.mip_scales):
+        delta = int(np.log2(S // s))
+        cell_l = (cell_s >> delta).float()
+        frac_l = torch.clamp(u * float(s) - cell_l, 0.0, 1.0)
+        outs.append(_blend(_blend_weights(frac_l), hfeat[:, li]))
+
+    out = torch.cat(outs, dim=-1)
+    out = torch.where(oob[:, None], torch.zeros_like(out), out)
+    return out.reshape(prefix + (spec.output_dim,))
+
+
+def build_mip_fold_table(params, spec: MipFoldSpec, dtype=torch.bfloat16):
+    """Fold the materialized dense volume into cell rows [F^3, 8 * Cd]
+    (exact: P is piecewise trilinear on the F grid)."""
+    F = spec.F
+    V = materialize_dense(params, spec, dtype=dtype).reshape(
+        F + 1, F + 1, F + 1, spec.dense_channels)
+    corners = [V[bx:bx + F, by:by + F, bz:bz + F]
+               for bx, by, bz in _corner_bits(3).astype(int)]
+    return torch.stack(corners, dim=3).reshape(F ** 3,
+                                               8 * spec.dense_channels)

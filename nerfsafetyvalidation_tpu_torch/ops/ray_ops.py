@@ -1,9 +1,11 @@
-"""Slab test and morton codes (nerfsafetyvalidation_tpu/ops/ray_ops.py).
+"""Slab test, morton codes and the occupancy bitfield
+(nerfsafetyvalidation_tpu/ops/ray_ops.py).
 
 Morton codes are computed in int64: every mask keeps only the low 32 bits,
 so the result equals the JAX package's uint32 arithmetic."""
 
 import torch
+import torch.nn.functional as F
 
 _F32_MAX = torch.finfo(torch.float32).max
 
@@ -53,3 +55,41 @@ def morton3d_invert(codes: torch.Tensor) -> torch.Tensor:
     m = codes.to(torch.int64) & 0xFFFFFFFF
     return torch.stack([_compact_bits(m), _compact_bits(m >> 1),
                         _compact_bits(m >> 2)], dim=-1).to(torch.int32)
+
+
+def packbits(grid, thresh):
+    """Density grid [CAS, H^3] -> occupancy bitfield [CAS * H^3 // 8]
+    uint8; bit i of byte n is cell 8n + i (raymarching.cu:269-301)."""
+    occ = (grid.reshape(-1) > thresh).to(torch.int32).reshape(-1, 8)
+    shifts = torch.arange(8, dtype=torch.int32, device=grid.device)
+    return (occ << shifts).sum(dim=-1).to(torch.uint8)
+
+
+def occupancy_to_skip_grid(occ, grid_size: int, max_skip: int = 15):
+    """Chebyshev distance to the nearest occupied cell, capped at max_skip.
+
+    occ: [CAS, H^3] bool in morton order. Returns uint8 [CAS, H^3] in
+    morton order: 0 where occupied; d > 0 lets a ray jump (d - 1) cell
+    widths. Computed by max_skip rounds of 3x3x3 min-pooling in xyz
+    layout; `-max_pool3d(-d)` pads with +inf as the JAX package's
+    reduce_window(min, init=inf) does."""
+    H = grid_size
+    cas = occ.shape[0]
+    g = torch.arange(H, dtype=torch.int32, device=occ.device)
+    coords = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                         dim=-1).reshape(-1, 3)
+    morton = morton3d(coords).to(torch.int64)     # xyz row -> morton index
+    occ_xyz = occ[:, morton]
+    d = torch.where(occ_xyz, 0.0, float(max_skip)).reshape(cas, 1, H, H, H)
+    for _ in range(max_skip):
+        m = -F.max_pool3d(-d, 3, stride=1, padding=1)
+        d = torch.minimum(d, m + 1.0)
+    skip = torch.empty((cas, H ** 3), dtype=torch.float32, device=occ.device)
+    skip[:, morton] = d.reshape(cas, H ** 3)
+    return torch.clamp(skip, 0, max_skip).to(torch.uint8)
+
+
+def bitfield_lookup(bitfield, idx):
+    """Occupancy bit `idx` (int tensor) of a packed bitfield, as bool."""
+    byte = bitfield[idx >> 3].to(torch.int64)
+    return ((byte >> (idx & 7)) & 1).to(torch.bool)

@@ -78,6 +78,66 @@ def test_loader_runs_without_jax_and_matches_plain_pickle():
     assert got["dtypes"] == ["torch.float32"]
 
 
+_CHILD_TEACHER = _CHILD.split("from nerfsafetyvalidation_tpu_torch")[0] + r"""
+import numpy as np
+from nerfsafetyvalidation_tpu_torch.assets import load_teacher
+
+params, state = load_teacher(sys.argv[1], device="cpu")
+leaves = {"sigma_net": params["sigma_net"], "color_net": params["color_net"],
+          "pyramid": params["encoder"]["pyramid"],
+          "hash": [params["encoder"]["hash"]]}
+rs = {k: getattr(state, k) for k in ("density_grid", "density_bitfield",
+                                     "mean_density", "iter_density",
+                                     "skip_grid")}
+def digest(t):
+    a = t.numpy()
+    return [str(a.dtype), list(a.shape), hashlib.sha256(a.tobytes()).hexdigest()]
+print(json.dumps({
+    "params": {k: [digest(w) for w in v] for k, v in leaves.items()},
+    "state": {k: digest(v) for k, v in rs.items()},
+    "imported": sorted(m for m in sys.modules
+                       if m.split(".")[0] in {"jax", "ml_dtypes",
+                                              "nerfsafetyvalidation_tpu"}),
+}))
+"""
+
+
+def test_teacher_loader_decodes_bf16_bit_exact_without_jax():
+    """load_teacher with jax, jaxlib, ml_dtypes and the JAX package
+    blocked; every array equals bench.py's upcast (ml_dtypes bfloat16 ->
+    float32 through plain pickle), bit for bit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_TEACHER, str(CKPT)],
+                          capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["imported"] == []
+
+    def digest(a):
+        a = np.array(a, order="C")
+        return [str(a.dtype), list(a.shape),
+                hashlib.sha256(a.tobytes()).hexdigest()]
+
+    def up(a):      # bench.py _upcast_asset
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+    with open(CKPT, "rb") as f:
+        ref = pickle.load(f)
+    m = ref["model"]
+    want = {"sigma_net": m["sigma_net"], "color_net": m["color_net"],
+            "pyramid": m["encoder"]["pyramid"], "hash": [m["encoder"]["hash"]]}
+    assert got["params"] == {k: [digest(up(w)) for w in v]
+                             for k, v in want.items()}
+    rs = ref["renderer_state"]
+    assert got["state"] == {k: digest(up(getattr(rs, k))) for k in
+                            ("density_grid", "density_bitfield",
+                             "mean_density", "iter_density", "skip_grid")}
+    assert got["state"]["density_grid"][:2] == ["float32", [1, 128 ** 3]]
+    assert got["params"]["hash"][0][:2] == ["float32", [2 ** 19, 128]]
+
+
 def test_student_weights_are_bit_exact():
     got = assets.params_from_jax(assets.load_student(STUDENT), device="cpu")
     with open(STUDENT, "rb") as f:

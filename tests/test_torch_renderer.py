@@ -162,7 +162,7 @@ def test_guided_frame_matches_jax(scene):
     with torch.inference_mode():
         out_t = TR.render_frame_guided(
             s["net_t"], s["state_t"], torch.from_numpy(s["ro"]),
-            torch.from_numpy(s["rd"]), H, W, **FRAME)
+            torch.from_numpy(s["rd"]), H, W, prepass_mode="scout", **FRAME)
     buckets = _jax_buckets(s)
     assert sorted(set(buckets.tolist())) == [0, 1, 2]
     np.testing.assert_array_equal(out_t["tile_bucket"], buckets)
