@@ -11,6 +11,8 @@ render_frame_guided` in scout mode with natural tile order), with the
 points-in MLP chain as the CUDA kernel `ops.hopper.points_mlp`; the
 mip-fold teacher's marched frame (`render_frame_fast`) and its guided
 frame with the march prepass, with the field chain as the CUDA kernel
-`ops.hopper.sigma_color`; and the occupancy refresh
-(`update_extra_state`).
+`ops.hopper.sigma_color`; the occupancy refresh (`update_extra_state`);
+and the hash-grid reference backbone (`models.network.NeRFNetwork` with the
+corner-layout encode of `ops.hash_encoding`) in the marched frame, with its
+MLPs as the CUDA kernel `ops.hopper.fused_mlp`.
 """

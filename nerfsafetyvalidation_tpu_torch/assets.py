@@ -1,10 +1,12 @@
 """Loading the committed assets without JAX.
 
-`bench_assets/flagship*.ckpt` pickles `ml_dtypes.bfloat16` arrays and the
-JAX package's `RendererState`; neither package exists where the port runs.
+The training checkpoints (`bench_assets/flagship*.ckpt`, the mip-fold
+teacher; `bench_assets/refbb*.ckpt`, the hash-grid reference backbone)
+pickle `ml_dtypes.bfloat16` arrays and the JAX package's `RendererState`;
+neither package exists where the port runs.
 `_Unpickler` maps bfloat16 to its raw bits (uint16; the checkpoints hold no
 other uint16 arrays) and the state to a plain stand-in, and refuses every
-class outside numpy. `load_teacher` decodes the bits to float32, as
+class outside numpy. `load_checkpoint` decodes the bits to float32, as
 bench.py's `_upcast_asset` upcasts the stored bfloat16 before rendering.
 The student pkls (`bench_student*.pkl`) hold float32 numpy `[in, out]`
 weight lists.
@@ -77,11 +79,12 @@ def load_renderer_state(path, device="cuda") -> RendererState:
         np.asarray(bits, dtype=np.uint8), device=device))
 
 
-def load_teacher(path, device="cuda"):
-    """The trained mip-fold teacher of a training checkpoint: (params,
-    state). params is the JAX package's pytree ({'encoder': {'pyramid':
-    [...], 'hash': ...}, 'sigma_net': [...], 'color_net': [...]}) as float32
-    tensors; state is the full RendererState, the density grid and mean
+def load_checkpoint(path, device="cuda"):
+    """The trained field of a training checkpoint: (params, state). params
+    is the JAX package's pytree as float32 tensors ({'encoder': {'pyramid':
+    [...], 'hash': ...}, 'sigma_net': [...], 'color_net': [...]} for the
+    mip-fold teacher, {'encoder': {'embeddings': ...}, ...} for a hash
+    grid); state is the full RendererState, the density grid and mean
     density as float32."""
     blob = _load(path)
     rs = _upcast(blob["renderer_state"].__dict__)

@@ -3,11 +3,12 @@
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
 class NetworkConfig:
-    encoding: str = "hashgrid"          # the port runs 'frequency', 'mipfold'
+    encoding: str = "hashgrid"          # 'hashgrid', 'frequency', 'mipfold'
     encoding_dir: str = "sphere_harmonics"
     num_layers: int = 2
     hidden_dim: int = 64
@@ -21,6 +22,9 @@ class NetworkConfig:
     level_dim: int = 2
     base_resolution: int = 16
     log2_hashmap_size: int = 19
+    desired_resolution: Optional[int] = None   # None -> 2048 * bound
+    align_corners: bool = False
+    aligned_levels: bool = False        # power-of-two levels (not ported)
     fold_max_scale: int = 128
     fold_scale: int = 0                 # 0: fold at the native dense scale
     sh_degree: int = 4
@@ -28,10 +32,19 @@ class NetworkConfig:
     density_scale: float = 1.0
     min_near: float = 0.2
     density_thresh: float = 0.01
+    bg_radius: float = -1.0             # > 0: background net (not ported)
     grid_size: int = 128
     compute_dtype: str = "float32"      # 'float32' | 'bfloat16'
     fused: bool = False                 # route apply through the MLP kernel
+    # hashgrid: encode only levels < max_level (the rest encode to zero);
+    # None keeps every level
+    max_level: Optional[int] = None
 
     @property
     def cascade(self) -> int:
         return 1 + math.ceil(math.log2(max(self.bound, 1.0)))
+
+    @property
+    def grid_resolution(self) -> int:
+        return int(2048 * self.bound) if self.desired_resolution is None \
+            else self.desired_resolution

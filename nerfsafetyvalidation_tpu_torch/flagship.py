@@ -2,7 +2,11 @@
 teacher of `bench_assets/flagship.ckpt` with its occupancy refreshed 4x,
 the committed 160x6 student, the four held-out poses at 800x800, and the
 frame settings of the modes `fast`, `guided` and `baked_h160_ak8`
-(bench.py:177-181, :233-241, :431, :574-606)."""
+(bench.py:177-181, :233-241, :431, :574-606); and bench.py's
+reference-backbone line: the trained hash-grid `NeRFNetwork` of
+`bench_assets/refbb.ckpt` with its own occupancy refreshed 4x, rendered
+with all 16 levels (`ref_backbone`) and with the levels below 8 only
+(`ref_backbone_ml8`) (bench.py:354-425, :805-845)."""
 
 from dataclasses import replace
 from pathlib import Path
@@ -10,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .assets import load_student, load_teacher, params_from_jax
+from .assets import load_checkpoint, load_student, params_from_jax
 from .config import NetworkConfig
 from .data.rays import get_rays, nerf_matrix_to_ngp
 from .data.synthetic import orbit_pose
@@ -22,12 +26,14 @@ from .models.renderer import (render_frame_fast, render_frame_guided,
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = ROOT / "bench_assets" / "flagship.ckpt"
 STUDENT = ROOT / "bench_assets" / "bench_student_h160x6.pkl"
+REF_CKPT = ROOT / "bench_assets" / "refbb.ckpt"
 
 RES = 800
 FOV_X = 0.6911
 HOLDOUT = [(0.77, 0.52), (2.31, 0.30), (3.85, 0.65), (5.40, 0.42)]
 REFRESHES = 4
 DT_GAMMA = 1.0 / 64
+REF_MAX_LEVEL = 8           # bench.py's BENCH_REF_MAX_LEVEL default
 
 TEACHER_CFG = NetworkConfig(
     encoding="mipfold", bound=1.0, compute_dtype="bfloat16", num_levels=8,
@@ -36,12 +42,18 @@ TEACHER_CFG = NetworkConfig(
 STUDENT_CFG = replace(student_config(
     NetworkConfig(bound=1.0, compute_dtype="bfloat16", grid_size=128),
     multires=12, hidden_dim=160, num_layers=6), fused=True)
+# bench.py:371-373 (16 levels x 2 channels from 16, 2^19 rows, desired
+# resolution 2048); both MLPs through K4
+REF_CFG = NetworkConfig(encoding="hashgrid", bound=1.0,
+                        compute_dtype="bfloat16", density_thresh=10.0,
+                        fused=True)
+
+_FAST = dict(tile=131072, max_samples=16, max_steps=512, dt_gamma=DT_GAMMA,
+             bg_color=1.0)
 
 # frame settings of each mode; the net each mode shades, and its kernel
 MODES = {
-    "fast": dict(net="teacher", kernel="K3", frame=dict(
-        tile=131072, max_samples=16, max_steps=512, dt_gamma=DT_GAMMA,
-        bg_color=1.0)),
+    "fast": dict(net="teacher", kernel="K3", frame=_FAST),
     "guided": dict(net="teacher", kernel="K3", frame=dict(
         prepass_factor=8, max_samples=16, tile=16384, max_steps=512,
         dt_gamma=DT_GAMMA, prepass_mode="march", bg_color=1.0,
@@ -51,7 +63,10 @@ MODES = {
         max_samples=16, tile=8192,
         adaptive_k=8, adaptive_span_cells=24.0, bg_color=1.0,
         margin_cells=6.0)),
+    "ref_backbone": dict(net="ref", kernel="K4", frame=_FAST),
+    "ref_backbone_ml8": dict(net="ref_ml8", kernel="K4", frame=_FAST),
 }
+MARCHED = ("fast", "ref_backbone", "ref_backbone_ml8")
 
 
 def intrinsics(res: int = RES):
@@ -73,19 +88,29 @@ def holdout_poses():
 
 def load_teacher_net(device):
     """(folded teacher, the checkpoint's stored RendererState)."""
-    params, stored = load_teacher(CKPT, device=device)
+    params, stored = load_checkpoint(CKPT, device=device)
     return make_network(TEACHER_CFG, params, device=device).to_folded(), \
         stored
 
 
-def refresh(teacher, state, seed: int = 100, n: int = REFRESHES):
-    """n occupancy refreshes through the teacher, jittered from one seeded
+def load_ref_nets(device):
+    """({'ref': the reference backbone, 'ref_ml8': the same params at
+    max_level 8}, the checkpoint's stored RendererState)."""
+    params, stored = load_checkpoint(REF_CKPT, device=device)
+    nets = {"ref": make_network(REF_CFG, params, device=device),
+            "ref_ml8": make_network(replace(REF_CFG, max_level=REF_MAX_LEVEL),
+                                    params, device=device)}
+    return nets, stored
+
+
+def refresh(net, state, seed: int = 100, n: int = REFRESHES):
+    """n occupancy refreshes through `net`, jittered from one seeded
     generator (bench.py refreshes with PRNGKey(100 + i); the draws
     differ)."""
     gen = torch.Generator(device=state.density_grid.device).manual_seed(seed)
     for _ in range(n):
-        state = update_extra_state(teacher, state, generator=gen,
-                                   grid_size=TEACHER_CFG.grid_size)
+        state = update_extra_state(net, state, generator=gen,
+                                   grid_size=net.cfg.grid_size)
     return state
 
 
@@ -96,11 +121,11 @@ def load_student_net(device):
 
 def render(mode, nets, state, rays_o, rays_d, res: int = RES,
            plain_field: bool = False):
-    """One frame of `mode` (a key of MODES); nets maps 'teacher' and
-    'student' to their networks."""
+    """One frame of `mode` (a key of MODES); nets maps the mode's net name
+    ('teacher', 'student', 'ref', 'ref_ml8') to its network."""
     m = MODES[mode]
     net = nets[m["net"]]
-    if mode == "fast":
+    if mode in MARCHED:
         return render_frame_fast(net, state, rays_o, rays_d,
                                  plain_field=plain_field, **m["frame"])
     return render_frame_guided(net, state, rays_o, rays_d, res, res,

@@ -5,7 +5,8 @@ from .network_mip import NeRFNetworkMip
 
 
 def make_network(cfg, params, device="cuda"):
-    """Backbone dispatch: the mip-fold teacher or the frequency field."""
+    """Backbone dispatch: the mip-fold teacher, or `NeRFNetwork` for the
+    frequency and hash-grid fields."""
     if cfg.encoding == "mipfold":
         return NeRFNetworkMip(cfg, params, device=device)
     return NeRFNetwork(cfg, params, device=device)

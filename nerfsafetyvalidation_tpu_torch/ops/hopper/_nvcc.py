@@ -1,5 +1,5 @@
 """What the kernel wrappers share: building a kernel source with `nvcc`
-into a shared library, and the cache key of their prepared weights.
+into a shared library, and the cache of their prepared weights.
 
 Each source is compiled at first use into `_build/` beside the package, one
 library per hash of the source and the flags, so an edited source is
@@ -59,3 +59,26 @@ def weights_key(weights):
     place outside inference mode)."""
     return tuple((w.data_ptr(), 0 if w.is_inference() else w._version,
                   tuple(w.shape)) for w in weights)
+
+
+class WeightCache:
+    """A kernel's operands prepared from a set of weights (cast, padded,
+    packed), built once per set. An entry holds its weights, so that their
+    storage, which the key names, cannot be handed to other tensors while
+    the entry lives; at `size` entries the cache starts over."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._entries = {}
+
+    def get(self, weights, prepare):
+        """The operands of `weights` (a list of tensors), from
+        `prepare()` the first time."""
+        key = weights_key(weights)
+        hit = self._entries.get(key)
+        if hit is None:
+            if len(self._entries) >= self.size:
+                self._entries.clear()
+            hit = (tuple(weights), prepare())
+            self._entries[key] = hit
+        return hit[1]

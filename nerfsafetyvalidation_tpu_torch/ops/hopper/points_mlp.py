@@ -17,7 +17,7 @@ from pathlib import Path
 import torch
 
 from ..freq_encoding import freq_encode
-from ._nvcc import NVCC_FLAGS, compile_source, weights_key as _weights_key
+from ._nvcc import NVCC_FLAGS, WeightCache, compile_source
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "points_mlp.cu"
 
@@ -31,7 +31,7 @@ LAUNCHES = 0
 BUILD_LOG = ""
 
 _lib = None
-_prepared = {}
+_prepared = WeightCache()
 
 
 def build() -> Path:
@@ -86,11 +86,11 @@ def _prepare(sigma_net, color_net):
     (render_mlp.py _fused_points): W1 to the encode block, C1 split into the
     SH rows and the geo rows behind a zero row, the last layer to a full
     fragment. Built once per set of weights."""
-    weights = list(sigma_net) + list(color_net)
-    key = _weights_key(weights)
-    hit = _prepared.get(key)
-    if hit is not None:
-        return hit
+    return _prepared.get(list(sigma_net) + list(color_net),
+                         lambda: _pad(sigma_net, color_net))
+
+
+def _pad(sigma_net, color_net):
     w1, w_last = sigma_net[0], sigma_net[-1]
     hid = w1.shape[1]
     c1, c_mid, c_last = color_net[0], color_net[1:-1], color_net[-1]
@@ -122,9 +122,6 @@ def _prepare(sigma_net, color_net):
         if c_mid else torch.zeros((1,), dtype=bf, device=dev),
         clast=padded(c_last, COLOR, LAST_COLS),
         hidden=hid, n_hidden=len(sigma_net) - 2, n_color_mid=len(c_mid))
-    if len(_prepared) >= 8:
-        _prepared.clear()
-    _prepared[key] = mats
     return mats
 
 

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from ._nvcc import compile_source, weights_key as _weights_key
+from ._nvcc import WeightCache, compile_source
 from .points_mlp import _dot
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sigma_color.cu"
@@ -29,7 +29,7 @@ LAUNCHES = 0
 BUILD_LOG = ""
 
 _lib = None
-_prepared = {}
+_prepared = WeightCache()
 
 
 def build() -> Path:
@@ -89,21 +89,14 @@ def _prep_mats(sigma_net, color_net, sh_dim, dtype):
 def _prepare(sigma_net, color_net):
     """Kernel operands in bf16, built once per set of weights."""
     weights = list(sigma_net) + list(color_net)
-    key = _weights_key(weights)
-    hit = _prepared.get(key)
-    if hit is not None:
-        return hit
     want = [(ENC, HID), (HID, GEO), (SH + GEO - 1, COLOR), (COLOR, COLOR),
             (COLOR, 3)]
     if [tuple(w.shape) for w in weights] != want:
         raise ValueError(f"K3 takes a sigma net {ENC} -> {HID} -> {GEO} and "
                          f"a color net {SH + GEO - 1} -> {COLOR} -> {COLOR} "
                          f"-> 3, got {[tuple(w.shape) for w in weights]}")
-    mats = _prep_mats(sigma_net, color_net, SH, torch.bfloat16)
-    if len(_prepared) >= 8:
-        _prepared.clear()
-    _prepared[key] = mats
-    return mats
+    return _prepared.get(weights, lambda: _prep_mats(
+        sigma_net, color_net, SH, torch.bfloat16))
 
 
 def fused_sigma_color(enc, sh, sigma_net, color_net,

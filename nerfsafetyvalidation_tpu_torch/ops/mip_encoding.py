@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .hash_encoding import _PRIMES, _corner_bits
+from .hash_encoding import _blend, _blend_weights, _corner_bits, _prime_hash
 
 
 @dataclass(frozen=True)
@@ -118,31 +118,7 @@ def materialize_dense(params, spec: MipFoldSpec, dtype=None):
 def _hash_rows_for(cell, spec: MipFoldSpec):
     """fast_hash (gridencoder.cu:36-51) of the finest-level cell coords
     [..., 3] -> rows [...] int64."""
-    idx = torch.zeros(cell.shape[:-1], dtype=torch.int64, device=cell.device)
-    for d in range(3):
-        idx = idx ^ ((cell[..., d].to(torch.int64) * _PRIMES[d])
-                     & 0xFFFFFFFF)
-    return idx % spec.hash_rows
-
-
-def _blend_weights(frac):
-    """[N, 3] fractions -> [N, 8] trilinear corner weights (x fastest)."""
-    bits = torch.as_tensor(_corner_bits(3).astype(bool), device=frac.device)
-    f = frac[:, None, :]
-    w = torch.where(bits[None], f, 1.0 - f)
-    return w[..., 0] * w[..., 1] * w[..., 2]
-
-
-def _blend(w, feats):
-    """sum_c w[:, c] * feats[:, c] over the 8 corners; [N, 8] f32 weights,
-    [N, 8, C] features. In bfloat16 each product rounds to bfloat16 and
-    the sum runs in float32, rounded once (XLA's bf16 multiply and
-    reduce_sum)."""
-    if feats.dtype == torch.bfloat16:
-        prod = (w.to(torch.bfloat16).float()[..., None]
-                * feats.float()).to(torch.bfloat16)
-        return prod.float().sum(dim=1).to(torch.bfloat16)
-    return (w.to(feats.dtype)[..., None] * feats).sum(dim=1)
+    return _prime_hash(cell) % spec.hash_rows
 
 
 def mip_fold_encode(params, x, spec: MipFoldSpec, bound: float = 1.0,

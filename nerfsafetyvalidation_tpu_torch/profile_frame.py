@@ -1,16 +1,17 @@
 """Where the time of one 800x800 frame goes on the card.
 
     python3 -m nerfsafetyvalidation_tpu_torch.profile_frame \\
-        [--mode fast|guided|baked_h160_ak8]
+        [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8]
 
-Loads the flagship teacher, refreshes its occupancy 4x as bench.py does,
-renders the first held-out spheres pose in the chosen mode (bench.py's
-settings, `flagship.MODES`; default baked_h160_ak8), warms up, then renders
-it once under `torch.profiler` and prints the device time by kernel, the
-device time of the hand-written kernels (K1 points_mlp, K3 sigma_color),
-the number of device kernels, and the device's busy share of the frame's
-wall time; then the frame's wall time without the profiler. Needs a CUDA
-card.
+Loads the flagship teacher (or, for the ref_backbone modes, the hash-grid
+reference backbone), refreshes its occupancy 4x as bench.py does, renders
+the first held-out spheres pose in the chosen mode (bench.py's settings,
+`flagship.MODES`; default baked_h160_ak8), warms up, then renders it once
+under `torch.profiler` and prints the device time by kernel, the device
+time of the hand-written kernels (K1 points_mlp, K3 sigma_color, K4
+fused_mlp), the number of device kernels, and the device's busy share of
+the frame's wall time; then the frame's wall time without the profiler.
+Needs a CUDA card.
 """
 
 import argparse
@@ -21,7 +22,8 @@ import torch
 
 from . import flagship as F
 
-KERNEL_NAMES = {"K1": "points_mlp", "K3": "sigma_color"}
+KERNEL_NAMES = {"K1": "points_mlp", "K3": "sigma_color",
+                "K4": "fused_mlp_kernel"}
 
 
 def main(argv=None):
@@ -33,9 +35,13 @@ def main(argv=None):
         raise SystemExit("profile_frame: needs a CUDA device")
     dev = torch.device("cuda", 0)
     with torch.inference_mode():
-        teacher, stored = F.load_teacher_net(dev)
-        nets = {"teacher": teacher, "student": F.load_student_net(dev)}
-        state = F.refresh(teacher, stored)
+        if F.MODES[args.mode]["net"].startswith("ref"):
+            nets, stored = F.load_ref_nets(dev)
+            state = F.refresh(nets["ref"], stored)
+        else:
+            teacher, stored = F.load_teacher_net(dev)
+            nets = {"teacher": teacher, "student": F.load_student_net(dev)}
+            state = F.refresh(teacher, stored)
         o, d = F.pose_rays(F.holdout_poses()[0], dev)
 
         def frame():

@@ -80,9 +80,9 @@ def test_loader_runs_without_jax_and_matches_plain_pickle():
 
 _CHILD_TEACHER = _CHILD.split("from nerfsafetyvalidation_tpu_torch")[0] + r"""
 import numpy as np
-from nerfsafetyvalidation_tpu_torch.assets import load_teacher
+from nerfsafetyvalidation_tpu_torch.assets import load_checkpoint
 
-params, state = load_teacher(sys.argv[1], device="cpu")
+params, state = load_checkpoint(sys.argv[1], device="cpu")
 leaves = {"sigma_net": params["sigma_net"], "color_net": params["color_net"],
           "pyramid": params["encoder"]["pyramid"],
           "hash": [params["encoder"]["hash"]]}
@@ -103,7 +103,7 @@ print(json.dumps({
 
 
 def test_teacher_loader_decodes_bf16_bit_exact_without_jax():
-    """load_teacher with jax, jaxlib, ml_dtypes and the JAX package
+    """load_checkpoint with jax, jaxlib, ml_dtypes and the JAX package
     blocked; every array equals bench.py's upcast (ml_dtypes bfloat16 ->
     float32 through plain pickle), bit for bit."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))

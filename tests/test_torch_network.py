@@ -1,8 +1,15 @@
-"""The full-width baked student (bench_assets/bench_student_h160x6.pkl)
-through `NeRFNetwork` in both packages: the JAX `apply` with fused=True
-(the Pallas points kernel, interpret mode on the CPU) against the port's
-`forward` with fused=True (K1's plain version on the CPU), on 2,048 points.
-The port loads the weights with its own loader, JAX with plain pickle."""
+"""`NeRFNetwork` in both packages on the CPU.
+
+The full-width baked student (bench_assets/bench_student_h160x6.pkl): the
+JAX `apply` with fused=True (the Pallas points kernel, interpret mode on
+the CPU) against the port's `forward` with fused=True (K1's plain version
+on the CPU), on 2,048 points. The port loads the weights with its own
+loader, JAX with plain pickle.
+
+The hash-grid field: `density` and `forward` at a small spec with weights
+drawn by numpy, fused (JAX's K4 in interpret mode, K4's plain version in
+the port) and unfused; and the reference backbone of
+bench_assets/refbb.ckpt at full width."""
 
 import pickle
 from dataclasses import replace
@@ -123,4 +130,155 @@ def test_weights_must_match_the_config(params):
     for bad in (replace(cfg_t, hidden_dim=192), replace(cfg_t, num_layers=5),
                 replace(cfg_t, multires=10)):
         with pytest.raises(ValueError):
+            make_network(bad, p_t, device="cpu")
+
+
+# ---- the hash-grid field (the reference backbone's NeRFNetwork) ----------
+
+GRID = dict(encoding="hashgrid", bound=1.0, num_levels=6, level_dim=2,
+            base_resolution=4, log2_hashmap_size=10, desired_resolution=64,
+            grid_size=32)
+
+
+def _grid_params(cfg_j, seed=3):
+    """The JAX pytree's shapes, filled by numpy: a table of features of
+    order 1, and sigma's output lane biased up so that densities vary."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(JNet(cfg_j).init, jax.random.PRNGKey(0))
+    p = jax.tree_util.tree_map(
+        lambda s: rng.normal(0, 0.3, s.shape).astype(np.float32), shapes)
+    p["encoder"]["embeddings"] *= 3.0
+    p["sigma_net"][-1][:, 0] = np.abs(p["sigma_net"][-1][:, 0])
+    return p
+
+
+def _grid_both(p, dtype, fused, max_level=None, **kw):
+    cfg = dict(GRID, **kw, compute_dtype=dtype, fused=fused,
+               max_level=max_level)
+    net_t = make_network(TConfig(**cfg), params_from_jax(p, device="cpu"),
+                         device="cpu")
+    return JNet(JConfig(**cfg)), jax.tree_util.tree_map(jnp.asarray, p), \
+        net_t
+
+
+def _grid_tol(dtype):
+    # f32: the same operations in other sum orders (measured 3e-7
+    # relative). bf16: bounded at one bf16 step (2^-8), so that an
+    # encoding or activation that lands on the neighbouring bf16 value
+    # under another sum order still passes
+    return (1e-5, 1e-5) if dtype == "float32" else (2.0 ** -8, 1e-5)
+
+
+@pytest.mark.parametrize("max_level", [None, 4])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hashgrid_density_and_apply_match_jax(dtype, fused, max_level):
+    """`density` and `forward` against the JAX `density` and `apply`, fused
+    (JAX's K4 in interpret mode, the port's K4 plain version) and
+    unfused."""
+    p = _grid_params(JConfig(**GRID))
+    net_j, p_j, net_t = _grid_both(p, dtype, fused, max_level)
+    x, d = _inputs(1000)
+    ref = net_j.density(p_j, jnp.asarray(x))
+    s_j, c_j = net_j.apply(p_j, jnp.asarray(x), jnp.asarray(d))
+    with torch.inference_mode():
+        got = net_t.density(torch.from_numpy(x))
+        s_t, c_t = net_t(torch.from_numpy(x), torch.from_numpy(d))
+    rtol, atol = _grid_tol(dtype)
+    sig_j = np.asarray(ref["sigma"])
+    assert 10.0 * sig_j.min() < sig_j.max() < np.exp(15.0)
+    np.testing.assert_allclose(got["sigma"].numpy(), sig_j, rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(got["geo_feat"].numpy(),
+                               np.asarray(ref["geo_feat"]).astype(np.float32),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=rtol,
+                               atol=atol)
+    if fused and dtype == "bfloat16":    # K4 rounds its last layer too
+        g = got["geo_feat"].numpy()
+        assert np.array_equal(torch.from_numpy(g).to(torch.bfloat16)
+                              .float().numpy(), g)
+
+
+def test_hashgrid_routes_through_k4(monkeypatch):
+    """With cfg.fused, `forward` runs K4 twice (the sigma net, then the
+    color net on [SH | geo] in bf16); `plain` runs K4's plain version."""
+    import nerfsafetyvalidation_tpu_torch.models.network as tn
+    p = _grid_params(JConfig(**GRID))
+    *_, net_t = _grid_both(p, "bfloat16", True)
+    calls = []
+    for name in ("fused_mlp", "fused_mlp_plain"):
+        real = getattr(tn, name)
+
+        def spy(h, ws, dt, real=real, name=name):
+            calls.append((name, tuple(h.shape), h.dtype))
+            return real(h, ws, dt)
+
+        monkeypatch.setattr(tn, name, spy)
+    x, d = (torch.from_numpy(a) for a in _inputs(64))
+    net_t(x, d)
+    net_t(x, d, plain=True)
+    assert calls == [("fused_mlp", (64, 12), torch.bfloat16),
+                     ("fused_mlp", (64, 31), torch.bfloat16),
+                     ("fused_mlp_plain", (64, 12), torch.bfloat16),
+                     ("fused_mlp_plain", (64, 31), torch.bfloat16)]
+
+
+@pytest.fixture(scope="module")
+def refbb():
+    """The committed reference backbone (bench_assets/refbb.ckpt) in both
+    packages, JAX with plain pickle and bench.py's bf16 -> f32 upcast."""
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    nets, _ = F.load_ref_nets("cpu")
+    with open(F.REF_CKPT, "rb") as f:
+        model = pickle.load(f)["model"]
+    p_j = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.asarray(a).astype(np.float32)), model)
+    return nets, p_j
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_reference_backbone_full_width_matches_jax(refbb, fused):
+    """bench.py's spec at full width (16 levels, 2^19 rows, 64-wide MLPs)
+    with its trained weights, on 256 points. Measured: sigma 1.7e-6 of
+    max(|sigma|, 1), rgb 9.1e-4 (one hidden activation on the neighbouring
+    bf16 value); bounded at 2^-8 relative and 4e-3 absolute."""
+    nets, p_j = refbb
+    net_t = nets["ref"]
+    cfg_j = JConfig(encoding="hashgrid", bound=1.0, compute_dtype="bfloat16",
+                    density_thresh=10.0, fused=fused)
+    if not fused:
+        net_t = make_network(replace(net_t.cfg, fused=False),
+                             {"encoder": {"embeddings": net_t.embeddings},
+                              "sigma_net": list(net_t.sigma_net),
+                              "color_net": list(net_t.color_net)},
+                             device="cpu")
+    x, d = _inputs(256)
+    s_j, c_j = JNet(cfg_j).apply(p_j, jnp.asarray(x), jnp.asarray(d))
+    with torch.inference_mode():
+        s_t, c_t = net_t(torch.from_numpy(x), torch.from_numpy(d))
+    s_j, c_j = np.asarray(s_j), np.asarray(c_j)
+    assert s_j.max() > 100.0                         # a trained surface
+    sig = np.abs(s_t.numpy() - s_j) / np.maximum(np.abs(s_j), 1.0)
+    assert sig.max() <= 2.0 ** -8, sig.max()
+    np.testing.assert_allclose(c_t.numpy(), c_j, rtol=0, atol=4e-3)
+
+
+def test_hashgrid_weights_must_match_the_config():
+    """A table or MLP of another shape is refused, not run; so are the
+    background net and the aligned spec, which are not ported."""
+    p = _grid_params(JConfig(**GRID))
+    cfg = TConfig(**GRID)
+    p_t = params_from_jax(p, device="cpu")
+    make_network(cfg, p_t, device="cpu")
+    for bad in (replace(cfg, log2_hashmap_size=9),
+                replace(cfg, num_levels=5), replace(cfg, level_dim=4),
+                replace(cfg, hidden_dim=32)):
+        with pytest.raises(ValueError):
+            make_network(bad, p_t, device="cpu")
+    for bad in (replace(cfg, bg_radius=2.0),
+                replace(cfg, aligned_levels=True)):
+        with pytest.raises(NotImplementedError):
             make_network(bad, p_t, device="cpu")
