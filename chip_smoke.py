@@ -6,11 +6,17 @@ CUDA card.
 
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
-  2. build: kernels K1 (csrc/points_mlp.cu), K3 (csrc/sigma_color.cu) and
-     K4 (csrc/fused_mlp.cu), one nvcc each, started together;
+  2. build: kernels K1 (csrc/points_mlp.cu), K3 (csrc/sigma_color.cu), K4
+     (csrc/fused_mlp.cu) and K5 (csrc/fold_build.cu), one nvcc each,
+     started together;
   3. teacher: the mip-fold teacher of bench_assets/flagship.ckpt loaded,
      folded, and its occupancy refreshed 4x with a seeded generator, as
      bench.py refreshes it before every mode;
+  3b. kernel K5: the fold build of the teacher's own pyramid (F = 128,
+     Cd = 16) forward, and backward on a seeded cotangent, in bf16 and in
+     f32, each bit-exact against its plain version, with kernel, plain,
+     library (forward: the plain version, one torch.stack call; backward:
+     one index_add_, held to the kernel within rounding) and bound times;
   4. kernel K1: against its plain PyTorch version on 131,072 rows of points
      on real camera rays with the committed 160x6 student, with kernel,
      plain, library (bf16 torch.matmul chain) and bound times;
@@ -35,7 +41,14 @@ Phases, each printing its elapsed seconds:
      bench.py's marched frame through K4, with all 16 levels and with the
      levels below 8; PSNR and its gap to BENCH_r05, pose 0 again through
      the plain version, and once more through the unfused plain matmul
-     chain (the route BENCH_r05 ran), as a check.
+     chain (the route BENCH_r05 ran), as a check;
+ 11. train: the teacher trained from a seeded init at full width
+     (flagship.TRAIN_CFG, train_gather="foldrow_pallas") on the in-memory
+     48-view 200x200 spheres set, 144 steps with the schedule cut (see
+     TRAIN_STEPS): K5 launched once forward and once backward per step,
+     the loss and the parameters finite, the loss falling by LOSS_FALL; then
+     one step through "foldrow_pallas" against one through "foldrow" from
+     the trained parameters with the same draws, the updates compared.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor. Every launch count is set to 0 just before each frame phase and
 the refresh and read just after. The configurations are
@@ -71,6 +84,16 @@ K1_ROWS = 8192 * 16         # one K=16 tile of the student frame
 K3_RAYS, K3_K = 16384, 16   # one fine tile of the guided frame
 K4_RAYS, K4_K = 131072, 16  # one shaded tile of the marched frame
 PSNR_BAR = 28.0             # the spheres gate of bench.py (not the ref line)
+# The training phase: bench.py's schedule cut to 3 epochs of the 48 views
+# (144 steps, lr decaying over them) with the budget phase switch moved
+# from step 512 to 64, so that the run crosses it and the partial refresh
+# (steps 80, 96, ...). Only the schedule is cut; widths, rays per step,
+# budgets and the refresh interval are bench.py's.
+TRAIN_STEPS, TRAIN_WARMUP = 144, 64
+# the last 16 steps' mean loss must be under this fraction of the first
+# 16 steps': measured 0.170 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# section 6), bound about twice that
+LOSS_FALL = 0.35
 BARRED = ("fast", "guided", "baked_h160_ak8")
 
 # Kernel vs plain, both bf16 with f32 sums. The two sum in different
@@ -104,6 +127,27 @@ TOL_K4 = dict(sigma=(2.5e-2, 1e-6), color=(2.5e-2, 2e-6))
 # windows), student 1.6e-2 / 2.7e-6, ref_backbone 4.3e-3 / 6.0e-8,
 # ref_backbone_ml8 1.3e-3 / 3.7e-8.
 TOL_IMG_MAX, TOL_IMG_MEAN = 0.05, 1e-4
+# K5's backward against its library call (index_add_, which sums each dV
+# value's <= 8 terms one by one in the cotangent's dtype, in its own order):
+# up to 8 roundings of partial sums no larger than max |dV|, 8 * 2^-9 in
+# bf16 and 8 * 2^-24 in f32 of it; bounds twice that.
+TOL_K5_LIB = {"torch.bfloat16": 2 ** -5, "torch.float32": 2 ** -20}
+# One training step through "foldrow_pallas" (K5) against one through
+# "foldrow" (the slice-stack under autograd) from the same parameters and
+# draws. The forward folds are the same copy, so the losses and every
+# gradient but the pyramid's are equal (checked); the pyramid's gradient goes through
+# the fold's backward, which K5 sums as the TPU kernel does (two f32 half
+# sums, each rounded to bf16) and autograd sums term by term in bf16, so
+# it differs by bf16 roundings. (The gathers' scatter-add backward sorts
+# its indices and sums each row's duplicates in a fixed order: a rerun of
+# one route gives the same gradients, bit for bit.) Adam's first step
+# moves each entry by lr times the sign of its gradient, so an entry whose
+# gradient is near zero may move the other way: 2 lr apart. Measured
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): pyramid gradients
+# 4.1e-4 to 4.4e-3 of their largest apart, updates apart on 2.1e-4 to
+# 6.4e-4 of the entries, by 2 lr at most. Bounds: TOL_ROUTE_GRAD of the
+# largest gradient; 2 lr on a share TOL_ROUTE_FRAC of the entries.
+TOL_ROUTE_GRAD, TOL_ROUTE_FRAC = 2e-2, 3e-3
 
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -198,9 +242,13 @@ def main():
         aabb_of, render_frame_fast)
     from nerfsafetyvalidation_tpu_torch.ops.freq_encoding import freq_encode
     from nerfsafetyvalidation_tpu_torch.models import make_network
-    from nerfsafetyvalidation_tpu_torch.ops.hopper import (fused_mlp,
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import (fold_build,
+                                                           fused_mlp,
                                                            points_mlp,
                                                            sigma_color)
+    from nerfsafetyvalidation_tpu_torch.ops.mip_encoding import (
+        materialize_dense)
+    from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
     from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
     from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
 
@@ -209,11 +257,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    kernels = {"K1": points_mlp, "K3": sigma_color, "K4": fused_mlp}
+    kernels = {"K1": points_mlp, "K3": sigma_color, "K4": fused_mlp,
+               "K5": fold_build}
 
     def reset_counts():
         for mod in kernels.values():
             mod.LAUNCHES = 0
+        fold_build.LAUNCHES_BWD = 0
 
     with Phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -281,6 +331,79 @@ def main():
         check(int(state.iter_density) == int(stored.iter_density)
               + F.REFRESHES, "the refresh count")
         check(0 < occupied < n_bits, "the refreshed grid is empty or full")
+
+    with Phase("kernel K5"), torch.inference_mode():
+        # the teacher's own pyramid, materialised and folded at F = 128
+        spec = teacher.mip_spec
+        Fk, Cd = spec.F, spec.dense_channels
+        k5 = {}
+        # fold row (x, y, z), corner k -> its dV row, for the library call
+        ar = torch.arange(Fk, device=dev)
+        bits = torch.tensor(fold_build._BITS, device=dev)
+        idx = (((ar[:, None, None, None] + bits[:, 0]) * (Fk + 1)
+                + ar[None, :, None, None] + bits[:, 1]) * (Fk + 1)
+               + ar[None, None, :, None] + bits[:, 2]).reshape(-1)
+        for dt in (torch.bfloat16, torch.float32):
+            V = materialize_dense({"pyramid": list(teacher.pyramid)}, spec,
+                                  dtype=dt).contiguous()
+            gct = torch.Generator(device=dev).manual_seed(5)
+            ct = torch.randn((Fk ** 3, 8 * Cd), generator=gct, device=dev,
+                             dtype=dt)
+            got = fold_build.fold_build_forward(V, Fk, Cd)
+            got_b = fold_build.fold_build_backward(ct, Fk, Cd)
+            torch.cuda.synchronize()
+            want = fold_build.fold_build_plain(V, Fk, Cd)
+            want_b = fold_build.fold_build_bwd_plain(ct, Fk, Cd)
+            err = float((got.float() - want.float()).abs().max())
+            err_b = float((got_b.float() - want_b.float()).abs().max())
+            print(f"K5 {dt}: V {tuple(V.shape)}, fold {tuple(got.shape)}; "
+                  f"forward vs plain max abs {err:.3e}, equal "
+                  f"{torch.equal(got, want)}; backward vs plain max abs "
+                  f"{err_b:.3e}, equal {torch.equal(got_b, want_b)} (dV "
+                  f"up to {float(want_b.float().abs().max()):.3e})")
+            check(torch.equal(got, want),
+                  f"K5 forward ({dt}) is not bit-exact against the plain "
+                  "slice-stack")
+            check(torch.equal(got_b, want_b),
+                  f"K5 backward ({dt}) is not bit-exact against its plain "
+                  "version")
+            # one read of the input and one write of the output, each way
+            nbytes = (V.numel() + got.numel()) * V.element_size()
+            bound, by = bound_ms(0.0, nbytes)
+            ms = cuda_ms(torch, lambda: fold_build.fold_build_forward(
+                V, Fk, Cd), 20)
+            ms_b = cuda_ms(torch, lambda: fold_build.fold_build_backward(
+                ct, Fk, Cd), 20)
+            plain = cuda_ms(torch, lambda: fold_build.fold_build_plain(
+                V, Fk, Cd), 10)
+            plain_b = cuda_ms(torch, lambda: fold_build.fold_build_bwd_plain(
+                ct, Fk, Cd), 5)
+            # the backward's library call: one index_add_ of the cotangent's
+            # [F^3 * 8, Cd] rows into a zeroed dV at each row's corner, the
+            # index built outside the timed call (it sums in its own order,
+            # so it is held to the kernel within bf16 / f32 rounding)
+            def lib_fold_bwd():
+                return torch.zeros(((Fk + 1) ** 3, Cd), dtype=dt,
+                                   device=dev).index_add_(
+                                       0, idx, ct.view(-1, Cd))
+            lib_b = cuda_ms(torch, lib_fold_bwd, 20)
+            got_l = lib_fold_bwd()
+            err_l = float((got_l.float() - got_b.float()).abs().max())
+            print(f"K5 {dt} at F={Fk}, Cd={Cd} ({nbytes / 1e6:.1f} MB each "
+                  f"way): forward kernel_ms {ms:.4f}, plain_ms (= library_ms"
+                  f", one torch.stack) {plain:.4f}; backward kernel_ms "
+                  f"{ms_b:.4f}, plain_ms {plain_b:.4f}, library_ms (one "
+                  f"index_add_) {lib_b:.4f}, library vs kernel max abs "
+                  f"{err_l:.3e}; bound_ms {bound:.4f} ({by}); {smi}")
+            check(err_l <= TOL_K5_LIB[str(dt)] * float(
+                      want_b.float().abs().max()),
+                  f"the library's fold backward ({dt}) does not compute "
+                  "K5's function")
+            k5[dt] = dict(err=max(err, err_b), ms=ms, ms_b=ms_b, plain=plain,
+                          plain_b=plain_b, lib_b=lib_b, bound=bound, by=by)
+            del V, ct, got, got_b, want, want_b, got_l
+        del idx
+        torch.cuda.empty_cache()
 
     student = F.load_student_net(dev)
     nets = {"teacher": teacher, "student": student}
@@ -658,6 +781,105 @@ def main():
                   f"{p_unf - BENCH_R05[name][0]:+.3f} dB; image max abs "
                   f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
 
+    with Phase("train"):
+        t0 = time.perf_counter()
+        opt = F.train_opt(iters=TRAIN_STEPS, grid_warmup_steps=TRAIN_WARMUP)
+        dataset = F.train_dataset(dev, opt=opt)
+        print(f"train set: {len(dataset)} views at {dataset.H}x{dataset.W} "
+              f"({dataset.images.dtype}) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        epoch_end = []
+        reset_counts()
+        t0 = time.perf_counter()
+        net, t_state, trainer = F.train_flagship(
+            dev, iters=TRAIN_STEPS, opt=opt, dataset=dataset,
+            on_epoch=lambda tr: epoch_end.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        steps = trainer.global_step
+        t_train = epoch_end[-1] - t0
+        train_launches = (fold_build.LAUNCHES, fold_build.LAUNCHES_BWD)
+        others = {k: m.LAUNCHES for k, m in kernels.items() if k != "K5"}
+        losses = np.asarray(trainer.stats["step_loss"])
+        first, last = float(losses[:16].mean()), float(losses[-16:].mean())
+        print(f"train: {steps} steps in {t_train:.2f} s = "
+              f"{t_train / steps:.5f} s/step ({steps / t_train:.3f} steps/s)"
+              f" on {smi}; per epoch "
+              f"{np.diff([t0] + epoch_end).round(3).tolist()} s; K5 launches"
+              f" forward {train_launches[0]}, backward {train_launches[1]}; "
+              f"other kernels {others}")
+        print(f"train: loss first 16 steps {first:.6f}, last 16 {last:.6f}"
+              f" (ratio {last / first:.4f}, bound {LOSS_FALL}); epoch means "
+              f"{[round(v, 6) for v in trainer.stats['loss']]}; occupied "
+              f"cells after the 4x refresh "
+              f"{popcount(torch, t_state.density_bitfield)}")
+        check(steps == TRAIN_STEPS, f"trained {steps} steps")
+        check(train_launches == (steps, steps),
+              f"K5 launched {train_launches} times in {steps} steps, not "
+              "once forward and once backward per step")
+        check(bool(np.isfinite(losses).all()), "a training loss is not finite")
+        check(all(bool(torch.isfinite(w).all()) for w in net.param_list()),
+              "a trained parameter is not finite")
+        check(last < LOSS_FALL * first,
+              f"the loss fell from {first:.6f} to {last:.6f}, not under "
+              f"{LOSS_FALL} of it")
+
+        # one step through each fold route, from the trained parameters and
+        # state, with the same batch and draws
+        g = torch.Generator(device=dev).manual_seed(11)
+        batch = dataset.collate([0], g)
+        bg = torch.rand((1, batch["rays_o"].shape[1], 3), generator=g,
+                        device=dev)
+        jit = torch.rand((batch["rays_o"].shape[1],), generator=g,
+                         device=dev)
+        stepped = []
+        for route in ("foldrow_pallas", "foldrow", "foldrow_pallas"):
+            twin = make_network(replace(F.TRAIN_CFG, train_gather=route),
+                                net.params_tree(), device=dev,
+                                trainable=True)
+            tr = Trainer(opt, twin)
+            tr.renderer_state, tr.global_step = t_state, steps
+            _, loss = tr.train_step(batch, bg=bg, perturb=jit)
+            stepped.append((float(loss), [w.detach().clone() for w in
+                                          twin.param_list()],
+                            [w.grad.clone() for w in twin.param_list()]))
+            del tr, twin
+        n_pyr = len(net.mip_spec.pyramid_scales)
+
+        def apart(a, b):
+            """Per tensor: gradient max |diff| / max |grad|, updated
+            parameters max |diff| and share of entries > 1e-6 apart."""
+            rel = [float((x - y).abs().max() / y.abs().max().clamp(
+                min=1e-30)) for x, y in zip(a[2], b[2])]
+            moved = [float((x - y).abs().max()) for x, y in zip(a[1], b[1])]
+            frac = [float(((x - y).abs() > 1e-6).float().mean())
+                    for x, y in zip(a[1], b[1])]
+            return rel, moved, frac
+
+        for what, (a, b) in (("foldrow_pallas vs foldrow", stepped[:2]),
+                             ("foldrow_pallas run twice", stepped[::2])):
+            rel, moved, frac = apart(a, b)
+            print(f"{what}, one step: loss {a[0]:.8f} / {b[0]:.8f}; "
+                  f"gradient max |diff| / max |grad| per tensor "
+                  f"{['%.2e' % v for v in rel]}; updated parameters max "
+                  f"|diff| {['%.2e' % v for v in moved]}, share of entries "
+                  f"apart by > 1e-6 {['%.2e' % v for v in frac]} (pyramid "
+                  f"grids, hash table, sigma net, color net)")
+        rel, moved, frac = apart(*stepped[:2])
+        check(max(apart(*stepped[::2])[0]) == 0.0,
+              "one route's gradients differ between two runs")
+        check(stepped[0][0] == stepped[1][0], "the two routes' losses "
+              "differ (the forward fold is the same copy)")
+        check(max(rel[n_pyr:]) == 0.0, "the hash table's or the MLPs' "
+              "gradients differ between the routes")
+        check(max(rel[:n_pyr]) <= TOL_ROUTE_GRAD,
+              f"the pyramid gradients of the two routes differ by more "
+              f"than {TOL_ROUTE_GRAD} of their largest")
+        check(max(moved) <= 2 * opt.lr * (1 + 1e-5)
+              and max(frac) <= TOL_ROUTE_FRAC,
+              "the two routes' updates differ by more than the stated "
+              "tolerance")
+        del stepped, net, trainer, dataset
+
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
     print(json.dumps({"kernels": [
@@ -677,6 +899,19 @@ def main():
          "launches": launches["K4"], "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
          "library_ms": k4_lib_ms},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",
+         "replaces": f"nerfsafetyvalidation_tpu/ops/pallas/fold_build.py:"
+                     f"{line}", "launches": n,
+         "max_abs_err": k5[bf]["err"], "ms": k5[bf][ms],
+         "plain_ms": k5[bf][plain], "bound_ms": k5[bf]["bound"],
+         "bound_by": k5[bf]["by"], "library_ms": lib}
+        for name, line, n, ms, plain, lib in (
+            ("fold_build", 45, train_launches[0], "ms", "plain",
+             k5[bf]["plain"]),
+            ("fold_build_bwd", 56, train_launches[1], "ms_b", "plain_b",
+             k5[bf]["lib_b"]))
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

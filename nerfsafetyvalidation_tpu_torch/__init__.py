@@ -14,5 +14,7 @@ frame with the march prepass, with the field chain as the CUDA kernel
 `ops.hopper.sigma_color`; the occupancy refresh (`update_extra_state`);
 and the hash-grid reference backbone (`models.network.NeRFNetwork` with the
 corner-layout encode of `ops.hash_encoding`) in the marched frame, with its
-MLPs as the CUDA kernel `ops.hopper.fused_mlp`.
+MLPs as the CUDA kernel `ops.hopper.fused_mlp`; and the teacher's training
+(`train.trainer.Trainer`, `flagship.train_flagship`), whose fold table is
+built by the CUDA kernel `ops.hopper.fold_build` forward and backward.
 """

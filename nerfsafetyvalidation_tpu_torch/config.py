@@ -33,9 +33,13 @@ class NetworkConfig:
     min_near: float = 0.2
     density_thresh: float = 0.01
     bg_radius: float = -1.0             # > 0: background net (not ported)
+    grid_ray: bool = False              # train through the occupancy march
     grid_size: int = 128
     compute_dtype: str = "float32"      # 'float32' | 'bfloat16'
     fused: bool = False                 # route apply through the MLP kernel
+    # mipfold training dense fetch: 'corner8' | 'foldrow' | 'foldrow_pallas'
+    # (the same function; 'foldrow_pallas' folds through kernel K5)
+    train_gather: str = "corner8"
     # hashgrid: encode only levels < max_level (the rest encode to zero);
     # None keeps every level
     max_level: Optional[int] = None

@@ -1,8 +1,18 @@
-"""Pinhole rays and pose convention (nerfsafetyvalidation_tpu/data/rays.py:
-`get_rays` without subsampling, `nerf_matrix_to_ngp`)."""
+"""Pinhole rays, pose convention and colour space
+(nerfsafetyvalidation_tpu/data/rays.py: `get_rays` without subsampling,
+`nerf_matrix_to_ngp`, `srgb_to_linear`, `linear_to_srgb`)."""
 
 import numpy as np
 import torch
+
+
+def linear_to_srgb(x):
+    return torch.where(x < 0.0031308, 12.92 * x,
+                       1.055 * x ** 0.41666 - 0.055)
+
+
+def srgb_to_linear(x):
+    return torch.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
 
 
 def nerf_matrix_to_ngp(pose, scale=0.33, offset=(0, 0, 0)):

@@ -1,6 +1,12 @@
 """Analytic ground truth for the "spheres" scene, a numpy copy of the JAX
 package's nerfsafetyvalidation_tpu/data/synthetic.py (`orbit_pose`,
-`camera_rays`, `trace`); the "gauntlet" tracer is not ported yet."""
+`camera_rays`, `trace`, `scene_views`, `generate_dataset`); the "gauntlet"
+tracer is not ported yet.
+
+`generate_dataset` keeps its blender-format splits in memory instead of
+writing PNGs and transforms_*.json: each image holds the values a PNG round
+trip gives ((img * 255).clip(0, 255) truncated to uint8, then / 255), and
+each pose the float32 matrix the JSON would hold."""
 
 import numpy as np
 
@@ -106,3 +112,42 @@ def orbit_pose(theta, phi, radius):
     c2w[:3, 2] = -fwd
     c2w[:3, 3] = pos
     return c2w
+
+
+def scene_views(n_views, H, W, radius=2.4, fov_x=0.6911, seed=0,
+                phi_range=(0.2, 0.8), scene="spheres"):
+    """Returns (images [N, H, W, 4] float32, poses [N, 4, 4], intrinsics)."""
+    rng = np.random.default_rng(seed)
+    fx = fy = 0.5 * W / np.tan(0.5 * fov_x)
+    intr = (fx, fy, W / 2, H / 2)
+    images, poses = [], []
+    for k in range(n_views):
+        theta = 2 * np.pi * (k / n_views) + rng.uniform(0, 0.3)
+        phi = rng.uniform(*phi_range)
+        pose = orbit_pose(theta, phi, radius)
+        o, d = camera_rays(pose, intr, H, W)
+        rgb, alpha, _ = trace_scene(o, d, scene)
+        img = np.concatenate([rgb, alpha[..., None]], axis=-1)
+        images.append(img.astype(np.float32))
+        poses.append(pose.astype(np.float32))
+    return np.stack(images), np.stack(poses), intr
+
+
+FOV_X = 0.6911
+
+
+def generate_dataset(n_train=48, n_val=4, n_test=8, H=200, W=200,
+                     radius=2.4, seed=0, scene="spheres"):
+    """The splits of a blender-format dataset, in memory: {'train' | 'val'
+    | 'test': {'images' [N, H, W, 4] float32 (the PNG round trip's values),
+    'poses' [N, 4, 4] float32 (raw c2w, as transforms_*.json holds them),
+    'camera_angle_x'}}."""
+    splits = {}
+    for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 1),
+                        ("test", n_test, seed + 2)):
+        images, poses, _ = scene_views(n, H, W, radius=radius, fov_x=FOV_X,
+                                       seed=s, scene=scene)
+        img8 = (images * 255).clip(0, 255).astype(np.uint8)
+        splits[split] = {"images": img8.astype(np.float32) / 255.0,
+                         "poses": poses, "camera_angle_x": FOV_X}
+    return splits

@@ -6,22 +6,30 @@ frame settings of the modes `fast`, `guided` and `baked_h160_ak8`
 reference-backbone line: the trained hash-grid `NeRFNetwork` of
 `bench_assets/refbb.ckpt` with its own occupancy refreshed 4x, rendered
 with all 16 levels (`ref_backbone`) and with the levels below 8 only
-(`ref_backbone_ml8`) (bench.py:354-425, :805-845)."""
+(`ref_backbone_ml8`) (bench.py:354-425, :805-845).
+
+Training: `TRAIN_CFG` and `TRAIN_OPT` are bench.py's `_train_flagship`
+(bench.py:153-256) with `train_gather="foldrow_pallas"`, the route of
+kernel K5; `train_flagship` runs that schedule on the spheres set from a
+seeded init and refreshes the trained occupancy 4x."""
 
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from .assets import load_checkpoint, load_student, params_from_jax
 from .config import NetworkConfig
+from .data.provider import NeRFDataset
 from .data.rays import get_rays, nerf_matrix_to_ngp
-from .data.synthetic import orbit_pose
+from .data.synthetic import generate_dataset, orbit_pose
 from .models import make_network
 from .models.bake import student_config
 from .models.renderer import (render_frame_fast, render_frame_guided,
                               update_extra_state)
+from .train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = ROOT / "bench_assets" / "flagship.ckpt"
@@ -47,6 +55,21 @@ STUDENT_CFG = replace(student_config(
 REF_CFG = NetworkConfig(encoding="hashgrid", bound=1.0,
                         compute_dtype="bfloat16", density_thresh=10.0,
                         fused=True)
+
+# bench.py:177-215: the teacher trained at the served width, through K5
+TRAIN_CFG = replace(TEACHER_CFG, fused=False, grid_ray=True,
+                    train_gather="foldrow_pallas")
+TRAIN_ITERS = 1920          # BENCH_ITERS
+TRAIN_RES = 200             # BENCH_TRAIN_RES
+N_TRAIN_VIEWS = 48
+TRAIN_OPT = dict(
+    color_space="srgb", scale=1.0, offset=(0.0, 0.0, 0.0), bound=1.0,
+    fp16=True, preload=True, num_rays=4096, lr=1e-2, iters=TRAIN_ITERS,
+    update_extra_interval=16, grid_partial_blocks=4,
+    grid_max_samples=96, grid_samples_per_hit=2,
+    grid_sample_budget_per_ray=48, grid_warmup_steps=512,
+    grid_budget_after_warmup=16, grid_max_samples_after_warmup=32,
+    max_steps=1024, dt_gamma=DT_GAMMA, seed=0)
 
 _FAST = dict(tile=131072, max_samples=16, max_steps=512, dt_gamma=DT_GAMMA,
              bg_color=1.0)
@@ -114,6 +137,13 @@ def refresh(net, state, seed: int = 100, n: int = REFRESHES):
     return state
 
 
+def serving_net(net):
+    """The trained teacher `net` as the served one: the same parameters in
+    TEACHER_CFG (through K3), folded."""
+    return make_network(TEACHER_CFG, net.params_tree(),
+                        device=net.hash.device).to_folded()
+
+
 def load_student_net(device):
     return make_network(STUDENT_CFG, params_from_jax(load_student(STUDENT),
                                                      device), device=device)
@@ -130,3 +160,45 @@ def render(mode, nets, state, rays_o, rays_d, res: int = RES,
                                  plain_field=plain_field, **m["frame"])
     return render_frame_guided(net, state, rays_o, rays_d, res, res,
                                plain_field=plain_field, **m["frame"])
+
+
+def train_opt(**overrides):
+    """TRAIN_OPT as the attribute namespace the trainer reads."""
+    return SimpleNamespace(**dict(TRAIN_OPT, **overrides))
+
+
+def train_splits(res: int = TRAIN_RES, n_views: int = N_TRAIN_VIEWS):
+    """bench.py's spheres dataset (48 training views, 2 validation views and
+    4 test views at 200x200, seed 0), in memory."""
+    return generate_dataset(n_train=n_views, n_val=2, n_test=4, H=res,
+                            W=res, scene="spheres")
+
+
+def train_dataset(device, res: int = TRAIN_RES, n_views: int = N_TRAIN_VIEWS,
+                  opt=None, splits=None, type: str = "train"):
+    """A split ('train' or 'val') of `splits` (default: train_splits(res,
+    n_views)) as a preloaded NeRFDataset."""
+    return NeRFDataset(opt or train_opt(), splits or train_splits(res,
+                                                                  n_views),
+                       type=type, device=device)
+
+
+def train_flagship(device, iters: int = TRAIN_ITERS, opt=None, dataset=None,
+                   seed: int = 0, on_epoch=None):
+    """Train the teacher from a seeded init for `iters` steps (whole epochs
+    of the dataset, as bench.py's ceil(iters / views)), then refresh its
+    occupancy 4x through the trained field. Returns (net, state,
+    trainer); `on_epoch(trainer)` runs after every epoch."""
+    opt = opt or train_opt(iters=iters, seed=seed)
+    dataset = dataset or train_dataset(device, opt=opt)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    net = make_network(TRAIN_CFG, None, device=device, trainable=True,
+                       generator=gen)
+    trainer = Trainer(opt, net)
+    loader = dataset.dataloader(torch.Generator(
+        device=device).manual_seed(seed))
+    trainer.train(loader, -(-iters // len(loader)), on_epoch=on_epoch)
+    with torch.no_grad():
+        net.to_folded()
+        state = refresh(net, trainer.renderer_state)
+    return net, state, trainer

@@ -19,6 +19,7 @@ Weights are [in, out], so a layer is `x @ W`.
   stays f32 (the JAX package leaves that route to XLA).
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,6 +31,15 @@ from ..ops.hopper.fused_mlp import fused_mlp, fused_mlp_plain
 from ..ops.hopper.points_mlp import (_dot, fused_points_sigma_color,
                                      fused_points_sigma_color_plain)
 from ..ops.sh_encoding import sh_encode, sh_output_dim
+
+
+def _linear_init(generator, in_dim: int, out_dim: int):
+    """torch nn.Linear's default weight init, [in, out]: uniform in
+    +-1/sqrt(in), drawn from `generator` on its device."""
+    bound = 1.0 / float(np.sqrt(in_dim))
+    u = torch.rand((in_dim, out_dim), generator=generator,
+                   device=generator.device)
+    return u * (2.0 * bound) - bound
 
 
 def _mlp(weights, h, dtype):

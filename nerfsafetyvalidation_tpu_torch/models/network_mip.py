@@ -6,16 +6,20 @@ network_mip.py, `NeRFNetworkMip`, NetworkConfig(encoding="mipfold")).
   color: [SH(d) | geo_feat] -> bias-free ReLU MLP 31 -> 64 -> 64 -> 3
          -> sigmoid
 
-The encoder reads a fold table built once by `to_folded` (the JAX
-package's inference path). `forward` is the JAX `apply` with cfg.fused:
-the whole chain after the encoding runs through kernel K3
-(ops/hopper/sigma_color.py), which for a CUDA tensor is the only route; on
-a CPU tensor K3's plain version runs, with the same rounding points. The
-JAX package's unfused chain gives the same values except where sigma's
-pre-activation passes +-15 (its trunc_exp does not clip there), so the
-port has one route and ignores cfg.fused.
-`density` and `color` stay plain matmul chains, as in the JAX package (its
-`density` fuses only hash-grid nets).
+The encoder has two routes, as the JAX package's `encode_pos` has:
+* training (autograd on, trainable parameters): encode from the pyramid
+  and the hash table by `cfg.train_gather` (ops/mip_encoding.py), so the
+  gradient reaches them; a fold table is never read here;
+* inference: through the fold and hash tables that `to_folded` builds
+  once. They are stamped with the parameters' versions, and reading them
+  after an optimizer step has changed the parameters raises.
+`forward` is the JAX `apply`: with cfg.fused the chain after the encoding
+runs through kernel K3 (ops/hopper/sigma_color.py), which for a CUDA tensor
+is the only route (on a CPU tensor K3's plain version runs, with the same
+rounding points); without it `density` then `color`, plain matmul chains
+(under autograd in training, as the JAX trainer runs them). The two differ
+only where sigma's pre-activation passes +-15, which K3 clips and
+`trunc_exp` does not.
 """
 
 import torch
@@ -25,10 +29,11 @@ from ..config import NetworkConfig
 from ..ops.activation import trunc_exp
 from ..ops.hopper.sigma_color import (fused_sigma_color,
                                       fused_sigma_color_plain)
+from ..ops.hopper._nvcc import weights_key
 from ..ops.mip_encoding import (MipFoldSpec, build_mip_fold_table,
-                                mip_fold_encode)
+                                mip_fold_encode, mip_fold_init)
 from ..ops.sh_encoding import sh_encode, sh_output_dim
-from .network import _mlp, _widths
+from .network import _linear_init, _mlp, _widths
 
 
 def mip_spec_of(cfg: NetworkConfig) -> MipFoldSpec:
@@ -51,10 +56,14 @@ def mip_spec_of(cfg: NetworkConfig) -> MipFoldSpec:
 class NeRFNetworkMip(nn.Module):
     """params: the JAX package's pytree {'encoder': {'pyramid': [...],
     'hash': [...]}, 'sigma_net': [...], 'color_net': [...]} as numpy arrays
-    or tensors (see assets.params_from_jax); stored as float32 on
-    `device`. Call `to_folded()` before encoding."""
+    or tensors (see assets.params_from_jax), or None to draw them with
+    `init(generator)` (a generator on `device` seeded 0 where none is
+    given); stored as float32 `nn.Parameter`s on `device`, which take
+    gradients when `trainable`. Call `to_folded()` before encoding without
+    autograd."""
 
-    def __init__(self, cfg: NetworkConfig, params, device="cuda"):
+    def __init__(self, cfg: NetworkConfig, params=None, device="cuda",
+                 trainable: bool = False, generator=None):
         super().__init__()
         if cfg.encoding != "mipfold":
             raise ValueError("NeRFNetworkMip needs encoding='mipfold'")
@@ -67,52 +76,103 @@ class NeRFNetworkMip(nn.Module):
         self.in_dim_dir = sh_output_dim(cfg.sh_degree)
         self.compute_dtype = torch.bfloat16 \
             if cfg.compute_dtype == "bfloat16" else torch.float32
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            params = self.init(generator)
 
-        def t(w):
-            return torch.as_tensor(w, dtype=torch.float32, device=device)
-
-        def plist(ws):
-            return nn.ParameterList(nn.Parameter(t(w), requires_grad=False)
-                                    for w in ws)
+        def p(w):
+            w = torch.as_tensor(w, dtype=torch.float32, device=device)
+            # a trainable net updates in place: never into the caller's
+            # arrays
+            return nn.Parameter(w.detach().clone() if trainable else w,
+                                requires_grad=trainable)
 
         enc = params["encoder"]
-        self.pyramid = [t(g) for g in enc["pyramid"]]
-        self.hash = t(enc["hash"])
-        self.sigma_net = plist(params["sigma_net"])
-        self.color_net = plist(params["color_net"])
-        spec = self.mip_spec
-        want = ([((s + 1) ** 3, spec.pyramid_channels)
-                 for s in spec.pyramid_scales]
-                + [(spec.hash_rows, spec.hash_width)]
-                + _widths(self.in_dim, cfg.hidden_dim, cfg.num_layers,
-                          1 + cfg.geo_feat_dim)
-                + _widths(self.in_dim_dir + cfg.geo_feat_dim,
-                          cfg.hidden_dim_color, cfg.num_layers_color, 3))
-        got = [tuple(w.shape) for w in [*self.pyramid, self.hash,
-                                        *self.sigma_net, *self.color_net]]
+        self.pyramid = nn.ParameterList(p(g) for g in enc["pyramid"])
+        self.hash = p(enc["hash"])
+        self.sigma_net = nn.ParameterList(p(w) for w in params["sigma_net"])
+        self.color_net = nn.ParameterList(p(w) for w in params["color_net"])
+        got = [tuple(w.shape) for w in self.param_list()]
+        want = self._shapes()
         if got != want:
             raise ValueError(f"weights {got} do not match the config {want}")
         self.fold_table = None
         self.hash_table = None
+        self._folded_from = None
+
+    def _mlp_shapes(self):
+        """[in, out] of the sigma net's, then the color net's weights."""
+        cfg = self.cfg
+        return (_widths(self.in_dim, cfg.hidden_dim, cfg.num_layers,
+                        1 + cfg.geo_feat_dim)
+                + _widths(self.in_dim_dir + cfg.geo_feat_dim,
+                          cfg.hidden_dim_color, cfg.num_layers_color, 3))
+
+    def _shapes(self):
+        """Every parameter's shape, in the JAX package's init order:
+        pyramid grids, hash table, sigma net, color net."""
+        spec = self.mip_spec
+        return ([((s + 1) ** 3, spec.pyramid_channels)
+                 for s in spec.pyramid_scales]
+                + [(spec.hash_rows, spec.hash_width)] + self._mlp_shapes())
+
+    def init(self, generator):
+        """A fresh params pytree (float32 tensors on the generator's
+        device), drawn as the JAX `init` draws it: the encoder's grids and
+        table uniform in +-1e-4, then each [in, out] weight uniform in
+        +-1/sqrt(in) (torch nn.Linear's default). The draws come from
+        `generator`, so they differ from JAX's."""
+        encoder = mip_fold_init(generator, self.mip_spec)
+        mlp = [_linear_init(generator, *shape)
+               for shape in self._mlp_shapes()]
+        n_sigma = self.cfg.num_layers
+        return {"encoder": encoder, "sigma_net": mlp[:n_sigma],
+                "color_net": mlp[n_sigma:]}
+
+    def param_list(self):
+        """Every parameter in the JAX package's init order (pyramid grids,
+        hash table, sigma net, color net)."""
+        return [*self.pyramid, self.hash, *self.sigma_net, *self.color_net]
+
+    def params_tree(self):
+        """The parameters as the JAX package's pytree of detached tensors
+        (what the constructor takes)."""
+        return {"encoder": {"pyramid": [g.detach() for g in self.pyramid],
+                            "hash": self.hash.detach()},
+                "sigma_net": [w.detach() for w in self.sigma_net],
+                "color_net": [w.detach() for w in self.color_net]}
+
+    def _encoder_params(self):
+        return list(self.pyramid) + [self.hash]
 
     def to_folded(self):
         """Build the fold table [F^3, 8 * Cd] and the hash table in the
         compute dtype (the JAX to_folded, with the hash table's cast done
-        once here instead of at every encode). Returns self."""
-        self.fold_table = build_mip_fold_table(
-            {"pyramid": self.pyramid}, self.mip_spec,
-            dtype=self.compute_dtype)
-        self.hash_table = self.hash.to(self.compute_dtype)
+        once here instead of at every encode), stamped with the parameters'
+        versions. Returns self."""
+        with torch.no_grad():
+            self.fold_table = build_mip_fold_table(
+                {"pyramid": list(self.pyramid)}, self.mip_spec,
+                dtype=self.compute_dtype)
+            self.hash_table = self.hash.to(self.compute_dtype)
+        self._folded_from = weights_key(self._encoder_params())
         return self
 
     def encode_pos(self, x):
+        kw = dict(bound=self.cfg.bound, compute_dtype=self.compute_dtype)
+        if torch.is_grad_enabled() and self.hash.requires_grad:
+            return mip_fold_encode(
+                {"pyramid": list(self.pyramid), "hash": self.hash}, x,
+                self.mip_spec, train_gather=self.cfg.train_gather, **kw)
         if self.fold_table is None:
-            raise RuntimeError("call to_folded() first: the port encodes "
-                               "through the fold table only")
+            raise RuntimeError("call to_folded() first: without autograd "
+                               "the encoder reads the fold table")
+        if self._folded_from != weights_key(self._encoder_params()):
+            raise RuntimeError("the fold table was built from older "
+                               "parameters; call to_folded() again")
         return mip_fold_encode({"hash": self.hash_table}, x, self.mip_spec,
-                               bound=self.cfg.bound,
-                               fold_table=self.fold_table,
-                               compute_dtype=self.compute_dtype)
+                               fold_table=self.fold_table, **kw)
 
     def encode_dir(self, d):
         return sh_encode(d, self.cfg.sh_degree)
@@ -130,9 +190,13 @@ class NeRFNetworkMip(nn.Module):
                                   self.compute_dtype))
 
     def forward(self, x, d, plain: bool = False):
-        """(sigma [...], rgb [..., 3]) at positions x and directions d,
-        through K3. `plain` runs K3's plain version even on CUDA tensors;
-        it exists for comparing the kernel's frame with the plain frame."""
+        """(sigma [...], rgb [..., 3]) at positions x and directions d:
+        through K3 with cfg.fused (`plain` runs K3's plain version even on
+        CUDA tensors, for comparing the kernel's frame with the plain
+        frame), else `density` then `color`."""
+        if not self.cfg.fused:
+            out = self.density(x)
+            return out["sigma"], self.color(d, out["geo_feat"])
         prefix = x.shape[:-1]
         enc = self.encode_pos(x).reshape(-1, self.in_dim).contiguous()
         sh = self.encode_dir(d).reshape(enc.shape[0], -1)

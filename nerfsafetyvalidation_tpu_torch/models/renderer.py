@@ -1,6 +1,8 @@
 """Frame renderers of the port (nerfsafetyvalidation_tpu/models/
 renderer.py): the marched frame `render_frame_fast`, the depth-guided frame
-`render_frame_guided`, and the occupancy refresh `update_extra_state`.
+`render_frame_guided`, the marched training render `run_grid`, and the
+occupancy state: `RendererState.create`, `mark_untrained_grid` and the
+refresh `update_extra_state` (full or partial).
 
 `render_frame_guided` places K uniform samples per ray in a window around
 a low-resolution prepass depth: a scout (uniform samples through the
@@ -21,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.marching import (SQRT3, _mip_from_dt, _mip_from_pos,
-                            composite_marched, march_rays)
-from ..ops.ray_ops import (morton3d, near_far_from_aabb,
+                            compact_samples, composite_marched,
+                            gather_compacted, march_rays, scatter_back)
+from ..ops.ray_ops import (morton3d, morton3d_invert, near_far_from_aabb,
                            occupancy_to_skip_grid, packbits)
 
 
@@ -43,6 +46,19 @@ class RendererState:
     iter_density: torch.Tensor = None
     skip_grid: torch.Tensor = None
 
+    @staticmethod
+    def create(cascade: int, grid_size: int = 128,
+               device="cuda") -> "RendererState":
+        """An empty state: zero densities, no occupied bit, no skip grid."""
+        n = grid_size ** 3
+        return RendererState(
+            density_bitfield=torch.zeros((cascade * n // 8,),
+                                         dtype=torch.uint8, device=device),
+            density_grid=torch.zeros((cascade, n), dtype=torch.float32,
+                                     device=device),
+            mean_density=torch.zeros((), dtype=torch.float32, device=device),
+            iter_density=torch.zeros((), dtype=torch.int32, device=device))
+
 
 def aabb_of(cfg, device):
     b = cfg.bound
@@ -50,26 +66,73 @@ def aabb_of(cfg, device):
                         device=device)
 
 
+def _grid_cells(grid_size: int, device, n_blocks: int = 1, block: int = 0):
+    """(coords [M, 3] int32, morton indices [M] int64) of the cells a
+    refresh probes: all of them, or the morton-strided subset
+    block::n_blocks."""
+    total = grid_size ** 3
+    if n_blocks > 1:
+        if total % n_blocks or not 0 <= block < n_blocks:
+            raise ValueError(f"cannot probe block {block} of {n_blocks}")
+        indices = block + torch.arange(total // n_blocks, dtype=torch.int64,
+                                       device=device) * n_blocks
+        return morton3d_invert(indices), indices
+    g = torch.arange(grid_size, dtype=torch.int32, device=device)
+    coords = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                         dim=-1).reshape(-1, 3)
+    return coords, morton3d(coords).to(torch.int64)
+
+
+def mark_untrained_grid(cfg, state: RendererState, poses, intrinsic,
+                        grid_size: int = 128) -> RendererState:
+    """Mark the cells that no training camera sees as -1
+    (renderer.py:388-451). poses: [B, 4, 4] cam2world; intrinsic: (fx, fy,
+    cx, cy). The skip grid is dropped, as in the JAX package."""
+    grid = state.density_grid
+    dev = grid.device
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    fx, fy, cx, cy = [float(v) for v in intrinsic]
+    coords, indices = _grid_cells(grid_size, dev)
+    world = 2.0 * coords.float() / (grid_size - 1) - 1.0
+    new_grid = grid.clone()
+    for cas in range(grid.shape[0]):
+        bound = min(2 ** cas, cfg.bound)
+        half = bound / grid_size
+        pts = world * (bound - half)
+        cam = pts[None] - poses[:, None, :3, 3]
+        cam = torch.einsum("bmi,bij->bmj", cam, poses[:, :3, :3])
+        mz = cam[..., 2] > 0
+        mx = torch.abs(cam[..., 0]) < cx / fx * cam[..., 2] + half * 2
+        my = torch.abs(cam[..., 1]) < cy / fy * cam[..., 2] + half * 2
+        unseen = (mz & mx & my).sum(dim=0) == 0
+        new_grid[cas, indices] = torch.where(unseen, -1.0,
+                                             grid[cas, indices])
+    return RendererState(density_bitfield=state.density_bitfield,
+                         density_grid=new_grid,
+                         mean_density=state.mean_density,
+                         iter_density=state.iter_density)
+
+
 def update_extra_state(net, state: RendererState, generator=None,
                        jitter=None, decay: float = 0.95,
-                       grid_size: int = 128) -> RendererState:
+                       grid_size: int = 128, n_blocks: int = 1,
+                       block: int = 0) -> RendererState:
     """Refresh the density grid, bitfield and skip grid from the field
-    (the JAX package's full update, n_blocks=1): every cell centre of
-    every cascade, jittered by up to half a cell, goes through
-    `net.density` in one batch; the grid decays by `decay` and takes the
-    max with the new density.
+    (renderer.py:453-546): every probed cell centre of every cascade,
+    jittered by up to half a cell, goes through `net.density` in one batch;
+    those cells decay by `decay` and take the max with the new density.
+    n_blocks = 1 probes every cell; n_blocks > 1 only the morton-strided
+    subset block::n_blocks (the partial update), leaving the rest as they
+    are.
 
-    The jitter is uniform in [0, 1) per cell and axis: drawn from
-    `generator`, or handed in as `jitter` ([cascade][H^3, 3] tensors), as
+    The jitter is uniform in [0, 1) per probed cell and axis: drawn from
+    `generator`, or handed in as `jitter` ([cascade][M, 3] tensors), as
     the tests hand in the JAX package's own draws."""
     cfg = net.cfg
     grid = state.density_grid
     dev = grid.device
     cascade = grid.shape[0]
-    g = torch.arange(grid_size, dtype=torch.int32, device=dev)
-    coords = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
-                         dim=-1).reshape(-1, 3)
-    indices = morton3d(coords).to(torch.int64)
+    coords, indices = _grid_cells(grid_size, dev, n_blocks, block)
     xyzs = 2.0 * coords.float() / (grid_size - 1) - 1.0
 
     tmp = -torch.ones_like(grid)
@@ -89,6 +152,71 @@ def update_extra_state(net, state: RendererState, generator=None,
         density_bitfield=packbits(new_grid, thresh), density_grid=new_grid,
         mean_density=mean_density, iter_density=state.iter_density + 1,
         skip_grid=occupancy_to_skip_grid(new_grid > thresh, grid_size))
+
+
+def run_grid(net, state: RendererState, rays_o, rays_d,
+             max_samples: int = 64, max_steps: int = 1024,
+             dt_gamma: float = 0.0, bg_color=None, perturb=None,
+             density_scale: float = None, sample_budget: int = None,
+             samples_per_hit: int = 1):
+    """The occupancy-marched render of training (the JAX run_grid):
+    march up to `max_samples` samples a ray (perturbed by `perturb`, see
+    `march_rays`), query the field once, composite. With `sample_budget`
+    only the real samples are queried: the first `sample_budget` of them
+    in ray order go to a compact buffer of (t, ray) rows, from which the
+    positions are rebuilt, and the field's (sigma, rgb) rows come back
+    through one gather; the rest count as empty. The JAX version queries
+    every row of the buffer, the unused ones at (t = 0, ray 0), and drops
+    their outputs; here the buffer is cut to its used rows (one wait for
+    the device), which gives the same values and keeps thousands of copies
+    of one position out of the gathers' backward. rays_o/d: [N, 3].
+    Returns {'image' [N, 3], 'depth', 'weights_sum', 'aggregated_density',
+    'depth_abs' [N], 'rgbs' [N, K, 3], 'sigmas' [N * K, 1]}."""
+    cfg = net.cfg
+    if density_scale is None:
+        density_scale = cfg.density_scale
+    dev = rays_o.device
+    N = rays_o.shape[0]
+    K = max_samples
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb_of(cfg, dev),
+                                     cfg.min_near)
+    m = march_rays(rays_o, rays_d, nears, fars, state.density_bitfield,
+                   cfg.bound, cfg.cascade, cfg.grid_size,
+                   max_samples=K, max_steps=max_steps, dt_gamma=dt_gamma,
+                   perturb=perturb, skip_grid=state.skip_grid,
+                   samples_per_hit=samples_per_hit)
+    mask = m["mask"]
+    if sample_budget is not None:
+        dest, kept, n_valid = compact_samples(mask, sample_budget)
+        ray_ids = torch.arange(N, dtype=torch.float32,
+                               device=dev)[:, None].expand(N, K)
+        pc = gather_compacted(torch.stack([m["ts"], ray_ids], dim=-1), dest,
+                              sample_budget)                     # [B, 2]
+        pc = pc[:min(int(n_valid), sample_budget)]
+        rid = pc[:, 1].to(torch.int64)
+        o_c, d_c = rays_o[rid], rays_d[rid]
+        xs = torch.clamp(o_c + pc[:, :1] * d_c, -cfg.bound, cfg.bound)
+        sig_c, rgb_c = net(xs, d_c)
+        back = scatter_back(torch.cat([sig_c[:, None], rgb_c], dim=-1),
+                            dest, (N, K))                        # [N, K, 4]
+        sigmas, rgbs = back[..., 0], back[..., 1:]
+        mask = mask & kept
+    else:
+        dirs = rays_d[:, None, :].expand(N, K, 3).reshape(-1, 3)
+        sigmas, rgbs = net(m["xyzs"].reshape(-1, 3), dirs)
+        sigmas, rgbs = sigmas.reshape(N, K), rgbs.reshape(N, K, 3)
+
+    res = composite_marched(sigmas, rgbs, m["deltas"], m["rs"], m["ts"],
+                            mask, nears, fars, density_scale=density_scale)
+    bg = 1.0 if bg_color is None else bg_color
+    safe = torch.where(fars > nears, fars - nears, 1.0)
+    return {"image": res["image"] + (1.0 - res["weights_sum"])[..., None]
+            * bg,
+            "depth": torch.clamp(res["depth"] - nears, min=0.0) / safe,
+            "weights_sum": res["weights_sum"], "rgbs": rgbs,
+            "sigmas": sigmas.reshape(-1, 1),
+            "aggregated_density": res["aggregated_density"],
+            "depth_abs": res["depth_abs"]}
 
 
 def _pad_rays(rays_o, rays_d, n):

@@ -10,6 +10,11 @@ ray, so running more iterations than a ray needs changes nothing: the loop
 asks the device whether any ray is still active only every `CHECK_EVERY`
 iterations (each ask waits for the device), and never runs more than
 `max_steps`.
+
+`compact_samples`, `gather_compacted` and `scatter_back` move the marched
+samples into a fixed budget of rows and back, in the deterministic
+prefix-sum layout of the JAX package (the training render queries only the
+real samples).
 """
 
 import numpy as np
@@ -36,8 +41,8 @@ def _mip_from_dt(dt, grid_size: int, cascade: int):
 
 def march_rays(rays_o, rays_d, nears, fars, bitfield, bound: float,
                cascade: int, grid_size: int = 128, max_samples: int = 64,
-               max_steps: int = 1024, dt_gamma: float = 0.0, skip_grid=None,
-               samples_per_hit: int = 1, fixed_iters=None,
+               max_steps: int = 1024, dt_gamma: float = 0.0, perturb=None,
+               skip_grid=None, samples_per_hit: int = 1, fixed_iters=None,
                resume_carry=None, return_carry: bool = False):
     """Up to `max_samples` occupied-space samples per ray.
 
@@ -48,7 +53,10 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, bound: float,
     carry (t, count, ts), and `resume_carry` continues from one. Rays may
     be permuted between phases as long as their carry rows travel with
     them. `samples_per_hit=2` also emits the next dt sample of an occupied
-    cell in the same iteration, without re-checking occupancy."""
+    cell in the same iteration, without re-checking occupancy. `perturb`
+    starts each ray at near + dt_min * u, u uniform in [0, 1): a
+    torch.Generator to draw u from, or u itself ([N] tensor), as the tests
+    hand in the JAX package's draws."""
     N = rays_o.shape[0]
     K = max_samples
     H = grid_size
@@ -59,10 +67,16 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, bound: float,
     skip_flat = None if skip_grid is None else skip_grid.reshape(-1)
     half_sign = 0.5 * torch.sign(rays_d)
 
+    t0 = nears
+    if isinstance(perturb, torch.Generator):
+        t0 = nears + dt_min * torch.rand(nears.shape, generator=perturb,
+                                         device=dev)
+    elif perturb is not None:
+        t0 = nears + dt_min * perturb
     if resume_carry is not None:
         t, count, ts = resume_carry
     else:
-        t = nears
+        t = t0
         count = torch.zeros((N,), dtype=torch.int32, device=dev)
         ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
 
@@ -123,8 +137,8 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, bound: float,
     mask = slot < count[:, None]
     dts = torch.clamp(ts * dt_gamma, dt_min, dt_max) * mask
     ends = ts + dts
-    # rs telescopes from the ray's march start, which is its near
-    rs = (ends - torch.cat([nears[:, None], ends[:, :-1]], dim=1)) * mask
+    # rs telescopes from the ray's march start
+    rs = (ends - torch.cat([t0[:, None], ends[:, :-1]], dim=1)) * mask
     xyzs = torch.clamp(rays_o[:, None, :] + ts[..., None]
                        * rays_d[:, None, :], -bound, bound)
     out = {"xyzs": xyzs, "deltas": dts, "rs": rs, "ts": ts, "mask": mask,
@@ -132,6 +146,46 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, bound: float,
     if return_carry:
         return out, (t, count, ts)
     return out
+
+
+def compact_samples(mask, budget: int):
+    """Map the True entries of mask [N, K], in row-major order, to the
+    slots of a [budget] buffer, dropping the overflow. Returns (dest [N, K]
+    int64: the sample's slot, `budget` where masked or dropped; kept
+    [N, K] bool; n_valid [] int64)."""
+    flat = mask.reshape(-1)
+    pos = torch.cumsum(flat.to(torch.int64), dim=0) - 1
+    dest = torch.where(flat & (pos < budget), pos, budget)
+    return (dest.reshape(mask.shape), (dest < budget).reshape(mask.shape),
+            flat.sum())
+
+
+def gather_compacted(values, dest, budget: int, fill=0.0):
+    """Per-sample values [N, K, ...] into the compact [budget, ...] buffer;
+    an extra trash row takes the dropped samples."""
+    v = values.reshape((-1,) + values.shape[2:])
+    out = torch.full((budget + 1,) + v.shape[1:], fill, dtype=values.dtype,
+                     device=values.device)
+    out[dest.reshape(-1)] = v
+    return out[:budget]
+
+
+def scatter_back(compact, dest, shape):
+    """Each sample's compact row back to [*shape, ...]; samples whose slot
+    is not a row of `compact` (masked, dropped, or past a buffer cut to
+    its used rows) read zeros.
+
+    The JAX version reads every sample's row from the buffer with a zero
+    trash row appended, whose backward is a scatter-add in which every
+    masked sample hits the trash row. On the card PyTorch's scatter-add
+    runs each index's duplicates in one thread, so here the kept samples'
+    rows are put into a zero tensor instead: the same values, and a
+    backward that only gathers."""
+    flat = dest.reshape(-1)
+    pos = torch.nonzero(flat < compact.shape[0]).squeeze(1)
+    out = compact.new_zeros((flat.shape[0],) + compact.shape[1:])
+    out = out.index_put((pos,), compact[flat[pos]])
+    return out.reshape(tuple(shape) + compact.shape[1:])
 
 
 def composite_marched(sigmas, rgbs, deltas, rs, ts, mask, nears, fars,

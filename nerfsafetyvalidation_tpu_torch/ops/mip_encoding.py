@@ -1,5 +1,5 @@
 """Mip-fold position encoding of the teacher field
-(nerfsafetyvalidation_tpu/ops/mip_encoding.py), inference path.
+(nerfsafetyvalidation_tpu/ops/mip_encoding.py), inference and training.
 
 The dense part is a Laplacian pyramid of coarse grids G_s [(s+1)^3, c],
 upsampled trilinearly to the finest dense scale F and concatenated into
@@ -8,8 +8,13 @@ tuples per cell, [F^3, 8 * Cd]. The levels finer than F share one hashed
 row [2^log2, n_mip * 8 * c] keyed by the finest level's cell. A sample reads
 one fold row and one hash row and blends each level with its own fraction.
 
-Only the fold-table path is ported; the training corner fetches and the
-kernel-built fold belong to the training slice.
+Inference encodes through a fold table built once (`build_mip_fold_table`).
+Training encodes from the parameters under autograd, as `train_gather`
+says: "corner8" fetches the 8 corner rows of the materialised volume,
+"foldrow" folds the volume with the slice-stack and fetches one wide row,
+and "foldrow_pallas" folds it with kernel K5 (ops/hopper/fold_build.py),
+forward and backward. The three compute the same function. The JAX
+package's other corner fetches ("pair", "quad", "cube") are not ported.
 
 Hashes are computed in int64 and masked to 32 bits, so they equal the JAX
 package's uint32 arithmetic. With a bfloat16 table the blend rounds as
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from .hash_encoding import _blend, _blend_weights, _corner_bits, _prime_hash
+from .hopper.fold_build import fold_build, fold_build_plain
 
 
 @dataclass(frozen=True)
@@ -79,6 +85,22 @@ class MipFoldSpec:
                                  "dense scale")
 
 
+def mip_fold_init(generator, spec: MipFoldSpec, std: float = 1e-4):
+    """Uniform(-std, std) pyramid grids and hash-fold table (the reference
+    table init, grid.py:133-135), drawn from `generator` on its device in
+    the JAX package's order: the grids coarse to fine, then the table."""
+    spec.validate()
+    dev = generator.device
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, device=dev)
+        return u * (2.0 * std) - std
+
+    return {"pyramid": [uniform(((s + 1) ** 3, spec.pyramid_channels))
+                        for s in spec.pyramid_scales],
+            "hash": uniform((spec.hash_rows, spec.hash_width))}
+
+
 def _upsample_axis(v, factor: int, axis: int):
     """Linear upsample of grid-point samples along one axis:
     (n + 1) points -> (n * factor + 1) points."""
@@ -121,14 +143,35 @@ def _hash_rows_for(cell, spec: MipFoldSpec):
     return _prime_hash(cell) % spec.hash_rows
 
 
+def _dense_corner_fetch(dense_table, ci, F: int, Cd: int, mode: str):
+    """The 8 trilinear corner rows [N, 8, Cd] (x fastest) of cells ci
+    [N, 3] from the grid-point table [(F+1)^3, Cd]: one row per corner
+    ("corner8")."""
+    if mode in ("pair", "quad", "cube"):
+        raise NotImplementedError(f"the corner fetch {mode!r} is not ported; "
+                                  "use 'corner8', 'foldrow' or "
+                                  "'foldrow_pallas'")
+    if mode != "corner8":
+        raise ValueError(f"unknown dense gather mode {mode!r}")
+    bits = torch.as_tensor(_corner_bits(3).astype(np.int64), device=ci.device)
+    corner = ci[:, None, :] + bits[None]                       # [N, 8, 3]
+    rows = (corner[..., 0] * (F + 1) + corner[..., 1]) * (F + 1) \
+        + corner[..., 2]
+    return dense_table[rows]
+
+
 def mip_fold_encode(params, x, spec: MipFoldSpec, bound: float = 1.0,
-                    fold_table=None, compute_dtype=None):
-    """Encode positions x [..., 3] in [-bound, bound] -> [..., output_dim]
-    through the fold table (from `build_mip_fold_table`): one fold row and
-    one hash row per sample. Positions outside the box encode to zero."""
-    if fold_table is None:
-        raise NotImplementedError("the port encodes through the fold table "
-                                  "only; build it with build_mip_fold_table")
+                    fold_table=None, compute_dtype=None,
+                    train_gather: str = "corner8"):
+    """Encode positions x [..., 3] in [-bound, bound] -> [..., output_dim].
+    Positions outside the box encode to zero.
+
+    Inference: pass `fold_table` (from `build_mip_fold_table`): one fold
+    row and one hash row per sample. Training: pass neither table; the
+    dense part comes from params['pyramid'] under autograd, by
+    `train_gather` ("corner8": the 8 corner rows of the materialised volume;
+    "foldrow": the slice-stack fold and one wide row; "foldrow_pallas": the
+    same fold through K5)."""
     prefix = x.shape[:-1]
     x = x.reshape(-1, 3)
     F = spec.F
@@ -144,8 +187,19 @@ def mip_fold_encode(params, x, spec: MipFoldSpec, bound: float = 1.0,
     cell = torch.clamp(torch.floor(pos), 0.0, F - 1.0)
     frac = pos - cell
     ci = cell.to(torch.int64)
-    row = (ci[:, 0] * F + ci[:, 1]) * F + ci[:, 2]
-    feats = fold_table[row].reshape(-1, 8, Cd)
+    if fold_table is None and train_gather in ("foldrow", "foldrow_pallas"):
+        dt = compute_dtype if compute_dtype is not None \
+            else params["pyramid"][0].dtype
+        fold = fold_build if train_gather == "foldrow_pallas" \
+            else fold_build_plain
+        fold_table = fold(materialize_dense(params, spec, dtype=dt), F, Cd)
+    if fold_table is not None:
+        row = (ci[:, 0] * F + ci[:, 1]) * F + ci[:, 2]
+        feats = fold_table[row].reshape(-1, 8, Cd)
+    else:
+        feats = _dense_corner_fetch(
+            materialize_dense(params, spec, dtype=compute_dtype), ci, F, Cd,
+            train_gather)
     outs = [_blend(_blend_weights(frac), feats)]
 
     # hash-fold part: one row keyed by the finest level's cell
@@ -170,10 +224,5 @@ def mip_fold_encode(params, x, spec: MipFoldSpec, bound: float = 1.0,
 def build_mip_fold_table(params, spec: MipFoldSpec, dtype=torch.bfloat16):
     """Fold the materialized dense volume into cell rows [F^3, 8 * Cd]
     (exact: P is piecewise trilinear on the F grid)."""
-    F = spec.F
-    V = materialize_dense(params, spec, dtype=dtype).reshape(
-        F + 1, F + 1, F + 1, spec.dense_channels)
-    corners = [V[bx:bx + F, by:by + F, bz:bz + F]
-               for bx, by, bz in _corner_bits(3).astype(int)]
-    return torch.stack(corners, dim=3).reshape(F ** 3,
-                                               8 * spec.dense_channels)
+    return fold_build_plain(materialize_dense(params, spec, dtype=dtype),
+                            spec.F, spec.dense_channels)

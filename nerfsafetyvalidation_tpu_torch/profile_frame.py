@@ -1,7 +1,8 @@
-"""Where the time of one 800x800 frame goes on the card.
+"""Where the time of one 800x800 frame, or of one training step, goes on
+the card.
 
     python3 -m nerfsafetyvalidation_tpu_torch.profile_frame \\
-        [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8]
+        [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8|train]
 
 Loads the flagship teacher (or, for the ref_backbone modes, the hash-grid
 reference backbone), refreshes its occupancy 4x as bench.py does, renders
@@ -9,8 +10,15 @@ the first held-out spheres pose in the chosen mode (bench.py's settings,
 `flagship.MODES`; default baked_h160_ak8), warms up, then renders it once
 under `torch.profiler` and prints the device time by kernel, the device
 time of the hand-written kernels (K1 points_mlp, K3 sigma_color, K4
-fused_mlp), the number of device kernels, and the device's busy share of
-the frame's wall time; then the frame's wall time without the profiler.
+fused_mlp, K5 fold_build), the number of device kernels, and the device's
+busy share of the frame's wall time; then the frame's wall time without the
+profiler.
+
+`--mode train` does the same for training steps of the teacher at full
+width (flagship.TRAIN_CFG, through K5) from a seeded init on the spheres
+set: 20 steps of warm-up (two full refreshes among them), 4 steps under the
+profiler, then 8 steps without it; and apart, with a device wait around
+each, the march of one batch, a full and a partial refresh.
 Needs a CUDA card.
 """
 
@@ -23,19 +31,62 @@ import torch
 from . import flagship as F
 
 KERNEL_NAMES = {"K1": "points_mlp", "K3": "sigma_color",
-                "K4": "fused_mlp_kernel"}
+                "K4": "fused_mlp_kernel", "K5": "fold_fwd_kernel",
+                "K5 backward": "fold_bwd_kernel"}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=sorted(F.MODES),
-                    default="baked_h160_ak8")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_frame: needs a CUDA device")
-    dev = torch.device("cuda", 0)
+def _timed(fn):
+    """(result, wall ms) of fn() between two device waits."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _train_setup(dev):
+    """A trainer at step 20 of bench.py's schedule, its loader's iterator,
+    and a line of timings of the march and the refreshes."""
+    from .models import make_network
+    from .models.renderer import near_far_from_aabb, aabb_of
+    from .ops.marching import march_rays
+    from .train.trainer import Trainer
+    opt = F.train_opt()
+    dataset = F.train_dataset(dev, opt=opt)
+    net = make_network(F.TRAIN_CFG, None, device=dev, trainable=True,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    trainer = Trainer(opt, net)
+    trainer.start(dataset)
+    batches = iter(dataset.dataloader())
+    for _ in range(20):
+        trainer.iteration(next(batches))
+    cfg, st = net.cfg, trainer.renderer_state
+    data = next(batches)
+    o, d = data["rays_o"][0], data["rays_d"][0]
+    nr, fr = near_far_from_aabb(o, d, aabb_of(cfg, dev), cfg.min_near)
+    m, march_ms = _timed(lambda: march_rays(
+        o, d, nr, fr, st.density_bitfield, cfg.bound, cfg.cascade,
+        cfg.grid_size, max_samples=trainer._grid_max_samples(),
+        max_steps=opt.max_steps, dt_gamma=opt.dt_gamma,
+        perturb=trainer.generator, skip_grid=st.skip_grid,
+        samples_per_hit=opt.grid_samples_per_hit))
+    step = trainer.global_step
+    trainer.global_step = 0                     # a full refresh
+    _, full_ms = _timed(trainer._maybe_refresh)
+    trainer.global_step = opt.grid_warmup_steps + 16   # a partial one
+    _, part_ms = _timed(trainer._maybe_refresh)
+    trainer.global_step = step
+    info = (f"march of one batch {march_ms:.3f} ms ({m['iters']} "
+            f"iterations, {int(m['count'].sum())} samples of "
+            f"{m['ts'].shape[1]} slots x {o.shape[0]} rays); full refresh "
+            f"{full_ms:.3f} ms, partial {part_ms:.3f} ms")
+    return trainer, batches, info
+
+
+def _frame_profile(mode, dev, acts):
+    """(profiled wall ms, unprofiled wall ms, profile) of one frame."""
     with torch.inference_mode():
-        if F.MODES[args.mode]["net"].startswith("ref"):
+        if F.MODES[mode]["net"].startswith("ref"):
             nets, stored = F.load_ref_nets(dev)
             state = F.refresh(nets["ref"], stored)
         else:
@@ -45,13 +96,11 @@ def main(argv=None):
         o, d = F.pose_rays(F.holdout_poses()[0], dev)
 
         def frame():
-            return F.render(args.mode, nets, state, o, d)
+            return F.render(mode, nets, state, o, d)
 
         for _ in range(3):
             frame()
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             frame()
@@ -62,23 +111,61 @@ def main(argv=None):
             frame()
         torch.cuda.synchronize()
         plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+    return wall_ms, plain_wall_ms, prof
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=sorted(F.MODES) + ["train"],
+                    default="baked_h160_ak8")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frame: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    info, unit, reps = "", "frame", 1
+    if args.mode == "train":
+        trainer, batches, info = _train_setup(dev)
+        unit, reps = "step", 4
+
+        def frame():
+            trainer.iteration(next(batches))
+
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                frame()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(8):
+            frame()
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    else:
+        wall_ms, plain_wall_ms, prof = _frame_profile(args.mode, dev, acts)
 
     by_name = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
             by_name[ev.name][1] += 1
-    busy_ms = sum(t for t, _ in by_name.values())
-    n_kernels = sum(c for _, c in by_name.values())
+    busy_ms = sum(t for t, _ in by_name.values()) / reps
+    n_kernels = sum(c for _, c in by_name.values()) / reps
     mine = {k: [sum(v[i] for n, v in by_name.items() if tag in n)
                 for i in (0, 1)] for k, tag in KERNEL_NAMES.items()}
     name = torch.cuda.get_device_name(0)
-    print(f"mode {args.mode}: frame wall {wall_ms:.3f} ms under the "
-          f"profiler on {name}; device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} device kernels; "
+    print(f"mode {args.mode}: {unit} wall {wall_ms:.3f} ms under the "
+          f"profiler on {name} (mean of {reps}); device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{n_kernels:g} device kernels a {unit}; "
           + ", ".join(f"{k} {t:.3f} ms in {c} launches"
                       for k, (t, c) in mine.items())
-          + f"; {plain_wall_ms:.3f} ms a frame without the profiler")
+          + f" (over {reps}); {plain_wall_ms:.3f} ms a {unit} without the "
+          "profiler")
+    if info:
+        print(info)
     for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t:9.3f} ms {c:5d}x  {n[:100]}")
 

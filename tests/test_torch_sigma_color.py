@@ -192,7 +192,11 @@ def test_teacher_apply_matches_jax(teacher, fused):
 
 
 def test_teacher_apply_routes_through_k3(teacher, monkeypatch):
-    *_, net_t, x, d = teacher
+    """With cfg.fused the forward runs K3 (the JAX `apply` with fused);
+    without it, `density` then `color`, which never reach K3."""
+    *_, net_unfused, x, d = teacher
+    net_t = t_make(replace(net_unfused.cfg, fused=True),
+                   net_unfused.params_tree(), device="cpu").to_folded()
     calls = []
     real = sc.fused_sigma_color
 
@@ -203,4 +207,6 @@ def test_teacher_apply_routes_through_k3(teacher, monkeypatch):
     import nerfsafetyvalidation_tpu_torch.models.network_mip as nm
     monkeypatch.setattr(nm, "fused_sigma_color", spy)
     net_t(torch.from_numpy(x[:64]), torch.from_numpy(d[:64]))
+    assert calls == [(64, net_t.in_dim)]
+    net_unfused(torch.from_numpy(x[:64]), torch.from_numpy(d[:64]))
     assert calls == [(64, net_t.in_dim)]
