@@ -6,9 +6,9 @@ CUDA card.
 
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
-  2. build: kernels K1 (csrc/points_mlp.cu), K3 (csrc/sigma_color.cu), K4
-     (csrc/fused_mlp.cu) and K5 (csrc/fold_build.cu), one nvcc each,
-     started together;
+  2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
+     (csrc/sigma_color.cu), K4 (csrc/fused_mlp.cu), K5 (csrc/fold_build.cu)
+     and K6 and K7 (csrc/gather_rows.cu), one nvcc each, started together;
   3. teacher: the mip-fold teacher of bench_assets/flagship.ckpt loaded,
      folded, and its occupancy refreshed 4x with a seeded generator, as
      bench.py refreshes it before every mode;
@@ -20,6 +20,11 @@ Phases, each printing its elapsed seconds:
   4. kernel K1: against its plain PyTorch version on 131,072 rows of points
      on real camera rays with the committed 160x6 student, with kernel,
      plain, library (bf16 torch.matmul chain) and bound times;
+  4b. kernel K2: the same rows' frequency encoding through K2 against its
+     plain version in bf16 and in f32, and beside K1; K2's path, one
+     forward and backward of a loss through K2 with the counts at 0 before
+     and read after, its gradients equal to the plain chain's under
+     autograd; the same four times;
   5. kernel K3: against its plain version on 262,144 rows (one guided fine
      tile: 16,384 rays x 16 samples in windows around the surface) of the
      teacher's own encoding, with the same four times;
@@ -42,17 +47,27 @@ Phases, each printing its elapsed seconds:
      levels below 8; PSNR and its gap to BENCH_r05, pose 0 again through
      the plain version, and once more through the unfused plain matmul
      chain (the route BENCH_r05 ran), as a check;
+ 10b. gradients: K1 on a CUDA tensor returns the plain chain's gradients;
+     K3 and K4, which have no backward yet, raise where autograd would
+     need one;
  11. train: the teacher trained from a seeded init at full width
      (flagship.TRAIN_CFG, train_gather="foldrow_pallas") on the in-memory
      48-view 200x200 spheres set, 144 steps with the schedule cut (see
      TRAIN_STEPS): K5 launched once forward and once backward per step,
      the loss and the parameters finite, the loss falling by LOSS_FALL; then
      one step through "foldrow_pallas" against one through "foldrow" from
-     the trained parameters with the same draws, the updates compared.
+     the trained parameters with the same draws, the updates compared;
+ 12. kernels K6, K7: the row gathers at every shape of the gather probe's
+     sections E and F and at a ragged M, bit-exact against table[idx] (K7
+     for each nslot), with kernel, plain, library (index_select) and bound
+     times;
+ 13. gather probe: the port's scripts/bench_gather.py --quick, all
+     sections, with the counts at 0 before and read after (the path that
+     runs K6 and K7).
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
-anchor. Every launch count is set to 0 just before each frame phase and
-the refresh and read just after. The configurations are
-`nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
+anchor. Every launch count is set to 0 just before each frame phase, the
+refresh, the training, K2's path and the probe, and read just after. The
+configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
 Every failed check raises and ends the run with a non-zero exit; without a
@@ -105,6 +120,14 @@ BARRED = ("fast", "guided", "baked_h160_ak8")
 # average). The bounds below are about 3x those maxima and 15x those
 # means; a wrong kernel misses the means by orders of magnitude.
 TOL_K1 = dict(rgb=(0.15, 2e-4), sigma=(0.4, 1e-4))
+# K2 in f32 against its plain version in f32 (FFMA in order against
+# cuBLAS's f32 products, TF32 off): every layer sums up to 256 products in
+# another order, each rounding at most 2^-24 of the running sum, and the
+# ReLU chain carries the difference on; sigma = exp(s) turns s's absolute
+# error into a relative one. Stated before the first run on the card: rgb
+# (max 1e-4, mean 1e-6), sigma relative (max 1e-3, mean 1e-5), some 10x
+# above a 6-layer random walk of 2^-24 steps at these widths.
+TOL_K2_F32 = dict(rgb=(1e-4, 1e-6), sigma=(1e-3, 1e-5))
 # K3 (bounds: max, mean): the same f32 -> f64 experiment on its plain chain
 # at its 262,144-row tile, printed beside its errors, moved rgb by 8.3e-4 at
 # most (3.4e-8 on average) and sigma by 0.36% of max(|sigma|, 1); the
@@ -149,9 +172,19 @@ TOL_K5_LIB = {"torch.bfloat16": 2 ** -5, "torch.float32": 2 ** -20}
 # largest gradient; 2 lr on a share TOL_ROUTE_FRAC of the entries.
 TOL_ROUTE_GRAD, TOL_ROUTE_FRAC = 2e-2, 3e-3
 
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, float32
+# outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the gather probe's kernel shapes (scripts/bench_gather.py sections E, F):
+# K6 (R, C, M); K7 (R, C, M, the nslots it runs)
+K6_SHAPES = [(2 ** 13, 64, 2 ** 19), (2 ** 14, 64, 2 ** 19),
+             (2 ** 13, 32, 2 ** 19)]
+K7_SHAPES = [(2 ** 19, 64, 2 ** 18, (4, 16, 32)),
+             (2 ** 15, 256, 2 ** 17, (16,)), (2 ** 15, 512, 2 ** 17, (16,))]
+NSLOTS = (4, 16, 32)
+RAGGED_M = 2 ** 18 - 1000   # not a multiple of the 2048-row tile
 
 
 def check(ok, what):
@@ -189,9 +222,9 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """The least time the card could take: (ms, 'operations' | 'bytes')."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -244,8 +277,10 @@ def main():
     from nerfsafetyvalidation_tpu_torch.models import make_network
     from nerfsafetyvalidation_tpu_torch.ops.hopper import (fold_build,
                                                            fused_mlp,
+                                                           gather,
                                                            points_mlp,
                                                            sigma_color)
+    from nerfsafetyvalidation_tpu_torch.scripts import bench_gather
     from nerfsafetyvalidation_tpu_torch.ops.mip_encoding import (
         materialize_dense)
     from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
@@ -257,13 +292,24 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    kernels = {"K1": points_mlp, "K3": sigma_color, "K4": fused_mlp,
-               "K5": fold_build}
+    # one nvcc build per source; the launch count of each kernel
+    builds = {"K1, K2": points_mlp, "K3": sigma_color, "K4": fused_mlp,
+              "K5": fold_build, "K6, K7": gather}
+    counters = {"K1": (points_mlp, "LAUNCHES"),
+                "K2": (points_mlp, "LAUNCHES_DEEP"),
+                "K3": (sigma_color, "LAUNCHES"),
+                "K4": (fused_mlp, "LAUNCHES"),
+                "K5": (fold_build, "LAUNCHES"),
+                "K5 bwd": (fold_build, "LAUNCHES_BWD"),
+                "K6": (gather, "LAUNCHES_VMEM"),
+                "K7": (gather, "LAUNCHES_DMA")}
 
     def reset_counts():
-        for mod in kernels.values():
-            mod.LAUNCHES = 0
-        fold_build.LAUNCHES_BWD = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     with Phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -281,13 +327,14 @@ def main():
             lib = mod.build()
             return lib, time.perf_counter() - t0
 
-        with ThreadPoolExecutor(len(kernels)) as pool:
-            built = dict(zip(kernels, pool.map(timed_build,
-                                               kernels.values())))
+        with ThreadPoolExecutor(len(builds)) as pool:
+            built = dict(zip(builds, pool.map(timed_build,
+                                              builds.values())))
         for name, (lib, secs) in built.items():
             print(f"{name} built in {secs:.2f} s: {lib.relative_to(ROOT)}")
-            for line in kernels[name].BUILD_LOG.splitlines():
-                if "registers" in line or "spill" in line:
+            for line in builds[name].BUILD_LOG.splitlines():
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     print("  ptxas:", line.strip())
 
     RES = F.RES
@@ -438,9 +485,10 @@ def main():
         sn_bf = [w.to(bf) for w in sn]
         cn_bf = [w.to(bf) for w in cn]
 
-        def k1_library():
-            # the same chain as bf16 torch.matmul calls (a yardstick only)
-            h = freq_encode(x, 12).to(bf)
+        def library_chain(h, sn_bf=sn_bf, cn_bf=cn_bf, sh=sh):
+            # the student's chain from a bf16 encoding as bf16
+            # torch.matmul calls (a yardstick only; the student's weights
+            # bound here, as later phases reuse the names)
             for i, w in enumerate(sn_bf):
                 h = h @ w
                 if i != len(sn_bf) - 1:
@@ -452,6 +500,9 @@ def main():
                 if i != len(cn_bf) - 1:
                     g = torch.relu(g)
             return sigma, torch.sigmoid(g[:, :3].float())
+
+        def k1_library():
+            return library_chain(freq_encode(x, 12).to(bf))
 
         got = k1()
         torch.cuda.synchronize()
@@ -467,6 +518,95 @@ def main():
         print(f"K1 at {K1_ROWS} rows ({macs} MAC/row): kernel_ms "
               f"{k1_ms:.4f}, plain_ms {k1_plain_ms:.4f}, library_ms "
               f"{k1_lib_ms:.4f}, bound_ms {k1_bound:.4f} ({k1_by}); {smi}")
+        k1_out = got
+
+    with Phase("kernel K2"):
+        # the K1 rows' frequency encoding [N, 75] through the encoding-in
+        # kernel, in bf16 (the input cast before the timed calls) and f32
+        with torch.inference_mode():
+            enc = freq_encode(x, 12)
+            enc_bf, sh32 = enc.to(bf).contiguous(), sh.float().contiguous()
+
+            def k2():
+                return points_mlp.fused_sigma_color_deep(enc_bf, sh, sn, cn)
+
+            def k2_plain():
+                return points_mlp.fused_sigma_color_deep_plain(enc_bf, sh,
+                                                               sn, cn)
+
+            def k2_f32():
+                return points_mlp.fused_sigma_color_deep(
+                    enc, sh32, sn, cn, compute_dtype=torch.float32)
+
+            def k2_f32_plain():
+                return points_mlp.fused_sigma_color_deep_plain(
+                    enc, sh32, sn, cn, compute_dtype=torch.float32)
+
+            def k2_library():
+                return library_chain(enc_bf)
+
+            got = k2()
+            got32 = k2_f32()
+            torch.cuda.synchronize()
+            k2_err = compare(torch, "K2 bf16", got, k2_plain(), TOL_K1)
+            compare(torch, "K2 f32", got32, k2_f32_plain(), TOL_K2_F32)
+            rel = (got[0] - k1_out[0]).abs() / k1_out[0].abs().clamp(min=1.0)
+            print(f"K2 bf16 vs K1 on the same rows (K1 encodes in the "
+                  f"kernel): rgb max abs "
+                  f"{float((got[1] - k1_out[1]).abs().max()):.3e}, sigma "
+                  f"max rel {float(rel.max()):.3e}; K2 f32 vs K2 bf16: rgb "
+                  f"max abs {float((got32[1] - got[1]).abs().max()):.3e}")
+
+        # K2's path: one forward and backward of a loss through K2 on the
+        # student's rows, every count at 0 before and read after; then the
+        # same loss through the plain chain under autograd
+        g2 = torch.Generator(device=dev).manual_seed(2)
+        sh_g = sh.clone()     # an inference tensor cannot be saved for grad
+        r_s = torch.randn(K1_ROWS, generator=g2, device=dev)
+        r_c = torch.randn((K1_ROWS, 3), generator=g2, device=dev)
+
+        def k2_grads(fn):
+            leaves = [enc_bf.clone().requires_grad_()] + [
+                w.detach().clone().requires_grad_() for w in sn + cn]
+            s_, c_ = fn(leaves[0], sh_g, leaves[1:1 + len(sn)],
+                        leaves[1 + len(sn):])
+            loss = (s_ * r_s).sum() + (c_ * r_c).sum()
+            return torch.autograd.grad(loss, leaves)
+
+        reset_counts()
+        g_k2 = k2_grads(points_mlp.fused_sigma_color_deep)
+        torch.cuda.synchronize()
+        k2_launches = counts()["K2"]
+        g_plain = k2_grads(points_mlp.fused_sigma_color_deep_plain)
+        same = [torch.equal(a, b) for a, b in zip(g_k2, g_plain)]
+        print(f"K2 path (forward + backward, bf16): K2 launches "
+              f"{k2_launches}; gradients (enc, sigma net, color net) equal "
+              f"to the plain chain's: {same}; |d enc| up to "
+              f"{float(g_k2[0].float().abs().max()):.3e}")
+        check(k2_launches == 1, f"K2's path launched K2 {k2_launches} times")
+        check(all(same), "K2's gradients differ from the plain chain's")
+
+        macs2 = sum(w.shape[0] * w.shape[1] for w in sn + cn)
+        k2_bound, k2_by = bound_ms(
+            2.0 * K1_ROWS * macs2,
+            K1_ROWS * (75 * 2 + 16 * 2 + 4 * 4)
+            + 2 * sum(w.numel() for w in sn + cn))
+        k2_bound32, k2_by32 = bound_ms(
+            2.0 * K1_ROWS * macs2,
+            K1_ROWS * (75 * 4 + 16 * 4 + 4 * 4)
+            + 4 * sum(w.numel() for w in sn + cn), PEAK_F32_FLOPS)
+        with torch.inference_mode():
+            k2_ms = cuda_ms(torch, k2, 50)
+            k2_plain_ms = cuda_ms(torch, k2_plain, 10)
+            k2_lib_ms = cuda_ms(torch, k2_library, 20)
+            k2_ms32 = cuda_ms(torch, k2_f32, 10)
+            k2_plain_ms32 = cuda_ms(torch, k2_f32_plain, 10)
+        print(f"K2 bf16 at {K1_ROWS} rows ({macs2} MAC/row): kernel_ms "
+              f"{k2_ms:.4f}, plain_ms {k2_plain_ms:.4f}, library_ms "
+              f"{k2_lib_ms:.4f}, bound_ms {k2_bound:.4f} ({k2_by}); f32: "
+              f"kernel_ms {k2_ms32:.4f}, plain_ms {k2_plain_ms32:.4f}, "
+              f"bound_ms {k2_bound32:.4f} ({k2_by32}, 67 TFLOP/s f32); {smi}")
+        del enc, enc_bf, sh32, g_k2, g_plain
 
     views = []
     for pose in poses:
@@ -579,8 +719,8 @@ def main():
             render(o, d)
         torch.cuda.synchronize()
         t_steady = time.perf_counter() - t0
-        counts = {k: m.LAUNCHES for k, m in kernels.items()}
-        check(counts[kernel] > 0, f"{name} never launched {kernel}")
+        n_launch = counts()
+        check(n_launch[kernel] > 0, f"{name} never launched {kernel}")
         psnrs = [psnr(out["image"], gt, name)
                  for out, (_, _, gt) in zip(first, views)]
         mean, low = float(np.mean(psnrs)), float(np.min(psnrs))
@@ -594,7 +734,7 @@ def main():
               f"{ref_mean}/{ref_min}, gap {mean - ref_mean:+.3f}/"
               f"{low - ref_min:+.3f} dB (band {GAP_BAND})")
         print(f"{name}: tile buckets per pose {buckets}; launches in "
-              f"{n_frames} frames {counts}")
+              f"{n_frames} frames {n_launch}")
         if first[0].get("march") is not None:
             print(f"{name}: march per pose (phase-1 iterations, rays "
                   f"unfinished after them, phase-2 iterations): "
@@ -610,7 +750,7 @@ def main():
               f"{name} PSNR {mean:.3f}/{low:.3f} dB is more than {GAP_BAND}"
               f" dB from BENCH_r05's {ref_mean}/{ref_min}")
         plain = render(views[0][0], views[0][1], plain_field=True)
-        check(kernels[kernel].LAUNCHES == counts[kernel],
+        check(counts()[kernel] == n_launch[kernel],
               f"the plain {name} frame launched {kernel}")
         check(bool((plain["tile_bucket"] == first[0]["tile_bucket"]).all()),
               f"the plain {name} frame chose other tile buckets")
@@ -621,7 +761,7 @@ def main():
               and float(err.mean()) <= TOL_IMG_MEAN,
               f"{name} kernel frame disagrees with the plain frame "
               f"(tolerance max {TOL_IMG_MAX}, mean {TOL_IMG_MEAN})")
-        return counts[kernel], first[0]
+        return n_launch[kernel], first[0]
 
     launches = {"K1": 0, "K3": 0, "K4": 0}
     for name, n_buckets in (("fast", 4), ("guided", 3),
@@ -781,6 +921,52 @@ def main():
                   f"{p_unf - BENCH_R05[name][0]:+.3f} dB; image max abs "
                   f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
 
+    with Phase("gradients"):
+        # outside inference mode, with weights that require grad: K1 returns
+        # the plain chain's gradients; K3 and K4 have no backward yet and
+        # must raise rather than hand back a result without one
+        sn1 = [w.detach().clone().requires_grad_()
+               for w in student.sigma_net]
+        cn1 = [w.detach().clone().requires_grad_()
+               for w in student.color_net]
+        x1 = x.clone().requires_grad_()
+
+        def k1_grads(fn):
+            s_, c_ = fn(x1, sh_g, sn1, cn1, 12)
+            return torch.autograd.grad((s_ * r_s).sum() + (c_ * r_c).sum(),
+                                       [x1] + sn1 + cn1)
+
+        n1 = points_mlp.LAUNCHES
+        g_k1 = k1_grads(points_mlp.fused_points_sigma_color)
+        check(points_mlp.LAUNCHES == n1 + 1, "K1's gradient call did not "
+              "launch K1")
+        same = [torch.equal(a, b) for a, b in zip(
+            g_k1, k1_grads(points_mlp.fused_points_sigma_color_plain))]
+        print(f"K1 with gradients: (x, sigma net, color net) equal to the "
+              f"plain chain's: {same}")
+        check(all(same), "K1's gradients differ from the plain chain's")
+        tsn_g = [w.detach().clone().requires_grad_() for w in tsn]
+        ref_sn_g = [w.detach().clone().requires_grad_()
+                    for w in ref_nets["ref"].sigma_net]
+        enc3 = torch.zeros((64, tsn_g[0].shape[0]), dtype=bf, device=dev)
+        enc4 = torch.zeros((64, ref_sn_g[0].shape[0]), device=dev)
+        for kname, call in (
+                ("K3", lambda: sigma_color.fused_sigma_color(
+                    enc3, enc3[:, :16].contiguous(), tsn_g, tcn)),
+                ("K4", lambda: fused_mlp.fused_mlp(enc4, ref_sn_g))):
+            before = counts()[kname]
+            try:
+                call()
+                raised = None
+            except RuntimeError as e:          # the guard under test
+                raised = str(e)
+            print(f"{kname} with a weight that requires grad: raised "
+                  f"{raised!r}")
+            check(raised is not None and "no backward" in raised,
+                  f"{kname} did not refuse a call that needs its backward")
+            check(counts()[kname] == before, f"{kname} launched anyway")
+        del sn1, cn1, x1, g_k1, tsn_g, ref_sn_g
+
     with Phase("train"):
         t0 = time.perf_counter()
         opt = F.train_opt(iters=TRAIN_STEPS, grid_warmup_steps=TRAIN_WARMUP)
@@ -798,7 +984,8 @@ def main():
         steps = trainer.global_step
         t_train = epoch_end[-1] - t0
         train_launches = (fold_build.LAUNCHES, fold_build.LAUNCHES_BWD)
-        others = {k: m.LAUNCHES for k, m in kernels.items() if k != "K5"}
+        others = {k: n for k, n in counts().items()
+                  if k not in ("K5", "K5 bwd")}
         losses = np.asarray(trainer.stats["step_loss"])
         first, last = float(losses[:16].mean()), float(losses[-16:].mean())
         print(f"train: {steps} steps in {t_train:.2f} s = "
@@ -879,15 +1066,87 @@ def main():
               "the two routes' updates differ by more than the stated "
               "tolerance")
         del stepped, net, trainer, dataset
+        torch.cuda.empty_cache()
+
+    with Phase("kernels K6, K7"):
+        gg = torch.Generator(device=dev).manual_seed(6)
+        gathers = {}      # (kernel, R, C, M, nslot) -> the timing record
+        shapes = [(R, C, M, NSLOTS) for R, C, M in K6_SHAPES] + [
+            (R, C, M, NSLOTS) for R, C, M, _ in K7_SHAPES] + [
+            (K7_SHAPES[0][0], K7_SHAPES[0][1], RAGGED_M, NSLOTS)]
+        for R, C, M, nslots in shapes:
+            table = torch.randn((R, C), generator=gg, device=dev)
+            idx = torch.randint(0, R, (M,), generator=gg, device=dev,
+                                dtype=torch.int32)
+            want = gather.gather_plain(table, idx)
+            runs = [("K6", None, lambda: gather.vmem_gather(table, idx))] + [
+                ("K7", n, lambda n=n: gather.dma_gather(table, idx, nslot=n))
+                for n in nslots]
+            exact = {}
+            for kname, n, call in runs:
+                got = call()
+                torch.cuda.synchronize()
+                exact[(kname, n)] = torch.equal(got, want)
+            print(f"R={R} C={C} M={M}: bit-exact against table[idx]: "
+                  f"{exact}")
+            check(all(exact.values()), f"a row gather is not bit-exact at "
+                  f"R={R}, C={C}, M={M}")
+            # the probe's own shapes are timed: K6 at section E's, K7 at
+            # section F's with the nslots F runs
+            k7_nslots = {(r, c, m): ns for r, c, m, ns in K7_SHAPES}
+            timed = [("K6", None, runs[0][2])] \
+                if (R, C, M) in K6_SHAPES else [
+                    (k, n, c) for k, n, c in runs[1:]
+                    if n in k7_nslots.get((R, C, M), ())]
+            if not timed:
+                continue
+            # bytes: the indices, each distinct row once, the output once
+            rows = int(torch.unique(idx).numel())
+            nbytes = M * 4 + rows * C * 4 + M * C * 4
+            bound, by = bound_ms(0.0, nbytes)
+            plain = cuda_ms(torch, lambda: gather.gather_plain(table, idx),
+                            20)
+            lib = cuda_ms(torch, lambda: torch.index_select(table, 0, idx),
+                          20)
+            for kname, n, call in timed:
+                ms = cuda_ms(torch, call, 20)
+                gathers[(kname, R, C, M, n)] = dict(
+                    ms=ms, plain=plain, lib=lib, bound=bound, by=by)
+                print(f"{kname}{'' if n is None else f' nslot={n}'} R={R} "
+                      f"C={C} M={M} ({rows} distinct rows, "
+                      f"{nbytes / 1e6:.1f} MB): kernel_ms {ms:.4f} "
+                      f"({1e6 * ms / M:.3f} ns/row), plain_ms {plain:.4f}, "
+                      f"library_ms {lib:.4f} (index_select), bound_ms "
+                      f"{bound:.4f} ({by}); {smi}")
+            del table, idx, want, got
+        k6 = gathers[("K6",) + K6_SHAPES[0] + (None,)]
+        k7 = gathers[("K7",) + K7_SHAPES[0][:3] + (16,)]
+
+    with Phase("gather probe"):
+        reset_counts()
+        records = bench_gather.main(["--quick"])
+        torch.cuda.synchronize()
+        probe_launches = counts()
+        print(f"gather probe: {len(records)} measurements; launches "
+              f"{probe_launches}")
+        check(probe_launches["K6"] > 0 and probe_launches["K7"] > 0,
+              "the gather probe did not launch K6 and K7")
+        check(all(r["device"] == smi for r in records),
+              "a probe record does not name the card")
 
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
-    print(json.dumps({"kernels": [
+    kernel_line = {"kernels": [
         {"name": "fused_points_sigma_color", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
          "replaces": f"{pallas}:480", "launches": launches["K1"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms},
+        {"name": "fused_sigma_color_deep", "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
+         "replaces": f"{pallas}:302", "launches": k2_launches,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms},
         {"name": "fused_sigma_color", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/sigma_color.cu",
          "replaces": f"{pallas}:164", "launches": launches["K3"],
@@ -912,7 +1171,20 @@ def main():
              k5[bf]["plain"]),
             ("fold_build_bwd", 56, train_launches[1], "ms_b", "plain_b",
              k5[bf]["lib_b"]))
-    ]}))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/gather_rows.cu",
+         "replaces": f"scripts/bench_gather.py:{line}",
+         "launches": probe_launches[key], "max_abs_err": 0.0,
+         "ms": rec["ms"], "plain_ms": rec["plain"], "bound_ms": rec["bound"],
+         "bound_by": rec["by"], "library_ms": rec["lib"]}
+        for name, line, key, rec in (("pallas_vmem_gather", 147, "K6", k6),
+                                     ("pallas_dma_gather", 190, "K7", k7))
+    ]}
+    check(len(kernel_line["kernels"]) == 8 and all(
+              k["launches"] > 0 for k in kernel_line["kernels"]),
+          "a kernel of the slice's paths was never launched")
+    print(json.dumps(kernel_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -16,5 +16,8 @@ and the hash-grid reference backbone (`models.network.NeRFNetwork` with the
 corner-layout encode of `ops.hash_encoding`) in the marched frame, with its
 MLPs as the CUDA kernel `ops.hopper.fused_mlp`; and the teacher's training
 (`train.trainer.Trainer`, `flagship.train_flagship`), whose fold table is
-built by the CUDA kernel `ops.hopper.fold_build` forward and backward.
+built by the CUDA kernel `ops.hopper.fold_build` forward and backward; the
+student's chain from a precomputed encoding (`ops.hopper.points_mlp.
+fused_sigma_color_deep`), and the gather probe (`scripts.bench_gather`)
+with its row gathers as the CUDA kernels of `ops.hopper.gather`.
 """

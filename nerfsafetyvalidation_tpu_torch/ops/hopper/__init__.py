@@ -1,3 +1,4 @@
 """Hand-written Hopper kernels and their wrappers. Each wrapper launches its
 kernel on a CUDA tensor (or raises) and runs its plain PyTorch version on a
-CPU tensor; `LAUNCHES` on each module counts kernel launches only."""
+CPU tensor; the `LAUNCHES*` counters on each module count kernel launches
+only."""

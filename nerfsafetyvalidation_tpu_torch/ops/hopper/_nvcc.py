@@ -13,6 +13,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parents[2]
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -53,6 +55,16 @@ def compile_source(source: Path, flags=NVCC_FLAGS):
     return lib, log
 
 
+def refuse_grad(kernel: str, tensors):
+    """Raises where autograd would need the backward of `kernel`, which the
+    port has not written: its wrapper returns a fresh tensor without a
+    gradient function, so the gradient would be lost without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward on the card yet: call "
+                           "it under torch.no_grad() or inference_mode(), "
+                           "or with inputs that do not require grad")
+
+
 def weights_key(weights):
     """Cache key of a set of weight tensors: storage, shape and version
     (inference tensors keep no version counter, and cannot be changed in
@@ -71,10 +83,12 @@ class WeightCache:
         self.size = size
         self._entries = {}
 
-    def get(self, weights, prepare):
+    def get(self, weights, prepare, tag=None):
         """The operands of `weights` (a list of tensors), from
-        `prepare()` the first time."""
-        key = weights_key(weights)
+        `prepare()` the first time. `tag` tells apart the operands that
+        one kernel module prepares in more than one way from one set of
+        weights."""
+        key = (tag,) + weights_key(weights)
         hit = self._entries.get(key)
         if hit is None:
             if len(self._entries) >= self.size:

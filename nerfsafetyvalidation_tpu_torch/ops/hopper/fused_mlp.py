@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from ._nvcc import WeightCache, compile_source
+from ._nvcc import WeightCache, compile_source, refuse_grad
 from .points_mlp import _dot
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_mlp.cu"
@@ -126,13 +126,16 @@ def fused_mlp(x, weights, compute_dtype=torch.bfloat16):
     """Bias-free ReLU MLP over x [N, D_0] with weights [in, out] each;
     returns [N, D_L] f32, every layer rounded to `compute_dtype`.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel, which computes in bfloat16 only and takes at most MAX_LAYERS
-    layers of widths up to MAX_WIDTH; x is cast to bfloat16 and must then
-    be contiguous and start on a 16-byte boundary. Anything else raises."""
+    A CPU tensor takes the plain version, under autograd. A CUDA tensor
+    launches the kernel, which computes in bfloat16 only and takes at most
+    MAX_LAYERS layers of widths up to MAX_WIDTH; x is cast to bfloat16 and
+    must then be contiguous and start on a 16-byte boundary. It has no
+    backward yet: where autograd would need one, and for anything else, it
+    raises."""
     global LAUNCHES
     if x.device.type == "cpu":
         return fused_mlp_plain(x, weights, compute_dtype)
+    refuse_grad("K4", [x, *weights])
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {x.device}")
     if compute_dtype != torch.bfloat16:

@@ -1,12 +1,22 @@
-"""Kernel K1: the points-in field chain of the baked student.
+"""Kernels K1 and K2: the field chain of the baked student, from sample
+positions (K1) or from a precomputed encoding (K2).
 
-`fused_points_sigma_color` is the counterpart of the JAX package's Pallas
-kernel of the same name (nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py).
-On a CUDA tensor it launches the hand-written kernel in
-`csrc/points_mlp.cu` or raises; on a CPU tensor it runs the plain PyTorch
-version `fused_points_sigma_color_plain`, which the tests compare with JAX.
+`fused_points_sigma_color` (K1) and `fused_sigma_color_deep` (K2) are the
+counterparts of the JAX package's Pallas kernels of the same names
+(nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py). On a CUDA tensor each
+launches its hand-written kernel in `csrc/points_mlp.cu` or raises; on a
+CPU tensor each runs its plain PyTorch version
+(`fused_points_sigma_color_plain`, `fused_sigma_color_deep_plain`), which
+the tests compare with JAX. K2 in bfloat16 is K1's kernel reading the
+encoding in place of building it; K2 in float32 is a kernel of its own.
 
-The kernel is built at first use with `nvcc` into `_build/` beside the
+Both are differentiable, as the JAX functions are: on the card through
+`_Chain`, an autograd Function whose forward launches the kernel and whose
+backward recomputes the plain chain under autograd (the JAX package's
+`_fused_points_bwd` and `_fused_deep_bwd` recompute through `_xla_ref_deep`;
+neither TPU kernel has a backward kernel).
+
+The kernels are built at first use with `nvcc` into `_build/` beside the
 package (one shared library per source hash) and bound with ctypes.
 """
 
@@ -25,8 +35,10 @@ HIDDEN_WIDTHS = (160, 192, 256)   # the kernel's template instances
 ENC_COLS = 80                           # encoding columns padded to 5 x 16
 GEO, SH, COLOR, LAST_COLS = 16, 16, 64, 16
 
-# launches of the CUDA kernel since the last reset (never the plain path)
+# launches of each CUDA kernel since the last reset (never the plain path):
+# K1, and K2 in either dtype
 LAUNCHES = 0
+LAUNCHES_DEEP = 0
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -48,10 +60,12 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.points_mlp_forward
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for name in ("points_mlp_forward", "deep_mlp_forward",
+                     "deep_mlp_forward_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] \
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -61,12 +75,12 @@ def _dot(h, w, dtype):
     return torch.matmul(h.to(dtype).float(), w.to(dtype).float())
 
 
-def fused_points_sigma_color_plain(x, sh, sigma_net, color_net, multires,
-                                   compute_dtype=torch.bfloat16):
-    """The kernel's function in plain PyTorch: frequency encoding, then the
-    JAX package's `_xla_ref_deep` chain with the same rounding points.
+def fused_sigma_color_deep_plain(enc, sh, sigma_net, color_net,
+                                 compute_dtype=torch.bfloat16):
+    """K2's function in plain PyTorch: the JAX package's `_xla_ref_deep`
+    chain with the same rounding points. enc [N, D_enc], sh [N, 16].
     Returns (sigma [N] f32, rgb [N, 3] f32)."""
-    h = freq_encode(x.float(), multires)
+    h = enc
     n_sig = len(sigma_net)
     for i, w in enumerate(sigma_net):
         h = _dot(h, w, compute_dtype)
@@ -81,16 +95,29 @@ def fused_points_sigma_color_plain(x, sh, sigma_net, color_net, multires,
     return sigma, torch.sigmoid(g[..., :3])
 
 
-def _prepare(sigma_net, color_net):
-    """Kernel operands in bf16, padded as the TPU kernel pads them
-    (render_mlp.py _fused_points): W1 to the encode block, C1 split into the
-    SH rows and the geo rows behind a zero row, the last layer to a full
-    fragment. Built once per set of weights."""
-    return _prepared.get(list(sigma_net) + list(color_net),
-                         lambda: _pad(sigma_net, color_net))
+def fused_points_sigma_color_plain(x, sh, sigma_net, color_net, multires,
+                                   compute_dtype=torch.bfloat16):
+    """K1's function in plain PyTorch: the frequency encoding, then K2's
+    plain chain. Returns (sigma [N] f32, rgb [N, 3] f32)."""
+    return fused_sigma_color_deep_plain(freq_encode(x.float(), multires), sh,
+                                        sigma_net, color_net, compute_dtype)
 
 
-def _pad(sigma_net, color_net):
+def _prepare(sigma_net, color_net, dtype=torch.bfloat16):
+    """Kernel operands in `dtype` (bf16: K1 and K2; float32: K2's f32
+    kernel), padded as the TPU kernel pads them (render_mlp.py
+    _fused_points): W1 to the encode block, C1 split into the SH rows and
+    the geo rows behind a zero row, the last layer to a full fragment.
+    Built once per set of weights and dtype."""
+    def pad():
+        with torch.no_grad():
+            return _pad(sigma_net, color_net, dtype)
+
+    return _prepared.get(list(sigma_net) + list(color_net), pad,
+                         tag=str(dtype))
+
+
+def _pad(sigma_net, color_net, dtype=torch.bfloat16):
     w1, w_last = sigma_net[0], sigma_net[-1]
     hid = w1.shape[1]
     c1, c_mid, c_last = color_net[0], color_net[1:-1], color_net[-1]
@@ -101,40 +128,105 @@ def _pad(sigma_net, color_net):
             or tuple(c1.shape) != (SH + GEO - 1, COLOR)
             or any(tuple(w.shape) != (COLOR, COLOR) for w in c_mid)
             or tuple(c_last.shape) != (COLOR, 3)):
-        raise ValueError("K1 takes a sigma net 75..80 -> H (H in "
+        raise ValueError("K1 and K2 take a sigma net 1..80 -> H (H in "
                          f"{HIDDEN_WIDTHS}) -> ... -> 16 and a color net "
                          "31 -> 64 -> ... -> 3")
-    dev, bf = w1.device, torch.bfloat16
+    dev = w1.device
 
     def padded(w, rows, cols, row0=0):
-        out = torch.zeros((rows, cols), dtype=bf, device=dev)
-        out[row0:row0 + w.shape[0], :w.shape[1]] = w.to(bf)
+        out = torch.zeros((rows, cols), dtype=dtype, device=dev)
+        out[row0:row0 + w.shape[0], :w.shape[1]] = w.to(dtype)
         return out
 
     mats = dict(
         w1=padded(w1, ENC_COLS, hid),
-        wh=torch.stack([w.to(bf) for w in sigma_net[1:-1]]).contiguous()
-        if len(sigma_net) > 2 else torch.zeros((1,), dtype=bf, device=dev),
-        wlast=w_last.to(bf).contiguous(),
-        c1s=c1[:SH].to(bf).contiguous(),
+        wh=torch.stack([w.to(dtype) for w in sigma_net[1:-1]]).contiguous()
+        if len(sigma_net) > 2 else torch.zeros((1,), dtype=dtype, device=dev),
+        wlast=w_last.to(dtype).contiguous(),
+        c1s=c1[:SH].to(dtype).contiguous(),
         c1g=padded(c1[SH:], GEO, COLOR, row0=1),
-        cmid=torch.stack([w.to(bf) for w in c_mid]).contiguous()
-        if c_mid else torch.zeros((1,), dtype=bf, device=dev),
+        cmid=torch.stack([w.to(dtype) for w in c_mid]).contiguous()
+        if c_mid else torch.zeros((1,), dtype=dtype, device=dev),
         clast=padded(c_last, COLOR, LAST_COLS),
         hidden=hid, n_hidden=len(sigma_net) - 2, n_color_mid=len(c_mid))
     return mats
+
+
+class _Chain(torch.autograd.Function):
+    """out = launch(*args) on the card, [N, >= 4] f32 with sigma in column
+    0 and rgb in 1..3; the backward recomputes plain(*args) -> (sigma, rgb)
+    under autograd and takes its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            args = [a.detach().requires_grad_(n)
+                    for a, n in zip(ctx.saved_tensors, need)]
+            sigma, rgb = ctx.plain(*args)
+            wrt = [a for a, n in zip(args, need) if n]
+            grads = iter(torch.autograd.grad(
+                (sigma, rgb), wrt, (g_out[:, 0], g_out[:, 1:4]),
+                allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None
+                                    for n in need)
+
+
+def _split(args, n_sig):
+    """(first, sh, sigma_net, color_net) of _Chain's args."""
+    weights = args[2:]
+    return args[0], args[1], list(weights[:n_sig]), list(weights[n_sig:])
+
+
+def _check_sh(sh, n, dtype):
+    if sh.dtype != dtype or tuple(sh.shape) != (n, SH):
+        raise ValueError(f"sh must be {dtype} [N, {SH}], got {sh.dtype} "
+                         f"{tuple(sh.shape)}")
+
+
+def _run(name, first, sh, sigma_net, color_net, dtype, out_cols, *ints):
+    """Launches `name` on (first, sh) with the weights prepared in `dtype`;
+    returns out [N, out_cols] f32."""
+    tensors = [first, sh] + list(sigma_net) + list(color_net)
+    if any(t.device != first.device for t in tensors):
+        raise ValueError("the inputs and the weights must be on one device")
+    if not (first.is_contiguous() and sh.is_contiguous()):
+        raise ValueError("the inputs must be contiguous")
+    if sh.data_ptr() % 16:
+        raise ValueError("sh must start on a 16-byte boundary")
+    m = _prepare(sigma_net, color_net, dtype)
+    n = first.shape[0]
+    out = torch.empty((n, out_cols), dtype=torch.float32, device=first.device)
+    if n:
+        with torch.cuda.device(first.device):
+            stream = torch.cuda.current_stream(first.device).cuda_stream
+            err = getattr(_library(), name)(
+                first.data_ptr(), sh.data_ptr(), m["w1"].data_ptr(),
+                m["wh"].data_ptr(), m["wlast"].data_ptr(),
+                m["c1s"].data_ptr(), m["c1g"].data_ptr(),
+                m["cmid"].data_ptr(), m["clast"].data_ptr(), out.data_ptr(),
+                n, *ints, m["hidden"], m["n_hidden"], m["n_color_mid"],
+                stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
 
 
 def fused_points_sigma_color(x, sh, sigma_net, color_net, multires,
                              compute_dtype=torch.bfloat16):
     """x [N, 3] positions (encoded inside the kernel), sh [N, 16] encoded
     directions; sigma_net / color_net lists of [in, out] weights.
-    Returns (sigma [N] f32, rgb [N, 3] f32).
+    Returns (sigma [N] f32, rgb [N, 3] f32), differentiable.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel,
     which takes x float32 and sh bfloat16, both contiguous, and bf16
     compute; anything else raises."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return fused_points_sigma_color_plain(x, sh, sigma_net, color_net,
                                               multires, compute_dtype)
@@ -146,32 +238,68 @@ def fused_points_sigma_color(x, sh, sigma_net, color_net, multires,
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"x must be float32 [N, 3], got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if sh.dtype != torch.bfloat16 or tuple(sh.shape) != (n, SH):
-        raise ValueError(f"sh must be bfloat16 [N, {SH}], got {sh.dtype} "
-                         f"{tuple(sh.shape)}")
-    if not (x.is_contiguous() and sh.is_contiguous()):
-        raise ValueError("x and sh must be contiguous")
-    if sh.data_ptr() % 16:
-        raise ValueError("sh must start on a 16-byte boundary")
+    _check_sh(sh, n, torch.bfloat16)
     if 3 + 6 * multires != sigma_net[0].shape[0]:
         raise ValueError("multires does not match the first sigma layer")
-    tensors = [x, sh] + list(sigma_net) + list(color_net)
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("x, sh and the weights must be on one device")
-    m = _prepare(sigma_net, color_net)
-    out = torch.empty((n, 8), dtype=torch.float32, device=x.device)
-    if n:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _library().points_mlp_forward(
-                x.data_ptr(), sh.data_ptr(), m["w1"].data_ptr(),
-                m["wh"].data_ptr(), m["wlast"].data_ptr(),
-                m["c1s"].data_ptr(), m["c1g"].data_ptr(),
-                m["cmid"].data_ptr(), m["clast"].data_ptr(), out.data_ptr(),
-                n, multires, m["hidden"], m["n_hidden"], m["n_color_mid"],
-                stream)
-        if err != 0:
-            raise RuntimeError(f"points_mlp_forward launch failed: "
-                               f"cudaError {err}")
-        LAUNCHES += 1
+    n_sig = len(sigma_net)
+
+    def launch(*args):
+        global LAUNCHES
+        out = _run("points_mlp_forward", *_split(args, n_sig),
+                   torch.bfloat16, 8, multires)
+        if n:
+            LAUNCHES += 1
+        return out
+
+    def plain(*args):
+        x_, sh_, sn, cn = _split(args, n_sig)
+        return fused_points_sigma_color_plain(x_, sh_, sn, cn, multires,
+                                              compute_dtype)
+
+    out = _Chain.apply(launch, plain, x, sh, *sigma_net, *color_net)
+    return out[:, 0], out[:, 1:4]
+
+
+def fused_sigma_color_deep(enc, sh, sigma_net, color_net,
+                           compute_dtype=torch.bfloat16):
+    """enc [N, D_enc <= 80] encoded positions, sh [N, 16] encoded
+    directions; sigma_net D_enc -> H -> ... -> 16 (H in HIDDEN_WIDTHS),
+    color_net 31 -> 64 -> ... -> 3, lists of [in, out] weights. Returns
+    (sigma [N] f32, rgb [N, 3] f32), differentiable.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    of `compute_dtype` (bfloat16 or float32): enc and sh are cast to it and
+    must then be contiguous, sh on a 16-byte boundary; anything else
+    raises."""
+    if enc.device.type == "cpu":
+        return fused_sigma_color_deep_plain(enc, sh, sigma_net, color_net,
+                                            compute_dtype)
+    if enc.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {enc.device}")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K2 computes in bfloat16 or float32, not "
+                         f"{compute_dtype}")
+    n = enc.shape[0]
+    if enc.dim() != 2 or enc.shape[1] != sigma_net[0].shape[0]:
+        raise ValueError(f"enc must be [N, {sigma_net[0].shape[0]}], got "
+                         f"{tuple(enc.shape)}")
+    enc, sh = enc.to(compute_dtype), sh.to(compute_dtype)
+    _check_sh(sh, n, compute_dtype)
+    name = "deep_mlp_forward" if compute_dtype == torch.bfloat16 \
+        else "deep_mlp_forward_f32"
+    n_sig = len(sigma_net)
+
+    def launch(*args):
+        global LAUNCHES_DEEP
+        out = _run(name, *_split(args, n_sig), compute_dtype, 4,
+                   enc.shape[1])
+        if n:
+            LAUNCHES_DEEP += 1
+        return out
+
+    def plain(*args):
+        return fused_sigma_color_deep_plain(*_split(args, n_sig),
+                                            compute_dtype)
+
+    out = _Chain.apply(launch, plain, enc, sh, *sigma_net, *color_net)
     return out[:, 0], out[:, 1:4]

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from ._nvcc import WeightCache, compile_source
+from ._nvcc import WeightCache, compile_source, refuse_grad
 from .points_mlp import _dot
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sigma_color.cu"
@@ -105,13 +105,15 @@ def fused_sigma_color(enc, sh, sigma_net, color_net,
     sigma_net (W1, W2), color_net (C1, C2, C3), [in, out] weights with C1's
     rows ordered [sh | geo]. Returns (sigma [N] f32, rgb [N, 3] f32).
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel,
-    which takes enc and sh bfloat16, contiguous and 16-byte aligned, and
-    bf16 compute; anything else raises."""
+    A CPU tensor takes the plain version, under autograd. A CUDA tensor
+    launches the kernel, which takes enc and sh bfloat16, contiguous and
+    16-byte aligned, and bf16 compute, and has no backward yet: where
+    autograd would need one, and for anything else, it raises."""
     global LAUNCHES
     if enc.device.type == "cpu":
         return fused_sigma_color_plain(enc, sh, sigma_net, color_net,
                                        compute_dtype)
+    refuse_grad("K3", [enc, sh, *sigma_net, *color_net])
     if enc.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {enc.device}")
     n = enc.shape[0]

@@ -13,8 +13,9 @@ Training encodes from the parameters under autograd, as `train_gather`
 says: "corner8" fetches the 8 corner rows of the materialised volume,
 "foldrow" folds the volume with the slice-stack and fetches one wide row,
 and "foldrow_pallas" folds it with kernel K5 (ops/hopper/fold_build.py),
-forward and backward. The three compute the same function. The JAX
-package's other corner fetches ("pair", "quad", "cube") are not ported.
+forward and backward; "pair", "quad" and "cube" fetch the 8 corners as 4, 2
+or 1 windows of a window view of the volume (`corner_windows`). All six
+compute the same function.
 
 Hashes are computed in int64 and masked to 32 bits, so they equal the JAX
 package's uint32 arithmetic. With a bfloat16 table the blend rounds as
@@ -143,14 +144,46 @@ def _hash_rows_for(cell, spec: MipFoldSpec):
     return _prime_hash(cell) % spec.hash_rows
 
 
+# the grid axes (x, y, z) that each windowed fetch reads two points along;
+# it reads both values of the other axes as separate windows
+_WINDOW_AXES = {"pair": (2,), "quad": (1, 2), "cube": (0, 1, 2)}
+
+
+def corner_windows(table, ci, F: int, Cd: int, mode: str):
+    """The 8 trilinear corner rows of cells ci [N, 3] from the grid-point
+    table [(F+1)^3, Cd], as [N, 2, 2, 2, Cd] indexed (x, y, z), through ONE
+    indexed read of a window view of the table: `unfold` makes the view
+    (no copy) whose element at a grid point is its 2-point window along the
+    axes of `mode` ("pair": z; "quad": y, z; "cube": x, y, z); the read
+    takes 4, 2 or 1 windows per cell (the JAX package's lax.gather slices
+    (1,1,2), (1,2,2), (2,2,2)). Autograd's backward of the read and the
+    view sums each window's cotangent back onto its grid points."""
+    axes = _WINDOW_AXES[mode]
+    view = table.reshape(F + 1, F + 1, F + 1, Cd)
+    for axis in axes:
+        view = view.unfold(axis, 2, 1)        # [..., Cd, 2 per axis]
+    # the window starts of a cell: 0 or 1 along each other axis, (x, y)
+    # order with y fastest
+    free = [a for a in range(3) if a not in axes]
+    starts = np.zeros((2 ** len(free), 3), np.int64)
+    for j, a in enumerate(free):
+        starts[:, a] = (np.arange(len(starts)) >> (len(free) - 1 - j)) & 1
+    at = ci[:, None, :] + torch.as_tensor(starts, dtype=ci.dtype,
+                                          device=ci.device)[None]  # [N,S,3]
+    w = view[at[..., 0], at[..., 1], at[..., 2]]            # [N, S, Cd, 2..]
+    return w.movedim(2, -1).reshape(ci.shape[0], 2, 2, 2, Cd)
+
+
 def _dense_corner_fetch(dense_table, ci, F: int, Cd: int, mode: str):
-    """The 8 trilinear corner rows [N, 8, Cd] (x fastest) of cells ci
-    [N, 3] from the grid-point table [(F+1)^3, Cd]: one row per corner
-    ("corner8")."""
-    if mode in ("pair", "quad", "cube"):
-        raise NotImplementedError(f"the corner fetch {mode!r} is not ported; "
-                                  "use 'corner8', 'foldrow' or "
-                                  "'foldrow_pallas'")
+    """The 8 trilinear corner rows [N, 8, Cd] (x fastest, `_corner_bits`
+    order) of cells ci [N, 3] from the grid-point table [(F+1)^3, Cd]:
+    one row per corner ("corner8"), or one read of 4, 2 or 1 windows per
+    cell ("pair", "quad", "cube"; `corner_windows`). The values are the
+    same; the modes differ in the reads made per sample, which
+    scripts/bench_gather.py section H times."""
+    if mode in _WINDOW_AXES:
+        cube = corner_windows(dense_table, ci, F, Cd, mode)
+        return cube.permute(0, 3, 2, 1, 4).reshape(ci.shape[0], 8, Cd)
     if mode != "corner8":
         raise ValueError(f"unknown dense gather mode {mode!r}")
     bits = torch.as_tensor(_corner_bits(3).astype(np.int64), device=ci.device)
@@ -170,8 +203,9 @@ def mip_fold_encode(params, x, spec: MipFoldSpec, bound: float = 1.0,
     row and one hash row per sample. Training: pass neither table; the
     dense part comes from params['pyramid'] under autograd, by
     `train_gather` ("corner8": the 8 corner rows of the materialised volume;
-    "foldrow": the slice-stack fold and one wide row; "foldrow_pallas": the
-    same fold through K5)."""
+    "pair", "quad", "cube": the same corners as windows of it; "foldrow":
+    the slice-stack fold and one wide row; "foldrow_pallas": the same fold
+    through K5)."""
     prefix = x.shape[:-1]
     x = x.reshape(-1, 3)
     F = spec.F

@@ -105,13 +105,19 @@ def test_training_routes_equal_the_fold_table_route(case, gather):
 
 @pytest.mark.parametrize("mode", ["pair", "quad", "cube"])
 def test_unported_corner_fetches_raise(case, mode):
+    """These corner fetches once raised NotImplementedError; they are
+    ported now and must encode as "corner8" does: the same corner values
+    (bit-exact), fetched as windows. Their JAX parity is in
+    tests/test_torch_corner_fetch.py."""
     p, x, _ = case
     spec = T.MipFoldSpec(**SMALL)
     pt = {"pyramid": [torch.from_numpy(g) for g in p["pyramid"]],
           "hash": torch.from_numpy(p["hash"])}
-    with pytest.raises(NotImplementedError):
-        T.mip_fold_encode(pt, torch.from_numpy(x[:8]), spec,
-                          train_gather=mode)
+    want = T.mip_fold_encode(pt, torch.from_numpy(x), spec,
+                             train_gather="corner8")
+    got = T.mip_fold_encode(pt, torch.from_numpy(x), spec,
+                            train_gather=mode)
+    assert torch.equal(got, want)
 
 
 def test_mip_fold_init_range_and_order():
