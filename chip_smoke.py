@@ -7,8 +7,10 @@ CUDA card.
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
-     (csrc/sigma_color.cu), K4 (csrc/fused_mlp.cu), K5 (csrc/fold_build.cu)
-     and K6 and K7 (csrc/gather_rows.cu), one nvcc each, started together;
+     (csrc/sigma_color.cu), K4 (csrc/fused_mlp.cu), K5 (csrc/fold_build.cu),
+     K6 and K7 (csrc/gather_rows.cu) and the K7 variants that PERF.md
+     compares (scripts/k7_variants.cu), one nvcc each, started together;
+     each kernel's registers, stack and spills as ptxas reports them;
   3. teacher: the mip-fold teacher of bench_assets/flagship.ckpt loaded,
      folded, and its occupancy refreshed 4x with a seeded generator, as
      bench.py refreshes it before every mode;
@@ -19,12 +21,15 @@ Phases, each printing its elapsed seconds:
      one index_add_, held to the kernel within rounding) and bound times;
   4. kernel K1: against its plain PyTorch version on 131,072 rows of points
      on real camera rays with the committed 160x6 student, with kernel,
-     plain, library (bf16 torch.matmul chain) and bound times;
+     plain, library (bf16 torch.matmul chain) and bound times; then at the
+     kernel's other widths, H = 192 and 256 (seeded weights, 8,192 rows
+     each), against its plain version;
   4b. kernel K2: the same rows' frequency encoding through K2 against its
      plain version in bf16 and in f32, and beside K1; K2's path, one
      forward and backward of a loss through K2 with the counts at 0 before
      and read after, its gradients equal to the plain chain's under
-     autograd; the same four times;
+     autograd; the same four times, in f32 too (the library call there:
+     the f32 torch.matmul chain with TF32 off);
   5. kernel K3: against its plain version on 262,144 rows (one guided fine
      tile: 16,384 rays x 16 samples in windows around the surface) of the
      teacher's own encoding, with the same four times;
@@ -60,7 +65,10 @@ Phases, each printing its elapsed seconds:
  12. kernels K6, K7: the row gathers at every shape of the gather probe's
      sections E and F and at a ragged M, bit-exact against table[idx] (K7
      for each nslot), with kernel, plain, library (index_select) and bound
-     times;
+     times; then at K7's shapes, nslot 16, the K7 designs of PERF.md
+     (scripts/k7_variants.py: one issuing lane or every lane, 2048 rows a
+     block or K7's geometry), K7 itself, K6 and index_select, each
+     bit-exact, one JSON line per shape;
  13. gather probe: the port's scripts/bench_gather.py --quick, all
      sections, with the counts at 0 before and read after (the path that
      runs K6 and K7).
@@ -177,6 +185,10 @@ TOL_ROUTE_GRAD, TOL_ROUTE_FRAC = 2e-2, 3e-3
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# cycles a second of torch.cuda._sleep's spin (about the H100's SM clock)
+SLEEP_HZ = 1.98e9
+# K1 at its other widths (H, rows): seeded weights, std sqrt(2 / fan-in)
+K1_WIDTHS = [(192, 8192), (256, 8192)]
 # the gather probe's kernel shapes (scripts/bench_gather.py sections E, F):
 # K6 (R, C, M); K7 (R, C, M, the nslots it runs)
 K6_SHAPES = [(2 ** 13, 64, 2 ** 19), (2 ** 14, 64, 2 ** 19),
@@ -209,9 +221,17 @@ class Phase:
 
 
 def cuda_ms(torch, fn, reps):
-    """Mean device milliseconds of fn() over reps back-to-back calls."""
+    """Mean device milliseconds of fn() over reps back-to-back calls. The
+    card first sleeps about twice as long as the host takes to queue the
+    calls, so that they run back to back on the device: a kernel faster
+    than its wrapper's Python is timed, not the wrapper."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2.0 * reps * host, 1.0) * SLEEP_HZ))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -280,21 +300,28 @@ def main():
                                                            gather,
                                                            points_mlp,
                                                            sigma_color)
-    from nerfsafetyvalidation_tpu_torch.scripts import bench_gather
+    from nerfsafetyvalidation_tpu_torch.scripts import (bench_gather,
+                                                        k7_variants)
     from nerfsafetyvalidation_tpu_torch.ops.mip_encoding import (
         materialize_dense)
     from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
     from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
     from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
 
-    # float32 products in full float32 (the plain versions' sums)
+    # float32 products in full float32 (the plain versions' sums, and K2
+    # f32's library chain)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     # one nvcc build per source; the launch count of each kernel
     builds = {"K1, K2": points_mlp, "K3": sigma_color, "K4": fused_mlp,
-              "K5": fold_build, "K6, K7": gather}
+              "K5": fold_build, "K6, K7": gather,
+              "K7 variants": k7_variants}
     counters = {"K1": (points_mlp, "LAUNCHES"),
                 "K2": (points_mlp, "LAUNCHES_DEEP"),
                 "K3": (sigma_color, "LAUNCHES"),
@@ -334,7 +361,7 @@ def main():
             print(f"{name} built in {secs:.2f} s: {lib.relative_to(ROOT)}")
             for line in builds[name].BUILD_LOG.splitlines():
                 if ("registers" in line or "spill" in line
-                        or "Compiling entry" in line):
+                        or "Compiling entry" in line or "warning" in line):
                     print("  ptxas:", line.strip())
 
     RES = F.RES
@@ -520,6 +547,33 @@ def main():
               f"{k1_lib_ms:.4f}, bound_ms {k1_bound:.4f} ({k1_by}); {smi}")
         k1_out = got
 
+        # the kernel's other widths (another ring and k-chunking each):
+        # seeded weights of the student's shapes, points in the box,
+        # unit directions' SH stand-ins
+        gw = torch.Generator(device=dev).manual_seed(3)
+        for hid, rows in K1_WIDTHS:
+            def seeded(i, o):
+                return torch.randn((i, o), generator=gw, device=dev) * (
+                    2.0 / i) ** 0.5
+            sn_w = [seeded(75, hid)] + [seeded(hid, hid)
+                                        for _ in range(len(sn) - 2)] + [
+                seeded(hid, 16)]
+            cn_w = [seeded(31, 64)] + [seeded(64, 64)
+                                       for _ in range(len(cn) - 2)] + [
+                seeded(64, 3)]
+            x_w = (torch.rand((rows, 3), generator=gw, device=dev) * 2
+                   - 1).contiguous()
+            d_w = torch.randn((rows, 16), generator=gw, device=dev)
+            sh_w = (d_w / d_w.norm(dim=-1, keepdim=True)).to(bf) \
+                .contiguous()
+            got_w = points_mlp.fused_points_sigma_color(x_w, sh_w, sn_w,
+                                                        cn_w, 12)
+            torch.cuda.synchronize()
+            compare(torch, f"K1 H={hid}", got_w,
+                    points_mlp.fused_points_sigma_color_plain(
+                        x_w, sh_w, sn_w, cn_w, 12), TOL_K1)
+        del sn_w, cn_w, x_w, sh_w, got_w
+
     with Phase("kernel K2"):
         # the K1 rows' frequency encoding [N, 75] through the encoding-in
         # kernel, in bf16 (the input cast before the timed calls) and f32
@@ -544,6 +598,12 @@ def main():
 
             def k2_library():
                 return library_chain(enc_bf)
+
+            sn32, cn32 = [w.float() for w in sn], [w.float() for w in cn]
+
+            def k2_library_f32():
+                # the same chain as f32 torch.matmul calls, TF32 off
+                return library_chain(enc, sn32, cn32, sh32)
 
             got = k2()
             got32 = k2_f32()
@@ -601,12 +661,19 @@ def main():
             k2_lib_ms = cuda_ms(torch, k2_library, 20)
             k2_ms32 = cuda_ms(torch, k2_f32, 10)
             k2_plain_ms32 = cuda_ms(torch, k2_f32_plain, 10)
+            k2_lib_ms32 = cuda_ms(torch, k2_library_f32, 10)
+            got_l = k2_library_f32()
+            check(float((got_l[1] - got32[1]).abs().max()) <= TOL_K2_F32[
+                      "rgb"][0], "the f32 library chain does not compute "
+                  "K2's function")
         print(f"K2 bf16 at {K1_ROWS} rows ({macs2} MAC/row): kernel_ms "
               f"{k2_ms:.4f}, plain_ms {k2_plain_ms:.4f}, library_ms "
               f"{k2_lib_ms:.4f}, bound_ms {k2_bound:.4f} ({k2_by}); f32: "
               f"kernel_ms {k2_ms32:.4f}, plain_ms {k2_plain_ms32:.4f}, "
-              f"bound_ms {k2_bound32:.4f} ({k2_by32}, 67 TFLOP/s f32); {smi}")
-        del enc, enc_bf, sh32, g_k2, g_plain
+              f"library_ms {k2_lib_ms32:.4f} (f32 torch.matmul, TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
+              f"{k2_bound32:.4f} ({k2_by32}, 67 TFLOP/s f32); {smi}")
+        del enc, enc_bf, sh32, g_k2, g_plain, sn32, cn32, got_l
 
     views = []
     for pose in poses:
@@ -1121,6 +1188,11 @@ def main():
             del table, idx, want, got
         k6 = gathers[("K6",) + K6_SHAPES[0] + (None,)]
         k7 = gathers[("K7",) + K7_SHAPES[0][:3] + (16,)]
+        # the K7 designs of PERF.md beside K7, K6 and index_select
+        variants = k7_variants.main()
+        check(len(variants) == len(K7_SHAPES)
+              and all(r["device"] == smi for r in variants),
+              "the K7 variants did not run at every K7 shape")
 
     with Phase("gather probe"):
         reset_counts()
@@ -1146,7 +1218,9 @@ def main():
          "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
          "replaces": f"{pallas}:302", "launches": k2_launches,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
+         "ms_f32": k2_ms32, "plain_ms_f32": k2_plain_ms32,
+         "bound_ms_f32": k2_bound32, "library_ms_f32": k2_lib_ms32},
         {"name": "fused_sigma_color", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/sigma_color.cu",
          "replaces": f"{pallas}:164", "launches": launches["K3"],

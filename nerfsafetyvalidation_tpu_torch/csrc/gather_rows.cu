@@ -25,18 +25,29 @@
 // (the counterpart of SMEM); its threads then copy rows with 16-byte
 // read-only loads, consecutive lanes on consecutive chunks of a row.
 //
-// K7 design: the TPU kernel's DMA ring becomes a ring of nslot row slots in
-// shared memory, each with a "full" and an "empty" mbarrier. The block
-// first stages its tile of indices in shared memory (the TPU kernel's SMEM
-// block), so that the producer loop waits on no device-memory load. One
-// producer thread starts one TMA bulk copy (cp.async.bulk, global ->
-// shared) per row with its byte count on the slot's full barrier; consumer
-// warps wait on the full barrier, write the row to out, and arrive on the
-// empty barrier, which the producer waits on before it reuses the slot.
-// Each slot belongs to one consumer warp, so a warp waits on a slot's phases
-// in order and one phase parity bit per wait is enough. A wait that does
-// not end within a few seconds traps (the launch then fails) instead of
-// hanging the card.
+// K7 design: the TPU kernel's DMA ring becomes a ring of nslot row slots
+// in shared memory, filled by bulk copies (cp.async.bulk, global ->
+// shared) and emptied by bulk copies (shared -> global). A block is one
+// warp; the wrapper picks its rows (`dma_geometry`: about 8 blocks per SM
+// over the card, whatever the TPU's tile_m) and stages them in slot groups
+// of up to 8 consecutive rows. The warp first stages its index tile in
+// shared memory (the TPU kernel's SMEM block); then, per group of rows,
+// each lane starts its own row's copy into the group's slots, with the
+// group's bytes on the group's one mbarrier, so nslot rows are in flight
+// per block; once a group has landed, one bulk store writes its rows,
+// which are contiguous in out, as one run, and the group's slots are
+// refilled once that store has read them (cp.async.bulk.wait_group.read).
+// No thread moves the rows' bytes. A row whose index is out of range is
+// zeroed in its slot by its lane and fenced for the copy engine
+// (fence.proxy.async). One barrier use per group round, waited on by the
+// warp in order, so one phase parity bit per wait is enough. A wait that
+// does not end within a few seconds traps (the launch then fails) instead
+// of hanging the card.
+//
+// What held the first K7 (one block per 2048 rows, one thread starting
+// every row's copy, consumer warps copying rows out through registers) at
+// about 0.5 ms for every nslot and row size is measured by
+// scripts/k7_variants.py, which keeps those designs as yardsticks.
 //
 // Interface: plain C launchers, bound from Python with ctypes. They launch
 // on the caller's stream, do not synchronise, allocate nothing, and return
@@ -49,8 +60,8 @@
 namespace {
 
 constexpr int kVmemThreads = 256;
-constexpr int kConsumers = 4;                      // K7 consumer warps
-constexpr int kDmaThreads = 32 * (1 + kConsumers);  // + one producer warp
+constexpr int kDmaThreads = 32;                    // K7: one warp a block
+constexpr int kMaxGroup = 8;                       // K7: rows a slot group
 constexpr long long kWaitCycles = 1LL << 33;       // ~4 s at 1.98 GHz
 constexpr int kMaxSmem = 232448;                   // a block's limit, sm_90
 constexpr int kDefaultSmem = 48 * 1024;            // without the attribute
@@ -92,13 +103,6 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
-      :: "r"(smem_addr(bar)) : "memory");
-}
-
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
                                               uint32_t parity) {
   uint32_t done;
@@ -129,6 +133,14 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       : "memory");
 }
 
+// one bulk copy of `bytes` from shared to global memory, in this thread's
+// bulk group
+__device__ __forceinline__ void bulk_copy_s2g(void* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
 __host__ __device__ constexpr int align128(int v) {
   return (v + 127) / 128 * 128;
 }
@@ -137,73 +149,73 @@ __global__ void __launch_bounds__(kDmaThreads)
 dma_gather_kernel(const unsigned char* __restrict__ table,
                   const int32_t* __restrict__ idx,
                   unsigned char* __restrict__ out, int64_t R, int64_t M,
-                  int row_bytes, int tile_m, int nslot) {
+                  int row_bytes, int block_rows, int nslot, int group) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const int ngroups = nslot / group;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + nslot;
-  const int bar_bytes = align128(2 * nslot * 8);
-  int32_t* idx_s = reinterpret_cast<int32_t*>(smem + bar_bytes);
-  unsigned char* slots = smem + bar_bytes + align128(tile_m * 4);
-  const int64_t row0 = (int64_t)blockIdx.x * tile_m;
-  const int rows = (int)min((int64_t)tile_m, M - row0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  int32_t* idx_s =
+      reinterpret_cast<int32_t*>(smem + align128(ngroups * 8));
+  unsigned char* slots =
+      smem + align128(ngroups * 8) + align128(block_rows * 4);
+  const int64_t row0 = (int64_t)blockIdx.x * block_rows;
+  const int rows = (int)min((int64_t)block_rows, M - row0);
+  const int lane = threadIdx.x;
 
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    idx_s[i] = idx[row0 + i];
-  }
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < nslot; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);
-    }
+  for (int i = lane; i < rows; i += kDmaThreads) idx_s[i] = idx[row0 + i];
+  if (lane == 0) {
+    for (int g = 0; g < ngroups; ++g) mbar_init(&full[g], 1);
     // make the initialised barriers visible to the copy engine
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  __syncthreads();
+  __syncwarp();
 
-  if (warp == 0) {
-    if (lane != 0) return;
-    // producer: row j goes to slot j % nslot, its k-th use (k = j / nslot)
-    for (int j = 0; j < rows; ++j) {
-      const int s = j % nslot;
-      const int k = j / nslot;
-      if (k > 0) mbar_wait(&empty[s], (k - 1) & 1);  // use k-1 released
-      unsigned char* slot = slots + (size_t)s * row_bytes;
-      const int64_t r = idx_s[j];
-      if (r >= 0 && r < R) {
-        mbar_arrive_expect_tx(&full[s], (uint32_t)row_bytes);
-        bulk_copy_g2s(slot, table + r * row_bytes, (uint32_t)row_bytes,
-                      &full[s]);
-      } else {  // the guard: a zero row, completed by a plain arrival
-        for (int q = 0; q < row_bytes / 16; ++q) {
-          reinterpret_cast<uint4*>(slot)[q] = make_uint4(0u, 0u, 0u, 0u);
-        }
-        mbar_arrive(&full[s]);
-      }
-    }
-    return;
-  }
-
-  // consumers: warp c owns the slots s with s % n_consumers == c and takes
-  // their rows in order
-  const int n_consumers = min(kConsumers, nslot);
-  const int c = warp - 1;
-  if (c >= n_consumers) return;
-  const int chunks = row_bytes / 16;
-  for (int j = 0; j < rows; ++j) {
-    const int s = j % nslot;
-    if (s % n_consumers != c) continue;
-    mbar_wait(&full[s], (j / nslot) & 1);
-    const uint4* src =
-        reinterpret_cast<const uint4*>(slots + (size_t)s * row_bytes);
-    uint4* dst = reinterpret_cast<uint4*>(out + (row0 + j) * row_bytes);
-    for (int q = lane; q < chunks; q += 32) dst[q] = src[q];
+  // chunk c (rows [c group, c group + group)) goes to slot group c % ngroups
+  const int chunks = (rows + group - 1) / group;
+  auto start = [&](int c) {
+    const int g = c % ngroups;
+    const int j = c * group + lane;
+    const bool mine = lane < group && j < rows;
+    const int64_t r = mine ? idx_s[j] : -1;
+    const bool copy = mine && r >= 0 && r < R;
+    const uint32_t n_copy = __popc(__ballot_sync(0xffffffffu, copy));
+    unsigned char* slot = slots + (size_t)(g * group + lane) * row_bytes;
+    // the group's bytes first, then the copies that bring them
+    if (lane == 0) mbar_arrive_expect_tx(&full[g], n_copy * row_bytes);
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+    if (copy) {
+      bulk_copy_g2s(slot, table + r * row_bytes, (uint32_t)row_bytes,
+                    &full[g]);
+    } else if (mine) {  // the guard: a zero row, visible to the copy engine
+      for (int q = 0; q < row_bytes / 16; ++q) {
+        reinterpret_cast<uint4*>(slot)[q] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+  };
+
+  for (int c = 0; c < ngroups && c < chunks; ++c) start(c);
+  for (int c = 0; c < chunks; ++c) {
+    const int g = c % ngroups;
+    mbar_wait(&full[g], (c / ngroups) & 1);
+    __syncwarp();
+    if (lane == 0) {
+      const int n_rows = min(group, rows - c * group);
+      bulk_copy_s2g(out + (row0 + (int64_t)c * group) * row_bytes,
+                    slots + (size_t)g * group * row_bytes,
+                    (uint32_t)(n_rows * row_bytes));
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    if (c + ngroups < chunks) {
+      // the group's slots are refilled once its store has read them
+      if (lane == 0) {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      __syncwarp();
+      start(c + ngroups);
+    }
   }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // dynamic shared memory above the default needs the attribute first
@@ -246,24 +258,30 @@ extern "C" int vmem_gather(const void* table, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// K7. The same arguments, and nslot row copies in flight per block.
+// K7. The same arguments, but block_rows rows per block in place of
+// tile_m, and nslot row copies in flight per block in slot groups of
+// `group` rows (a divisor of nslot, at most 8).
 extern "C" int dma_gather(const void* table, const void* idx, void* out,
-                          int64_t R, int64_t M, int row_bytes, int tile_m,
-                          int nslot, void* stream) {
+                          int64_t R, int64_t M, int row_bytes, int block_rows,
+                          int nslot, int group, void* stream) {
   if (M == 0) return (int)cudaSuccess;
-  if (bad_shape(table, out, R, M, row_bytes, tile_m) || nslot <= 0) {
+  if (bad_shape(table, out, R, M, row_bytes, block_rows) || nslot <= 0 ||
+      group <= 0 || group > kMaxGroup || nslot % group != 0 ||
+      nslot > kMaxSmem / 16 || block_rows > kMaxSmem / 4) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t smem = align128(2 * nslot * 8) + align128(tile_m * 4) +
+  // the groups' barriers, the index tile, the slots
+  const int64_t smem = align128(nslot / group * 8) +
+                       align128(block_rows * 4) +
                        (int64_t)nslot * row_bytes;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(dma_gather_kernel, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((M + tile_m - 1) / tile_m);
+  const unsigned blocks = (unsigned)((M + block_rows - 1) / block_rows);
   dma_gather_kernel<<<blocks, kDmaThreads, (int)smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(table),
       static_cast<const int32_t*>(idx), static_cast<unsigned char*>(out), R,
-      M, row_bytes, tile_m, nslot);
+      M, row_bytes, block_rows, nslot, group);
   return (int)cudaGetLastError();
 }

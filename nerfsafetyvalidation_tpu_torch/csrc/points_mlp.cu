@@ -1,7 +1,6 @@
 // NeRF field chain for Hopper (sm_90a): the bias-free ReLU sigma net,
-// trunc_exp, the [SH | geo] color net and the sigmoid, in one kernel per
-// tile of rows, from sample positions (K1) or from a precomputed encoding
-// (K2).
+// trunc_exp, the [SH | geo] color net and the sigmoid, in one kernel, from
+// sample positions (K1) or from a precomputed encoding (K2).
 //
 // Replaces two TPU kernels of nerfsafetyvalidation_tpu/ops/pallas/
 // render_mlp.py:
@@ -34,34 +33,58 @@
 // row costs 123,232 multiply-adds and moves 76 bytes (x f32, sh bf16, out
 // f32), about 3,200 FLOP per byte, far above the H100's ~295 FLOP/byte
 // balance point; with the encoding read (K2, 150 bytes of bf16 enc a row)
-// still ~1,000. The design keeps every activation on chip: the whole chain
-// runs from one shared-memory tile per block, and device memory sees only
-// the inputs and the output.
+// still ~1,000. The weights (~247 KB in bf16 at H = 160) do not fit the
+// 227 KB of shared memory a block may use, so they stream through it once
+// per tile of rows; that traffic comes from L2, where the weights stay.
 //
-// Design of the bf16 kernel (right and simple first):
-//   * one block of 4 warps per 64 rows; each warp owns 16 rows through the
-//     whole chain, so layers need no block barrier;
-//   * K1 builds the encoding in f32 registers with sinf/cosf (accurate
-//     range reduction: the argument reaches 2^11 rad, where the fast
-//     intrinsics are wrong), rounded to bf16 into the shared activation
-//     tile, padded from 75 to 80 columns; K2 copies its enc rows there;
-//   * every layer is nvcuda::wmma bf16 16x16x16 with f32 accumulation; a
-//     warp holds all of a layer's output fragments (10 for width 160) and
-//     writes them back in place through a per-warp f32 staging tile, where
-//     the ReLU and the bf16 rounding happen;
-//   * the weights (~247 KB in bf16) are read from global memory and stay in
-//     L2; they do not fit the 227 KB of shared memory a block may use (the
-//     TPU kernel held them all in VMEM). Every warp re-reads them, so L2
-//     traffic, not the tensor cores, is what this version waits on.
-//     Staging them in shared memory, wgmma and TMA are later work.
+// Design of the bf16 kernel (warpgroup products, weights through a ring):
+//   * one persistent block per SM walks over tiles of 128 rows; two
+//     consumer warpgroups take 64 rows each (the wgmma M), one producer
+//     warpgroup streams the weights (one thread issues; setmaxnreg moves
+//     its registers to the consumers: 232 a thread, for the 128-float
+//     accumulator and 64 A registers of the 256-wide layers);
+//   * the wrapper packs every layer's B operand once into the shared-memory
+//     image that wgmma reads: K-major, no swizzle, 8 x 8 core matrices of
+//     128 contiguous bytes, the two 8-deep halves of a 16-deep k-step 128
+//     bytes apart (LBO) and neighbouring 8-column groups 256 bytes apart
+//     (SBO). The layers lie one after another (W1 padded to 80 rows, the
+//     hidden layers, W_L, C1 = [C1s; C1g], the middle color layers, C_last
+//     padded to 16 columns), so every chunk of the stream is one 1-D bulk
+//     copy (cp.async.bulk) with no tensor map;
+//   * the producer copies the chunks of each tile in order into a ring of
+//     stages (32-40 KB each, 5-6 stages), each with a "full" mbarrier
+//     (the chunk's bytes) and an "empty" one (one arrival per consumer
+//     warpgroup). A chunk is W1 (5 k-steps), a run of k-steps of one
+//     hidden layer, or the whole tail: W_L and the color net together;
+//   * every layer is wgmma m64nNk16 with A from registers and B from the
+//     stage (N = H, 16 or 64). The f32 accumulator goes through the ReLU,
+//     is rounded to bf16 and packed into the next layer's A fragments in
+//     registers: accumulators 8 ks + 2 q and 8 ks + 2 q + 1 hold the rows
+//     and columns of A register q of k-step ks, so nothing goes through
+//     shared memory;
+//   * each consumer warpgroup writes its 64 rows' encoding, rounded to
+//     bf16 and zero-padded to 80 columns, into a shared tile of its own,
+//     and reads layer 1's A fragments from it. K1 builds it with one
+//     accurate sincosf per row, frequency and coordinate (the argument
+//     reaches 2^11 rad, where the fast intrinsics are wrong), in a loop
+//     over the tile (inlining a sin and a cos for each of a thread's 40
+//     fragment values made K1 much slower than K2). K2 copies enc's rows
+//     there with 16-byte loads;
+//   * the weights cross L2 once per 128 rows: about 256 MB a launch at
+//     131,072 rows. 256 rows a pass would need two accumulators live per
+//     warpgroup (the 256-wide layer's alone is 128 registers a thread), and
+//     a 2-block cluster multicast is later work.
 //
 // Design of the f32 kernel (K2 in float32, which the JAX package's K2 also
 // computes): plain FFMA on the CUDA cores, no tensor cores (a TF32 product
-// would not be float32). A block of 256 threads takes 32 rows; the
-// activations ping-pong between two f32 tiles in shared memory; a thread
-// computes one output column for all 32 rows, reading its weights once per
-// 4 input columns and the activations as float4 broadcasts. Each sum runs
-// over the input columns in order.
+// would not be float32). A block of 256 threads takes 128 rows, held as one
+// f32 activation tile in shared memory that each layer overwrites in
+// place once its outputs are in registers. Each thread owns an output
+// micro-tile (8 rows x H/16 columns for the H-wide layers, 4 x 8 for the
+// others). The weights, packed by the wrapper as the layers' row-major f32
+// matrices one after another, stream through two shared-memory buffers of
+// 16 input rows each (cp.async, the next chunk in flight while this one is
+// used). Each sum runs over the input columns in order.
 //
 // Interface: plain C launchers, bound from Python with ctypes. They launch
 // on the caller's stream, do not synchronise and allocate nothing, and
@@ -69,193 +92,700 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
-
-using namespace nvcuda;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;              // rows per block
-constexpr int kWarps = kRows / 16;     // one warp per 16 rows
-constexpr int kThreads = kWarps * 32;
 constexpr int kEncCols = 80;           // 3 + 6 * 12 = 75 columns, padded
-constexpr int kGeo = 16;               // sigma-net output: sigma + 15 geo
+constexpr int kEncSteps = kEncCols / 16;
 constexpr int kSh = 16;                // degree-4 spherical harmonics
 constexpr int kColor = 64;             // color-net width
-constexpr int kLastCols = 16;          // last color layer, 3 padded to 16
 constexpr int kOutK1 = 8;              // K1's row: sigma, rgb, 4 zeros
 constexpr int kOutK2 = 4;              // K2's row: sigma, rgb
+constexpr long long kWaitCycles = 1LL << 33;   // ~4 s at 1.98 GHz
+constexpr int kMaxSmem = 232448;               // a block's limit, sm_90
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// ---------------------------------------------------------------------------
+// shared helpers: mbarriers and bulk copies
+// ---------------------------------------------------------------------------
 
-// acc[nf] += a[16 x 16*ksteps] @ w[16*ksteps x 16*NF] (w row-major, ld ldw)
-template <int NF>
-__device__ __forceinline__ void mma_rows(FragC (&acc)[NF], const bf16* a,
-                                         int lda, int ksteps, const bf16* w,
-                                         int ldw) {
-  for (int kf = 0; kf < ksteps; ++kf) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kf * 16, lda);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
+      :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// wait until the barrier's phase of this parity has completed; a wait that
+// does not end within a few seconds traps (the launch then fails) instead
+// of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: D[64 x N] (+)= A[64 x 16] from registers @ B[16 x N] from shared
+// memory, bf16 in, f32 accumulator; one overload per N (the accumulator's
+// size, N / 2 floats a thread)
+// ---------------------------------------------------------------------------
+
+// d[8] (+)= A[64 x 16] (registers) @ B[16 x 16] (descriptor)
+__device__ __forceinline__ void wgmma(float (&d)[8], const uint32_t (&a)[4],
+                                      uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[32] (+)= A[64 x 16] (registers) @ B[16 x 64] (descriptor)
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[80] (+)= A[64 x 16] (registers) @ B[16 x 160] (descriptor)
+__device__ __forceinline__ void wgmma(float (&d)[80], const uint32_t (&a)[4],
+                                      uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[96] (+)= A[64 x 16] (registers) @ B[16 x 192] (descriptor)
+__device__ __forceinline__ void wgmma(float (&d)[96], const uint32_t (&a)[4],
+                                      uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[128] (+)= A[64 x 16] (registers) @ B[16 x 256] (descriptor)
+__device__ __forceinline__ void wgmma(float (&d)[128], const uint32_t (&a)[4],
+                                      uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// descriptor of a K-major, unswizzled B operand at shared address `saddr`:
+// bits 0-13 the address >> 4, 16-29 LBO >> 4 (the two 8-deep halves of a
+// k-step lie 128 bytes apart), 32-45 SBO >> 4 (neighbouring 8-column groups
+// lie 256 bytes apart), layout type 0 (no swizzle) in bits 62-63
+constexpr uint32_t kLbo = 128;
+constexpr uint32_t kSbo = 256;
+
+__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)(kLbo >> 4) << 16) |
+         ((uint64_t)(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-    for (int nf = 0; nf < NF; ++nf) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, w + (size_t)kf * 16 * ldw + nf * 16, ldw);
-      wmma::mma_sync(acc[nf], fa, fb, acc[nf]);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The accumulator of columns [16 ks, 16 ks + 16) holds, in each thread, the
+// rows and columns of k-step ks's A fragment: pair (8 ks + 2 q, + 1) is A
+// register q. Optionally relu, round to bf16, pack.
+template <int KS, bool RELU>
+__device__ __forceinline__ void acc_to_a(const float (&d)[KS * 8],
+                                         uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float lo = d[8 * ks + 2 * q];
+      float hi = d[8 * ks + 2 * q + 1];
+      if (RELU) {
+        lo = fmaxf(lo, 0.0f);
+        hi = fmaxf(hi, 0.0f);
+      }
+      a[ks][q] = pack_bf16(lo, hi);
     }
   }
 }
 
-template <int NF>
-__device__ __forceinline__ void zero(FragC (&acc)[NF]) {
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
-  for (int nf = 0; nf < NF; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
+  for (int i = 0; i < R; ++i) d[i] = 0.0f;
 }
 
-// relu, round to bf16, and write the warp's 16 x 16*NF result over its rows
-template <int NF>
-__device__ __forceinline__ void store_relu(FragC (&acc)[NF], bf16* a,
-                                           int lda, float* stage, int lane) {
-  __syncwarp();  // every lane is done reading this layer's input rows
+// ---------------------------------------------------------------------------
+// the bf16 kernel (K1, and K2 in bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;                    // rows of a consumer warpgroup
+constexpr int kConsumers = 2;                  // consumer warpgroups
+constexpr int kTileRows = kWgRows * kConsumers;
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kProducerRegs = 40;              // setmaxnreg, a thread
+constexpr int kConsumerRegs = 232;
+constexpr int kBarBytes = 128;                 // the ring's mbarriers
+constexpr int kEncPitch = kEncCols + 8;        // encoding tile row, bf16
+constexpr int kEncTileBytes = kWgRows * kEncPitch * 2;
+constexpr int kXsBytes = kWgRows * 3 * 4;      // K1: the rows' positions
+constexpr int kRingOffset = kBarBytes + kConsumers * (kEncTileBytes + kXsBytes);
+static_assert(kRingOffset % 128 == 0, "stage alignment");
+
+// bytes of one 16-deep k-step of an N-column layer's B image
+__host__ __device__ constexpr int slab_bytes(int n) { return 32 * n; }
+
+// W_L, C1 = [C1s; C1g], the middle color layers and C_last: one chunk
+__host__ __device__ constexpr int tail_bytes(int hid, int n_color_mid) {
+  return (hid / 16) * slab_bytes(16) + 2 * slab_bytes(kColor) +
+         n_color_mid * 4 * slab_bytes(kColor) + 4 * slab_bytes(16);
+}
+
+// the weight ring per hidden width: k-steps of a hidden layer per chunk,
+// bytes of a stage (the largest chunk: W1's 5 k-steps or kSpc k-steps, with
+// room for the tail), number of stages (all within a block's 227 KB)
+template <int H> struct Ring;
+template <> struct Ring<160> {
+  static constexpr int kSpc = 5, kStage = 32768, kStages = 6;
+};
+template <> struct Ring<192> {
+  static constexpr int kSpc = 6, kStage = 36864, kStages = 5;
+};
+template <> struct Ring<256> {
+  static constexpr int kSpc = 4, kStage = 40960, kStages = 5;
+};
+
+// a consumer warpgroup's place in the ring
+struct Pipe {
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t base;       // shared address of stage 0
+  int stage;
+  uint32_t phase;
+};
+
+// waits for the next chunk; returns its stage's shared address
+template <int H>
+__device__ __forceinline__ uint32_t pipe_acquire(Pipe& p) {
+  mbar_wait(&p.full[p.stage], p.phase);
+  return p.base + p.stage * Ring<H>::kStage;
+}
+
+// moves on to the next stage; returns the one left
+template <int H>
+__device__ __forceinline__ int pipe_advance(Pipe& p) {
+  const int s = p.stage;
+  if (++p.stage == Ring<H>::kStages) {
+    p.stage = 0;
+    p.phase ^= 1;
+  }
+  return s;
+}
+
+// the warpgroup is done with a stage: one arrival of its two
+__device__ __forceinline__ void pipe_release(Pipe& p, int stage) {
+  if ((threadIdx.x & 127) == 0) mbar_arrive(&p.empty[stage]);
+}
+
+// acc = a @ W for one hidden layer, its kSpc-k-step chunks taken from the
+// ring in order; a stage is released once the products reading it are done
+template <int H>
+__device__ __forceinline__ void hidden_layer(float (&acc)[H / 2],
+                                             const uint32_t (&a)[H / 16][4],
+                                             Pipe& p) {
+  constexpr int kSpc = Ring<H>::kSpc;
+  int prev = 0;
+  fence_acc(acc);
 #pragma unroll
-  for (int nf = 0; nf < NF; ++nf) {
-    wmma::store_matrix_sync(stage, acc[nf], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      a[(i >> 4) * lda + nf * 16 + (i & 15)] =
-          __float2bfloat16(fmaxf(stage[i], 0.0f));
+  for (int c = 0; c < H / 16 / kSpc; ++c) {
+    const uint32_t b = pipe_acquire<H>(p);
+    wg_fence();
+#pragma unroll
+    for (int i = 0; i < kSpc; ++i) {
+      wgmma(acc, a[c * kSpc + i], b_desc(b + i * slab_bytes(H)),
+            c * kSpc + i > 0);
     }
-    __syncwarp();
+    wg_commit();
+    if (c > 0) {
+      wg_wait<1>();
+      pipe_release(p, prev);
+    }
+    prev = pipe_advance<H>(p);
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  pipe_release(p, prev);
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// the 128 threads of consumer warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
+}
+
+// The warpgroup's rows [row0, row0 + 64) of layer 1's input, rounded to
+// bf16, into its tile [64][kEncPitch]: enc's columns (K2), or the
+// frequency encoding of x (K1) in the column order of ops/freq_encoding.py,
+// x then for each k the sines of 2^k x and their cosines; zero past the
+// input and for rows past n. wt: the thread's index in the warpgroup; xs:
+// the warpgroup's [64][3] staging of x. Every load is independent of the
+// others, so they are all in flight at once.
+__device__ __forceinline__ void fill_encoding(
+    unsigned short* tile, float* xs, const float* __restrict__ x,
+    const unsigned short* __restrict__ enc, int64_t row0, int64_t n,
+    int multires, int enc_dim, int wg, int wt) {
+  const int rows = (int)max((int64_t)0, min((int64_t)kWgRows, n - row0));
+  if (enc != nullptr) {
+    // the rows are contiguous in enc: 16-byte loads of the block (its start,
+    // 128 enc_dim bytes into the tensor times a tile count, stays 16-byte
+    // aligned), each scattered to its 8 values' rows
+    const unsigned short* src = enc + row0 * enc_dim;
+    const int total = rows * enc_dim;
+    const int chunks = total / 8;
+#pragma unroll 4
+    for (int q = wt; q < chunks; q += 128) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + q);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = 8 * q + u;
+        const int r = i / enc_dim;
+        tile[r * kEncPitch + i - r * enc_dim] =
+            (unsigned short)(w[u >> 1] >> (16 * (u & 1)));
+      }
+    }
+    for (int i = 8 * chunks + wt; i < total; i += 128) {
+      const int r = i / enc_dim;
+      tile[r * kEncPitch + i - r * enc_dim] = __ldg(src + i);
+    }
+    for (int i = wt; i < kWgRows * kEncCols; i += 128) {
+      const int r = i / kEncCols;
+      const int c = i - r * kEncCols;
+      if (c >= enc_dim || r >= rows) tile[r * kEncPitch + c] = 0;
+    }
+    return;
+  }
+  for (int i = wt; i < kWgRows * 3; i += 128) {
+    xs[i] = i < 3 * rows ? __ldg(x + row0 * 3 + i) : 0.0f;
+  }
+  wg_sync(wg);
+  const int used = 3 + 6 * multires;
+  for (int i = wt; i < kWgRows * 3; i += 128) {
+    const int r = i / 3;
+    tile[r * kEncPitch + (i - 3 * r)] = bf16_bits(xs[i]);
+  }
+#pragma unroll 2
+  for (int i = wt; i < kWgRows * 3 * multires; i += 128) {
+    const int r = i / (3 * multires);
+    const int j = i - r * 3 * multires;
+    const int k = j / 3;
+    const int d = j - 3 * k;
+    float sv, cv;
+    sincosf(xs[3 * r + d] * (float)(1 << k), &sv, &cv);
+    tile[r * kEncPitch + 3 + 6 * k + d] = bf16_bits(sv);
+    tile[r * kEncPitch + 6 + 6 * k + d] = bf16_bits(cv);
+  }
+  for (int i = wt; i < kWgRows * (kEncCols - used); i += 128) {
+    const int r = i / (kEncCols - used);
+    tile[r * kEncPitch + used + (i - r * (kEncCols - used))] = 0;
   }
 }
 
-template <int HID>
-__global__ void __launch_bounds__(kThreads)
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
 points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
                   const bf16* __restrict__ sh,
-                  const bf16* __restrict__ w1, const bf16* __restrict__ wh,
-                  const bf16* __restrict__ wlast, const bf16* __restrict__ c1s,
-                  const bf16* __restrict__ c1g, const bf16* __restrict__ cmid,
-                  const bf16* __restrict__ clast, float* __restrict__ out,
-                  int64_t n, int multires, int enc_dim, int out_cols,
-                  int n_hidden, int n_color_mid) {
-  constexpr int LDA = HID + 8;  // row pitch of the activation tile
-  constexpr int NF = HID / 16;
-  // bf16 tiles are declared as their 16-bit storage and viewed as bf16
-  __shared__ __align__(128) uint16_t act_bits[kRows * LDA];
-  __shared__ __align__(128) uint16_t sh_bits[kRows * kSh];
-  __shared__ __align__(128) float stage_all[kWarps * 256];
-  __shared__ float xs[kRows * 3];
-  bf16* act = reinterpret_cast<bf16*>(act_bits);
-  bf16* sh_s = reinterpret_cast<bf16*>(sh_bits);
+                  const unsigned char* __restrict__ image,
+                  float* __restrict__ out, int64_t n, int multires,
+                  int enc_dim, int out_cols, int n_hidden, int n_color_mid) {
+  constexpr int KS = H / 16;
+  constexpr int kStage = Ring<H>::kStage;
+  constexpr int kStages = Ring<H>::kStages;
+  constexpr int kSpc = Ring<H>::kSpc;
+  static_assert(2 * kStages * 8 <= kBarBytes, "barriers");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  const uint32_t stages = smem_addr(smem + kRingOffset);
+  const int64_t ntiles = (n + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int64_t row0 = (int64_t)blockIdx.x * kRows;
-
-  if (enc == nullptr) {
-    for (int i = tid; i < kRows * 3; i += kThreads) {
-      xs[i] = (row0 + i / 3 < n) ? x[row0 * 3 + i] : 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-  }
-  {  // 64 rows x 32 bytes of SH = one 16-byte load per thread
-    const int r = tid >> 1;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      v = reinterpret_cast<const uint4*>(sh)[(row0 + r) * 2 + (tid & 1)];
-    }
-    reinterpret_cast<uint4*>(sh_s)[tid] = v;
+    // make the initialised barriers visible to the copy engine
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (enc != nullptr) {  // K2: the given encoding, zero-padded to 80
-    for (int i = tid; i < kRows * kEncCols; i += kThreads) {
-      const int r = i / kEncCols;
-      const int c = i - r * kEncCols;
-      act[r * LDA + c] = (c < enc_dim && row0 + r < n)
-                             ? enc[(row0 + r) * enc_dim + c]
-                             : __float2bfloat16(0.0f);
-    }
-  } else {
-    const int enc_cols = 3 + 6 * multires;
-    for (int i = tid; i < kRows * kEncCols; i += kThreads) {
-      const int r = i / kEncCols;
-      const int c = i - r * kEncCols;
-      float v = 0.0f;
-      if (c < 3) {
-        v = xs[r * 3 + c];
-      } else if (c < enc_cols) {
-        const int k = (c - 3) / 6;
-        const int j = (c - 3) - 6 * k;
-        const float t = xs[r * 3 + (j % 3)] * (float)(1 << k);
-        v = (j < 3) ? sinf(t) : cosf(t);
+  if (warp >= 4 * kConsumers) {
+    // producer: every tile's chunks in order, the k-th use of a stage after
+    // its (k-1)-th use was released by both consumer warpgroups
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      auto put = [&](int64_t off, int bytes) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], (uint32_t)bytes);
+        bulk_copy_g2s(stages + stage * kStage, image + off, (uint32_t)bytes,
+                      &full[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      const int tail = tail_bytes(H, n_color_mid);
+      for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int64_t off = 0;
+        put(off, kEncSteps * slab_bytes(H));
+        off += kEncSteps * slab_bytes(H);
+        for (int l = 0; l < n_hidden; ++l) {
+          for (int c = 0; c < KS / kSpc; ++c) {
+            put(off, kSpc * slab_bytes(H));
+            off += kSpc * slab_bytes(H);
+          }
+        }
+        put(off, tail);
       }
-      act[r * LDA + c] = __float2bfloat16(v);
     }
+    return;
   }
-  __syncthreads();
 
-  bf16* a = act + warp * 16 * LDA;
-  float* stage = stage_all + warp * 256;
-  const int64_t wrow0 = row0 + warp * 16;
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile; a
+  // thread holds rows wr and wr + 8 of them, columns c2, c2 + 1 (+ 8 k) of
+  // every fragment
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
+  const int wg = warp >> 2;
+  const int wr = (warp & 3) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const uint32_t* sh32 = reinterpret_cast<const uint32_t*>(sh);
+  const unsigned short* enc16 = reinterpret_cast<const unsigned short*>(enc);
+  unsigned short* tile = reinterpret_cast<unsigned short*>(
+      smem + kBarBytes + wg * (kEncTileBytes + kXsBytes));
+  float* xs = reinterpret_cast<float*>(smem + kBarBytes +
+                                       wg * (kEncTileBytes + kXsBytes) +
+                                       kEncTileBytes);
+  Pipe p{full, empty, stages, 0, 0u};
 
-  // sigma net
-  FragC acc[NF];
-  zero(acc);
-  mma_rows<NF>(acc, a, LDA, kEncCols / 16, w1, HID);
-  store_relu<NF>(acc, a, LDA, stage, lane);
-  for (int l = 0; l < n_hidden; ++l) {
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t row[2] = {t * kTileRows + wg * kWgRows + wr,
+                            t * kTileRows + wg * kWgRows + wr + 8};
+    const bool ok[2] = {row[0] < n, row[1] < n};
+
+    // sh as the A fragment of C1's first k-step
+    uint32_t sha[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (ok[q & 1]) sha[q] = __ldg(sh32 + row[q & 1] * 8 + (q >> 1) * 4 + c2 / 2);
+    }
+
+    // layer 1's A fragments, from the warpgroup's encoding tile (the
+    // barriers: every warp has read the last tile's fragments before it is
+    // overwritten, and has written this one before it is read)
+    wg_sync(wg);
+    fill_encoding(tile, xs, x, enc16, t * kTileRows + wg * kWgRows, n,
+                  multires, enc_dim, wg, threadIdx.x & 127);
+    wg_sync(wg);
+    uint32_t a1[kEncSteps][4];
+#pragma unroll
+    for (int ks = 0; ks < kEncSteps; ++ks) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a1[ks][q] = *reinterpret_cast<const uint32_t*>(
+            tile + (wr + 8 * (q & 1)) * kEncPitch + 16 * ks + 8 * (q >> 1) +
+            c2);
+      }
+    }
+
+    // sigma net
+    float acc[H / 2];
     zero(acc);
-    mma_rows<NF>(acc, a, LDA, NF, wh + (size_t)l * HID * HID, HID);
-    store_relu<NF>(acc, a, LDA, stage, lane);
-  }
-  FragC s[1];
-  zero(s);
-  mma_rows<1>(s, a, LDA, NF, wlast, kGeo);
-  __syncwarp();
-  wmma::store_matrix_sync(stage, s[0], 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 256; i += 32) {
-    const int r = i >> 4;
-    const int c = i & 15;
-    const float v = stage[i];
-    a[r * LDA + c] = __float2bfloat16(v);
-    if (c == 0 && wrow0 + r < n) {
-      out[(wrow0 + r) * out_cols] = expf(fminf(fmaxf(v, -15.0f), 15.0f));
+    {
+      const uint32_t b = pipe_acquire<H>(p);
+      fence_acc(acc);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < kEncSteps; ++ks) {
+        wgmma(acc, a1[ks], b_desc(b + ks * slab_bytes(H)), ks > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(acc);
+      pipe_release(p, pipe_advance<H>(p));
     }
-  }
-  __syncwarp();
+    uint32_t a[KS][4];
+    acc_to_a<KS, true>(acc, a);
+    for (int l = 0; l < n_hidden; ++l) {
+      hidden_layer<H>(acc, a, p);
+      acc_to_a<KS, true>(acc, a);
+    }
 
-  // color net: the [sh | geo] concat is two products into one sum
-  FragC g[kColor / 16];
-  zero(g);
-  mma_rows<kColor / 16>(g, sh_s + warp * 16 * kSh, kSh, 1, c1s, kColor);
-  mma_rows<kColor / 16>(g, a, LDA, 1, c1g, kColor);
-  store_relu<kColor / 16>(g, a, LDA, stage, lane);
-  for (int l = 0; l < n_color_mid; ++l) {
+    // the tail chunk: W_L, then the color net
+    const uint32_t b = pipe_acquire<H>(p);
+    float s[8];
+    zero(s);
+    fence_acc(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      wgmma(s, a[ks], b_desc(b + ks * slab_bytes(16)), ks > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    // column 0 (lanes with c2 == 0: s[0] row 0, s[2] row 1) is sigma's
+    const float sigma[2] = {expf(fminf(fmaxf(s[0], -15.0f), 15.0f)),
+                            expf(fminf(fmaxf(s[2], -15.0f), 15.0f))};
+    uint32_t sa[1][4];
+    acc_to_a<1, false>(s, sa);
+
+    uint32_t bc = b + KS * slab_bytes(16);      // C1: [C1s; C1g]
+    float g[kColor / 2];
     zero(g);
-    mma_rows<kColor / 16>(g, a, LDA, kColor / 16,
-                          cmid + (size_t)l * kColor * kColor, kColor);
-    store_relu<kColor / 16>(g, a, LDA, stage, lane);
-  }
-  FragC o[1];
-  zero(o);
-  mma_rows<1>(o, a, LDA, kColor / 16, clast, kLastCols);
-  __syncwarp();
-  wmma::store_matrix_sync(stage, o[0], 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * out_cols; i += 32) {
-    const int r = i / out_cols;
-    const int c = i - r * out_cols;
-    if (c == 0 || wrow0 + r >= n) continue;
-    out[(wrow0 + r) * out_cols + c] =
-        c <= 3 ? 1.0f / (1.0f + expf(-stage[r * 16 + c - 1])) : 0.0f;
+    fence_acc(g);
+    wg_fence();
+    wgmma(g, sha, b_desc(bc), 0);
+    wgmma(g, sa[0], b_desc(bc + slab_bytes(kColor)), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(g);
+    uint32_t ga[kColor / 16][4];
+    acc_to_a<kColor / 16, true>(g, ga);
+    bc += 2 * slab_bytes(kColor);
+    for (int l = 0; l < n_color_mid; ++l) {
+      fence_acc(g);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < kColor / 16; ++ks) {
+        wgmma(g, ga[ks], b_desc(bc + ks * slab_bytes(kColor)), ks > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(g);
+      acc_to_a<kColor / 16, true>(g, ga);
+      bc += 4 * slab_bytes(kColor);
+    }
+    float o[8];
+    zero(o);
+    fence_acc(o);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kColor / 16; ++ks) {
+      wgmma(o, ga[ks], b_desc(bc + ks * slab_bytes(16)), ks > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(o);
+    pipe_release(p, pipe_advance<H>(p));
+
+    // rgb: columns 0, 1 in this lane (c2 == 0), column 2 in the next
+    const float blue[2] = {__shfl_down_sync(0xffffffffu, o[0], 1),
+                           __shfl_down_sync(0xffffffffu, o[2], 1)};
+    if (c2 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!ok[h]) continue;
+        float* dst = out + row[h] * out_cols;
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            sigma[h], 1.0f / (1.0f + expf(-o[2 * h])),
+            1.0f / (1.0f + expf(-o[2 * h + 1])),
+            1.0f / (1.0f + expf(-blue[h])));
+        if (out_cols == kOutK1) {
+          *reinterpret_cast<float4*>(dst + 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
   }
 }
 
@@ -263,175 +793,285 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
 // K2 in float32: FFMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 32;       // rows per block
+constexpr int kF32Rows = 128;      // rows per block
 constexpr int kF32Threads = 256;
-constexpr int kF32Pitch = 256;     // activation tile row: the widest layer
+constexpr int kF32Pitch = 260;     // activation row: the widest layer + 4
+constexpr int kF32Kc = 16;         // input rows of a weight chunk
+constexpr int kF32Wmax = 256;      // the widest layer
+constexpr int kF32Smem =
+    (kF32Rows * kF32Pitch + 2 * kF32Kc * kF32Wmax) * (int)sizeof(float);
 
-// acc[r] = sum_k in[r][k] * w[k][c] over k < K (a multiple of 4), in order
-__device__ __forceinline__ void f32_column(float (&acc)[kF32Rows],
-                                           const float* in, int ld, int K,
-                                           const float* __restrict__ w, int N,
-                                           int c) {
-#pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) acc[r] = 0.0f;
-  for (int k = 0; k < K; k += 4) {
-    const float w0 = __ldg(w + (size_t)k * N + c);
-    const float w1 = __ldg(w + (size_t)(k + 1) * N + c);
-    const float w2 = __ldg(w + (size_t)(k + 2) * N + c);
-    const float w3 = __ldg(w + (size_t)(k + 3) * N + c);
-#pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(in + r * ld + k);
-      float v = acc[r];
-      v = fmaf(a.x, w0, v);
-      v = fmaf(a.y, w1, v);
-      v = fmaf(a.z, w2, v);
-      v = fmaf(a.w, w3, v);
-      acc[r] = v;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// The weight stream: the packed f32 layers (row-major [in, out], one after
+// another) cut into chunks of 16 input rows, in order. Chunk g + 1 is
+// copied into one buffer while chunk g is read from the other.
+struct F32Stream {
+  const float* image;
+  float* buf;          // [2][16][kF32Wmax]
+  int hid, n_hidden, n_color_mid;
+  int g;               // the chunk being read
+  int next;            // the next chunk to copy
+  int64_t next_off;    // its offset in the image, in floats
+};
+
+// columns of chunk g's layer: W1 (5 chunks), the hidden layers, W_L (each
+// H / 16 chunks), C1 (2), the middle color layers (4 each), C_last (4)
+__device__ __forceinline__ int f32_chunk_cols(const F32Stream& s, int g) {
+  int end = kEncSteps + s.n_hidden * (s.hid / 16);
+  if (g < end) return s.hid;
+  end += s.hid / 16;
+  if (g < end) return 16;
+  end += 2 + 4 * s.n_color_mid;
+  if (g < end) return kColor;
+  return end + 4 > g ? 16 : 0;
+}
+
+// copies the next chunk, if any, and commits a cp.async group either way
+__device__ __forceinline__ void f32_issue(F32Stream& s) {
+  const int cols = f32_chunk_cols(s, s.next);
+  if (cols > 0) {
+    const float* src = s.image + s.next_off;
+    float* dst = s.buf + (s.next & 1) * kF32Kc * kF32Wmax;
+    for (int i = threadIdx.x * 4; i < kF32Kc * cols; i += kF32Threads * 4) {
+      cp_async16(dst + i, src + i);
     }
+    s.next_off += (int64_t)kF32Kc * cols;
+    ++s.next;
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// acc[i][j] = the sum over k < K, in order, of act[rg + RG i][k] *
+// W[k][cg + CG j]: the thread's output micro-tile (TM rows x TN columns of
+// the CG * TN); threads past RG * CG only keep the block's barriers
+template <int TM, int TN, int RG, int CG>
+__device__ __forceinline__ void f32_layer(const float* act, int K,
+                                          F32Stream& s,
+                                          float (&acc)[TM][TN]) {
+  constexpr int N = CG * TN;
+  const int t = threadIdx.x;
+  const bool on = t < RG * CG;
+  const int rg = t / CG;
+  const int cg = t - rg * CG;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  }
+  for (int kc = 0; kc < K; kc += kF32Kc) {
+    f32_issue(s);                                   // the next chunk
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // this one, mine
+    __syncthreads();                                // ... and everyone's
+    const float* w = s.buf + (s.g & 1) * kF32Kc * kF32Wmax;
+    if (on) {
+#pragma unroll
+      for (int k4 = 0; k4 < kF32Kc; k4 += 4) {
+        float4 av[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          av[i] = *reinterpret_cast<const float4*>(
+              act + (rg + RG * i) * kF32Pitch + kc + k4);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float wv[TN];
+#pragma unroll
+          for (int j = 0; j < TN; ++j) wv[j] = w[(k4 + kk) * N + cg + CG * j];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float v = kk == 0 ? av[i].x
+                            : kk == 1 ? av[i].y
+                            : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(v, wv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();                                // done with the buffer
+    ++s.g;
   }
 }
 
-// o = relu?(in @ w) for the block's rows; w [K, N] row-major
-__device__ __forceinline__ void f32_layer(const float* in, int K,
-                                          const float* __restrict__ w, int N,
-                                          float* o, bool relu) {
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    float acc[kF32Rows];
-    f32_column(acc, in, kF32Pitch, K, w, N, c);
+// relu(acc) over the layer's input, in place (every read of it is done)
+template <int TM, int TN, int RG, int CG>
+__device__ __forceinline__ void f32_store_relu(float* act,
+                                               const float (&acc)[TM][TN]) {
+  const int t = threadIdx.x;
+  if (t < RG * CG) {
+    const int rg = t / CG;
+    const int cg = t - rg * CG;
 #pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      o[r * kF32Pitch + c] = relu ? fmaxf(acc[r], 0.0f) : acc[r];
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        act[(rg + RG * i) * kF32Pitch + cg + CG * j] = fmaxf(acc[i][j], 0.0f);
+      }
     }
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kF32Threads)
+template <int H>
+__global__ void __launch_bounds__(kF32Threads, 1)
 deep_mlp_f32_kernel(const float* __restrict__ enc, const float* __restrict__ sh,
-                    const float* __restrict__ w1, const float* __restrict__ wh,
-                    const float* __restrict__ wlast,
-                    const float* __restrict__ c1s, const float* __restrict__ c1g,
-                    const float* __restrict__ cmid,
-                    const float* __restrict__ clast, float* __restrict__ out,
-                    int64_t n, int enc_dim, int hid, int n_hidden,
-                    int n_color_mid) {
+                    const float* __restrict__ image, float* __restrict__ out,
+                    int64_t n, int enc_dim, int n_hidden, int n_color_mid) {
   extern __shared__ __align__(16) float smem_f32[];
-  float* a = smem_f32;                             // [32][256]
-  float* b = a + kF32Rows * kF32Pitch;             // [32][256]
-  float* sh_s = b + kF32Rows * kF32Pitch;          // [32][16]
+  float* act = smem_f32;                          // [128][kF32Pitch]
+  F32Stream s{image, smem_f32 + kF32Rows * kF32Pitch, H, n_hidden,
+              n_color_mid, 0, 0, 0};
   const int tid = threadIdx.x;
   const int64_t row0 = (int64_t)blockIdx.x * kF32Rows;
 
-  for (int i = tid; i < kF32Rows * kEncCols; i += blockDim.x) {
+  f32_issue(s);        // chunk 0 flies while the encoding is loaded
+  for (int i = tid; i < kF32Rows * kEncCols; i += kF32Threads) {
     const int r = i / kEncCols;
     const int c = i - r * kEncCols;
-    a[r * kF32Pitch + c] = (c < enc_dim && row0 + r < n)
-                               ? enc[(row0 + r) * enc_dim + c] : 0.0f;
+    act[r * kF32Pitch + c] = (c < enc_dim && row0 + r < n)
+                                 ? enc[(row0 + r) * enc_dim + c] : 0.0f;
   }
-  for (int i = tid; i < kF32Rows * kSh; i += blockDim.x) {
-    const int r = i / kSh;
-    sh_s[i] = (row0 + r < n) ? sh[row0 * kSh + i] : 0.0f;
-  }
-  __syncthreads();
 
-  // sigma net: a -> b -> a ..., the last layer's [32, 16] output in `s`
-  f32_layer(a, kEncCols, w1, hid, b, true);
-  float* cur = b;
-  float* nxt = a;
-  for (int l = 0; l < n_hidden; ++l) {
-    f32_layer(cur, hid, wh + (size_t)l * hid * hid, hid, nxt, true);
-    float* t = cur; cur = nxt; nxt = t;
-  }
-  f32_layer(cur, hid, wlast, kGeo, nxt, false);
-  float* s = nxt;
-  for (int r = tid; r < kF32Rows; r += blockDim.x) {
-    if (row0 + r < n) {
-      out[(row0 + r) * kOutK2] =
-          expf(fminf(fmaxf(s[r * kF32Pitch], -15.0f), 15.0f));
+  // sigma net: 8 x H/16 micro-tiles on the H-wide layers
+  {
+    float acc[8][H / 16];
+    f32_layer<8, H / 16, 16, 16>(act, kEncCols, s, acc);
+    f32_store_relu<8, H / 16, 16, 16>(act, acc);
+    for (int l = 0; l < n_hidden; ++l) {
+      f32_layer<8, H / 16, 16, 16>(act, H, s, acc);
+      f32_store_relu<8, H / 16, 16, 16>(act, acc);
     }
   }
-
-  // color net: relu(sh @ C1s + s @ C1g), the two products summed apart
-  float* g = cur;
-  for (int c = tid; c < kColor; c += blockDim.x) {
-    float acc_sh[kF32Rows];
-    float acc_s[kF32Rows];
-    f32_column(acc_sh, sh_s, kSh, kSh, c1s, kColor, c);
-    f32_column(acc_s, s, kF32Pitch, kGeo, c1g, kColor, c);
+  float acc[4][8];
+  f32_layer<4, 8, 32, 2>(act, H, s, acc);         // s = h @ W_L, [128, 16]
+  // C1's input [sh | s]: s to columns 16-31 (sigma from its column 0), sh
+  // to columns 0-15
+  if (tid < 64) {
+    const int rg = tid / 2;
+    const int cg = tid - 2 * rg;
 #pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      g[r * kF32Pitch + c] = fmaxf(acc_sh[r] + acc_s[r], 0.0f);
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = rg + 32 * i;
+        const int c = cg + 2 * j;
+        act[r * kF32Pitch + kSh + c] = acc[i][j];
+        if (c == 0 && row0 + r < n) {
+          out[(row0 + r) * kOutK2] =
+              expf(fminf(fmaxf(acc[i][j], -15.0f), 15.0f));
+        }
+      }
     }
   }
-  __syncthreads();
-  cur = g;
-  nxt = s;
-  for (int l = 0; l < n_color_mid; ++l) {
-    f32_layer(cur, kColor, cmid + (size_t)l * kColor * kColor, kColor, nxt,
-              true);
-    float* t = cur; cur = nxt; nxt = t;
+  for (int i = tid; i < kF32Rows * kSh; i += kF32Threads) {
+    const int r = i / kSh;
+    act[r * kF32Pitch + (i - r * kSh)] =
+        row0 + r < n ? sh[row0 * kSh + i] : 0.0f;
   }
-  f32_layer(cur, kColor, clast, kLastCols, nxt, false);
-  for (int i = tid; i < kF32Rows * 3; i += blockDim.x) {
-    const int r = i / 3;
-    const int c = i - r * 3;
-    if (row0 + r < n) {
-      out[(row0 + r) * kOutK2 + 1 + c] =
-          1.0f / (1.0f + expf(-nxt[r * kF32Pitch + c]));
+  __syncthreads();
+
+  // color net: 4 x 8 micro-tiles
+  {
+    float g[4][8];
+    f32_layer<4, 8, 32, 8>(act, 2 * kSh, s, g);     // [sh | s] @ [C1s; C1g]
+    f32_store_relu<4, 8, 32, 8>(act, g);
+    for (int l = 0; l < n_color_mid; ++l) {
+      f32_layer<4, 8, 32, 8>(act, kColor, s, g);
+      f32_store_relu<4, 8, 32, 8>(act, g);
+    }
+  }
+  f32_layer<4, 8, 32, 2>(act, kColor, s, acc);    // C_last, [128, 16]
+  if (tid < 64) {
+    const int rg = tid / 2;
+    const int cg = tid - 2 * rg;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {               // columns cg, cg + 2 < 3
+        const int r = rg + 32 * i;
+        const int c = cg + 2 * j;
+        if (c < 3 && row0 + r < n) {
+          out[(row0 + r) * kOutK2 + 1 + c] = 1.0f / (1.0f + expf(-acc[i][j]));
+        }
+      }
     }
   }
 }
 
-constexpr int kF32Smem = (2 * kF32Rows * kF32Pitch + kF32Rows * kSh) * 4;
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
-template <int HID>
-cudaError_t launch(const float* x, const bf16* enc, const bf16* sh,
-                   const bf16* w1, const bf16* wh, const bf16* wlast,
-                   const bf16* c1s, const bf16* c1g, const bf16* cmid,
-                   const bf16* clast, float* out, int64_t n, int multires,
-                   int enc_dim, int out_cols, int n_hidden, int n_color_mid,
-                   cudaStream_t stream) {
-  const int64_t blocks = (n + kRows - 1) / kRows;
-  points_mlp_kernel<HID><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      x, enc, sh, w1, wh, wlast, c1s, c1g, cmid, clast, out, n, multires,
-      enc_dim, out_cols, n_hidden, n_color_mid);
+template <int H>
+cudaError_t launch_bf16(const float* x, const bf16* enc, const bf16* sh,
+                        const unsigned char* image, float* out, int64_t n,
+                        int multires, int enc_dim, int out_cols, int n_hidden,
+                        int n_color_mid, cudaStream_t stream) {
+  constexpr int smem = kRingOffset + Ring<H>::kStages * Ring<H>::kStage;
+  static_assert(smem <= kMaxSmem, "the ring exceeds a block's shared memory");
+  if (tail_bytes(H, n_color_mid) > Ring<H>::kStage) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      points_mlp_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  int sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (n + kTileRows - 1) / kTileRows;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  points_mlp_kernel<H><<<grid, kThreads, smem, stream>>>(
+      x, enc, sh, image, out, n, multires, enc_dim, out_cols, n_hidden,
+      n_color_mid);
   return cudaGetLastError();
 }
 
 // the bf16 kernel for either input, by hidden width
-int launch_bf16(const float* x, const bf16* enc, const void* sh,
-                const void* w1, const void* wh, const void* wlast,
-                const void* c1s, const void* c1g, const void* cmid,
-                const void* clast, void* out, int64_t n, int multires,
-                int enc_dim, int out_cols, int hidden, int n_hidden,
-                int n_color_mid, void* stream) {
-  const bf16* b[8] = {static_cast<const bf16*>(sh),
-                      static_cast<const bf16*>(w1),
-                      static_cast<const bf16*>(wh),
-                      static_cast<const bf16*>(wlast),
-                      static_cast<const bf16*>(c1s),
-                      static_cast<const bf16*>(c1g),
-                      static_cast<const bf16*>(cmid),
-                      static_cast<const bf16*>(clast)};
+int run_bf16(const float* x, const bf16* enc, const void* sh,
+             const void* image, void* out, int64_t n, int multires,
+             int enc_dim, int out_cols, int hidden, int n_hidden,
+             int n_color_mid, void* stream) {
+  const bf16* s = static_cast<const bf16*>(sh);
+  const unsigned char* im = static_cast<const unsigned char*>(image);
   float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hidden) {
     case 160:
-      return (int)launch<160>(x, enc, b[0], b[1], b[2], b[3], b[4], b[5],
-                              b[6], b[7], o, n, multires, enc_dim, out_cols,
-                              n_hidden, n_color_mid, s);
+      return (int)launch_bf16<160>(x, enc, s, im, o, n, multires, enc_dim,
+                                   out_cols, n_hidden, n_color_mid, st);
     case 192:
-      return (int)launch<192>(x, enc, b[0], b[1], b[2], b[3], b[4], b[5],
-                              b[6], b[7], o, n, multires, enc_dim, out_cols,
-                              n_hidden, n_color_mid, s);
+      return (int)launch_bf16<192>(x, enc, s, im, o, n, multires, enc_dim,
+                                   out_cols, n_hidden, n_color_mid, st);
     case 256:
-      return (int)launch<256>(x, enc, b[0], b[1], b[2], b[3], b[4], b[5],
-                              b[6], b[7], o, n, multires, enc_dim, out_cols,
-                              n_hidden, n_color_mid, s);
+      return (int)launch_bf16<256>(x, enc, s, im, o, n, multires, enc_dim,
+                                   out_cols, n_hidden, n_color_mid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int H>
+cudaError_t launch_f32(const float* enc, const float* sh, const float* image,
+                       float* out, int64_t n, int enc_dim, int n_hidden,
+                       int n_color_mid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      deep_mlp_f32_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kF32Smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (n + kF32Rows - 1) / kF32Rows;
+  deep_mlp_f32_kernel<H><<<(unsigned)blocks, kF32Threads, kF32Smem,
+                           stream>>>(enc, sh, image, out, n, enc_dim,
+                                     n_hidden, n_color_mid);
+  return cudaGetLastError();
 }
 
 bool bad_counts(int64_t n, int n_hidden, int n_color_mid, int rows) {
@@ -441,74 +1081,70 @@ bool bad_counts(int64_t n, int n_hidden, int n_color_mid, int rows) {
 
 }  // namespace
 
-// K1. x [n,3] f32; sh [n,16] bf16; w1 [80,H]; wh [n_hidden,H,H]; wlast
-// [H,16]; c1s [16,64]; c1g [16,64]; cmid [n_color_mid,64,64]; clast [64,16];
-// all weights bf16 row-major [in, out]; out [n,8] f32. H is 160, 192 or 256
-// (the repo's students h160x6, h192x6 and the 256 x 6 default).
+// The weights of every launcher come as one packed image (see the wrapper,
+// ops/hopper/points_mlp.py): W1 [80, H] (rows past the encoding zero), the
+// n_hidden [H, H], W_L [H, 16], C1 = [C1s; C1g] [32, 64] (C1g's row 0
+// zero), the n_color_mid [64, 64] and C_last [64, 16] (columns past 3 zero),
+// one after another; bf16 in wgmma's B layout, f32 row-major.
+
+// K1. x [n,3] f32; sh [n,16] bf16; the bf16 image; out [n,8] f32. H is
+// 160, 192 or 256 (the repo's students h160x6, h192x6 and the 256 x 6
+// default).
 extern "C" int points_mlp_forward(const void* x, const void* sh,
-                                  const void* w1, const void* wh,
-                                  const void* wlast, const void* c1s,
-                                  const void* c1g, const void* cmid,
-                                  const void* clast, void* out, int64_t n,
+                                  const void* image, void* out, int64_t n,
                                   int multires, int hidden, int n_hidden,
                                   int n_color_mid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (multires < 0 || 3 + 6 * multires > kEncCols ||
-      bad_counts(n, n_hidden, n_color_mid, kRows)) {
+      bad_counts(n, n_hidden, n_color_mid, kTileRows)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_bf16(static_cast<const float*>(x), nullptr, sh, w1, wh,
-                     wlast, c1s, c1g, cmid, clast, out, n, multires, 0,
-                     kOutK1, hidden, n_hidden, n_color_mid, stream);
+  return run_bf16(static_cast<const float*>(x), nullptr, sh, image, out, n,
+                  multires, 0, kOutK1, hidden, n_hidden, n_color_mid, stream);
 }
 
-// K2 in bf16. enc [n, enc_dim <= 80] bf16 in place of x; the weights as
-// K1's; out [n,4] f32.
+// K2 in bf16. enc [n, enc_dim <= 80] bf16 in place of x; the bf16 image;
+// out [n,4] f32.
 extern "C" int deep_mlp_forward(const void* enc, const void* sh,
-                                const void* w1, const void* wh,
-                                const void* wlast, const void* c1s,
-                                const void* c1g, const void* cmid,
-                                const void* clast, void* out, int64_t n,
+                                const void* image, void* out, int64_t n,
                                 int enc_dim, int hidden, int n_hidden,
                                 int n_color_mid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (enc_dim <= 0 || enc_dim > kEncCols ||
-      bad_counts(n, n_hidden, n_color_mid, kRows)) {
+      bad_counts(n, n_hidden, n_color_mid, kTileRows)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_bf16(nullptr, static_cast<const bf16*>(enc), sh, w1, wh,
-                     wlast, c1s, c1g, cmid, clast, out, n, 0, enc_dim,
-                     kOutK2, hidden, n_hidden, n_color_mid, stream);
+  return run_bf16(nullptr, static_cast<const bf16*>(enc), sh, image, out, n,
+                  0, enc_dim, kOutK2, hidden, n_hidden, n_color_mid, stream);
 }
 
-// K2 in f32. enc [n, enc_dim <= 80] f32; sh [n,16] f32; the weights laid
-// out as K1's, in f32; out [n,4] f32. hidden: 160, 192 or 256.
+// K2 in f32. enc [n, enc_dim <= 80] f32; sh [n,16] f32; the f32 image;
+// out [n,4] f32. hidden: 160, 192 or 256.
 extern "C" int deep_mlp_forward_f32(const void* enc, const void* sh,
-                                    const void* w1, const void* wh,
-                                    const void* wlast, const void* c1s,
-                                    const void* c1g, const void* cmid,
-                                    const void* clast, void* out, int64_t n,
+                                    const void* image, void* out, int64_t n,
                                     int enc_dim, int hidden, int n_hidden,
                                     int n_color_mid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (enc_dim <= 0 || enc_dim > kEncCols ||
-      (hidden != 160 && hidden != 192 && hidden != 256) ||
       bad_counts(n, n_hidden, n_color_mid, kF32Rows)) {
     return (int)cudaErrorInvalidValue;
   }
-  // 67.6 KB of dynamic shared memory: above the default 48 KB
-  cudaError_t err = cudaFuncSetAttribute(
-      deep_mlp_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kF32Smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (n + kF32Rows - 1) / kF32Rows;
-  deep_mlp_f32_kernel<<<(unsigned)blocks, kF32Threads, kF32Smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(enc), static_cast<const float*>(sh),
-      static_cast<const float*>(w1), static_cast<const float*>(wh),
-      static_cast<const float*>(wlast), static_cast<const float*>(c1s),
-      static_cast<const float*>(c1g), static_cast<const float*>(cmid),
-      static_cast<const float*>(clast), static_cast<float*>(out), n, enc_dim,
-      hidden, n_hidden, n_color_mid);
-  return (int)cudaGetLastError();
+  const float* e = static_cast<const float*>(enc);
+  const float* s = static_cast<const float*>(sh);
+  const float* im = static_cast<const float*>(image);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 160:
+      return (int)launch_f32<160>(e, s, im, o, n, enc_dim, n_hidden,
+                                  n_color_mid, st);
+    case 192:
+      return (int)launch_f32<192>(e, s, im, o, n, enc_dim, n_hidden,
+                                  n_color_mid, st);
+    case 256:
+      return (int)launch_f32<256>(e, s, im, o, n, enc_dim, n_hidden,
+                                  n_color_mid, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -9,6 +9,8 @@ flight. On a CUDA tensor each launches its hand-written kernel in
 version `gather_plain`, which the tests compare with JAX.
 
 The TPU kernels drop the last M % tile_m rows; these write every row.
+K7 takes tile_m, the TPU grid step, and leaves it unused: its block size
+is its own (`dma_geometry`).
 
 The kernels are built at first use with `nvcc` into `_build/` beside the
 package and bound with ctypes.
@@ -28,6 +30,12 @@ LAUNCHES_VMEM = 0
 LAUNCHES_DMA = 0
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
+# K7's launch: about this many one-warp blocks per SM, each taking a whole
+# number of 32-row index loads, at most MAX_BLOCK_ROWS rows
+BLOCKS_PER_SM = 8
+MAX_BLOCK_ROWS = 4096
+MAX_GROUP = 8            # rows of one slot group (csrc/gather_rows.cu)
+H100_SMS = 132
 
 _lib = None
 
@@ -49,7 +57,8 @@ def _library():
         args = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 \
             + [ctypes.c_int] * 2
         lib.vmem_gather.argtypes = args + [ctypes.c_void_p]
-        lib.dma_gather.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+        lib.dma_gather.argtypes = args + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
         lib.vmem_gather.restype = lib.dma_gather.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -59,6 +68,27 @@ def gather_plain(table, idx):
     """The kernels' function in plain PyTorch: table [R, C], idx [M] ->
     [M, C]."""
     return table[idx.long()]
+
+
+def _align128(v):
+    return -(-v // 128) * 128
+
+
+def dma_geometry(M, row_bytes, nslot, sms=H100_SMS):
+    """K7's launch for M rows of row_bytes with nslot rows in flight per
+    block: (blocks, rows a block, rows a slot group, shared-memory bytes).
+    Block b takes rows [b * rows, (b + 1) * rows) of M; a slot group is the
+    largest of 8, 4, 2, 1 rows that divides nslot into at least two groups
+    (one group when nslot is 1); the shared memory holds the groups'
+    barriers, the block's indices and the nslot slots."""
+    group = next(g for g in (MAX_GROUP, 4, 2, 1)
+                 if nslot % g == 0 and (g < nslot or nslot == 1))
+    rows = -(-M // (sms * BLOCKS_PER_SM))
+    rows = min(MAX_BLOCK_ROWS, max(32, -(-rows // 32) * 32))
+    blocks = -(-M // rows)
+    smem = _align128(nslot // group * 8) + _align128(rows * 4) \
+        + nslot * row_bytes
+    return blocks, rows, group, smem
 
 
 def _launch(name, table, idx, tile_m, *extra):
@@ -113,15 +143,25 @@ def vmem_gather(table, idx, tile_m: int = 2048):
 
 
 def dma_gather(table, idx, tile_m: int = 2048, nslot: int = 16):
-    """table[idx] as `vmem_gather` takes it (K7): one TMA bulk copy per row
-    into a ring of nslot shared-memory slots per block, written out by the
-    block's consumer warps."""
+    """table[idx] as `vmem_gather` takes it (K7): one bulk copy per row into
+    a ring of nslot shared-memory slots per one-warp block, each lane
+    starting its own row's copy, and one bulk store per group of landed
+    rows. tile_m is the TPU kernel's grid step, checked and not used: the
+    blocks' rows are `dma_geometry`'s."""
     global LAUNCHES_DMA
     if table.device.type == "cpu":
         return gather_plain(table, idx)
     if nslot <= 0:
         raise ValueError(f"nslot must be positive, got {nslot}")
-    out = _launch("dma_gather", table, idx, tile_m, nslot)
+    if tile_m <= 0:
+        raise ValueError(f"tile_m must be positive, got {tile_m}")
+    sms = H100_SMS
+    if table.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(
+            table.device).multi_processor_count
+    _, rows, group, _ = dma_geometry(idx.shape[0], table.shape[-1] * 4,
+                                     nslot, sms)
+    out = _launch("dma_gather", table, idx, rows, nslot, group)
     if idx.shape[0]:
         LAUNCHES_DMA += 1
     return out

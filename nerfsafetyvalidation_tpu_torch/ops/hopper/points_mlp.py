@@ -17,7 +17,11 @@ backward recomputes the plain chain under autograd (the JAX package's
 neither TPU kernel has a backward kernel).
 
 The kernels are built at first use with `nvcc` into `_build/` beside the
-package (one shared library per source hash) and bound with ctypes.
+package (one shared library per source hash) and bound with ctypes. Their
+weights come as one packed image per set of weights and dtype
+(`_prepare`): in bfloat16 the shared-memory image that `wgmma` reads as
+its B operand, which the kernel streams through a ring of stages with bulk
+copies; in float32 the row-major layers one after another.
 """
 
 import ctypes
@@ -34,6 +38,22 @@ SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "points_mlp.cu"
 HIDDEN_WIDTHS = (160, 192, 256)   # the kernel's template instances
 ENC_COLS = 80                           # encoding columns padded to 5 x 16
 GEO, SH, COLOR, LAST_COLS = 16, 16, 64, 16
+# The bf16 image's layout, as csrc/points_mlp.cu's descriptors state it:
+# K-major, no swizzle, 8 x 8 core matrices of 128 contiguous bytes; the two
+# 8-deep halves of a 16-deep k-step B_LBO bytes apart, neighbouring
+# 8-column groups B_SBO bytes apart; k-steps one after another.
+B_LBO, B_SBO = 128, 256
+# the bf16 kernel's weight ring per hidden width (csrc/points_mlp.cu
+# Ring<H>): k-steps of a hidden layer per chunk, bytes of a stage, stages;
+# before the ring, its barriers and each consumer warpgroup's bf16
+# encoding tile (64 rows of 80 + 8 columns) and f32 positions (64 x 3)
+RING = {160: (5, 32768, 6), 192: (6, 36864, 5), 256: (4, 40960, 5)}
+RING_BARRIER_BYTES = 128
+RING_OFFSET = RING_BARRIER_BYTES + 2 * (64 * (ENC_COLS + 8) * 2 + 64 * 3 * 4)
+# what each dtype's image holds (the weight cache's tag: one set of weights
+# packed two ways must never be taken for the other)
+LAYOUT = {torch.bfloat16: "wgmma-B-kmajor-noswizzle",
+          torch.float32: "rowmajor-f32"}
 
 # launches of each CUDA kernel since the last reset (never the plain path):
 # K1, and K2 in either dtype
@@ -63,7 +83,7 @@ def _library():
         for name in ("points_mlp_forward", "deep_mlp_forward",
                      "deep_mlp_forward_f32"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] \
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
@@ -107,14 +127,48 @@ def _prepare(sigma_net, color_net, dtype=torch.bfloat16):
     """Kernel operands in `dtype` (bf16: K1 and K2; float32: K2's f32
     kernel), padded as the TPU kernel pads them (render_mlp.py
     _fused_points): W1 to the encode block, C1 split into the SH rows and
-    the geo rows behind a zero row, the last layer to a full fragment.
-    Built once per set of weights and dtype."""
+    the geo rows behind a zero row, the last layer to a full fragment; and
+    `image`, those layers packed for the kernel (`pack_image`). Built once
+    per set of weights and layout."""
     def pad():
         with torch.no_grad():
             return _pad(sigma_net, color_net, dtype)
 
     return _prepared.get(list(sigma_net) + list(color_net), pad,
-                         tag=str(dtype))
+                         tag=f"{dtype}/{LAYOUT[dtype]}")
+
+
+def tail_bytes(hidden, n_color_mid):
+    """Bytes of the bf16 image's last chunk: W_L, C1 and the color net."""
+    return (hidden // 16) * 32 * GEO + 2 * 32 * COLOR \
+        + n_color_mid * 4 * 32 * COLOR + 4 * 32 * LAST_COLS
+
+
+def image_layers(m):
+    """The padded layers of `_pad`'s operands, in the image's order: W1,
+    the hidden layers, W_L, C1 = [C1s; C1g], the middle color layers,
+    C_last; each [in, out]."""
+    return ([m["w1"]] + list(m["wh"][:m["n_hidden"]]) + [m["wlast"]]
+            + [torch.cat([m["c1s"], m["c1g"]])]
+            + list(m["cmid"][:m["n_color_mid"]]) + [m["clast"]])
+
+
+def wgmma_b(w):
+    """w [K, N] (K a multiple of 16, N of 8) as wgmma's B operand image,
+    flat: for each 16-deep k-step, the column groups of 8 (B_SBO bytes
+    apart), each two 8 x 8 core matrices (depths 0-7 and 8-15, B_LBO bytes
+    apart) of 8 columns x 8 depths, column n of the group at 16 n bytes and
+    depth k at 2 k bytes."""
+    k, n = w.shape
+    return w.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2) \
+        .reshape(-1)
+
+
+def pack_image(m, dtype):
+    """The kernel's one weight operand: the layers of `image_layers`, one
+    after another, in wgmma's B layout (bf16) or row-major (float32)."""
+    pack = wgmma_b if dtype == torch.bfloat16 else (lambda w: w.reshape(-1))
+    return torch.cat([pack(w) for w in image_layers(m)]).contiguous()
 
 
 def _pad(sigma_net, color_net, dtype=torch.bfloat16):
@@ -149,6 +203,13 @@ def _pad(sigma_net, color_net, dtype=torch.bfloat16):
         if c_mid else torch.zeros((1,), dtype=dtype, device=dev),
         clast=padded(c_last, COLOR, LAST_COLS),
         hidden=hid, n_hidden=len(sigma_net) - 2, n_color_mid=len(c_mid))
+    if dtype == torch.bfloat16 and \
+            tail_bytes(hid, len(c_mid)) > RING[hid][1]:
+        raise ValueError(f"the bf16 kernel's last chunk (W_L and the color "
+                         f"net) outgrows its {RING[hid][1]}-byte stage: at "
+                         f"most {(RING[hid][1] - tail_bytes(hid, 0)) // 8192}"
+                         f" middle color layers at H = {hid}")
+    mats["image"] = pack_image(mats, dtype)
     return mats
 
 
@@ -207,12 +268,9 @@ def _run(name, first, sh, sigma_net, color_net, dtype, out_cols, *ints):
         with torch.cuda.device(first.device):
             stream = torch.cuda.current_stream(first.device).cuda_stream
             err = getattr(_library(), name)(
-                first.data_ptr(), sh.data_ptr(), m["w1"].data_ptr(),
-                m["wh"].data_ptr(), m["wlast"].data_ptr(),
-                m["c1s"].data_ptr(), m["c1g"].data_ptr(),
-                m["cmid"].data_ptr(), m["clast"].data_ptr(), out.data_ptr(),
-                n, *ints, m["hidden"], m["n_hidden"], m["n_color_mid"],
-                stream)
+                first.data_ptr(), sh.data_ptr(), m["image"].data_ptr(),
+                out.data_ptr(), n, *ints, m["hidden"], m["n_hidden"],
+                m["n_color_mid"], stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out
@@ -269,8 +327,8 @@ def fused_sigma_color_deep(enc, sh, sigma_net, color_net,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     of `compute_dtype` (bfloat16 or float32): enc and sh are cast to it and
-    must then be contiguous, sh on a 16-byte boundary; anything else
-    raises."""
+    must then be contiguous, sh (and enc in bfloat16) on a 16-byte
+    boundary; anything else raises."""
     if enc.device.type == "cpu":
         return fused_sigma_color_deep_plain(enc, sh, sigma_net, color_net,
                                             compute_dtype)
@@ -285,6 +343,9 @@ def fused_sigma_color_deep(enc, sh, sigma_net, color_net,
                          f"{tuple(enc.shape)}")
     enc, sh = enc.to(compute_dtype), sh.to(compute_dtype)
     _check_sh(sh, n, compute_dtype)
+    if compute_dtype == torch.bfloat16 and enc.data_ptr() % 16:
+        raise ValueError("enc must start on a 16-byte boundary: the bf16 "
+                         "kernel reads its rows with 16-byte loads")
     name = "deep_mlp_forward" if compute_dtype == torch.bfloat16 \
         else "deep_mlp_forward_f32"
     n_sig = len(sigma_net)

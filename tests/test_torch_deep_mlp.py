@@ -258,3 +258,34 @@ def test_k3_k4_refuse_a_gradient_off_the_cpu():
     with pytest.raises(ValueError):
         pm.fused_sigma_color_deep(meta((8, 75)), meta((8, 16)), ws[:6],
                                   ws[6:])
+
+
+@pytest.mark.parametrize("hidden", pm.HIDDEN_WIDTHS)
+def test_f32_image_is_the_layers_row_major_in_order(hidden):
+    """K2's f32 kernel streams its weights in chunks of 16 input rows from
+    one image: the padded layers, row-major, one after another (W1, the
+    hidden layers, W_L, C1 = [C1s; C1g], the middle color layers, C_last),
+    every layer a whole number of chunks; and its cache entry is not the
+    bf16 one."""
+    _, _, sn, cn, _ = _nets(hidden=hidden, n_sig=4, rows=1)
+    sn_t, cn_t = _t(sn), _t(cn)
+    m = pm._prepare(sn_t, cn_t, torch.float32)
+    image = m["image"]
+    assert image.dtype == torch.float32 and image.dim() == 1
+    layers = pm.image_layers(m)
+    assert [tuple(w.shape) for w in layers] == [
+        (80, hidden), (hidden, hidden), (hidden, hidden), (hidden, 16),
+        (32, 64), (64, 64), (64, 16)]
+    off = 0
+    for w in layers:
+        k_in, cols = w.shape
+        assert k_in % 16 == 0
+        got = image[off:off + k_in * cols].view(k_in, cols)
+        assert torch.equal(got.view(torch.int32), w.view(torch.int32))
+        off += k_in * cols
+    assert off == image.numel()
+    torch.testing.assert_close(layers[4][16 + 1:], cn_t[0][16:], rtol=0,
+                               atol=0)
+    assert not layers[4][16].any()
+    assert pm._prepare(sn_t, cn_t)["image"].dtype == torch.bfloat16
+    assert pm.LAYOUT[torch.float32] != pm.LAYOUT[torch.bfloat16]

@@ -176,3 +176,48 @@ def test_probe_without_a_card_fails():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(SystemExit):
         B.main(["--quick"])
+
+
+@pytest.mark.parametrize("m", [1, 2047, 2 ** 18 - 1000, 2 ** 18])
+@pytest.mark.parametrize("nslot", [1, 4, 16, 32])
+def test_dma_geometry_covers_every_row_once(m, nslot):
+    """K7's blocks take consecutive runs of rows: together every row of M
+    once; its slot groups split nslot into groups of at most 8 rows."""
+    blocks, rows, group, _ = G.dma_geometry(m, 256, nslot)
+    covered = np.zeros(m, np.int64)
+    for b in range(blocks):
+        covered[b * rows:min((b + 1) * rows, m)] += 1
+    assert (covered == 1).all()
+    assert rows % 32 == 0 and (blocks - 1) * rows < m <= blocks * rows
+    assert nslot % group == 0 and group <= G.MAX_GROUP
+    assert nslot // group >= 2 or nslot == 1
+
+
+@pytest.mark.parametrize("shape", [(2 ** 19, 64, 2 ** 18),
+                                   (2 ** 15, 256, 2 ** 17),
+                                   (2 ** 15, 512, 2 ** 17),
+                                   (2 ** 19, 64, 2 ** 18 - 1000)])
+@pytest.mark.parametrize("nslot", [4, 16, 32])
+def test_dma_geometry_fits_shared_memory(shape, nslot):
+    """At every probe shape and nslot, K7's shared memory (barriers, index
+    tile, slots) stays within a block's 232,448 bytes, with about 8 blocks
+    per SM of the H100's 132."""
+    _, cols, m = shape
+    blocks, rows, _, smem = G.dma_geometry(m, cols * 4, nslot)
+    assert smem <= 232448
+    assert G.H100_SMS * G.BLOCKS_PER_SM * 0.9 <= blocks <= G.H100_SMS * \
+        G.BLOCKS_PER_SM
+
+
+def test_k7_variants_run_on_the_card_only():
+    """The K7 designs kept as the probe's yardsticks take no CPU tensor
+    (they have no plain version of their own: each is table[idx]), and
+    their probe fails without a card instead of timing the CPU."""
+    from nerfsafetyvalidation_tpu_torch.scripts import k7_variants
+    table, idx = (torch.from_numpy(a) for a in _case())
+    for lanes in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            k7_variants.ring_gather(table, idx, 2048, 16, lanes)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            k7_variants.main()

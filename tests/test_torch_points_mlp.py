@@ -142,3 +142,76 @@ def test_build_without_nvcc_raises():
         pytest.skip("this machine has nvcc")
     with pytest.raises(RuntimeError):
         pm.build()
+
+
+def _b_address(k, n, cols):
+    """Element offset of B[k, n] in one layer's wgmma image of `cols`
+    columns, as the kernel's descriptor states the layout (K-major, no
+    swizzle): 16-deep k-steps one after another, 8-column groups pm.B_SBO
+    bytes apart, the two 8-deep halves of a k-step pm.B_LBO bytes apart,
+    8 x 8 core matrices of 16-byte rows (one column, 8 depths)."""
+    return ((k // 16) * 16 * cols + (n // 8) * (pm.B_SBO // 2)
+            + ((k % 16) // 8) * (pm.B_LBO // 2) + (n % 8) * 8 + k % 8)
+
+
+@pytest.mark.parametrize("hidden", pm.HIDDEN_WIDTHS)
+def test_wgmma_image_gives_back_every_padded_weight(hidden):
+    """The bf16 image read back through the descriptor's address function
+    gives every padded weight of every layer, bit for bit, in the kernel's
+    layer order, with zeros where the TPU kernel pads; nothing else."""
+    _, _, sn, cn = _nets(hidden=hidden, n_sig=5, rows=1)
+    sn_t = [torch.from_numpy(w) for w in sn]
+    cn_t = [torch.from_numpy(w) for w in cn]
+    m = pm._prepare(sn_t, cn_t)
+    image = m["image"]
+    assert image.dtype == torch.bfloat16 and image.dim() == 1
+    bits = image.view(torch.int16)
+    c1 = torch.cat([m["c1s"], m["c1g"]])
+    layers = [m["w1"], *m["wh"], m["wlast"], c1, *m["cmid"], m["clast"]]
+    shapes = [(80, hidden)] + [(hidden, hidden)] * 3 + [
+        (hidden, 16), (32, 64), (64, 64), (64, 16)]
+    assert [tuple(w.shape) for w in layers] == shapes
+    off = 0
+    for w in layers:
+        k_in, cols = w.shape
+        k, n = torch.meshgrid(torch.arange(k_in), torch.arange(cols),
+                              indexing="ij")
+        got = bits[off + _b_address(k, n, cols)]
+        assert torch.equal(got, w.contiguous().view(torch.int16))
+        off += k_in * cols
+    assert off == image.numel()
+    # the padding: W1's rows past the encoding, C1g's sigma row, C_last's
+    # columns past rgb
+    assert not m["w1"][75:].any() and not c1[16].any()
+    assert not m["clast"][:, 3:].any()
+
+
+@pytest.mark.parametrize("hidden", pm.HIDDEN_WIDTHS)
+def test_weight_ring_fits_a_block(hidden):
+    """Every chunk the bf16 kernel streams fits a stage (W1's 5 k-steps, a
+    run of kSpc k-steps of a hidden layer, the tail with one middle color
+    layer), the ring and the two encoding tiles fit the 232,448 bytes of
+    shared memory a block may use, and a tail that outgrows its stage is
+    refused."""
+    spc, stage, stages = pm.RING[hidden]
+    slab = 32 * hidden
+    assert (hidden // 16) % spc == 0
+    assert 5 * slab <= stage and spc * slab <= stage
+    assert pm.tail_bytes(hidden, 1) <= stage
+    assert pm.RING_BARRIER_BYTES >= 2 * stages * 8
+    assert pm.RING_OFFSET % 128 == 0
+    assert pm.RING_OFFSET + stages * stage <= 232448
+    too_many = (stage - pm.tail_bytes(hidden, 0)) // 8192 + 1
+    _, _, sn, _ = _nets(hidden=hidden, n_sig=3, rows=1)
+    rng = np.random.default_rng(0)
+    cn = [rng.normal(size=(31, 64)).astype(np.float32)] + [
+        rng.normal(size=(64, 64)).astype(np.float32)
+        for _ in range(too_many)] + [rng.normal(size=(64, 3))
+                                     .astype(np.float32)]
+    with pytest.raises(ValueError, match="stage"):
+        pm._prepare([torch.from_numpy(w) for w in sn],
+                    [torch.from_numpy(w) for w in cn])
+    # the f32 kernel streams its chunks through shared memory of its own
+    m32 = pm._prepare([torch.from_numpy(w) for w in sn],
+                      [torch.from_numpy(w) for w in cn], torch.float32)
+    assert m32["image"].dtype == torch.float32
