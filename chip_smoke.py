@@ -32,7 +32,11 @@ Phases, each printing its elapsed seconds:
      the f32 torch.matmul chain with TF32 off);
   5. kernel K3: against its plain version on 262,144 rows (one guided fine
      tile: 16,384 rays x 16 samples in windows around the surface) of the
-     teacher's own encoding, with the same four times;
+     teacher's own encoding, with the same four times; then on 2,097,152
+     rows (one fast tile of pose 0: 131,072 rays x 16 slots, captured from
+     the frame), the same, and 20 reruns bit-identical to the first; at
+     both shapes the kernel timed again with cold inputs (copies rotated
+     past the 50 MB L2);
   6. fast, guided: the teacher's marched frame and its depth-guided frame
      with the march prepass (bench.py's `fast` and `guided` settings) at
      800x800 on the "spheres" scene at the four held-out poses, through
@@ -46,7 +50,9 @@ Phases, each printing its elapsed seconds:
      and its own occupancy refreshed 4x through it;
   9. kernel K4: against its plain version on one shaded fast tile of pose 0
      (131,072 rays x 16 slots) of that net, the sigma net on the net's own
-     encoding and the color net on [SH | geo], with the same four times;
+     encoding and the color net on [SH | geo], with the same four times,
+     20 reruns bit-identical to the first, and the kernel again with cold
+     inputs;
  10. ref_backbone, ref_backbone_ml8: pose 0 (the pose bench.py scores) in
      bench.py's marched frame through K4, with all 16 levels and with the
      levels below 8; PSNR and its gap to BENCH_r05, pose 0 again through
@@ -187,6 +193,13 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # cycles a second of torch.cuda._sleep's spin (about the H100's SM clock)
 SLEEP_HZ = 1.98e9
+# K3 and K4 rerun on their tiles this many times, each rerun bit-identical
+# to the first call: a race in a ring shows as rows that differ (PERF.md
+# section 6)
+RERUNS = 20
+# the H100's L2: cold timings rotate over copies of a call's inputs that
+# together hold at least 1.5x this
+L2_BYTES = 50e6
 # K1 at its other widths (H, rows): seeded weights, std sqrt(2 / fan-in)
 K1_WIDTHS = [(192, 8192), (256, 8192)]
 # the gather probe's kernel shapes (scripts/bench_gather.py sections E, F):
@@ -240,6 +253,33 @@ def cuda_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(torch, make_call, in_bytes, reps):
+    """Mean device milliseconds of one call with inputs that are not in L2:
+    make_call() copies the inputs and returns a call on the copy; the calls
+    on enough copies to hold 1.5x the L2 (3 at 25 MB of inputs) run in turn,
+    so each finds its inputs evicted by the others. Returns (ms,
+    copies)."""
+    copies = max(2, -(-int(1.5 * L2_BYTES) // int(in_bytes)))
+    calls = [make_call() for _ in range(copies)]
+    turn = [0]
+
+    def next_call():
+        turn[0] = (turn[0] + 1) % copies
+        return calls[turn[0]]()
+    return cuda_ms(torch, next_call, reps), copies
+
+
+def reruns_equal(torch, fn, first):
+    """How many of RERUNS more calls of fn() return exactly `first` (a tuple
+    of tensors): a kernel that reads a ring stage the copy engine is
+    already overwriting shows as a rerun that differs."""
+    same = 0
+    for _ in range(RERUNS):
+        out = fn()
+        same += all(torch.equal(a, b) for a, b in zip(out, first))
+    return same
 
 
 def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -359,10 +399,20 @@ def main():
                                               builds.values())))
         for name, (lib, secs) in built.items():
             print(f"{name} built in {secs:.2f} s: {lib.relative_to(ROOT)}")
-            for line in builds[name].BUILD_LOG.splitlines():
+            log = builds[name].BUILD_LOG.splitlines()
+            for line in log:
                 if ("registers" in line or "spill" in line
-                        or "Compiling entry" in line or "warning" in line):
+                        or "Compiling entry" in line or "warning" in line
+                        or "Performance Loss" in line):
                     print("  ptxas:", line.strip())
+            if name in ("K1, K2", "K3", "K4") and log:
+                # the wgmma kernels, where this run built them: no spills,
+                # and no product serialised by ptxas
+                spills = [ln for ln in log if "spill stores" in ln]
+                check(spills and all("0 bytes spill stores, 0 bytes spill "
+                                     "loads" in ln for ln in spills)
+                      and not any("Performance Loss" in ln for ln in log),
+                      f"ptxas spills or serialises a {name} kernel")
 
     RES = F.RES
     poses = F.holdout_poses()
@@ -716,7 +766,7 @@ def main():
         def k3_plain():
             return sigma_color.fused_sigma_color_plain(enc, sh3, tsn, tcn)
 
-        w1, w2, c1s, c1g, c2, c3 = sigma_color._prepare(tsn, tcn)
+        w1, w2, c1s, c1g, c2, c3 = sigma_color._prepare(tsn, tcn)["mats"]
 
         def k3_library():
             # the same six products as bf16 torch.matmul calls
@@ -758,9 +808,76 @@ def main():
         k3_ms = cuda_ms(torch, k3, 50)
         k3_plain_ms = cuda_ms(torch, k3_plain, 10)
         k3_lib_ms = cuda_ms(torch, k3_library, 20)
+        k3_in = rows * (32 * 2 + 16 * 2)
+
+        def k3_copy():
+            # the phase's current enc and sh3, copied
+            e, s_ = enc.clone(), sh3.clone()
+            return lambda: sigma_color.fused_sigma_color(e, s_, tsn, tcn)
+        k3_cold, k3_copies = cold_ms(torch, k3_copy, k3_in, 60)
+        tile_rows, per_sm, smem3 = sigma_color.launch_plan()
+        print(f"K3 launch: {tile_rows} rows a tile, {per_sm} blocks per SM, "
+              f"{smem3} bytes of shared memory a block")
         print(f"K3 at {rows} rows ({macs3} MAC/row): kernel_ms "
-              f"{k3_ms:.4f}, plain_ms {k3_plain_ms:.4f}, library_ms "
-              f"{k3_lib_ms:.4f}, bound_ms {k3_bound:.4f} ({k3_by}); {smi}")
+              f"{k3_ms:.4f} (warm: back to back, inputs in L2; the kernel "
+              f"table's figure), cold {k3_cold:.4f} ({k3_copies} copies of "
+              f"{k3_in / 1e6:.1f} MB of inputs in turn), plain_ms "
+              f"{k3_plain_ms:.4f}, library_ms {k3_lib_ms:.4f}, bound_ms "
+              f"{k3_bound:.4f} ({k3_by}); {smi}")
+        k3_shapes = [dict(rows=rows, ms=k3_ms, ms_cold=k3_cold,
+                          plain_ms=k3_plain_ms, library_ms=k3_lib_ms,
+                          bound_ms=k3_bound, bound_by=k3_by,
+                          max_abs_err=k3_err)]
+        del enc, sh3, got, want, s64, c64
+
+        # one fast tile of pose 0: the samples the marched frame hands the
+        # teacher in its first K=16 tile, encoded as the teacher encodes them
+        seen = []
+
+        class Capture:
+            cfg = tcfg
+
+            def __call__(self, x, d, plain=False):
+                seen.append((x, d))
+                return teacher(x, d, plain=plain)
+
+        F.render("fast", {"teacher": Capture()}, state, *views[0][:2])
+        tiles = [xd for xd in seen if xd[0].shape[0] == K4_RAYS * K4_K]
+        check(len(tiles) > 0, "pose 0's fast frame has no K=16 tile")
+        xyz, dirs = tiles[0]
+        enc = teacher.encode_pos(xyz).reshape(xyz.shape[0], -1).contiguous()
+        sh3 = teacher.encode_dir(dirs).reshape(enc.shape[0], -1).to(bf) \
+            .contiguous()
+        rows2 = enc.shape[0]
+        del seen, tiles
+        got = k3()
+        torch.cuda.synchronize()
+        want = k3_plain()
+        err2 = compare(torch, "K3 fast tile", got, want, TOL_K3)
+        k3_err = max(k3_err, err2)
+        same = reruns_equal(torch, k3, got)
+        print(f"K3 fast tile: {same} of {RERUNS} reruns bit-identical to the "
+              f"first")
+        check(same == RERUNS, "K3 gives other values on a rerun of the same "
+              "rows")
+        bound2, by2 = bound_ms(
+            2.0 * rows2 * macs3,
+            rows2 * (32 * 2 + 16 * 2 + 4 * 4)
+            + 2 * sum(m.numel() for m in (w1, w2, c1s, c1g, c2, c3)))
+        ms2 = cuda_ms(torch, k3, 20)
+        plain2 = cuda_ms(torch, k3_plain, 5)
+        lib2 = cuda_ms(torch, k3_library, 10)
+        in2 = rows2 * (32 * 2 + 16 * 2)
+        cold2, copies2 = cold_ms(torch, k3_copy, in2, 20)
+        print(f"K3 at {rows2} rows (fast tile): kernel_ms {ms2:.4f} (warm), "
+              f"cold {cold2:.4f} ({copies2} copies of {in2 / 1e6:.1f} MB in "
+              f"turn), plain_ms {plain2:.4f}, library_ms {lib2:.4f}, "
+              f"bound_ms {bound2:.4f} ({by2}); {smi}")
+        k3_shapes.append(dict(rows=rows2, ms=ms2, ms_cold=cold2,
+                              plain_ms=plain2, library_ms=lib2,
+                              bound_ms=bound2, bound_by=by2, max_abs_err=err2))
+        del enc, sh3, got, want, xyz, dirs
+        torch.cuda.empty_cache()
 
     def run_mode(name, n_buckets, nets, state, views):
         """Renders the views twice (first pass, steady pass) with every
@@ -948,6 +1065,11 @@ def main():
             check(float(rel.max()) <= t_max and float(rel.mean()) <= t_mean,
                   f"K4 {what} net disagrees with the plain version "
                   f"(tolerance max {t_max}, mean {t_mean})")
+        same = reruns_equal(torch, k4, got)
+        print(f"K4 tile: {same} of {RERUNS} reruns bit-identical to the "
+              f"first")
+        check(same == RERUNS, "K4 gives other values on a rerun of the same "
+              "rows")
         macs4 = sum(w.shape[0] * w.shape[1] for w in sn + cn)
         k4_bound, k4_by = bound_ms(
             2.0 * rows * macs4,
@@ -956,9 +1078,27 @@ def main():
         k4_ms = cuda_ms(torch, k4, 20)
         k4_plain_ms = cuda_ms(torch, k4_plain, 5)
         k4_lib_ms = cuda_ms(torch, k4_library, 10)
+        k4_in = rows * (32 * 2 + 31 * 2)
+
+        def k4_copy():
+            e, c_ = enc.clone(), cin.clone()
+            return lambda: (fused_mlp.fused_mlp(e, sn),
+                            fused_mlp.fused_mlp(c_, cn))
+        k4_cold, k4_copies = cold_ms(torch, k4_copy, k4_in, 20)
+        for what, net in (("sigma", sn), ("color", cn)):
+            widths = [net[0].shape[0]] + [w.shape[1] for w in net]
+            tile_rows, stages, stage, smem4, per_sm, a_steps = \
+                fused_mlp.launch_plan(widths)
+            print(f"K4 launch, {what} net {widths}: {tile_rows} rows a "
+                  f"tile, {stages} stages of {stage} bytes, {smem4} bytes "
+                  f"of shared memory a block, {per_sm} blocks per SM, A "
+                  f"fragments for {16 * a_steps} columns")
         print(f"K4 pair at {rows} rows ({macs4} MAC/row): kernel_ms "
-              f"{k4_ms:.4f}, plain_ms {k4_plain_ms:.4f}, library_ms "
-              f"{k4_lib_ms:.4f}, bound_ms {k4_bound:.4f} ({k4_by}); {smi}")
+              f"{k4_ms:.4f} (warm: back to back; the kernel table's "
+              f"figure), cold {k4_cold:.4f} ({k4_copies} copies of "
+              f"{k4_in / 1e6:.1f} MB of inputs in turn), plain_ms "
+              f"{k4_plain_ms:.4f}, library_ms {k4_lib_ms:.4f}, bound_ms "
+              f"{k4_bound:.4f} ({k4_by}); {smi}")
         del seen, tiles, enc, cin, got, want, f64
 
     pose0 = views[:1]
@@ -1225,13 +1365,14 @@ def main():
          "source": "nerfsafetyvalidation_tpu_torch/csrc/sigma_color.cu",
          "replaces": f"{pallas}:164", "launches": launches["K3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms},
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms,
+         "ms_cold": k3_cold, "shapes": k3_shapes},
         {"name": "fused_mlp", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
          "launches": launches["K4"], "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": k4_lib_ms},
+         "library_ms": k4_lib_ms, "ms_cold": k4_cold},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",

@@ -15,19 +15,13 @@
 // f32). The output here is those bf16-exact values written as f32, which
 // spares the caller a cast. The TPU wrapper padded rows to 1,024 and every
 // width to 128 lanes; here nothing is padded in device memory: the kernel
-// masks the ragged row edge and pads each width to 16 in shared memory.
+// masks the ragged row edge and pads each width to 16 in shared memory and
+// registers.
 //
 // Widths and depth are arguments (at most kMaxLayers layers, widths at most
 // kMaxWidth), so one build serves every caller: the sigma net 32 -> 64 -> 16
 // and the color net 31 -> 64 -> 64 -> 3 of the hash-grid field, and the
 // FFMLP topology with one more hidden layer.
-//
-// The 31-wide color input ([SH 16 | geo 15], 62 bytes a row) is read as it
-// is, not from a buffer padded to 32 columns: a 16-row tile is one run of
-// 16 * D_0 bf16 values, which starts on a 32-byte boundary for any D_0, so
-// the warp reads it with 16-byte loads and scatters the values into its
-// row-major tile in shared memory (the last, partial tile ends in 2-byte
-// loads). Padding on the caller's side would cost another pass over HBM.
 //
 // What bounds it on this card: bytes. The sigma net is 3,072 multiply-adds
 // a row and moves 64 B in (bf16) and 64 B out (f32), 48 FLOP per byte; the
@@ -36,19 +30,41 @@
 // tile's 2,097,152 rows the pair moves about 0.42 GB, 0.13 ms at 3.35 TB/s,
 // against 0.04 ms of bf16 tensor-core time.
 //
-// Design (right and simple first; K3's layout, csrc/sigma_color.cu):
-//   * the weights, packed by the caller into one buffer of [16k, 16m]
-//     zero-padded bf16 layers, are staged into shared memory once per
-//     block (6 KB for the sigma net, 14 KB for the color net);
-//   * each warp owns a 16-row tile and carries it through every layer
-//     between two row-major activation tiles of its own (ping-pong), so no
-//     layer needs a block barrier; warps walk the tiles in a grid-stride
-//     loop over a grid sized to the resident blocks;
-//   * every product is nvcuda::wmma bf16 16x16x16 with f32 accumulation,
-//     one 16-column block of the layer's output at a time; the accumulator
-//     goes through a per-warp f32 tile, where the ReLU and the bf16
-//     rounding happen;
-//   * rows past n read as zero and are never written.
+// Design (rows through a ring, weights resident; K3's skeleton,
+// csrc/sigma_color.cu, generic over depth and width):
+//   * persistent blocks walk over tiles of kTileRows rows; each of
+//     kConsumers consumer warpgroups takes 64 rows of a tile (the wgmma M),
+//     one producer warp issues the copies;
+//   * the wrapper packs every layer, zero-padded to [16k, 16m], into wgmma's
+//     B image (ops/hopper/points_mlp.py wgmma_b), the layers one after
+//     another in one buffer; each block loads it into shared memory with one
+//     bulk copy at its start (6 KB for the sigma net, 14 KB for the color
+//     net);
+//   * a tile of x is one contiguous run of kTileRows * D_0 bf16 values; one
+//     1-D bulk copy (cp.async.bulk) puts it into a stage of a ring of up to
+//     kMaxStages stages (as many as shared memory holds after the weights),
+//     each with a "full" and an "empty" mbarrier. A ragged last tile whose
+//     bytes are not a multiple of 16 (the 31-wide color input has 62-byte
+//     rows) is bulk-copied up to its last 16-byte boundary, and the
+//     producer writes the rest (at most 7 values) itself before it arrives;
+//   * rows of 2 D_0 bytes need not start on 16-byte boundaries, so layer 1's
+//     A fragments are built from the stage with 16-bit shared loads, zero in
+//     the columns past D_0 and in the rows past n; the stage is released as
+//     soon as they are in registers, the reads fenced against the copy
+//     engine's next write into it (fence.proxy.async, as in K3);
+//   * every layer is wgmma m64nNk16 with A from registers, its input and
+//     output widths padded to 16: one instantiation per pair (k-steps in,
+//     N), chosen per layer at run time, so that a layer's products are one
+//     wgmma group with no branch inside; each accumulator becomes the next
+//     layer's A in registers (relu_to_a: relu and bf16 in one cvt a pair),
+//     nothing goes back through shared memory; the last one is rounded to
+//     bf16 and written as f32 from registers, masked at the ragged edges
+//     (8-byte stores where D_L is even);
+//   * two builds of the kernel by the widest layer: A fragments for 64
+//     columns (widths up to 64, the hash-grid nets: few enough registers
+//     for two blocks an SM) or for 128.
+//
+// The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
 //
 // Interface: a plain C launcher, bound from Python with ctypes. It launches
 // on the caller's stream, does not synchronise and allocates nothing, and
@@ -57,195 +73,272 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxWidth = 128;
-constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kWgRows = 64;                        // rows of a warpgroup
+constexpr int kTileRows = kWgRows * kConsumers;
+constexpr int kThreads = 128 * kConsumers + 32;    // + one producer warp
+constexpr int kMaxStages = 6;
+constexpr int kBarBytes = 128;
+static_assert((2 * kMaxStages + 1) * 8 <= kBarBytes, "barriers");
 
 struct Widths {
   int n_layers;
   int w[kMaxLayers + 1];  // D_0 .. D_L
 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
 __host__ __device__ inline int pad16(int v) { return (v + 15) & ~15; }
 
-// bf16 elements of the packed, padded weights
-__host__ __device__ inline int weight_elems(const Widths& d) {
+// bytes of the packed weight image: every layer [pad16(D_l), pad16(D_l+1)]
+// bf16 (a multiple of 512 bytes each)
+__host__ __device__ inline int weight_bytes(const Widths& d) {
   int total = 0;
-  for (int l = 0; l < d.n_layers; ++l) total += pad16(d.w[l]) * pad16(d.w[l + 1]);
+  for (int l = 0; l < d.n_layers; ++l) {
+    total += 2 * pad16(d.w[l]) * pad16(d.w[l + 1]);
+  }
   return total;
 }
 
-// row pitch (bf16 elements) of an activation tile: the widest padded width
-// and 8 more, a multiple of 8 as wmma needs
-__host__ __device__ inline int act_pitch(const Widths& d) {
-  int widest = 16;
-  for (int l = 0; l <= d.n_layers; ++l) {
-    widest = pad16(d.w[l]) > widest ? pad16(d.w[l]) : widest;
-  }
-  return widest + 8;
+// The shared-memory plan: barriers, the weight image, then the ring of
+// stages of one tile of x each (a multiple of 128 bytes); as many stages as
+// fit, at most kMaxStages. stages and smem are 0 if not one stage fits.
+struct Plan {
+  int weights, stage, stages, smem;
+};
+
+inline Plan plan_of(const Widths& d) {
+  Plan p;
+  p.weights = weight_bytes(d);
+  p.stage = kTileRows * d.w[0] * 2;
+  const int room = kMaxSmem - kBarBytes - p.weights;
+  p.stages = room < p.stage ? 0 : room / p.stage;
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  p.smem = p.stages ? kBarBytes + p.weights + p.stages * p.stage : 0;
+  return p;
 }
 
-// weights, then two activation tiles a warp, then a 16 x 16 f32 tile a warp
-inline size_t smem_bytes(const Widths& d) {
-  return 2 * (size_t)weight_elems(d) +
-         (size_t)kWarps * 2 * 16 * act_pitch(d) * 2 + (size_t)kWarps * 256 * 4;
-}
-
-// Rows row0 .. row0 + rows - 1 of x [n, d_in] into the tile buf (pitch lda,
-// kp columns): the data with 16-byte loads, then zeros in the columns past
-// d_in and in the rows past `rows`.
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ x,
-                                          int64_t row0, int rows, int d_in,
-                                          int kp, bf16* buf, int lda,
-                                          int lane) {
-  uint16_t* b = reinterpret_cast<uint16_t*>(buf);
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(x) + row0 * d_in;
-  const int n_el = rows * d_in;
-  const int n_vec = n_el >> 3;
-  const uint4* src4 = reinterpret_cast<const uint4*>(src);
-  for (int v = lane; v < n_vec; v += 32) {
-    const uint4 q = src4[v];
-    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
-    int r = (v * 8) / d_in;
-    int c = v * 8 - r * d_in;
+// One layer: acc = a[0 .. KIN) @ W (B image at shared address w, N
+// columns); then either the next layer's A (relu, bf16) or, for the last
+// layer, the output rounded to bf16 and written as f32 at columns < d_out of
+// the thread's rows. KIN and N are compile-time, so the layer's products
+// form one uninterrupted wgmma group.
+template <int KIN, int N, int KA>
+__device__ __forceinline__ void layer(uint32_t (&a)[KA][4], uint32_t w,
+                                      bool last, float* __restrict__ out,
+                                      const int64_t (&row)[2],
+                                      const bool (&ok)[2], int d_out,
+                                      int t4) {
+  static_assert(KIN <= KA && N / 16 <= KA, "A holds too few k-steps");
+  float acc[N / 2];
+  zero(acc);
+  fence_acc(acc);
+  wg_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      b[r * lda + c] = (uint16_t)(words[j >> 1] >> (16 * (j & 1)));
-      if (++c == d_in) {
-        c = 0;
-        ++r;
+  for (int ks = 0; ks < KIN; ++ks) {
+    wgmma(acc, a[ks], b_desc(w + ks * slab_bytes(N)), ks > 0);
+  }
+  wg_commit();
+  wg_wait<0>();
+  fence_acc(acc);
+  if (!last) {
+    relu_to_a<N / 16>(acc, a);
+    return;
+  }
+  // accumulator 4 j + 2 h (+ 1): row g + 8 h, column 8 j + 2 t4 (+ 1)
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!ok[h] || col >= d_out) continue;
+      const float v0 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * h]));
+      const float v1 =
+          __bfloat162float(__float2bfloat16(acc[4 * j + 2 * h + 1]));
+      float* dst = out + row[h] * d_out + col;
+      if ((d_out & 1) == 0) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (col + 1 < d_out) dst[1] = v1;
       }
     }
   }
-  for (int e = (n_vec << 3) + lane; e < n_el; e += 32) {
-    const int r = e / d_in;
-    b[r * lda + (e - r * d_in)] = src[e];
-  }
-  if (kp > d_in || rows < 16) {
-    for (int i = lane; i < 16 * kp; i += 32) {
-      const int r = i / kp;
-      const int c = i - r * kp;
-      if (r >= rows || c >= d_in) b[r * lda + c] = 0;
-    }
-  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 Widths dims, float* __restrict__ out, int64_t n) {
+// layer<kin, N> for a run-time kin in [KIN, KA]
+template <int KIN, int N, int KA>
+__device__ __forceinline__ void layer_k(uint32_t (&a)[KA][4], int kin,
+                                        uint32_t w, bool last, float* out,
+                                        const int64_t (&row)[2],
+                                        const bool (&ok)[2], int d_out,
+                                        int t4) {
+  if constexpr (KIN < KA) {
+    if (kin > KIN) {
+      layer_k<KIN + 1, N, KA>(a, kin, w, last, out, row, ok, d_out, t4);
+      return;
+    }
+  }
+  layer<KIN, N, KA>(a, w, last, out, row, ok, d_out, t4);
+}
+
+// layer<kin, 16 nsteps> for run-time kin and nsteps in [NS, KA]
+template <int NS, int KA>
+__device__ __forceinline__ void layer_nk(uint32_t (&a)[KA][4], int nsteps,
+                                         int kin, uint32_t w, bool last,
+                                         float* out, const int64_t (&row)[2],
+                                         const bool (&ok)[2], int d_out,
+                                         int t4) {
+  if constexpr (NS < KA) {
+    if (nsteps > NS) {
+      layer_nk<NS + 1, KA>(a, nsteps, kin, w, last, out, row, ok, d_out,
+                           t4);
+      return;
+    }
+  }
+  layer_k<1, 16 * NS, KA>(a, kin, w, last, out, row, ok, d_out, t4);
+}
+
+// KA: k-steps of A a thread holds, the widest padded width / 16 (4 for
+// widths up to 64, 8 up to 128: the narrower build needs about half the
+// registers, so two blocks fit an SM). steps: nibble l is layer l's output
+// k-steps, pad16(D_l+1) / 16.
+template <int KA>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_kernel(const bf16* __restrict__ x,
+                 const unsigned char* __restrict__ image, int d0, int d_out,
+                 int n_layers, uint32_t steps, Plan plan,
+                 float* __restrict__ out, int64_t n) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n_layers = dims.n_layers;
-  const int w_elems = weight_elems(dims);
-  const int lda = act_pitch(dims);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* wbar = empty + kMaxStages;
+  unsigned char* ring_p = smem + kBarBytes + plan.weights;
+  const uint32_t wts = smem_addr(smem + kBarBytes);
+  const int stages = plan.stages;
+  const int64_t ntiles = (n + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  bf16* act = w_s + w_elems + warp * 2 * 16 * lda;
-  float* stage = reinterpret_cast<float*>(w_s + w_elems + kWarps * 2 * 16 * lda)
-                 + warp * 256;
-
-  {  // stage the weights once per block (w_elems is a multiple of 256)
-    const uint4* g = reinterpret_cast<const uint4*>(w);
-    uint4* s = reinterpret_cast<uint4*>(w_s);
-    for (int i = tid; i < w_elems / 8; i += kThreads) s[i] = g[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
+    }
+    mbar_init(wbar, 1);
+    // make the initialised barriers visible to the copy engine
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int d_in = dims.w[0];
-  const int d_out = dims.w[n_layers];
-  const int64_t n_tiles = (n + 15) / 16;
-  const int64_t stride = (int64_t)gridDim.x * kWarps;
-  for (int64_t t = (int64_t)blockIdx.x * kWarps + warp; t < n_tiles;
-       t += stride) {
-    const int64_t row0 = t * 16;
-    const int rows = n - row0 < 16 ? (int)(n - row0) : 16;
-    bf16* in_b = act;
-    bf16* out_b = act + 16 * lda;
-    __syncwarp();  // the previous tile's reads of in_b are done
-    load_tile(x, row0, rows, d_in, pad16(d_in), in_b, lda, lane);
-    __syncwarp();
-
-    const bf16* W = w_s;
-    for (int l = 0; l < n_layers; ++l) {
-      const int kp = pad16(dims.w[l]);
-      const int np = pad16(dims.w[l + 1]);
-      const bool last = l == n_layers - 1;
-      for (int nf = 0; nf < np / 16; ++nf) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.0f);
-        for (int kf = 0; kf < kp / 16; ++kf) {
-          FragA fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, in_b + kf * 16, lda);
-          wmma::load_matrix_sync(fb, W + kf * 16 * np + nf * 16, np);
-          wmma::mma_sync(acc, fa, fb, acc);
+  if (warp == 4 * kConsumers) {
+    // producer: the weights once, then every tile of x in order, the k-th
+    // use of a stage after its (k-1)-th use was released by every consumer
+    // warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(wbar, (uint32_t)plan.weights);
+      bulk_copy_g2s(wts, image, (uint32_t)plan.weights, wbar);
+      const uint16_t* x16 = reinterpret_cast<const uint16_t*>(x);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int64_t row0 = t * kTileRows;
+        const int rows = (int)min((int64_t)kTileRows, n - row0);
+        const int bytes = rows * d0 * 2;
+        const int bulk = bytes & ~15;
+        unsigned char* dst = ring_p + stage * plan.stage;
+        mbar_wait(&empty[stage], phase ^ 1);
+        // the ragged tail past the last 16-byte boundary: plain copies,
+        // made visible to the consumers by the arrival below
+        for (int e = bulk / 2; e < bytes / 2; ++e) {
+          reinterpret_cast<uint16_t*>(dst)[e] = x16[row0 * d0 + e];
         }
-        wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        if (!last) {
-          for (int i = lane; i < 256; i += 32) {
-            out_b[(i >> 4) * lda + nf * 16 + (i & 15)] =
-                __float2bfloat16(fmaxf(stage[i], 0.0f));
-          }
-        } else {
-          for (int i = lane; i < 256; i += 32) {
-            const int r = i >> 4;
-            const int c = nf * 16 + (i & 15);
-            if (r < rows && c < d_out) {
-              out[(row0 + r) * d_out + c] =
-                  __bfloat162float(__float2bfloat16(stage[i]));
-            }
-          }
+        mbar_arrive_expect_tx(&full[stage], (uint32_t)bulk);
+        if (bulk > 0) {
+          bulk_copy_g2s(smem_addr(dst), x + row0 * d0, (uint32_t)bulk,
+                        &full[stage]);
         }
-        __syncwarp();  // stage is free, out_b's block is written
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      W += kp * np;
-      bf16* tmp = in_b;
-      in_b = out_b;
-      out_b = tmp;
+    }
+    return;
+  }
+
+  // consumers: warp wq of warpgroup wg owns rows [16 wq, 16 wq + 16) of the
+  // warpgroup's 64; a thread holds rows g and g + 8 of them, columns
+  // 2 t4, 2 t4 + 1 (+ 8 k) of every fragment
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = (warp >> 2) * kWgRows + (warp & 3) * 16;
+  const int rloc[2] = {wrow + g, wrow + g + 8};
+  const int ks0 = pad16(d0) / 16;
+  mbar_wait(wbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t row[2] = {t * kTileRows + rloc[0], t * kTileRows + rloc[1]};
+    const bool ok[2] = {row[0] < n, row[1] < n};
+
+    // layer 1's A fragments from the stage (16-bit loads: a row of 2 D_0
+    // bytes may start anywhere), which is then free
+    uint32_t a[KA][4];
+    mbar_wait(&full[stage], phase);
+    const uint16_t* tile =
+        reinterpret_cast<const uint16_t*>(ring_p + stage * plan.stage);
+#pragma unroll
+    for (int ks = 0; ks < KA; ++ks) {
+      if (ks >= ks0) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q & 1;
+        const int c = 16 * ks + 8 * (q >> 1) + 2 * t4;
+        const uint16_t* src = tile + rloc[h] * d0 + c;
+        const uint32_t lo = ok[h] && c < d0 ? src[0] : 0u;
+        const uint32_t hi = ok[h] && c + 1 < d0 ? src[1] : 0u;
+        a[ks][q] = lo | (hi << 16);
+      }
+    }
+    fence_proxy_async();     // these reads before the stage's next bulk copy
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+
+    uint32_t w = wts;
+    int kin = ks0;
+    for (int l = 0; l < n_layers; ++l) {
+      const int ns = (int)((steps >> (4 * l)) & 15u);
+      layer_nk<1, KA>(a, ns, kin, w, l == n_layers - 1, out, row, ok, d_out,
+                      t4);
+      w += kin * slab_bytes(16 * ns);
+      kin = ns;
     }
   }
 }
 
-}  // namespace
-
-// x [n, widths[0]] bf16, contiguous, 16-byte aligned; w the layers
-// [pad16(widths[l]), pad16(widths[l + 1])] bf16 row-major [in, out], zero
-// padded, packed one after the other, 16-byte aligned; widths a host array
-// of n_layers + 1 ints; out [n, widths[n_layers]] f32.
-extern "C" int fused_mlp_forward(const void* x, const void* w,
-                                 const int* widths, int n_layers, void* out,
-                                 int64_t n, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
-  Widths dims;
-  dims.n_layers = n_layers;
-  for (int l = 0; l <= kMaxLayers; ++l) {
-    dims.w[l] = l <= n_layers ? widths[l] : 0;
-    if (l <= n_layers && (dims.w[l] < 1 || dims.w[l] > kMaxWidth)) {
-      return (int)cudaErrorInvalidValue;
-    }
+template <int KA>
+cudaError_t launch(const bf16* x, const unsigned char* image,
+                   const Widths& dims, const Plan& plan, float* out,
+                   int64_t n, cudaStream_t stream, int* per_sm_out) {
+  uint32_t steps = 0;
+  for (int l = 0; l < dims.n_layers; ++l) {
+    steps |= (uint32_t)(pad16(dims.w[l + 1]) / 16) << (4 * l);
   }
-  const size_t smem = smem_bytes(dims);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
   int device = 0;
   int sms = 0;
   int per_sm = 0;
@@ -255,22 +348,98 @@ extern "C" int fused_mlp_forward(const void* x, const void* w,
                                  device);
   }
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_mlp_kernel,
+    err = cudaFuncSetAttribute(fused_mlp_kernel<KA>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               plan.smem);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_mlp_kernel, kThreads, smem);
+        &per_sm, fused_mlp_kernel<KA>, kThreads, plan.smem);
   }
-  if (err != cudaSuccess) return (int)err;
-  const int64_t tiles = (n + 15) / 16;
-  const int64_t needed = (tiles + kWarps - 1) / kWarps;
+  if (err != cudaSuccess) return err;
+  if (per_sm_out != nullptr) {
+    *per_sm_out = per_sm;
+    return cudaSuccess;
+  }
+  const int64_t tiles = (n + kTileRows - 1) / kTileRows;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(needed < resident ? needed : resident);
-  fused_mlp_kernel<<<blocks, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), dims,
-      static_cast<float*>(out), n);
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
+  fused_mlp_kernel<KA><<<blocks, kThreads, plan.smem, stream>>>(
+      x, image, dims.w[0], dims.w[dims.n_layers], dims.n_layers, steps, plan,
+      out, n);
+  return cudaGetLastError();
+}
+
+// k-steps of A the widest layer needs: 4 (widths up to 64) or 8
+inline int a_steps(const Widths& d) {
+  int widest = 0;
+  for (int l = 0; l <= d.n_layers; ++l) {
+    widest = pad16(d.w[l]) > widest ? pad16(d.w[l]) : widest;
+  }
+  return widest <= 64 ? 4 : 8;
+}
+
+// the launch for these widths (per_sm_out: only the blocks per SM, no
+// launch)
+cudaError_t run(const void* x, const void* image, const int* widths,
+                int n_layers, void* out, int64_t n, void* stream,
+                int* per_sm_out, Plan* plan_out) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  Widths dims;
+  dims.n_layers = n_layers;
+  for (int l = 0; l <= kMaxLayers; ++l) {
+    dims.w[l] = l <= n_layers ? widths[l] : 0;
+    if (l <= n_layers && (dims.w[l] < 1 || dims.w[l] > kMaxWidth)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const Plan plan = plan_of(dims);
+  if (plan.stages < 1) return cudaErrorInvalidValue;
+  if (plan_out != nullptr) *plan_out = plan;
+  if (per_sm_out == nullptr && n <= 0) return cudaSuccess;
+  if ((n + kTileRows - 1) / kTileRows > 0x7fffffff) {
+    return cudaErrorInvalidValue;
+  }
+  const bf16* xb = static_cast<const bf16*>(x);
+  const unsigned char* im = static_cast<const unsigned char*>(image);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a_steps(dims) == 4
+             ? launch<4>(xb, im, dims, plan, o, n, st, per_sm_out)
+             : launch<8>(xb, im, dims, plan, o, n, st, per_sm_out);
+}
+
+}  // namespace
+
+// x [n, widths[0]] bf16, contiguous, 16-byte aligned; image the layers
+// [pad16(widths[l]), pad16(widths[l + 1])] bf16, zero padded, each as
+// wgmma's B image (see ops/hopper/fused_mlp.py), packed one after the
+// other, 16-byte aligned; widths a host array of n_layers + 1 ints; out
+// [n, widths[n_layers]] f32.
+extern "C" int fused_mlp_forward(const void* x, const void* image,
+                                 const int* widths, int n_layers, void* out,
+                                 int64_t n, void* stream) {
+  return (int)run(x, image, widths, n_layers, out, n, stream, nullptr,
+                  nullptr);
+}
+
+// The launch this build makes for these widths: {tile rows, stages, stage
+// bytes, shared memory bytes of a block, blocks per SM, k-steps of A a
+// thread holds}; read by the smoke. Returns cudaErrorInvalidValue for
+// widths the kernel does not take.
+extern "C" int fused_mlp_plan(const int* widths, int n_layers, int* out) {
+  int per_sm = 0;
+  Plan plan{};
+  const cudaError_t err = run(nullptr, nullptr, widths, n_layers, nullptr, 0,
+                              nullptr, &per_sm, &plan);
+  out[0] = kTileRows;
+  out[1] = plan.stages;
+  out[2] = plan.stage;
+  out[3] = plan.smem;
+  out[4] = per_sm;
+  Widths dims;
+  dims.n_layers = n_layers;
+  for (int l = 0; l <= n_layers && l <= kMaxLayers; ++l) dims.w[l] = widths[l];
+  out[5] = err == cudaSuccess ? a_steps(dims) : 0;
+  return (int)err;
 }

@@ -12,7 +12,7 @@
 //   geo   = relu(sh @ C1s + bf16(s) @ C1g)   sh [N,16] bf16; C1g [16,64] with
 //                                            a zero row 0; rounded to bf16
 //   g2    = relu(geo @ C2)                   C2 [64,64]; rounded to bf16
-//   rgb   = sigmoid((g2 @ C3)[:, :3])        C3 [64,8], columns 3.. zero
+//   rgb   = sigmoid((g2 @ C3)[:, :3])        C3 [64,16] here, columns 3.. zero
 //   out   = [sigma, rgb]                     [N,4] f32
 //
 // The bf16 rounding points are the TPU kernel's: each ReLU output and the
@@ -23,23 +23,46 @@
 //
 // What bounds it on this card: bytes. A row costs 9,728 multiply-adds and
 // moves 112 bytes (enc 64, sh 32, out 16), 174 FLOP per byte, under the
-// H100's ~295 FLOP/byte balance point. At the teacher frame's 262,144-row
-// tile that is 8.8 us of HBM time against 5.2 us of tensor-core time.
+// H100's ~295 FLOP/byte balance point. At the guided frame's 262,144-row
+// tile that is 8.8 us of HBM time against 5.2 us of tensor-core time; at
+// the fast frame's 2,097,152 rows 70 us against 41 us. A bytes-bound kernel
+// is fast only if every SM keeps some 20-25 KB of reads in flight.
 //
-// Design (right and simple first):
-//   * all weights (9,728 bf16, 19.5 KB; C3 padded to 16 columns here) are
-//     staged into shared memory once per block; the TPU kernel kept them in
-//     VMEM for the same reason;
-//   * each warp owns a 16-row tile and carries it through the whole chain,
-//     so no layer needs a block barrier; warps walk the tiles of the call
-//     in a grid-stride loop, and the grid is sized to the card's resident
-//     blocks, so the weights are staged once per resident block;
-//   * every layer is nvcuda::wmma bf16 16x16x16 with f32 accumulation; the
-//     warp stages a result fragment through a per-warp f32 tile, where the
-//     ReLU and the bf16 rounding happen;
-//   * enc and sh rows are read with 16-byte loads into per-warp shared
-//     tiles; rows past n read as zero and are never written (the port does
-//     not pad the row count).
+// Design (rows through a ring, weights resident):
+//   * persistent blocks walk over tiles of kTileRows rows; each of
+//     kConsumers consumer warpgroups takes 64 rows of a tile (the wgmma M),
+//     one producer warp issues the copies. A block needs 94 KB of shared
+//     memory and under 100 registers a thread, so two blocks share an SM
+//     (the launcher sizes the grid by the occupancy the card reports): four
+//     consumer warpgroups an SM, whose chains of dependent products overlap;
+//   * the wrapper packs the six matrices once into wgmma's B images (ops/
+//     hopper/points_mlp.py wgmma_b; C3 padded to 16 columns), one buffer of
+//     20,480 bytes, which each block loads into shared memory with one bulk
+//     copy at its start: nothing streams the weights after that;
+//   * each tile's enc rows (64 B each) and sh rows (32 B each) are two
+//     contiguous runs, each copied by one 1-D bulk copy (cp.async.bulk, no
+//     tensor map) into a stage of a ring of kStages stages, with a "full"
+//     mbarrier (the stage's bytes) and an "empty" one (one arrival per
+//     consumer warp); the producer runs up to kStages tiles ahead. A ragged
+//     last tile copies only the rows it has (whole multiples of 16 bytes);
+//     the rows past n are zeroed in registers and never written;
+//   * every layer is wgmma m64nNk16 with A from registers (N = 64, 16, 64
+//     (C1s and C1g into one accumulator), 64, 16). Layer 1's and C1s's A
+//     fragments come from the landed stage by ldmatrix; the stage is
+//     released as soon as they are in registers, each thread's reads fenced
+//     against the copy engine's next write into it (fence.proxy.async;
+//     without it a few rows of a 2,097,152-row call now and then read a
+//     stage that the next tile's copy had already overwritten). After that
+//     each accumulator becomes the next layer's A in registers (relu_to_a:
+//     relu and bf16 in one cvt a pair): nothing goes back through shared
+//     memory. The 64-byte rows put 4 rows on one bank group for ldmatrix (a
+//     4-way conflict on 3 ldmatrix a warp and tile, against some 640 cycles
+//     of products a tile): left unswizzled;
+//   * sigma comes from the s accumulator's column 0; s rounded to bf16 is
+//     C1g's A operand (C1g's row 0 is zero, so all of s feeds it, as in the
+//     TPU kernel); each row's 4 outputs leave in one 16-byte store.
+//
+// The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
 //
 // Interface: a plain C launcher, bound from Python with ctypes. It launches
 // on the caller's stream, does not synchronise and allocates nothing, and
@@ -47,234 +70,290 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kEnc = 32;     // mip-fold encoding width
 constexpr int kHid = 64;     // sigma-net hidden width
 constexpr int kGeo = 16;     // sigma-net output: sigma + 15 geo features
 constexpr int kSh = 16;      // degree-4 spherical harmonics
 constexpr int kColor = 64;   // color-net width
-constexpr int kC3 = 8;       // last color layer as given: 3 padded to 8
-constexpr int kLast = 16;    // ... and padded to one fragment here
-constexpr int kOut = 4;      // output row: sigma, rgb
-constexpr int kLda = kHid + 8;  // row pitch of the activation tile
+constexpr int kLast = 16;    // last color layer: 3 columns padded to 16
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kWgRows = 64;                        // rows of a warpgroup
+constexpr int kTileRows = kWgRows * kConsumers;
+constexpr int kThreads = 128 * kConsumers + 32;    // + one producer warp
+constexpr int kStages = 6;
 
-// acc[nf] += a[16 x 16*ksteps] @ w[16*ksteps x 16*NF] (w row-major, ld ldw)
-template <int NF>
-__device__ __forceinline__ void mma_rows(FragC (&acc)[NF], const bf16* a,
-                                         int lda, int ksteps, const bf16* w,
-                                         int ldw) {
-  for (int kf = 0; kf < ksteps; ++kf) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kf * 16, lda);
-#pragma unroll
-    for (int nf = 0; nf < NF; ++nf) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, w + kf * 16 * ldw + nf * 16, ldw);
-      wmma::mma_sync(acc[nf], fa, fb, acc[nf]);
-    }
-  }
+// the weight image: each matrix's B image, one after another
+constexpr int kOffW1 = 0;
+constexpr int kOffW2 = kOffW1 + (kEnc / 16) * slab_bytes(kHid);
+constexpr int kOffC1s = kOffW2 + (kHid / 16) * slab_bytes(kGeo);
+constexpr int kOffC1g = kOffC1s + (kSh / 16) * slab_bytes(kColor);
+constexpr int kOffC2 = kOffC1g + (kGeo / 16) * slab_bytes(kColor);
+constexpr int kOffC3 = kOffC2 + (kColor / 16) * slab_bytes(kColor);
+constexpr int kWeightBytes = kOffC3 + (kColor / 16) * slab_bytes(kLast);
+
+// shared memory: barriers, weights, then the ring; a stage is the tile's
+// enc rows, then its sh rows
+constexpr int kBarBytes = 128;
+constexpr int kEncBytes = kTileRows * kEnc * 2;
+constexpr int kStageBytes = kEncBytes + kTileRows * kSh * 2;
+constexpr int kRingOffset = kBarBytes + kWeightBytes;
+constexpr int kSmem = kRingOffset + kStages * kStageBytes;
+static_assert(kWeightBytes == 20480, "the wrapper's image size");
+static_assert(kRingOffset % 128 == 0, "stage alignment");
+static_assert((2 * kStages + 1) * 8 <= kBarBytes, "barriers");
+static_assert(kSmem <= kMaxSmem, "a block's shared memory");
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.0f / (1.0f + expf(-v));
 }
 
-template <int NF>
-__device__ __forceinline__ void zero(FragC (&acc)[NF]) {
-#pragma unroll
-  for (int nf = 0; nf < NF; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
-}
-
-// relu, round to bf16 and write the warp's 16 x 16*NF result to a (ld lda)
-template <int NF>
-__device__ __forceinline__ void store_relu(FragC (&acc)[NF], bf16* a,
-                                           int lda, float* stage, int lane) {
-  __syncwarp();  // every lane is done reading the layer's input
-#pragma unroll
-  for (int nf = 0; nf < NF; ++nf) {
-    wmma::store_matrix_sync(stage, acc[nf], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      a[(i >> 4) * lda + nf * 16 + (i & 15)] =
-          __float2bfloat16(fmaxf(stage[i], 0.0f));
-    }
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 sigma_color_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ sh,
-                   const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                   const bf16* __restrict__ c1s, const bf16* __restrict__ c1g,
-                   const bf16* __restrict__ c2, const bf16* __restrict__ c3,
+                   const unsigned char* __restrict__ image,
                    float* __restrict__ out, int64_t n) {
-  // bf16 tiles are declared as their 16-bit storage and viewed as bf16
-  __shared__ __align__(128) uint16_t w1_b[kEnc * kHid];
-  __shared__ __align__(128) uint16_t w2_b[kHid * kGeo];
-  __shared__ __align__(128) uint16_t c1s_b[kSh * kColor];
-  __shared__ __align__(128) uint16_t c1g_b[kGeo * kColor];
-  __shared__ __align__(128) uint16_t c2_b[kColor * kColor];
-  __shared__ __align__(128) uint16_t c3_b[kColor * kLast];
-  __shared__ __align__(128) uint16_t enc_b[kWarps][16 * kEnc];
-  __shared__ __align__(128) uint16_t sh_b[kWarps][16 * kSh];
-  __shared__ __align__(128) uint16_t s_b[kWarps][16 * kGeo];
-  __shared__ __align__(128) uint16_t act_b[kWarps][16 * kLda];
-  __shared__ __align__(128) float stage_all[kWarps][256];
-  __shared__ float sigma_all[kWarps][16];
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  uint64_t* wbar = empty + kStages;
+  const uint32_t wts = smem_addr(smem + kBarBytes);
+  const uint32_t ring = smem_addr(smem + kRingOffset);
+  const int64_t ntiles = (n + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  {  // stage the weights once per block
-    const uint16_t* g[5] = {
-        reinterpret_cast<const uint16_t*>(w1),
-        reinterpret_cast<const uint16_t*>(w2),
-        reinterpret_cast<const uint16_t*>(c1s),
-        reinterpret_cast<const uint16_t*>(c1g),
-        reinterpret_cast<const uint16_t*>(c2)};
-    uint16_t* s[5] = {w1_b, w2_b, c1s_b, c1g_b, c2_b};
-    const int len[5] = {kEnc * kHid, kHid * kGeo, kSh * kColor,
-                        kGeo * kColor, kColor * kColor};
-#pragma unroll
-    for (int m = 0; m < 5; ++m) {
-      for (int i = tid; i < len[m]; i += kThreads) s[m][i] = g[m][i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
     }
-    const uint16_t* g3 = reinterpret_cast<const uint16_t*>(c3);
-    for (int i = tid; i < kColor * kLast; i += kThreads) {
-      const int r = i / kLast;
-      const int c = i - r * kLast;
-      c3_b[i] = c < kC3 ? g3[r * kC3 + c] : (uint16_t)0;
-    }
+    mbar_init(wbar, 1);
+    // make the initialised barriers visible to the copy engine
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const bf16* W1 = reinterpret_cast<const bf16*>(w1_b);
-  const bf16* W2 = reinterpret_cast<const bf16*>(w2_b);
-  const bf16* C1s = reinterpret_cast<const bf16*>(c1s_b);
-  const bf16* C1g = reinterpret_cast<const bf16*>(c1g_b);
-  const bf16* C2 = reinterpret_cast<const bf16*>(c2_b);
-  const bf16* C3 = reinterpret_cast<const bf16*>(c3_b);
-  bf16* enc_s = reinterpret_cast<bf16*>(enc_b[warp]);
-  bf16* sh_s = reinterpret_cast<bf16*>(sh_b[warp]);
-  bf16* s_s = reinterpret_cast<bf16*>(s_b[warp]);
-  bf16* act = reinterpret_cast<bf16*>(act_b[warp]);
-  float* stage = stage_all[warp];
-  float* sigma_s = sigma_all[warp];
+  if (warp == 4 * kConsumers) {
+    // producer: the weights once, then every tile's rows in order, the k-th
+    // use of a stage after its (k-1)-th use was released by every consumer
+    // warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(wbar, kWeightBytes);
+      bulk_copy_g2s(wts, image, kWeightBytes, wbar);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int64_t row0 = t * kTileRows;
+        const int rows = (int)min((int64_t)kTileRows, n - row0);
+        const uint32_t dst = ring + stage * kStageBytes;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage],
+                              (uint32_t)(rows * (kEnc + kSh) * 2));
+        bulk_copy_g2s(dst, enc + row0 * kEnc, (uint32_t)(rows * kEnc * 2),
+                      &full[stage]);
+        bulk_copy_g2s(dst + kEncBytes, sh + row0 * kSh,
+                      (uint32_t)(rows * kSh * 2), &full[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
 
-  const int64_t n_tiles = (n + 15) / 16;
-  const int64_t stride = (int64_t)gridDim.x * kWarps;
-  for (int64_t t = (int64_t)blockIdx.x * kWarps + warp; t < n_tiles;
-       t += stride) {
-    const int64_t row0 = t * 16;
-    __syncwarp();  // the previous tile's reads of enc_s / sh_s are done
-    // 16 rows x 64 bytes of enc (4 x 16 B a row), 16 rows x 32 bytes of sh
-    for (int i = lane; i < 16 * 4; i += 32) {
-      const int r = i >> 2;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < n) {
-        v = reinterpret_cast<const uint4*>(enc)[(row0 + r) * 4 + (i & 3)];
-      }
-      reinterpret_cast<uint4*>(enc_s)[i] = v;
+  // consumers: warp wq of warpgroup wg owns rows [16 wq, 16 wq + 16) of the
+  // warpgroup's 64; a thread holds rows g and g + 8 of them, columns
+  // 2 t4, 2 t4 + 1 (+ 8 k) of every fragment
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = wg * kWgRows + (warp & 3) * 16;   // the warp's first row
+  // ldmatrix: lane i gives row (i % 8) + 8 ((i / 8) % 2), columns
+  // 8 (i / 16) .. + 7 of a 16-column k-step (the A fragment's registers in
+  // order)
+  const int lrow = wrow + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int lcol = 8 * (lane >> 4);
+  mbar_wait(wbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t row[2] = {t * kTileRows + wrow + g,
+                            t * kTileRows + wrow + g + 8};
+    const bool ok[2] = {row[0] < n, row[1] < n};
+
+    // layer 1's and C1s's A fragments from the stage, which is then free
+    uint32_t ae[kEnc / 16][4];
+    uint32_t as[4];
+    mbar_wait(&full[stage], phase);
+    const uint32_t st = ring + stage * kStageBytes;
+#pragma unroll
+    for (int ks = 0; ks < kEnc / 16; ++ks) {
+      ldmatrix_x4(ae[ks], st + lrow * (kEnc * 2) + (16 * ks + lcol) * 2);
     }
-    {
-      const int r = lane >> 1;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < n) {
-        v = reinterpret_cast<const uint4*>(sh)[(row0 + r) * 2 + (lane & 1)];
-      }
-      reinterpret_cast<uint4*>(sh_s)[lane] = v;
-    }
+    ldmatrix_x4(as, st + kEncBytes + lrow * (kSh * 2) + lcol * 2);
+    fence_proxy_async();     // these reads before the stage's next bulk copy
     __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {       // rows past n (a ragged tile) read 0
+      if (!ok[q & 1]) {
+        ae[0][q] = 0u;
+        ae[1][q] = 0u;
+        as[q] = 0u;
+      }
+    }
 
     // sigma net
-    FragC h[kHid / 16];
+    float h[kHid / 2];
     zero(h);
-    mma_rows<kHid / 16>(h, enc_s, kEnc, kEnc / 16, W1, kHid);
-    store_relu<kHid / 16>(h, act, kLda, stage, lane);
-    FragC s[1];
-    zero(s);
-    mma_rows<1>(s, act, kLda, kHid / 16, W2, kGeo);
-    wmma::store_matrix_sync(stage, s[0], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int r = i >> 4;
-      const float v = stage[i];
-      s_s[i] = __float2bfloat16(v);
-      if ((i & 15) == 0) sigma_s[r] = expf(fminf(fmaxf(v, -15.0f), 15.0f));
+    fence_acc(h);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kEnc / 16; ++ks) {
+      wgmma(h, ae[ks], b_desc(wts + kOffW1 + ks * slab_bytes(kHid)), ks > 0);
     }
-    __syncwarp();
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(h);
+    uint32_t ah[kHid / 16][4];
+    relu_to_a<kHid / 16>(h, ah);
 
-    // color net: the [sh | geo] concat is two products into one sum
-    FragC g[kColor / 16];
-    zero(g);
-    mma_rows<kColor / 16>(g, sh_s, kSh, 1, C1s, kColor);
-    mma_rows<kColor / 16>(g, s_s, kGeo, 1, C1g, kColor);
-    store_relu<kColor / 16>(g, act, kLda, stage, lane);
-    zero(g);
-    mma_rows<kColor / 16>(g, act, kLda, kColor / 16, C2, kColor);
-    store_relu<kColor / 16>(g, act, kLda, stage, lane);
-    FragC o[1];
+    float s[kGeo / 2];
+    zero(s);
+    fence_acc(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kHid / 16; ++ks) {
+      wgmma(s, ah[ks], b_desc(wts + kOffW2 + ks * slab_bytes(kGeo)), ks > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    // column 0 (lanes with t4 == 0: s[0] row g, s[2] row g + 8) is sigma's
+    const float sigma[2] = {expf(fminf(fmaxf(s[0], -15.0f), 15.0f)),
+                            expf(fminf(fmaxf(s[2], -15.0f), 15.0f))};
+    uint32_t sa[1][4];
+    acc_to_a<1, false>(s, sa);
+
+    // color net: [sh | geo] @ C1 as two k-steps into one accumulator
+    float c[kColor / 2];
+    zero(c);
+    fence_acc(c);
+    wg_fence();
+    wgmma(c, as, b_desc(wts + kOffC1s), 0);
+    wgmma(c, sa[0], b_desc(wts + kOffC1g), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(c);
+    uint32_t ac[kColor / 16][4];
+    relu_to_a<kColor / 16>(c, ac);
+
+    fence_acc(c);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kColor / 16; ++ks) {
+      wgmma(c, ac[ks], b_desc(wts + kOffC2 + ks * slab_bytes(kColor)),
+            ks > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(c);
+    relu_to_a<kColor / 16>(c, ac);
+
+    float o[kLast / 2];
     zero(o);
-    mma_rows<1>(o, act, kLda, kColor / 16, C3, kLast);
-    __syncwarp();
-    wmma::store_matrix_sync(stage, o[0], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (lane < 16 && row0 + lane < n) {  // one row a lane
-      const float* o_r = stage + lane * 16;
-      reinterpret_cast<float4*>(out)[row0 + lane] = make_float4(
-          sigma_s[lane], 1.0f / (1.0f + expf(-o_r[0])),
-          1.0f / (1.0f + expf(-o_r[1])), 1.0f / (1.0f + expf(-o_r[2])));
+    fence_acc(o);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kColor / 16; ++ks) {
+      wgmma(o, ac[ks], b_desc(wts + kOffC3 + ks * slab_bytes(kLast)),
+            ks > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(o);
+
+    // rgb: columns 0, 1 in this lane (t4 == 0), column 2 in the next
+    const float blue[2] = {__shfl_down_sync(0xffffffffu, o[0], 1),
+                           __shfl_down_sync(0xffffffffu, o[2], 1)};
+    if (t4 == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (!ok[hh]) continue;
+        reinterpret_cast<float4*>(out)[row[hh]] = make_float4(
+            sigma[hh], sigmoid(o[2 * hh]), sigmoid(o[2 * hh + 1]),
+            sigmoid(blue[hh]));
+      }
     }
   }
 }
 
 }  // namespace
 
-// enc [n,32] bf16; sh [n,16] bf16; w1 [32,64]; w2 [64,16]; c1s [16,64];
-// c1g [16,64] (row 0 zero); c2 [64,64]; c3 [64,8]; all weights bf16
-// row-major [in, out]; out [n,4] f32. enc, sh and out start on 16-byte
-// boundaries.
+// enc [n,32] bf16; sh [n,16] bf16; image the six weight matrices' wgmma B
+// images, one after another (W1 [32,64], W2 [64,16], C1s [16,64], C1g
+// [16,64] with row 0 zero, C2 [64,64], C3 [64,16] with columns 3.. zero;
+// 20,480 bytes, see ops/hopper/sigma_color.py); out [n,4] f32. enc, sh,
+// image and out start on 16-byte boundaries.
 extern "C" int sigma_color_forward(const void* enc, const void* sh,
-                                   const void* w1, const void* w2,
-                                   const void* c1s, const void* c1g,
-                                   const void* c2, const void* c3, void* out,
-                                   int64_t n, void* stream) {
+                                   const void* image, void* out, int64_t n,
+                                   void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if ((n + kTileRows - 1) / kTileRows > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_color_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   int device = 0;
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sigma_color_kernel, kThreads, 0);
+        &per_sm, sigma_color_kernel, kThreads, kSmem);
   }
   if (err != cudaSuccess) return (int)err;
-  const int64_t tiles = (n + 15) / 16;
-  const int64_t needed = (tiles + kWarps - 1) / kWarps;
-  int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(needed < resident ? needed : resident);
-  sigma_color_kernel<<<blocks, kThreads, 0,
+  const int64_t tiles = (n + kTileRows - 1) / kTileRows;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
+  sigma_color_kernel<<<blocks, kThreads, kSmem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(enc), static_cast<const bf16*>(sh),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(c1s), static_cast<const bf16*>(c1g),
-      static_cast<const bf16*>(c2), static_cast<const bf16*>(c3),
-      static_cast<float*>(out), n);
+      static_cast<const unsigned char*>(image), static_cast<float*>(out), n);
   return (int)cudaGetLastError();
+}
+
+// the launch this build makes for n rows: {tile rows, blocks per SM, shared
+// memory bytes of a block}; read by the wrapper's checks and the smoke
+extern "C" int sigma_color_plan(int* plan) {
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_color_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sigma_color_kernel, kThreads, kSmem);
+  }
+  plan[0] = kTileRows;
+  plan[1] = per_sm;
+  plan[2] = kSmem;
+  return (int)err;
 }

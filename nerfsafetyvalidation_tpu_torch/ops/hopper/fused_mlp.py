@@ -12,7 +12,12 @@ as the TPU kernel does (the JAX package's unfused chain keeps the last
 layer in float32).
 
 The kernel is built at first use with `nvcc` into `_build/` beside the
-package and bound with ctypes.
+package and bound with ctypes. Its weights are one operand: every layer,
+zero-padded to [16k, 16m], packed once per set of weights into the
+shared-memory image that `wgmma` reads as its B operand
+(`points_mlp.wgmma_b`), the layers one after another; each block of the
+kernel loads it whole, and the rows of x stream through a ring of bulk
+copies (csrc/fused_mlp.cu, `_plan`).
 """
 
 import ctypes
@@ -21,14 +26,19 @@ from pathlib import Path
 import torch
 
 from ._nvcc import WeightCache, compile_source, refuse_grad
-from .points_mlp import _dot
+from .points_mlp import _dot, wgmma_b
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_mlp.cu"
 
 MAX_LAYERS = 8        # the kernel's caps (csrc/fused_mlp.cu)
 MAX_WIDTH = 128
 MAX_SMEM = 232448     # bytes of shared memory a block may use on sm_90
-WARPS = 4
+# the kernel's launch: consumer warpgroups of 64 rows a block, rows a tile,
+# most stages of the row ring, bytes of its barriers
+CONSUMERS = 2
+TILE_ROWS = 64 * CONSUMERS
+MAX_STAGES = 6
+BARRIER_BYTES = 128
 
 # launches of the CUDA kernel since the last reset (never the plain path)
 LAUNCHES = 0
@@ -58,6 +68,10 @@ def _library():
                        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.fused_mlp_plan.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                       ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+        lib.fused_mlp_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -80,11 +94,32 @@ def _pad16(v):
     return (v + 15) // 16 * 16
 
 
-def _smem_bytes(widths):
-    """Shared memory of one block (csrc/fused_mlp.cu smem_bytes)."""
-    w_elems = sum(_pad16(a) * _pad16(b) for a, b in zip(widths, widths[1:]))
-    pitch = max(16, *(_pad16(v) for v in widths)) + 8
-    return 2 * w_elems + WARPS * 2 * 16 * pitch * 2 + WARPS * 256 * 4
+def _plan(widths):
+    """A block's shared memory for these widths (csrc/fused_mlp.cu
+    plan_of): the ring's barriers, the weight image (every layer
+    [pad16(D_l), pad16(D_l+1)] bf16), then as many stages of one tile of x
+    as fit, at most MAX_STAGES; bytes of each part, the stage count (0 when
+    not one stage fits) and the bytes in all (0 then)."""
+    weights = 2 * sum(_pad16(a) * _pad16(b)
+                      for a, b in zip(widths, widths[1:]))
+    stage = TILE_ROWS * widths[0] * 2
+    room = MAX_SMEM - BARRIER_BYTES - weights
+    stages = 0 if room < stage else min(MAX_STAGES, room // stage)
+    total = BARRIER_BYTES + weights + stages * stage if stages else 0
+    return dict(barriers=BARRIER_BYTES, weights=weights, stage=stage,
+                stages=stages, total=total)
+
+
+def launch_plan(widths):
+    """The built kernel's own plan on this card for these widths: (rows a
+    tile, stages, stage bytes, shared-memory bytes of a block, blocks per
+    SM, k-steps of A a thread holds: 4 up to 64 columns, else 8)."""
+    dims = (ctypes.c_int * len(widths))(*widths)
+    plan = (ctypes.c_int * 6)()
+    err = _library().fused_mlp_plan(dims, len(widths) - 1, plan)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_plan failed: cudaError {err}")
+    return tuple(plan)
 
 
 def _widths(weights):
@@ -97,17 +132,18 @@ def _widths(weights):
                          "not chain")
     if not (1 <= len(weights) <= MAX_LAYERS
             and max(widths) <= MAX_WIDTH
-            and _smem_bytes(widths) <= MAX_SMEM):
+            and _plan(widths)["stages"] >= 1):
         raise ValueError(f"K4 takes 1..{MAX_LAYERS} layers of widths up to "
-                         f"{MAX_WIDTH} whose padded weights fit a block's "
-                         f"shared memory, got widths {widths}")
+                         f"{MAX_WIDTH} whose padded weights and one tile of "
+                         f"rows fit a block's shared memory, got widths "
+                         f"{widths}")
     return widths
 
 
 def _prepare(weights):
     """(widths, packed weights): every layer zero-padded to [16k, 16m]
-    bf16 and all of them in one contiguous buffer, built once per set of
-    weights."""
+    bf16, as wgmma's B image, all of them in one contiguous buffer, built
+    once per set of weights."""
     return _prepared.get(list(weights), lambda: _pack(weights))
 
 
@@ -118,7 +154,7 @@ def _pack(weights):
         p = torch.zeros((_pad16(w.shape[0]), _pad16(w.shape[1])),
                         dtype=torch.bfloat16, device=w.device)
         p[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
-        parts.append(p.reshape(-1))
+        parts.append(wgmma_b(p))
     return widths, torch.cat(parts).contiguous()
 
 

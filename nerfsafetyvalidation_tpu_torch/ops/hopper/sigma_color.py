@@ -8,7 +8,11 @@ or raises; on a CPU tensor it runs the plain PyTorch version
 rounding points), which the tests compare with JAX.
 
 The kernel is built at first use with `nvcc` into `_build/` beside the
-package and bound with ctypes.
+package and bound with ctypes. Its weights are one operand, `image`: the six
+matrices of `_prep_mats` (the last one padded to 16 columns) packed once per
+set of weights into the shared-memory image that `wgmma` reads as its B
+operand (`points_mlp.wgmma_b`), which each block of the kernel loads whole;
+the rows stream through a ring of bulk copies (csrc/sigma_color.cu).
 """
 
 import ctypes
@@ -17,11 +21,23 @@ from pathlib import Path
 import torch
 
 from ._nvcc import WeightCache, compile_source, refuse_grad
-from .points_mlp import _dot
+from .points_mlp import _dot, wgmma_b
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sigma_color.cu"
 
 ENC, HID, GEO, SH, COLOR, LAST_COLS = 32, 64, 16, 16, 64, 8
+# the kernel's launch (csrc/sigma_color.cu): consumer warpgroups of 64 rows
+# a block, rows a tile, stages of the row ring, bytes of its barriers
+CONSUMERS = 2
+TILE_ROWS = 64 * CONSUMERS
+STAGES = 6
+BARRIER_BYTES = 128
+# the weight image's matrices, in order, [in, out] as wgmma reads them:
+# W1, W2, C1s, C1g, C2, C3 with its columns padded to IMAGE_LAST
+IMAGE_LAST = 16
+IMAGE_SHAPES = ((ENC, HID), (HID, GEO), (SH, COLOR), (GEO, COLOR),
+                (COLOR, COLOR), (COLOR, IMAGE_LAST))
+WEIGHT_BYTES = 2 * sum(k * n for k, n in IMAGE_SHAPES)
 
 # launches of the CUDA kernel since the last reset (never the plain path)
 LAUNCHES = 0
@@ -47,9 +63,11 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.sigma_color_forward
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.sigma_color_plan.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.sigma_color_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -86,8 +104,40 @@ def _prep_mats(sigma_net, color_net, sh_dim, dtype):
                  for m in (w1, w2, c1[:sh_dim], c1g, c2, c3p))
 
 
+def smem_plan():
+    """A block's shared memory (csrc/sigma_color.cu): the ring's barriers,
+    the weight image, then STAGES stages of one tile's enc rows and sh
+    rows; bytes of each part, and in all."""
+    stage = TILE_ROWS * (ENC + SH) * 2
+    return dict(barriers=BARRIER_BYTES, weights=WEIGHT_BYTES, stage=stage,
+                stages=STAGES,
+                total=BARRIER_BYTES + WEIGHT_BYTES + STAGES * stage)
+
+
+def launch_plan():
+    """The built kernel's own plan on this card: (rows a tile, blocks per
+    SM, shared-memory bytes of a block)."""
+    plan = (ctypes.c_int * 3)()
+    err = _library().sigma_color_plan(plan)
+    if err != 0:
+        raise RuntimeError(f"sigma_color_plan failed: cudaError {err}")
+    return tuple(plan)
+
+
+def pack_image(mats):
+    """The six matrices of `_prep_mats`, C3 padded to IMAGE_LAST columns,
+    each as wgmma's B image (`points_mlp.wgmma_b`), one after another."""
+    *head, c3 = mats
+    c3p = torch.zeros((c3.shape[0], IMAGE_LAST), dtype=c3.dtype,
+                      device=c3.device)
+    c3p[:, :c3.shape[1]] = c3
+    return torch.cat([wgmma_b(m) for m in (*head, c3p)]).contiguous()
+
+
 def _prepare(sigma_net, color_net):
-    """Kernel operands in bf16, built once per set of weights."""
+    """Kernel operands in bf16, built once per set of weights: `mats`, the
+    six matrices of `_prep_mats` (the TPU kernel's layout), and `image`,
+    those packed for the kernel (`pack_image`)."""
     weights = list(sigma_net) + list(color_net)
     want = [(ENC, HID), (HID, GEO), (SH + GEO - 1, COLOR), (COLOR, COLOR),
             (COLOR, 3)]
@@ -95,8 +145,11 @@ def _prepare(sigma_net, color_net):
         raise ValueError(f"K3 takes a sigma net {ENC} -> {HID} -> {GEO} and "
                          f"a color net {SH + GEO - 1} -> {COLOR} -> {COLOR} "
                          f"-> 3, got {[tuple(w.shape) for w in weights]}")
-    return _prepared.get(weights, lambda: _prep_mats(
-        sigma_net, color_net, SH, torch.bfloat16))
+    def prep():
+        mats = _prep_mats(sigma_net, color_net, SH, torch.bfloat16)
+        return dict(mats=mats, image=pack_image(mats))
+
+    return _prepared.get(weights, prep)
 
 
 def fused_sigma_color(enc, sh, sigma_net, color_net,
@@ -132,14 +185,13 @@ def fused_sigma_color(enc, sh, sigma_net, color_net,
     tensors = [enc, sh] + list(sigma_net) + list(color_net)
     if any(t.device != enc.device for t in tensors):
         raise ValueError("enc, sh and the weights must be on one device")
-    w1, w2, c1s, c1g, c2, c3 = _prepare(sigma_net, color_net)
+    image = _prepare(sigma_net, color_net)["image"]
     out = torch.empty((n, 4), dtype=torch.float32, device=enc.device)
     if n:
         with torch.cuda.device(enc.device):
             stream = torch.cuda.current_stream(enc.device).cuda_stream
             err = _library().sigma_color_forward(
-                enc.data_ptr(), sh.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                c1s.data_ptr(), c1g.data_ptr(), c2.data_ptr(), c3.data_ptr(),
+                enc.data_ptr(), sh.data_ptr(), image.data_ptr(),
                 out.data_ptr(), n, stream)
         if err != 0:
             raise RuntimeError(f"sigma_color_forward launch failed: "

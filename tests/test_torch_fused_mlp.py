@@ -12,6 +12,7 @@ import torch
 
 from nerfsafetyvalidation_tpu.ops.pallas import fused_mlp as J
 from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp as K
+from nerfsafetyvalidation_tpu_torch.ops.hopper.points_mlp import wgmma_b
 
 torch.set_num_threads(1)
 
@@ -94,6 +95,33 @@ def test_non_cpu_tensor_never_takes_the_plain_path(dtype):
                                 device="meta"), ws, dtype)
 
 
+def _b_address(k, n, cols):
+    """Element offset of B[k, n] in one layer's wgmma image of `cols`
+    columns, as the kernel's descriptor states the layout (csrc/sm90.cuh
+    b_desc: K-major, no swizzle): 16-deep k-steps one after another,
+    8-column groups 256 bytes apart, the two 8-deep halves of a k-step 128
+    bytes apart, 8 x 8 core matrices of 16-byte rows (one column, 8
+    depths)."""
+    return ((k // 16) * 16 * cols + (n // 8) * 128 + ((k % 16) // 8) * 64
+            + (n % 8) * 8 + k % 8)
+
+
+def _read_back(packed, widths):
+    """The padded layers [pad16(in), pad16(out)] read out of the image
+    through the descriptor's address function, in order."""
+    bits = packed.view(torch.int16)
+    layers, off = [], 0
+    for a, b in zip(widths, widths[1:]):
+        rows, cols = K._pad16(a), K._pad16(b)
+        k, n = torch.meshgrid(torch.arange(rows), torch.arange(cols),
+                              indexing="ij")
+        layers.append(bits[off + _b_address(k, n, cols)]
+                      .view(torch.bfloat16))
+        off += rows * cols
+    assert off == packed.numel()
+    return layers
+
+
 def test_prepared_weights_are_packed_and_padded():
     _, ws = _chain(NETS["color"])
     ws_t = [torch.from_numpy(w) for w in ws]
@@ -101,14 +129,38 @@ def test_prepared_weights_are_packed_and_padded():
     assert widths == [31, 64, 64, 3]
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
     assert packed.numel() == 32 * 64 + 64 * 64 + 64 * 16
-    c1 = packed[:32 * 64].reshape(32, 64)
-    c3 = packed[32 * 64 + 64 * 64:].reshape(64, 16)
+    c1, _, c3 = _read_back(packed, widths)
     torch.testing.assert_close(c1[:31], ws_t[0].to(torch.bfloat16),
                                rtol=0, atol=0)
     assert not c1[31].any() and not c3[:, 3:].any()
     assert K._prepare(ws_t)[1] is packed          # built once per weights
     with torch.inference_mode():                  # inference-mode weights
         assert K._prepare([torch.from_numpy(w) for w in ws])[0] == widths
+
+
+# the ref nets, the FFMLP topology, and chains through widths 1, 3, 16, 31,
+# 33, 64 and 128 (each as the input, the hidden and the output width)
+IMAGE_CHAINS = [NETS[k] for k in sorted(NETS)] + [
+    [w, 64, w] for w in (1, 3, 16, 31, 33, 64, 128)] + [
+    [33, w, 3] for w in (1, 3, 16, 31, 33, 64, 128)]
+
+
+@pytest.mark.parametrize("dims", IMAGE_CHAINS,
+                         ids=["-".join(map(str, d)) for d in IMAGE_CHAINS])
+def test_wgmma_image_gives_back_every_padded_weight(dims):
+    """The packed image read back through the descriptor's address
+    function gives every layer, bit for bit, zero-padded to [16k, 16m], in
+    the kernel's layer order; nothing else."""
+    _, ws = _chain(dims, rows=1, seed=sum(dims))
+    ws_t = [torch.from_numpy(w) for w in ws]
+    widths, packed = K._prepare(ws_t)
+    assert widths == dims
+    for got, w in zip(_read_back(packed, widths), ws_t):
+        a, b = w.shape
+        assert tuple(got.shape) == (K._pad16(a), K._pad16(b))
+        assert torch.equal(got[:a, :b].view(torch.int16),
+                           w.to(torch.bfloat16).view(torch.int16))
+        assert not got[a:].any() and not got[:, b:].any()
 
 
 @pytest.mark.parametrize("shapes", [[(32, 64), (16, 15)],
@@ -122,11 +174,74 @@ def test_shapes_beyond_the_kernel_raise(shapes):
 
 
 def test_shared_memory_of_the_ref_nets():
-    """The block's shared memory (the kernel's formula): the sigma net and
-    the color net fit under the 48 KB a block gets without opting in."""
-    assert K._smem_bytes(NETS["sigma"]) == 2 * 3072 + 4 * 2 * 16 * 72 * 2 \
-        + 4 * 1024
-    assert K._smem_bytes(NETS["color"]) < 48 * 1024
+    """The block's shared memory (the kernel's plan): barriers, the weight
+    image (6 KB for the sigma net, 14 KB for the color net) and the full
+    ring of 128-row tiles of x (64-byte rows for the sigma net, 62-byte
+    rows for the color net)."""
+    sigma, color = K._plan(NETS["sigma"]), K._plan(NETS["color"])
+    assert sigma["weights"] == 2 * 3072 and color["weights"] == 2 * 7168
+    assert sigma["stage"] == 128 * 64 and color["stage"] == 128 * 62
+    assert sigma["stages"] == color["stages"] == K.MAX_STAGES
+    assert sigma["total"] == 128 + 2 * 3072 + 6 * 128 * 64
+    assert color["total"] == 128 + 2 * 7168 + 6 * 128 * 62
+
+
+def _smem_before(widths):
+    """The shared memory of the kernel this one replaced (four warps, two
+    16-row activation tiles and an f32 16 x 16 stage each, the row-major
+    weights): the shapes that fitted it are the shapes the wrapper took."""
+    w_elems = sum(K._pad16(a) * K._pad16(b) for a, b in zip(widths,
+                                                            widths[1:]))
+    pitch = max(16, *(K._pad16(v) for v in widths)) + 8
+    return 2 * w_elems + 4 * 2 * 16 * pitch * 2 + 4 * 256 * 4
+
+
+@pytest.mark.parametrize("layers", range(1, K.MAX_LAYERS + 1))
+def test_shared_memory_plan_fits_every_shape(layers):
+    """For every depth and every width 1..128 (the same width throughout,
+    and each of 1, 31, 128 as the input with that width inside): where the
+    plan has a stage it fits 232,448 bytes, keeps 16-byte copies aligned
+    and the wrapper takes the shape; where it has none the wrapper raises;
+    and every shape the replaced kernel took still fits."""
+    for d_in in (None, 1, 31, 128):
+        for width in range(1, K.MAX_WIDTH + 1):
+            widths = [d_in or width] + [width] * layers
+            plan = K._plan(widths)
+            ws = [torch.zeros((a, b)) for a, b in zip(widths, widths[1:])]
+            if plan["stages"]:
+                assert plan["total"] <= K.MAX_SMEM
+                assert plan["stages"] <= K.MAX_STAGES
+                assert (plan["barriers"] + plan["weights"]) % 16 == 0
+                assert plan["stage"] % 16 == 0
+                assert plan["barriers"] >= (2 * K.MAX_STAGES + 1) * 8
+                assert K._widths(ws) == widths
+            else:
+                with pytest.raises(ValueError):
+                    K._widths(ws)
+            if _smem_before(widths) <= K.MAX_SMEM:
+                assert plan["stages"] >= 1, widths
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 262149])
+def test_tile_schedule_covers_every_row_once(n):
+    """The kernel's schedule (persistent blocks over TILE_ROWS-row tiles,
+    64 rows a consumer warpgroup) takes every row of n exactly once on the
+    H100's 132 SMs; a ragged last tile is bulk-copied up to its last
+    16-byte boundary and the rest (under 16 bytes) by hand, for the ref
+    nets' 32- and 31-wide inputs."""
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import _nvcc
+    blocks = _nvcc.ring_grid(n, K.TILE_ROWS, 132)
+    assert 1 <= blocks <= 132
+    covered = np.zeros(n, np.int64)
+    for _, _, start, stop in _nvcc.ring_rows(n, K.TILE_ROWS, blocks):
+        assert 0 < stop - start <= 64
+        covered[start:stop] += 1
+    assert (covered == 1).all()
+    rows_last = n - (-(-n // K.TILE_ROWS) - 1) * K.TILE_ROWS
+    for d0 in (32, 31):
+        nbytes = rows_last * d0 * 2
+        assert nbytes - (nbytes & ~15) < 16
+        assert (n - rows_last) * d0 * 2 % 16 == 0   # the tile starts aligned
 
 
 def test_cache_keeps_its_weights_alive():
@@ -138,7 +253,7 @@ def test_cache_keeps_its_weights_alive():
         _, ws = _chain(NETS["sigma"], seed=seed)
         ws_t = [torch.from_numpy(w) for w in ws]
         packed.append(K._prepare(ws_t)[1])
-        want = torch.cat([ws_t[0].to(torch.bfloat16).reshape(-1),
-                          ws_t[1].to(torch.bfloat16).reshape(-1)])
+        want = torch.cat([wgmma_b(ws_t[0].to(torch.bfloat16)),
+                          wgmma_b(ws_t[1].to(torch.bfloat16))])
         torch.testing.assert_close(packed[-1], want, rtol=0, atol=0)
         del ws, ws_t

@@ -144,6 +144,31 @@ def test_build_without_nvcc_raises():
         pm.build()
 
 
+def test_build_key_covers_the_shared_header(tmp_path):
+    """The three wgmma sources include csrc/sm90.cuh, and a library's key
+    in the build directory hashes it: an edit to the header gives each of
+    them a new key (so a stale library is never loaded), and leaves the
+    sources that do not include it alone."""
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import _nvcc
+    src = pm.SOURCE.parent
+    names = ("points_mlp.cu", "sigma_color.cu", "fused_mlp.cu",
+             "fold_build.cu", "sm90.cuh")
+    for name in names:
+        shutil.copy(src / name, tmp_path / name)
+    users = [tmp_path / n for n in names[:3]]
+    for path in users:
+        assert [p.name for p in _nvcc.local_sources(path)] == [
+            path.name, "sm90.cuh"]
+    before = {n: _nvcc.source_digest(tmp_path / n) for n in names[:4]}
+    assert before["points_mlp.cu"] == _nvcc.source_digest(pm.SOURCE)
+    header = tmp_path / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _nvcc.source_digest(tmp_path / n) for n in names[:4]}
+    assert all(after[p.name] != before[p.name] for p in users)
+    assert after["fold_build.cu"] == before["fold_build.cu"]
+    assert _nvcc.source_digest(users[0], ["-O2"]) != after["points_mlp.cu"]
+
+
 def _b_address(k, n, cols):
     """Element offset of B[k, n] in one layer's wgmma image of `cols`
     columns, as the kernel's descriptor states the layout (K-major, no

@@ -90,9 +90,13 @@ def test_plain_matches_xla_ref(dtype):
 
 
 def test_prepared_operands_match_tpu_layout():
+    """The six matrices behind the kernel's image are the TPU kernel's
+    `_prep_mats`, bit for bit; the image is built once per set of
+    weights."""
     _, _, sn, cn = _chain()
     sn_t, cn_t = _torch(sn, cn)
-    w1, w2, c1s, c1g, c2, c3 = sc._prepare(sn_t, cn_t)
+    prep = sc._prepare(sn_t, cn_t)
+    w1, w2, c1s, c1g, c2, c3 = prep["mats"]
     ref = j_mlp._prep_mats(tuple(_jax(sn)[0]), tuple(_jax(cn)[0]), 16,
                            jnp.bfloat16)
     for got, want in zip((w1, w2, c1s, c1g, c2, c3), ref):
@@ -100,12 +104,83 @@ def test_prepared_operands_match_tpu_layout():
         np.testing.assert_array_equal(got.float().numpy(),
                                       np.asarray(want).astype(np.float32))
     assert tuple(c3.shape) == (64, sc.LAST_COLS) and not c1g[0].any()
-    assert sc._prepare(sn_t, cn_t)[0] is w1     # built once per weights
+    assert prep["image"].numel() * 2 == sc.WEIGHT_BYTES == 20480
+    assert sc._prepare(sn_t, cn_t)["image"] is prep["image"]  # built once
     with pytest.raises(ValueError):
         sc._prepare(_torch([sn[0][:30], sn[1]])[0], cn_t)
     with torch.inference_mode():       # weights made in inference mode
         sn_i, cn_i = _torch(sn, cn)
-        assert len(sc._prepare(sn_i, cn_i)) == 6
+        assert len(sc._prepare(sn_i, cn_i)["mats"]) == 6
+
+
+def _b_address(k, n, cols):
+    """Element offset of B[k, n] in one matrix's wgmma image of `cols`
+    columns, as the kernel's descriptor states the layout (csrc/sm90.cuh
+    b_desc: K-major, no swizzle): 16-deep k-steps one after another,
+    8-column groups 256 bytes apart, the two 8-deep halves of a k-step 128
+    bytes apart, 8 x 8 core matrices of 16-byte rows (one column, 8
+    depths)."""
+    return ((k // 16) * 16 * cols + (n // 8) * 128 + ((k % 16) // 8) * 64
+            + (n % 8) * 8 + k % 8)
+
+
+def test_wgmma_image_gives_back_every_padded_weight():
+    """The image read back through the descriptor's address function gives
+    W1, W2, C1s, C1g (its zero row 0 included) and C2 bit for bit, C3 with
+    zeros in its columns past rgb, at the kernel's offsets
+    (csrc/sigma_color.cu kOffW1 .. kOffC3), and nothing else."""
+    _, _, sn, cn = _chain(seed=5)
+    prep = sc._prepare(*_torch(sn, cn))
+    bits = prep["image"].view(torch.int16)
+    w1, w2, c1s, c1g, c2, c3 = prep["mats"]
+    c3_16 = torch.zeros((64, 16), dtype=torch.bfloat16)
+    c3_16[:, :8] = c3
+    offsets = [0, 2048, 3072, 4096, 5120, 9216]     # bf16 elements
+    off = 0
+    for m, want_off, shape in zip((w1, w2, c1s, c1g, c2, c3_16), offsets,
+                                  sc.IMAGE_SHAPES):
+        assert tuple(m.shape) == shape and off == want_off
+        k, n = torch.meshgrid(torch.arange(shape[0]), torch.arange(shape[1]),
+                              indexing="ij")
+        assert torch.equal(bits[off + _b_address(k, n, shape[1])],
+                           m.contiguous().view(torch.int16))
+        off += shape[0] * shape[1]
+    assert off == bits.numel()
+    assert not c3_16[:, 3:].any() and not c1g[0].any()
+
+
+def test_shared_memory_plan_fits_a_block():
+    """Barriers (a full and an empty mbarrier a stage and the weights'),
+    the 20,480-byte image and the ring fit the 232,448 bytes a block may
+    use, every stage starts on a 128-byte boundary, and a stage holds one
+    tile's enc and sh rows as the producer copies them."""
+    plan = sc.smem_plan()
+    assert plan["barriers"] >= (2 * plan["stages"] + 1) * 8
+    assert (plan["barriers"] + plan["weights"]) % 128 == 0
+    assert plan["stage"] % 128 == 0
+    assert plan["stage"] == sc.TILE_ROWS * 64 + sc.TILE_ROWS * 32
+    assert 4 <= plan["stages"] <= 6
+    assert plan["total"] == plan["barriers"] + plan["weights"] \
+        + plan["stages"] * plan["stage"] <= 232448
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 262149])
+def test_tile_schedule_covers_every_row_once(n):
+    """The kernel's schedule (persistent blocks over TILE_ROWS-row tiles,
+    64 rows a consumer warpgroup) takes every row of n exactly once on the
+    H100's 132 SMs, one or two blocks each, and each block's copies stay
+    whole multiples of 16 bytes (64-byte enc and 32-byte sh rows)."""
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import _nvcc
+    for per_sm in (1, 2):
+        blocks = _nvcc.ring_grid(n, sc.TILE_ROWS, 132, per_sm)
+        assert 1 <= blocks <= 132 * per_sm
+        covered = np.zeros(n, np.int64)
+        for _, _, start, stop in _nvcc.ring_rows(n, sc.TILE_ROWS, blocks):
+            assert 0 < stop - start <= 64
+            covered[start:stop] += 1
+        assert (covered == 1).all()
+        rows_last = n - (-(-n // sc.TILE_ROWS) - 1) * sc.TILE_ROWS
+        assert rows_last * 32 % 16 == 0 and 0 < rows_last <= sc.TILE_ROWS
 
 
 def test_cpu_wrapper_is_the_plain_version():
