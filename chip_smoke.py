@@ -7,7 +7,8 @@ CUDA card.
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
-     (csrc/sigma_color.cu), K4 (csrc/fused_mlp.cu), K5 (csrc/fold_build.cu),
+     (csrc/sigma_color.cu), K4 in bf16 and f32 (csrc/fused_mlp.cu), K5
+     (csrc/fold_build.cu),
      K6 and K7 (csrc/gather_rows.cu) and the K7 variants that PERF.md
      compares (scripts/k7_variants.cu), one nvcc each, started together;
      each kernel's registers, stack and spills as ptxas reports them;
@@ -58,6 +59,17 @@ Phases, each printing its elapsed seconds:
      levels below 8; PSNR and its gap to BENCH_r05, pose 0 again through
      the plain version, and once more through the unfused plain matmul
      chain (the route BENCH_r05 ran), as a check;
+ 10c. kernel K4 f32: the same shaded tile through the float32 net (the
+     CLI's --ff without -O): the f32 kernel against its plain version at
+     rtol 5e-4 / atol 1e-5, with kernel, plain, library (the f32
+     torch.matmul chain, TF32 off) and bound times, warm and cold, and 20
+     reruns bit-identical to the first;
+ 10d. staged, staged_bf16: pose 0 at 800x800 through the staged render at
+     the CLI's defaults (157 chunks of 4,096 rays x 512 samples), through
+     K4's f32 kernel and its bf16 one: s/frame, rays/s, PSNR beside
+     ref_backbone's, K4 launched twice a chunk, and a central chunk and
+     the padded last one (its rgbs and sigmas too) again through the plain
+     field, compared;
  10b. gradients: K1 on a CUDA tensor returns the plain chain's gradients;
      K3 and K4, which have no backward yet, raise where autograd would
      need one;
@@ -65,9 +77,11 @@ Phases, each printing its elapsed seconds:
      (flagship.TRAIN_CFG, train_gather="foldrow_pallas") on the in-memory
      48-view 200x200 spheres set, 144 steps with the schedule cut (see
      TRAIN_STEPS): K5 launched once forward and once backward per step,
-     the loss and the parameters finite, the loss falling by LOSS_FALL; then
-     one step through "foldrow_pallas" against one through "foldrow" from
-     the trained parameters with the same draws, the updates compared;
+     the loss and the parameters finite, the loss falling by LOSS_FALL, the
+     trainer's `evaluate` PSNR on the 2 validation views (the staged
+     render); then one step through "foldrow_pallas" against one through
+     "foldrow" from the trained parameters with the same draws, the updates
+     compared;
  12. kernels K6, K7: the row gathers at every shape of the gather probe's
      sections E and F and at a ragged M, bit-exact against table[idx] (K7
      for each nslot), with kernel, plain, library (index_select) and bound
@@ -79,8 +93,9 @@ Phases, each printing its elapsed seconds:
      sections, with the counts at 0 before and read after (the path that
      runs K6 and K7).
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
-anchor. Every launch count is set to 0 just before each frame phase, the
-refresh, the training, K2's path and the probe, and read just after. The
+anchor (the staged modes have no JAX record; their PSNR is printed).
+Every launch count is set to 0 just before each frame phase, the refresh,
+the training, K2's path and the probe, and read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -157,6 +172,20 @@ TOL_K3 = dict(rgb=(1e-2, 1e-6), sigma=(1.5e-2, 2e-6))
 # instead of f32 sums moves them by 7.8e-3 / 3.5e-8 and 7.8e-3 / 5.4e-8
 # (NVIDIA H100 80GB HBM3). Bounds: about 3x the maxima, 15-20x the means.
 TOL_K4 = dict(sigma=(2.5e-2, 1e-6), color=(2.5e-2, 2e-6))
+# K4 in f32 against its plain version (rtol, atol): the JAX package's own
+# tolerance of its f32 kernel against the f32 chain (tests/
+# test_fused_mlp.py:263-269). FFMA in order against cuBLAS's f32 products
+# (TF32 off): a few float32 steps of each layer's sums, ~1e-6 relative.
+TOL_K4_F32 = (5e-4, 1e-5)
+# A staged chunk through the kernel against the same chunk through the
+# plain field: image (max, mean) abs, the last chunk's rgbs max abs and
+# sigmas max |diff| / max(|sigma|, 1). f32: the two sum in other orders,
+# ~1e-6 relative on each MLP output; sigma = exp(s) turns s's absolute
+# error (|s| up to ~12: ~1e-5) into a relative one; bounds about 10x that.
+# bf16: the bf16 frames' bounds (TOL_IMG_MAX / MEAN) and K1's per-sample
+# ones (TOL_K1: one activation on the neighbouring bf16 value).
+TOL_STAGED = {"K4 f32": dict(image=(1e-4, 1e-6), rgbs=1e-4, sigma=1e-4),
+              "K4": dict(image=(0.05, 1e-4), rgbs=0.15, sigma=0.4)}
 # Frame through a kernel vs frame through the plain version (same state).
 # For K1 the f32 -> f64 change moved a 400x400 frame by 0.0067 at most and
 # 1.7e-6 on average. Measured kernel vs plain frames, pose 0: fast 1.2e-3 /
@@ -366,6 +395,7 @@ def main():
                 "K2": (points_mlp, "LAUNCHES_DEEP"),
                 "K3": (sigma_color, "LAUNCHES"),
                 "K4": (fused_mlp, "LAUNCHES"),
+                "K4 f32": (fused_mlp, "LAUNCHES_F32"),
                 "K5": (fold_build, "LAUNCHES"),
                 "K5 bwd": (fold_build, "LAUNCHES_BWD"),
                 "K6": (gather, "LAUNCHES_VMEM"),
@@ -1121,12 +1151,195 @@ def main():
             check(fused_mlp.LAUNCHES == 0, "the unfused frame launched K4")
             p_unf, p_k4 = psnr(out["image"], gt, name), psnr(
                 frame["image"], gt, name)
+            if name == "ref_backbone":
+                ref_psnr = p_k4
             err = (out["image"] - frame["image"]).abs()
             print(f"{name}: pose 0 unfused (f32 last layers) {p_unf:.3f} dB"
                   f", K4 frame {p_k4:.3f} dB, gap {p_k4 - p_unf:+.3f} dB; "
                   f"BENCH_r05 gap of the unfused frame "
                   f"{p_unf - BENCH_R05[name][0]:+.3f} dB; image max abs "
                   f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
+
+    with Phase("kernel K4 f32"), torch.inference_mode():
+        # phase 9's shaded tile through the float32 net (--ff without -O):
+        # the sigma net on its f32 encoding, the color net on [SH | geo]
+        ref32 = ref_nets["ref_f32"]
+        sn, cn = list(ref32.sigma_net), list(ref32.color_net)
+        f32 = torch.float32
+        enc = ref32.encode_pos(xyz).contiguous()
+        s_plain = fused_mlp.fused_mlp_plain(enc, sn, f32)
+        cin = torch.cat([ref32.encode_dir(dirs), s_plain[:, 1:]],
+                        dim=-1).contiguous()
+        rows = enc.shape[0]
+        print(f"K4 f32 tile: {rows} samples; enc {tuple(enc.shape)} "
+              f"{enc.dtype}, color input {tuple(cin.shape)} {cin.dtype}")
+
+        def k4_f32():
+            return (fused_mlp.fused_mlp(enc, sn, f32),
+                    fused_mlp.fused_mlp(cin, cn, f32))
+
+        def k4_f32_plain():
+            return (fused_mlp.fused_mlp_plain(enc, sn, f32),
+                    fused_mlp.fused_mlp_plain(cin, cn, f32))
+
+        def chain_f32(h, ws):
+            # one f32 torch.matmul a layer, TF32 off
+            for i, w in enumerate(ws):
+                h = h @ w
+                if i != len(ws) - 1:
+                    h = torch.relu(h)
+            return h
+
+        def k4_f32_library():
+            return chain_f32(enc, sn), chain_f32(cin, cn)
+
+        before = counts()["K4 f32"]
+        got = k4_f32()
+        torch.cuda.synchronize()
+        check(counts()["K4 f32"] == before + 2, "the f32 pair did not launch "
+              "K4's f32 kernel twice")
+        want = k4_f32_plain()
+        k4_err32 = 0.0
+        for what, g, w in zip(("sigma", "color"), got, want):
+            check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                  f"K4 f32 {what} output is not finite {tuple(w.shape)}")
+            err = (g - w).abs()
+            rel = err / w.abs().clamp(min=1e-30)
+            k4_err32 = max(k4_err32, float(err.max()))
+            print(f"K4 f32 {what} net vs plain on {rows} rows: max abs "
+                  f"{float(err.max()):.3e} (|values| up to "
+                  f"{float(w.abs().max()):.3e}), max rel where |plain| > "
+                  f"1e-3 {float(rel[w.abs() > 1e-3].max()):.3e}, mean abs "
+                  f"{float(err.mean()):.3e}")
+            check(torch.allclose(g, w, rtol=TOL_K4_F32[0],
+                                 atol=TOL_K4_F32[1]),
+                  f"K4 f32 {what} net disagrees with the plain version "
+                  f"(rtol {TOL_K4_F32[0]}, atol {TOL_K4_F32[1]})")
+        got_l = k4_f32_library()
+        check(all(torch.allclose(a, b, rtol=TOL_K4_F32[0],
+                                 atol=TOL_K4_F32[1])
+                  for a, b in zip(got_l, want)),
+              "the f32 library chain does not compute K4's function")
+        same = reruns_equal(torch, k4_f32, got)
+        print(f"K4 f32 tile: {same} of {RERUNS} reruns bit-identical to "
+              f"the first")
+        check(same == RERUNS, "K4 f32 gives other values on a rerun of the "
+              "same rows")
+        macs4 = sum(w.shape[0] * w.shape[1] for w in sn + cn)
+        k4_bound32, k4_by32 = bound_ms(
+            2.0 * rows * macs4,
+            rows * 4 * (32 + 16 + 31 + 3)
+            + 4 * sum(w.numel() for w in sn + cn), PEAK_F32_FLOPS)
+        k4_ms32 = cuda_ms(torch, k4_f32, 10)
+        k4_plain_ms32 = cuda_ms(torch, k4_f32_plain, 5)
+        k4_lib_ms32 = cuda_ms(torch, k4_f32_library, 5)
+        k4_in32 = rows * 4 * (32 + 31)
+
+        def k4_f32_copy():
+            e, c_ = enc.clone(), cin.clone()
+            return lambda: (fused_mlp.fused_mlp(e, sn, f32),
+                            fused_mlp.fused_mlp(c_, cn, f32))
+        k4_cold32, copies32 = cold_ms(torch, k4_f32_copy, k4_in32, 10)
+        for what, net in (("sigma", sn), ("color", cn)):
+            widths = [net[0].shape[0]] + [w.shape[1] for w in net]
+            tile_rows, resident, pitch, smem4, per_sm, widest = \
+                fused_mlp.launch_plan(widths, f32)
+            held = "resident" if resident else "a layer at a time"
+            print(f"K4 f32 launch, {what} net {widths}: {tile_rows} rows a "
+                  f"tile, weights {held}, activation rows of {pitch} "
+                  f"floats, {smem4} bytes of shared memory a block, "
+                  f"{per_sm} blocks per SM, "
+                  f"the build for outputs up to {widest}")
+        print(f"K4 f32 pair at {rows} rows ({macs4} MAC/row): kernel_ms "
+              f"{k4_ms32:.4f} (warm), cold {k4_cold32:.4f} ({copies32} "
+              f"copies of {k4_in32 / 1e6:.1f} MB of inputs in turn), "
+              f"plain_ms {k4_plain_ms32:.4f}, library_ms {k4_lib_ms32:.4f} "
+              f"(f32 torch.matmul, TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
+              f"{k4_bound32:.4f} ({k4_by32}, 67 TFLOP/s f32); {smi}")
+        del enc, cin, got, want, got_l, xyz, dirs, s_plain
+        torch.cuda.empty_cache()
+
+    staged = {}
+    for name in F.STAGED_MODES:
+        with Phase(name), torch.inference_mode():
+            # the reference backbone observed as the entry points observe a
+            # trained NeRF: pose 0 at 800x800 through the staged render at
+            # the CLI's defaults, 157 chunks of 4,096 rays x 512 samples
+            mode = F.MODES[name]
+            kernel = mode["kernel"]
+            other = "K4" if kernel == "K4 f32" else "K4 f32"
+            o, d, gt = views[0]
+            batch = mode["frame"]["max_ray_batch"]
+            n_chunks = -(-o.shape[0] // batch)
+            t0 = time.perf_counter()
+            F.render(name, ref_nets, None, o[:batch], d[:batch])
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            reset_counts()
+            t0 = time.perf_counter()
+            out = F.render(name, ref_nets, None, o, d)
+            torch.cuda.synchronize()
+            t_frame = time.perf_counter() - t0
+            n_launch = counts()
+            p_frame = psnr(out["image"], gt, name)
+            check(bool(torch.isfinite(out["depth"]).all()
+                       and torch.isfinite(out["aggregated_density"]).all()),
+                  f"{name}: depth or aggregated density not finite")
+            print(f"{name}: pose 0 at {RES}x{RES} in {n_chunks} chunks of "
+                  f"{batch} rays x {mode['frame']['num_steps']} samples: "
+                  f"{t_frame:.3f} s/frame, {RES * RES / t_frame:.0f} rays/s "
+                  f"(one chunk first: {t_warm:.3f} s) on {smi}; launches "
+                  f"{n_launch}; PSNR {p_frame:.3f} dB (ref_backbone's marched"
+                  f" frame: BENCH_r05 {BENCH_R05['ref_backbone'][0]} dB, "
+                  f"this run {ref_psnr:.3f} dB)")
+            check(n_launch[kernel] == 2 * n_chunks,
+                  f"{name} launched {kernel} {n_launch[kernel]} times, not "
+                  f"twice in each of {n_chunks} chunks")
+            check(n_launch[other] == 0, f"{name} launched {other}")
+            # two chunks again through the plain field: a central one and
+            # the padded last one (its rgbs and sigmas are the frame's)
+            tol = TOL_STAGED[kernel]
+            for which, c in (("central", n_chunks // 2),
+                             ("last", n_chunks - 1)):
+                sl = slice(c * batch, min((c + 1) * batch, o.shape[0]))
+                plain = F.render(name, ref_nets, None, o[sl], d[sl],
+                                 plain_field=True)
+                check(counts()[kernel] == n_launch[kernel],
+                      f"the plain {name} chunk launched {kernel}")
+                err = (plain["image"] - out["image"][sl]).abs()
+                line = (f"{name}: {which} chunk {c} ({sl.stop - sl.start} "
+                        f"rays) kernel vs plain field: image max abs "
+                        f"{float(err.max()):.3e}, mean "
+                        f"{float(err.mean()):.3e}")
+                check(float(err.max()) <= tol["image"][0]
+                      and float(err.mean()) <= tol["image"][1],
+                      f"{name} {which} chunk's image disagrees with the "
+                      f"plain field's (tolerance {tol['image']})")
+                if which == "last":
+                    e_rgb = (plain["rgbs"] - out["rgbs"]).abs()
+                    s_p, s_k = plain["sigmas"], out["sigmas"]
+                    e_sig = (s_k - s_p).abs() / s_p.abs().clamp(min=1.0)
+                    line += (f"; last chunk's rgbs {tuple(out['rgbs'].shape)}"
+                             f" max abs {float(e_rgb.max()):.3e}, sigmas "
+                             f"{tuple(s_k.shape)} max rel "
+                             f"{float(e_sig.max()):.3e}")
+                    check(out["rgbs"].shape == (batch,
+                                                mode["frame"]["num_steps"],
+                                                3)
+                          and bool(torch.isfinite(out["rgbs"]).all()
+                                   and torch.isfinite(s_k).all()),
+                          f"{name}: the last chunk's rgbs / sigmas")
+                    check(float(e_rgb.max()) <= tol["rgbs"]
+                          and float(e_sig.max()) <= tol["sigma"],
+                          f"{name} last chunk's rgbs / sigmas disagree with "
+                          f"the plain field's (tolerance {tol})")
+                print(line)
+            staged[name] = dict(s_frame=t_frame, rays_s=RES * RES / t_frame,
+                                psnr=p_frame, launches=n_launch[kernel])
+            del out, plain
+            torch.cuda.empty_cache()
+    launches["K4"] += staged["staged_bf16"]["launches"]
 
     with Phase("gradients"):
         # outside inference mode, with weights that require grad: K1 returns
@@ -1177,7 +1390,8 @@ def main():
     with Phase("train"):
         t0 = time.perf_counter()
         opt = F.train_opt(iters=TRAIN_STEPS, grid_warmup_steps=TRAIN_WARMUP)
-        dataset = F.train_dataset(dev, opt=opt)
+        splits = F.train_splits()
+        dataset = F.train_dataset(dev, opt=opt, splits=splits)
         print(f"train set: {len(dataset)} views at {dataset.H}x{dataset.W} "
               f"({dataset.images.dtype}) in "
               f"{time.perf_counter() - t0:.2f} s")
@@ -1216,6 +1430,21 @@ def main():
         check(last < LOSS_FALL * first,
               f"the loss fell from {first:.6f} to {last:.6f}, not under "
               f"{LOSS_FALL} of it")
+        # the trainer's evaluation on the 2 validation views, as the JAX
+        # runs score validation (the staged render, 128 uniform steps, no
+        # upsampling); a cut schedule, so no bar
+        t0 = time.perf_counter()
+        trainer.evaluate(F.train_dataset(dev, opt=opt, splits=splits,
+                                         type="val").dataloader())
+        torch.cuda.synchronize()
+        eval_psnr = trainer.stats["results"][-1]
+        print(f"train: evaluate after {steps} steps (staged render, "
+              f"{opt.num_steps} uniform steps, upsampling "
+              f"{opt.upsample_steps}) on the 2 validation views: PSNR "
+              f"{eval_psnr:.3f} dB, mean loss "
+              f"{trainer.stats['valid_loss'][-1]:.6f}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(np.isfinite(eval_psnr), "the evaluation PSNR is not finite")
 
         # one step through each fold route, from the trained parameters and
         # state, with the same batch and draws
@@ -1272,7 +1501,7 @@ def main():
               and max(frac) <= TOL_ROUTE_FRAC,
               "the two routes' updates differ by more than the stated "
               "tolerance")
-        del stepped, net, trainer, dataset
+        del stepped, net, trainer, dataset, splits
         torch.cuda.empty_cache()
 
     with Phase("kernels K6, K7"):
@@ -1372,7 +1601,12 @@ def main():
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
          "launches": launches["K4"], "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": k4_lib_ms, "ms_cold": k4_cold},
+         "library_ms": k4_lib_ms, "ms_cold": k4_cold,
+         "launches_f32": staged["staged"]["launches"],
+         "max_abs_err_f32": k4_err32, "ms_f32": k4_ms32,
+         "ms_cold_f32": k4_cold32, "plain_ms_f32": k4_plain_ms32,
+         "bound_ms_f32": k4_bound32, "bound_by_f32": k4_by32,
+         "library_ms_f32": k4_lib_ms32},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",
@@ -1397,7 +1631,8 @@ def main():
                                      ("pallas_dma_gather", 190, "K7", k7))
     ]}
     check(len(kernel_line["kernels"]) == 8 and all(
-              k["launches"] > 0 for k in kernel_line["kernels"]),
+              k["launches"] > 0 for k in kernel_line["kernels"])
+          and kernel_line["kernels"][3]["launches_f32"] > 0,
           "a kernel of the slice's paths was never launched")
     print(json.dumps(kernel_line))
     print(smi)

@@ -19,5 +19,10 @@ MLPs as the CUDA kernel `ops.hopper.fused_mlp`; and the teacher's training
 built by the CUDA kernel `ops.hopper.fold_build` forward and backward; the
 student's chain from a precomputed encoding (`ops.hopper.points_mlp.
 fused_sigma_color_deep`), and the gather probe (`scripts.bench_gather`)
-with its row gathers as the CUDA kernels of `ops.hopper.gather`.
+with its row gathers as the CUDA kernels of `ops.hopper.gather`; and the
+uniform-sampling render the reference's entry points observe a trained
+NeRF with (`models.renderer.run`, staged `render`, `render_tiles`,
+`ops.compositing`, `ops.sample_pdf`) and the trainer's evaluation
+through it, with K4 in float32 (the JAX package's default compute dtype)
+as a second CUDA kernel of `ops.hopper.fused_mlp`.
 """

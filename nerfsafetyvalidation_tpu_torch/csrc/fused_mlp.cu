@@ -66,6 +66,10 @@
 //
 // The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
 //
+// The same function in float32 (the TPU kernel run on f32 operands, the
+// JAX package's default compute dtype) is a second kernel further down,
+// fused_mlp_f32_kernel: FFMA on the CUDA cores, no rounding between layers.
+//
 // Interface: a plain C launcher, bound from Python with ctypes. It launches
 // on the caller's stream, does not synchronise and allocates nothing, and
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue, with
@@ -379,20 +383,26 @@ inline int a_steps(const Widths& d) {
   return widest <= 64 ? 4 : 8;
 }
 
+// the widths of a launch, or false where they pass the caps
+inline bool widths_of(const int* widths, int n_layers, Widths* dims) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return false;
+  dims->n_layers = n_layers;
+  for (int l = 0; l <= kMaxLayers; ++l) {
+    dims->w[l] = l <= n_layers ? widths[l] : 0;
+    if (l <= n_layers && (dims->w[l] < 1 || dims->w[l] > kMaxWidth)) {
+      return false;
+    }
+  }
+  return true;
+}
+
 // the launch for these widths (per_sm_out: only the blocks per SM, no
 // launch)
 cudaError_t run(const void* x, const void* image, const int* widths,
                 int n_layers, void* out, int64_t n, void* stream,
                 int* per_sm_out, Plan* plan_out) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
   Widths dims;
-  dims.n_layers = n_layers;
-  for (int l = 0; l <= kMaxLayers; ++l) {
-    dims.w[l] = l <= n_layers ? widths[l] : 0;
-    if (l <= n_layers && (dims.w[l] < 1 || dims.w[l] > kMaxWidth)) {
-      return cudaErrorInvalidValue;
-    }
-  }
+  if (!widths_of(widths, n_layers, &dims)) return cudaErrorInvalidValue;
   const Plan plan = plan_of(dims);
   if (plan.stages < 1) return cudaErrorInvalidValue;
   if (plan_out != nullptr) *plan_out = plan;
@@ -407,6 +417,301 @@ cudaError_t run(const void* x, const void* image, const int* widths,
   return a_steps(dims) == 4
              ? launch<4>(xb, im, dims, plan, o, n, st, per_sm_out)
              : launch<8>(xb, im, dims, plan, o, n, st, per_sm_out);
+}
+
+// ---------------------------------------------------------------------------
+// K4 in float32: the TPU kernel's function with x_ref.dtype == float32 (f32
+// operands, f32 sums, every layer kept in f32, no rounding between layers).
+// No tensor cores: a TF32 product keeps 10 bits of mantissa, and the JAX
+// package holds its f32 kernel to rtol 5e-4 of the f32 chain. Plain FFMA on
+// the CUDA cores, register-tiled (as K2's f32 kernel, csrc/points_mlp.cu).
+//
+// What bounds it on this card: operations. The hash-grid pair is 9,344
+// multiply-adds a row against 328 bytes (x in and out, f32), 57 FLOP per
+// byte, above the H100's f32 balance point of 20 FLOP per byte (67 TFLOP/s
+// over 3.35 TB/s): at a tile's 2,097,152 rows 39.2 GFLOP, 0.585 ms.
+//
+// Design:
+//   * blocks of 256 threads walk over tiles of 128 rows (persistent, as
+//     many blocks as the card holds at once); a tile of x is one contiguous
+//     run of 128 * D_0 floats, loaded element by element (the color net's
+//     124-byte rows are not 16-byte aligned) into an activation tile in
+//     shared memory whose rows are the widest padded width + 4 floats (rows
+//     r and r + 1 start 4 banks apart), zero past D_0;
+//   * the weights are packed by the wrapper as each layer zero-padded to
+//     [K_l, N_l] f32 row-major, one after another: N_l is D_l+1 rounded up
+//     to a power of two of at least 16, K_0 = pad16(D_0), K_l = N_l-1.
+//     Where they fit beside the activation tile (the hash-grid nets: 12 KB
+//     and 28 KB) a block loads them once and keeps them; otherwise (up to
+//     8 x 128 x 128 floats) it loads one layer at a time, before it runs it;
+//   * a layer of N columns: N / 4 column groups of 4 adjacent columns times
+//     1024 / N row groups; thread (rg, cg) sums rows rg + (1024 / N) i
+//     (i < N / 8) and columns 4 cg .. 4 cg + 3 over K, four inputs a step:
+//     the weights' 4 x 4 block as four float4 loads, then per row one
+//     float4 of activations and 16 FFMA. The rows a warp reads start on
+//     distinct banks or share an address, so no load conflicts. One
+//     instantiation per N in {16, 32, 64, 128}; two builds by the widest
+//     (up to 64: two blocks an SM; or 128);
+//   * the sums overwrite the tile in place after a barrier, through a ReLU;
+//     the last layer's go to device memory, masked at the ragged edges.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Rows = 128;       // rows of a tile
+constexpr int kF32Threads = 256;
+
+struct PlanF32 {
+  int pitch;     // floats of an activation row
+  int act;       // bytes of the activation tile
+  int weights;   // bytes of the weight region
+  int resident;  // 1: every layer stays; 0: one layer at a time
+  int smem;      // bytes of shared memory a block
+};
+
+// a layer's output width in the f32 image: a power of two, 16 at least
+__host__ __device__ inline int npad(int v) {
+  int p = 16;
+  while (p < v) p *= 2;
+  return p;
+}
+
+// [K_l, N_l] of layer l in the f32 image
+__host__ __device__ inline int f32_k(const Widths& d, int l) {
+  return l == 0 ? pad16(d.w[0]) : npad(d.w[l]);
+}
+
+inline PlanF32 plan_f32(const Widths& d) {
+  int widest = pad16(d.w[0]);
+  int all = 0;
+  int largest = 0;
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int n = npad(d.w[l + 1]);
+    const int e = f32_k(d, l) * n;
+    widest = n > widest ? n : widest;
+    all += e;
+    largest = e > largest ? e : largest;
+  }
+  PlanF32 p;
+  p.pitch = widest + 4;
+  p.act = kF32Rows * p.pitch * 4;
+  p.resident = p.act + 4 * all <= kMaxSmem ? 1 : 0;
+  p.weights = 4 * (p.resident ? all : largest);
+  p.smem = p.act + p.weights;
+  return p;
+}
+
+// `count` floats (a multiple of 4, 16-byte aligned both sides) into shared
+// memory by the whole block
+__device__ __forceinline__ void f32_copy(float* dst, const float* src,
+                                         int count) {
+  for (int i = 4 * threadIdx.x; i < count; i += 4 * kF32Threads) {
+    *reinterpret_cast<float4*>(dst + i) =
+        *reinterpret_cast<const float4*>(src + i);
+  }
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a,
+                                     const float4& w) {
+  acc[0] = fmaf(a, w.x, acc[0]);
+  acc[1] = fmaf(a, w.y, acc[1]);
+  acc[2] = fmaf(a, w.z, acc[2]);
+  acc[3] = fmaf(a, w.w, acc[3]);
+}
+
+// One layer of the tile, N output columns (w row-major [kin, N]): the sums
+// of thread (rg, cg) over k < kin; then relu of them over the tile, or, for
+// the last layer, the sums to out.
+template <int N>
+__device__ __forceinline__ void f32_layer(float* act, int pitch,
+                                          const float* w, int kin, bool last,
+                                          float* __restrict__ out,
+                                          int64_t row0, int rows, int d_out) {
+  constexpr int CG = N / 4;                  // column groups of 4
+  constexpr int RG = kF32Threads / CG;       // row groups
+  constexpr int TM = kF32Rows / RG;          // rows a thread sums
+  const int rg = threadIdx.x / CG;
+  const int cg = threadIdx.x - rg * CG;
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  const float* wc = w + 4 * cg;
+  const float* ar = act + rg * pitch;
+#pragma unroll 2
+  for (int k = 0; k < kin; k += 4) {
+    const float4 w0 = *reinterpret_cast<const float4*>(wc + (k + 0) * N);
+    const float4 w1 = *reinterpret_cast<const float4*>(wc + (k + 1) * N);
+    const float4 w2 = *reinterpret_cast<const float4*>(wc + (k + 2) * N);
+    const float4 w3 = *reinterpret_cast<const float4*>(wc + (k + 3) * N);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(ar + RG * i * pitch + k);
+      fma4(acc[i], a.x, w0);
+      fma4(acc[i], a.y, w1);
+      fma4(acc[i], a.z, w2);
+      fma4(acc[i], a.w, w3);
+    }
+  }
+  if (last) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = rg + RG * i;
+      if (r >= rows) continue;
+      float* dst = out + (row0 + r) * d_out;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * cg + j < d_out) dst[4 * cg + j] = acc[i][j];
+      }
+    }
+    return;
+  }
+  __syncthreads();                  // every read of the layer's input is done
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    *reinterpret_cast<float4*>(act + (rg + RG * i) * pitch + 4 * cg) =
+        make_float4(fmaxf(acc[i][0], 0.0f), fmaxf(acc[i][1], 0.0f),
+                    fmaxf(acc[i][2], 0.0f), fmaxf(acc[i][3], 0.0f));
+  }
+  __syncthreads();
+}
+
+// f32_layer<n> for a run-time n in {N, 2 N, ..., NMAX}
+template <int N, int NMAX>
+__device__ __forceinline__ void f32_layer_n(int n, float* act, int pitch,
+                                            const float* w, int kin,
+                                            bool last, float* out,
+                                            int64_t row0, int rows,
+                                            int d_out) {
+  if constexpr (N < NMAX) {
+    if (n > N) {
+      f32_layer_n<2 * N, NMAX>(n, act, pitch, w, kin, last, out, row0, rows,
+                               d_out);
+      return;
+    }
+  }
+  f32_layer<N>(act, pitch, w, kin, last, out, row0, rows, d_out);
+}
+
+// NMAX: the widest output width this build takes (64 or 128)
+template <int NMAX>
+__global__ void __launch_bounds__(kF32Threads, NMAX <= 64 ? 2 : 1)
+fused_mlp_f32_kernel(const float* __restrict__ x,
+                     const float* __restrict__ image, Widths d, PlanF32 plan,
+                     float* __restrict__ out, int64_t n) {
+  extern __shared__ __align__(16) float smem_f32[];
+  float* act = smem_f32;
+  float* wts = smem_f32 + plan.act / 4;
+  const int d0 = d.w[0];
+  const int k0 = pad16(d0);
+  const int pad_cols = k0 - d0;
+  const int d_out = d.w[d.n_layers];
+  const int pitch = plan.pitch;
+  const int64_t ntiles = (n + kF32Rows - 1) / kF32Rows;
+
+  if (plan.resident) f32_copy(wts, image, plan.weights / 4);
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t row0 = t * kF32Rows;
+    const int rows = (int)min((int64_t)kF32Rows, n - row0);
+    __syncthreads();                // the previous tile's reads are done
+    const float* src = x + row0 * d0;
+    for (int i = threadIdx.x; i < rows * d0; i += kF32Threads) {
+      const int r = i / d0;
+      act[r * pitch + (i - r * d0)] = src[i];
+    }
+    for (int i = rows * d0 + threadIdx.x; i < kF32Rows * d0;
+         i += kF32Threads) {
+      const int r = i / d0;
+      act[r * pitch + (i - r * d0)] = 0.0f;
+    }
+    for (int i = threadIdx.x; i < kF32Rows * pad_cols; i += kF32Threads) {
+      const int r = i / pad_cols;
+      act[r * pitch + d0 + (i - r * pad_cols)] = 0.0f;
+    }
+    if (!plan.resident) f32_copy(wts, image, k0 * npad(d.w[1]));
+    __syncthreads();
+
+    int kin = k0;
+    int64_t off = 0;
+    for (int l = 0; l < d.n_layers; ++l) {
+      const int nout = npad(d.w[l + 1]);
+      if (!plan.resident && l > 0) {
+        // the layer before is done with the region (its barriers)
+        f32_copy(wts, image + off, kin * nout);
+        __syncthreads();
+      }
+      f32_layer_n<16, NMAX>(nout, act, pitch,
+                            plan.resident ? wts + off : wts, kin,
+                            l == d.n_layers - 1, out, row0, rows, d_out);
+      off += (int64_t)kin * nout;
+      kin = nout;
+    }
+  }
+}
+
+template <int NMAX>
+cudaError_t launch_f32(const float* x, const float* image, const Widths& d,
+                       const PlanF32& plan, float* out, int64_t n,
+                       cudaStream_t stream, int* per_sm_out) {
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fused_mlp_f32_kernel<NMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               plan.smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_mlp_f32_kernel<NMAX>, kF32Threads, plan.smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm_out != nullptr) {
+    *per_sm_out = per_sm;
+    return cudaSuccess;
+  }
+  const int64_t tiles = (n + kF32Rows - 1) / kF32Rows;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
+  fused_mlp_f32_kernel<NMAX><<<blocks, kF32Threads, plan.smem, stream>>>(
+      x, image, d, plan, out, n);
+  return cudaGetLastError();
+}
+
+// the widest output width in the f32 image: 64 or less picks the narrow
+// build
+inline int widest_out(const Widths& d) {
+  int widest = 0;
+  for (int l = 1; l <= d.n_layers; ++l) {
+    widest = npad(d.w[l]) > widest ? npad(d.w[l]) : widest;
+  }
+  return widest;
+}
+
+cudaError_t run_f32(const void* x, const void* image, const int* widths,
+                    int n_layers, void* out, int64_t n, void* stream,
+                    int* per_sm_out, PlanF32* plan_out) {
+  Widths dims;
+  if (!widths_of(widths, n_layers, &dims)) return cudaErrorInvalidValue;
+  const PlanF32 plan = plan_f32(dims);
+  if (plan_out != nullptr) *plan_out = plan;
+  if (per_sm_out == nullptr && n <= 0) return cudaSuccess;
+  if ((n + kF32Rows - 1) / kF32Rows > 0x7fffffff) {
+    return cudaErrorInvalidValue;
+  }
+  const float* xf = static_cast<const float*>(x);
+  const float* im = static_cast<const float*>(image);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return widest_out(dims) <= 64
+             ? launch_f32<64>(xf, im, dims, plan, o, n, st, per_sm_out)
+             : launch_f32<128>(xf, im, dims, plan, o, n, st, per_sm_out);
 }
 
 }  // namespace
@@ -441,5 +746,35 @@ extern "C" int fused_mlp_plan(const int* widths, int n_layers, int* out) {
   dims.n_layers = n_layers;
   for (int l = 0; l <= n_layers && l <= kMaxLayers; ++l) dims.w[l] = widths[l];
   out[5] = err == cudaSuccess ? a_steps(dims) : 0;
+  return (int)err;
+}
+
+// K4 in float32. x [n, widths[0]] f32, contiguous; image the layers
+// [K_l, N_l] f32 row-major (see plan_f32), zero padded, one after the
+// other, 16-byte aligned; out [n, widths[n_layers]] f32.
+extern "C" int fused_mlp_forward_f32(const void* x, const void* image,
+                                     const int* widths, int n_layers,
+                                     void* out, int64_t n, void* stream) {
+  return (int)run_f32(x, image, widths, n_layers, out, n, stream, nullptr,
+                      nullptr);
+}
+
+// The f32 launch for these widths: {tile rows, 1 if the weights stay in
+// shared memory, activation row floats, shared memory bytes of a block,
+// blocks per SM, the build's widest output (64 or 128)}.
+extern "C" int fused_mlp_plan_f32(const int* widths, int n_layers,
+                                  int* out) {
+  int per_sm = 0;
+  PlanF32 plan{};
+  const cudaError_t err = run_f32(nullptr, nullptr, widths, n_layers,
+                                  nullptr, 0, nullptr, &per_sm, &plan);
+  Widths dims;
+  const bool ok = widths_of(widths, n_layers, &dims);
+  out[0] = kF32Rows;
+  out[1] = plan.resident;
+  out[2] = plan.pitch;
+  out[3] = plan.smem;
+  out[4] = per_sm;
+  out[5] = ok ? (widest_out(dims) <= 64 ? 64 : 128) : 0;
   return (int)err;
 }

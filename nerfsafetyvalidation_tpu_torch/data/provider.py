@@ -80,13 +80,18 @@ class NeRFDataset:
                                                 self.images.shape[-1])
 
     def collate(self, index, generator=None, inds=None):
-        """The training batch of images `index` (a list): rays and pixels
-        at `inds` ([N] int64), or at N = min(num_rays, H * W) indices
-        drawn from `generator`. Returns {'H', 'W', 'rays_o', 'rays_d',
-        'images', 'inds'}."""
+        """The batch of images `index` (a list): rays and pixels at `inds`
+        ([N] int64), or, for the training split, at N = min(num_rays, H *
+        W) indices drawn from `generator`; for another split, every pixel
+        in raster order, with the images whole, [B, H, W, C], as the JAX
+        package's collate gives them for evaluation. Returns {'H', 'W',
+        'rays_o', 'rays_d', 'images', 'inds'}."""
         H, W = self.H, self.W
         dev = self._poses_dev.device
-        if inds is None:
+        whole = inds is None and not self.training
+        if whole:
+            inds = torch.arange(H * W, device=dev)
+        elif inds is None:
             n = min(self.num_rays, H * W)
             inds = torch.randint(0, H * W, (n,), generator=generator,
                                  device=dev)
@@ -95,6 +100,8 @@ class NeRFDataset:
             self._poses_dev, self._images_flat.to(dev), idx,
             torch.as_tensor(inds, device=dev),
             H=H, W=W, intrinsics=tuple(float(v) for v in self.intrinsics))
+        if whole:
+            imgs = imgs.reshape(len(index), H, W, -1)
         return {"H": H, "W": W, "rays_o": rays_o, "rays_d": rays_d,
                 "images": imgs, "inds": inds}
 

@@ -6,7 +6,10 @@ frame settings of the modes `fast`, `guided` and `baked_h160_ak8`
 reference-backbone line: the trained hash-grid `NeRFNetwork` of
 `bench_assets/refbb.ckpt` with its own occupancy refreshed 4x, rendered
 with all 16 levels (`ref_backbone`) and with the levels below 8 only
-(`ref_backbone_ml8`) (bench.py:354-425, :805-845).
+(`ref_backbone_ml8`) (bench.py:354-425, :805-845); and the same net as the
+reference's entry points observe a trained NeRF: the staged render at the
+CLI's defaults (`staged`: `--ff` in the default float32, K4's f32 kernel;
+`staged_bf16`: `--ff -O`).
 
 Training: `TRAIN_CFG` and `TRAIN_OPT` are bench.py's `_train_flagship`
 (bench.py:153-256) with `train_gather="foldrow_pallas"`, the route of
@@ -27,6 +30,7 @@ from .data.rays import get_rays, nerf_matrix_to_ngp
 from .data.synthetic import generate_dataset, orbit_pose
 from .models import make_network
 from .models.bake import student_config
+from .models.renderer import render as render_staged
 from .models.renderer import (render_frame_fast, render_frame_guided,
                               update_extra_state)
 from .train.trainer import Trainer
@@ -55,6 +59,9 @@ STUDENT_CFG = replace(student_config(
 REF_CFG = NetworkConfig(encoding="hashgrid", bound=1.0,
                         compute_dtype="bfloat16", density_thresh=10.0,
                         fused=True)
+# the same net as `network_config_from_opt` builds it for --ff without
+# --fp16 (config.py:184-185): float32, both MLPs through K4's f32 kernel
+REF_CFG_F32 = replace(REF_CFG, compute_dtype="float32")
 
 # bench.py:177-215: the teacher trained at the served width, through K5
 TRAIN_CFG = replace(TEACHER_CFG, fused=False, grid_ray=True,
@@ -69,10 +76,18 @@ TRAIN_OPT = dict(
     grid_max_samples=96, grid_samples_per_hit=2,
     grid_sample_budget_per_ray=48, grid_warmup_steps=512,
     grid_budget_after_warmup=16, grid_max_samples_after_warmup=32,
-    max_steps=1024, dt_gamma=DT_GAMMA, seed=0)
+    max_steps=1024, dt_gamma=DT_GAMMA, seed=0,
+    # the trainer's evaluation: the staged render, 128 uniform steps, no
+    # upsampling (bench.py:201-203)
+    num_steps=128, upsample_steps=0, max_ray_batch=4096)
 
 _FAST = dict(tile=131072, max_samples=16, max_steps=512, dt_gamma=DT_GAMMA,
              bg_color=1.0)
+# the observation render of the reference's entry points at the CLI's
+# defaults (cli.py:36-42; validate.py:419-425): staged over chunks of 4,096
+# rays, 512 uniform samples, no upsampling, white background, no jitter
+STAGED = dict(staged=True, max_ray_batch=4096, num_steps=512,
+              upsample_steps=0, bg_color=1.0, perturb=False)
 
 # frame settings of each mode; the net each mode shades, and its kernel
 MODES = {
@@ -88,8 +103,11 @@ MODES = {
         margin_cells=6.0)),
     "ref_backbone": dict(net="ref", kernel="K4", frame=_FAST),
     "ref_backbone_ml8": dict(net="ref_ml8", kernel="K4", frame=_FAST),
+    "staged": dict(net="ref_f32", kernel="K4 f32", frame=STAGED),
+    "staged_bf16": dict(net="ref", kernel="K4", frame=STAGED),
 }
 MARCHED = ("fast", "ref_backbone", "ref_backbone_ml8")
+STAGED_MODES = ("staged", "staged_bf16")
 
 
 def intrinsics(res: int = RES):
@@ -118,11 +136,13 @@ def load_teacher_net(device):
 
 def load_ref_nets(device):
     """({'ref': the reference backbone, 'ref_ml8': the same params at
-    max_level 8}, the checkpoint's stored RendererState)."""
+    max_level 8, 'ref_f32': the same params in float32}, the checkpoint's
+    stored RendererState). The three share the params' tensors."""
     params, stored = load_checkpoint(REF_CKPT, device=device)
     nets = {"ref": make_network(REF_CFG, params, device=device),
             "ref_ml8": make_network(replace(REF_CFG, max_level=REF_MAX_LEVEL),
-                                    params, device=device)}
+                                    params, device=device),
+            "ref_f32": make_network(REF_CFG_F32, params, device=device)}
     return nets, stored
 
 
@@ -152,9 +172,18 @@ def load_student_net(device):
 def render(mode, nets, state, rays_o, rays_d, res: int = RES,
            plain_field: bool = False):
     """One frame of `mode` (a key of MODES); nets maps the mode's net name
-    ('teacher', 'student', 'ref', 'ref_ml8') to its network."""
+    ('teacher', 'student', 'ref', 'ref_ml8', 'ref_f32') to its network.
+    The staged modes read no occupancy (`state` may be None) and return
+    the staged render's dict with the batch axis dropped: 'image' [N, 3],
+    'depth' and 'aggregated_density' [N], and the last chunk's 'rgbs' and
+    'sigmas'."""
     m = MODES[mode]
     net = nets[m["net"]]
+    if mode in STAGED_MODES:
+        out = render_staged(net, rays_o[None], rays_d[None],
+                            plain_field=plain_field, **m["frame"])
+        return {k: v[0] if k in ("image", "depth", "aggregated_density")
+                else v for k, v in out.items()}
     if mode in MARCHED:
         return render_frame_fast(net, state, rays_o, rays_d,
                                  plain_field=plain_field, **m["frame"])

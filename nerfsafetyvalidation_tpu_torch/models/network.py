@@ -14,9 +14,10 @@ Weights are [in, out], so a layer is `x @ W`.
 * Hash grid (the reference backbone, corner layout): `forward` is
   `density` then `color`, as the JAX `apply` is for grid nets. With
   cfg.fused each of the two MLPs runs through kernel K4
-  (ops/hopper/fused_mlp.py), which rounds its last layer to the compute
-  dtype too; without it they are plain matmul chains whose last layer
-  stays f32 (the JAX package leaves that route to XLA).
+  (ops/hopper/fused_mlp.py), in bf16 or f32 by cfg.compute_dtype, which
+  rounds its last layer to the compute dtype too (a no-op in f32);
+  without it they are plain matmul chains whose last layer stays f32
+  (the JAX package leaves that route to XLA).
 """
 
 import numpy as np
@@ -143,14 +144,21 @@ class NeRFNetwork(nn.Module):
         h = self._chain(self.sigma_net, self.encode_pos(x), plain)
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
-    def color(self, d, geo_feat, plain: bool = False):
+    def color(self, d, geo_feat, mask=None, plain: bool = False):
+        """d: [..., 3], geo_feat [..., 15] -> rgb [..., 3]; where `mask`
+        ([...] bool) is false the rgb is 0, as in the JAX `color`: the
+        shapes stay, nothing is compacted."""
         d_enc = self.encode_dir(d)
         if self.cfg.fused and self.grid_spec is not None:
             # K4 reads its input in the compute dtype; geo_feat is exact in
             # it already, so only SH(d) rounds, as JAX's cast of the concat
+            # (a no-op in float32)
             d_enc = d_enc.to(self.compute_dtype)
         h = torch.cat([d_enc, geo_feat.to(d_enc.dtype)], dim=-1)
-        return torch.sigmoid(self._chain(self.color_net, h, plain))
+        rgb = torch.sigmoid(self._chain(self.color_net, h, plain))
+        if mask is not None:
+            rgb = torch.where(mask[..., None], rgb, 0.0)
+        return rgb
 
     def forward(self, x, d, plain: bool = False):
         """(sigma [...], rgb [..., 3]) at positions x and directions d.
@@ -160,7 +168,7 @@ class NeRFNetwork(nn.Module):
         cfg = self.cfg
         if self.grid_spec is not None or not cfg.fused:
             out = self.density(x, plain)
-            return out["sigma"], self.color(d, out["geo_feat"], plain)
+            return out["sigma"], self.color(d, out["geo_feat"], plain=plain)
         prefix = x.shape[:-1]
         xf = x.reshape(-1, 3).contiguous()
         sh = self.encode_dir(d).reshape(xf.shape[0], -1)

@@ -183,11 +183,15 @@ class NeRFNetworkMip(nn.Module):
                  self.compute_dtype)
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
-    def color(self, d, geo_feat):
+    def color(self, d, geo_feat, mask=None):
+        """rgb [..., 3], 0 where `mask` ([...] bool) is false."""
         d_enc = self.encode_dir(d)
         h = torch.cat([d_enc, geo_feat.to(d_enc.dtype)], dim=-1)
-        return torch.sigmoid(_mlp(list(self.color_net), h,
-                                  self.compute_dtype))
+        rgb = torch.sigmoid(_mlp(list(self.color_net), h,
+                                 self.compute_dtype))
+        if mask is not None:
+            rgb = torch.where(mask[..., None], rgb, 0.0)
+        return rgb
 
     def forward(self, x, d, plain: bool = False):
         """(sigma [...], rgb [..., 3]) at positions x and directions d:

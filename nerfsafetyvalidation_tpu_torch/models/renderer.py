@@ -1,8 +1,10 @@
 """Frame renderers of the port (nerfsafetyvalidation_tpu/models/
 renderer.py): the marched frame `render_frame_fast`, the depth-guided frame
-`render_frame_guided`, the marched training render `run_grid`, and the
-occupancy state: `RendererState.create`, `mark_untrained_grid` and the
-refresh `update_extra_state` (full or partial).
+`render_frame_guided`, the marched training render `run_grid`, the
+uniform-sampling render `run` with its staged loop `render` and
+`render_tiles` (how the reference's entry points observe a trained NeRF),
+and the occupancy state: `RendererState.create`, `mark_untrained_grid` and
+the refresh `update_extra_state` (full or partial).
 
 `render_frame_guided` places K uniform samples per ray in a window around
 a low-resolution prepass depth: a scout (uniform samples through the
@@ -22,11 +24,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.compositing import composite_weights
 from ..ops.marching import (SQRT3, _mip_from_dt, _mip_from_pos,
                             compact_samples, composite_marched,
                             gather_compacted, march_rays, scatter_back)
 from ..ops.ray_ops import (morton3d, morton3d_invert, near_far_from_aabb,
                            occupancy_to_skip_grid, packbits)
+from ..ops.sample_pdf import linspace, sample_pdf
 
 
 @dataclass
@@ -225,7 +229,8 @@ def _pad_rays(rays_o, rays_d, n):
     if not pad:
         return rays_o, rays_d
     dev = rays_o.device
-    fill_d = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)
+    fill_d = torch.zeros((pad, 3), device=dev)
+    fill_d[:, 2] = 1.0            # made on the device: no copy from the host
     return (torch.cat([rays_o, torch.zeros((pad, 3), device=dev)]),
             torch.cat([rays_d, fill_d]))
 
@@ -538,3 +543,181 @@ def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
             "aggregated_density": agg.reshape(-1)[:N],
             "weights_sum": ws.reshape(-1)[:N],
             "tile_bucket": bucket, "march": march}
+
+
+# --------------------------------------------------------------------------
+# uniform-sampling render (the JAX package's renderer.py:85-310)
+# --------------------------------------------------------------------------
+
+def run(net, rays_o, rays_d, num_steps: int = 128, upsample_steps: int = 128,
+        bg_color=None, perturb: bool = False, generator=None,
+        training: bool = False, aabb=None, draws=None,
+        plain_field: bool = False):
+    """Uniform samples along each ray, optionally refined by hierarchical
+    upsampling, one dense field query, composited (renderer.py:85-195).
+    rays_o/d: [N, 3]. Returns {'depth' [N], 'image' [N, 3], 'weights_sum'
+    [N], 'rgbs' [N, T, 3], 'sigmas' [N * T, 1], 'aggregated_density'
+    [N]}.
+
+    The random draws (the jitter of perturb=True, the pdf's uniforms when
+    `training`) come from `generator`, or from `draws` {'perturb': [N,
+    num_steps], 'pdf': [N, upsample_steps]}, as the tests hand in the JAX
+    package's own. `aabb` overrides the config's box; `plain_field` shades
+    through the plain version of the net's kernel (K4) even on the card."""
+    cfg = net.cfg
+    dev = rays_o.device
+    draws = draws or {}
+    aabb = aabb_of(cfg, dev) if aabb is None else torch.as_tensor(
+        aabb, dtype=torch.float32, device=dev)
+    kw = {"plain": True} if plain_field else {}
+    N = rays_o.shape[0]
+
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    nears, fars = nears[:, None], fars[:, None]
+    z_vals = nears + (fars - nears) * linspace(0.0, 1.0, num_steps,
+                                               device=dev)[None, :]
+    sample_dist = (fars - nears) / num_steps                 # [N, 1]
+    if perturb:
+        u = draws.get("perturb")
+        if u is None:
+            if generator is None:
+                raise ValueError("perturb=True needs a generator or "
+                                 "draws['perturb']")
+            u = torch.rand(z_vals.shape, generator=generator, device=dev)
+        z_vals = z_vals + (u - 0.5) * sample_dist
+
+    def make_xyzs(zv):
+        x = rays_o[:, None, :] + rays_d[:, None, :] * zv[..., None]
+        return torch.minimum(torch.maximum(x, aabb[:3]), aabb[3:])
+
+    def deltas_of(zv):
+        return torch.cat([torch.diff(zv, dim=-1),
+                          sample_dist.expand(N, 1)], dim=-1)
+
+    dout = net.density(make_xyzs(z_vals).reshape(-1, 3), **kw)
+    sigmas = dout["sigma"].reshape(N, num_steps)
+    geo_feat = dout["geo_feat"].reshape(N, num_steps, -1)
+
+    total = num_steps
+    if upsample_steps > 0:
+        # hierarchical upsampling (renderer.py:171-204), no gradient
+        # through the pdf
+        with torch.no_grad():
+            deltas = deltas_of(z_vals)
+            weights, _ = composite_weights(sigmas, deltas, cfg.density_scale)
+            z_mid = z_vals[..., :-1] + 0.5 * deltas[..., :-1]
+            new_z = sample_pdf(z_mid, weights[:, 1:-1], upsample_steps,
+                               det=not training, u=draws.get("pdf"),
+                               generator=generator)
+        ndout = net.density(make_xyzs(new_z).reshape(-1, 3), **kw)
+        new_sigmas = ndout["sigma"].reshape(N, upsample_steps)
+        new_geo = ndout["geo_feat"].reshape(N, upsample_steps, -1)
+
+        # the stable merge of the coarse and fine samples (jnp.argsort);
+        # the positions are not needed past the field queries
+        z_vals, order = torch.sort(torch.cat([z_vals, new_z], dim=1),
+                                   dim=1, stable=True)
+        sigmas = torch.gather(torch.cat([sigmas, new_sigmas], dim=1), 1,
+                              order)
+        geo_feat = torch.gather(
+            torch.cat([geo_feat, new_geo], dim=1), 1,
+            order[..., None].expand(-1, -1, geo_feat.shape[-1]))
+        total = num_steps + upsample_steps
+
+    weights, _ = composite_weights(sigmas, deltas_of(z_vals),
+                                   cfg.density_scale)
+    dirs = rays_d[:, None, :].expand(N, total, 3)
+    mask = weights > 1e-4           # the reference's threshold
+    rgbs = net.color(dirs.reshape(-1, 3),
+                     geo_feat.reshape(-1, geo_feat.shape[-1]),
+                     mask=mask.reshape(-1), **kw).reshape(N, total, 3)
+
+    weights_sum = weights.sum(dim=-1)
+    # miss rays (nears == fars == f32 max) get depth 0, not 0/0
+    span = torch.where(fars > nears, fars - nears, 1.0)
+    ori_z = torch.clamp((z_vals - nears) / span, 0.0, 1.0)
+    depth = (weights * ori_z).sum(dim=-1)
+    image = (weights[..., None] * rgbs).sum(dim=-2)
+    bg = 1.0 if bg_color is None else bg_color
+    image = image + (1.0 - weights_sum)[..., None] * bg
+    return {
+        "depth": depth,
+        "image": image,
+        "weights_sum": weights_sum,
+        "rgbs": rgbs,
+        "sigmas": sigmas.reshape(-1, 1),
+        "aggregated_density": (weights * sigmas).sum(dim=-1),
+    }
+
+
+def render(net, rays_o, rays_d, staged: bool = False,
+           max_ray_batch: int = 4096, num_steps: int = 512,
+           upsample_steps: int = 0, bg_color=None, perturb: bool = False,
+           generator=None, training: bool = False,
+           plain_field: bool = False):
+    """rays_o/d: [B, N, 3] (renderer.py:223-276). Staged: `run` over
+    chunks of max_ray_batch rays, the last one padded with origin 0 and
+    direction +z, as the JAX package pads it; 'image', 'depth' and
+    'aggregated_density' are whole, 'rgbs' and 'sigmas' those of the last
+    (padded) chunk, the reference's quirk. The chunks' results are written
+    into tensors on the rays' device: nothing waits on the device per
+    chunk. Unstaged: one `run` over every ray, with 'weights_sum' too.
+    Random draws (perturb, training) come from `generator`."""
+    B, N = rays_o.shape[:2]
+    dev = rays_o.device
+    bg = torch.as_tensor(1.0 if bg_color is None else bg_color,
+                         dtype=torch.float32, device=dev)
+    kw = dict(num_steps=num_steps, upsample_steps=upsample_steps,
+              bg_color=bg, perturb=perturb, generator=generator,
+              training=training, aabb=aabb_of(net.cfg, dev),
+              plain_field=plain_field)
+    if not staged:
+        res = run(net, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), **kw)
+        return {
+            "depth": res["depth"].reshape(B, N),
+            "image": res["image"].reshape(B, N, 3),
+            "weights_sum": res["weights_sum"].reshape(B, N),
+            "rgbs": res["rgbs"],
+            "sigmas": res["sigmas"],
+            "aggregated_density": res["aggregated_density"].reshape(B, N),
+        }
+    depth = torch.empty((B, N), device=dev)
+    image = torch.empty((B, N, 3), device=dev)
+    aggregated = torch.empty((B, N), device=dev)
+    last = None
+    for b in range(B):
+        for head in range(0, N, max_ray_batch):
+            tail = min(head + max_ray_batch, N)
+            ro, rd = _pad_rays(rays_o[b, head:tail], rays_d[b, head:tail],
+                               max_ray_batch)
+            last = run(net, ro, rd, **kw)
+            n = tail - head
+            depth[b, head:tail] = last["depth"][:n]
+            image[b, head:tail] = last["image"][:n]
+            aggregated[b, head:tail] = last["aggregated_density"][:n]
+    return {"depth": depth, "image": image, "rgbs": last["rgbs"],
+            "sigmas": last["sigmas"], "aggregated_density": aggregated}
+
+
+def render_tiles(net, rays_o, rays_d, tile: int = 8192, num_steps: int = 512,
+                 upsample_steps: int = 0, bg_color=None):
+    """A whole frame in fixed tiles of `tile` rays, only the per-ray
+    outputs kept (renderer.py:279-310). rays_o/d: [N, 3]."""
+    N = rays_o.shape[0]
+    n_tiles = -(-N // tile)
+    ro, rd = _pad_rays(rays_o, rays_d, n_tiles * tile)
+    dev = rays_o.device
+    aabb = aabb_of(net.cfg, dev)
+    image = torch.empty((n_tiles * tile, 3), device=dev)
+    depth = torch.empty((n_tiles * tile,), device=dev)
+    aggregated = torch.empty((n_tiles * tile,), device=dev)
+    for t in range(n_tiles):
+        sl = slice(t * tile, (t + 1) * tile)
+        res = run(net, ro[sl], rd[sl], num_steps=num_steps,
+                  upsample_steps=upsample_steps, bg_color=bg_color,
+                  aabb=aabb)
+        image[sl] = res["image"]
+        depth[sl] = res["depth"]
+        aggregated[sl] = res["aggregated_density"]
+    return {"image": image[:N], "depth": depth[:N],
+            "aggregated_density": aggregated[:N]}

@@ -18,6 +18,14 @@ shared-memory image that `wgmma` reads as its B operand
 (`points_mlp.wgmma_b`), the layers one after another; each block of the
 kernel loads it whole, and the rows of x stream through a ring of bulk
 copies (csrc/fused_mlp.cu, `_plan`).
+
+With compute_dtype float32 (the JAX package's default) a CUDA tensor
+launches the library's second kernel, `fused_mlp_f32_kernel`: f32 operands
+and sums, every layer kept in f32, on the CUDA cores (no TF32). Its weights
+are packed once per set as every layer zero-padded to [K_l, N_l] f32,
+row-major, one after another (`_f32_shapes`, `_pack_f32`); a block keeps
+them in shared memory where they fit beside its 128-row activation tile,
+else loads one layer at a time (`_plan_f32`).
 """
 
 import ctypes
@@ -39,9 +47,12 @@ CONSUMERS = 2
 TILE_ROWS = 64 * CONSUMERS
 MAX_STAGES = 6
 BARRIER_BYTES = 128
+F32_ROWS = 128        # rows of a tile in the f32 kernel
 
-# launches of the CUDA kernel since the last reset (never the plain path)
+# launches of the CUDA kernels since the last reset (never the plain
+# path): the bf16 kernel, and the f32 one
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -72,6 +83,10 @@ def _library():
                                        ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)]
         lib.fused_mlp_plan.restype = ctypes.c_int
+        lib.fused_mlp_forward_f32.argtypes = fn.argtypes
+        lib.fused_mlp_forward_f32.restype = ctypes.c_int
+        lib.fused_mlp_plan_f32.argtypes = lib.fused_mlp_plan.argtypes
+        lib.fused_mlp_plan_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -110,29 +125,66 @@ def _plan(widths):
                 stages=stages, total=total)
 
 
-def launch_plan(widths):
-    """The built kernel's own plan on this card for these widths: (rows a
-    tile, stages, stage bytes, shared-memory bytes of a block, blocks per
-    SM, k-steps of A a thread holds: 4 up to 64 columns, else 8)."""
+def _npad(v):
+    """A layer's output width in the f32 image: a power of two, >= 16."""
+    return max(16, 1 << (v - 1).bit_length())
+
+
+def _f32_shapes(widths):
+    """[K_l, N_l] of every layer in the f32 image (csrc/fused_mlp.cu):
+    N_l = _npad(D_l+1), the kernel's column split; K_0 = pad16(D_0), K_l =
+    N_l-1."""
+    ns = [_npad(v) for v in widths[1:]]
+    return list(zip([_pad16(widths[0])] + ns[:-1], ns))
+
+
+def _plan_f32(widths):
+    """A block's shared memory in the f32 kernel (csrc/fused_mlp.cu
+    plan_f32): the 128-row activation tile (rows of the widest padded width
+    + 4 floats), then every layer [K_l, N_l] f32 where they fit beside it
+    (resident), else room for the largest one; bytes of each part and in
+    all."""
+    shapes = _f32_shapes(widths)
+    pitch = max(max(n for _, n in shapes), _pad16(widths[0])) + 4
+    act = F32_ROWS * pitch * 4
+    sizes = [k * n for k, n in shapes]
+    resident = act + 4 * sum(sizes) <= MAX_SMEM
+    weights = 4 * (sum(sizes) if resident else max(sizes))
+    return dict(pitch=pitch, act=act, weights=weights, resident=resident,
+                total=act + weights)
+
+
+def launch_plan(widths, compute_dtype=torch.bfloat16):
+    """The built kernel's own plan on this card for these widths. bf16:
+    (rows a tile, stages, stage bytes, shared-memory bytes of a block,
+    blocks per SM, k-steps of A a thread holds: 4 up to 64 columns, else
+    8); f32: (rows a tile, 1 if the weights stay in shared memory, floats
+    of an activation row, shared-memory bytes of a block, blocks per SM,
+    the build's widest output: 64, or 128)."""
     dims = (ctypes.c_int * len(widths))(*widths)
     plan = (ctypes.c_int * 6)()
-    err = _library().fused_mlp_plan(dims, len(widths) - 1, plan)
+    lib = _library()
+    fn = lib.fused_mlp_plan_f32 if compute_dtype == torch.float32 \
+        else lib.fused_mlp_plan
+    err = fn(dims, len(widths) - 1, plan)
     if err != 0:
-        raise RuntimeError(f"fused_mlp_plan failed: cudaError {err}")
+        raise RuntimeError(f"fused_mlp launch plan failed: cudaError {err}")
     return tuple(plan)
 
 
-def _widths(weights):
+def _widths(weights, f32: bool = False):
     """[D_0, ..., D_L] of a chain of [in, out] weights; raises for a chain
-    that does not link up or that the kernel does not take."""
+    that does not link up or that the kernel (the bf16 one, or the f32
+    one with `f32`) does not take."""
     widths = [weights[0].shape[0]] + [w.shape[1] for w in weights]
     if any(w.ndim != 2 or w.shape[0] != widths[i]
            for i, w in enumerate(weights)):
         raise ValueError(f"weights {[tuple(w.shape) for w in weights]} do "
                          "not chain")
+    fits = _plan_f32(widths)["total"] <= MAX_SMEM if f32 \
+        else _plan(widths)["stages"] >= 1
     if not (1 <= len(weights) <= MAX_LAYERS
-            and max(widths) <= MAX_WIDTH
-            and _plan(widths)["stages"] >= 1):
+            and max(widths) <= MAX_WIDTH and fits):
         raise ValueError(f"K4 takes 1..{MAX_LAYERS} layers of widths up to "
                          f"{MAX_WIDTH} whose padded weights and one tile of "
                          f"rows fit a block's shared memory, got widths "
@@ -145,6 +197,24 @@ def _prepare(weights):
     bf16, as wgmma's B image, all of them in one contiguous buffer, built
     once per set of weights."""
     return _prepared.get(list(weights), lambda: _pack(weights))
+
+
+def _prepare_f32(weights):
+    """(widths, packed weights) of the f32 kernel: every layer zero-padded
+    to [K_l, N_l] f32 row-major (`_f32_shapes`), one after another in one
+    buffer, built once per set of weights."""
+    return _prepared.get(list(weights), lambda: _pack_f32(weights),
+                         tag="f32")
+
+
+def _pack_f32(weights):
+    widths = _widths(weights, f32=True)
+    parts = []
+    for w, shape in zip(weights, _f32_shapes(widths)):
+        p = torch.zeros(shape, dtype=torch.float32, device=w.device)
+        p[:w.shape[0], :w.shape[1]] = w
+        parts.append(p.reshape(-1))
+    return widths, torch.cat(parts).contiguous()
 
 
 def _pack(weights):
@@ -163,40 +233,45 @@ def fused_mlp(x, weights, compute_dtype=torch.bfloat16):
     returns [N, D_L] f32, every layer rounded to `compute_dtype`.
 
     A CPU tensor takes the plain version, under autograd. A CUDA tensor
-    launches the kernel, which computes in bfloat16 only and takes at most
-    MAX_LAYERS layers of widths up to MAX_WIDTH; x is cast to bfloat16 and
-    must then be contiguous and start on a 16-byte boundary. It has no
-    backward yet: where autograd would need one, and for anything else, it
-    raises."""
-    global LAUNCHES
+    launches a kernel: the bf16 one, or with compute_dtype float32 the f32
+    one; either takes at most MAX_LAYERS layers of widths up to MAX_WIDTH.
+    x is cast to the compute dtype and must then be contiguous (and, in
+    bf16, start on a 16-byte boundary). It has no backward yet: where
+    autograd would need one, and for anything else, it raises."""
+    global LAUNCHES, LAUNCHES_F32
     if x.device.type == "cpu":
         return fused_mlp_plain(x, weights, compute_dtype)
     refuse_grad("K4", [x, *weights])
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {x.device}")
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernel computes in bfloat16 only")
+    f32 = compute_dtype == torch.float32
+    if not f32 and compute_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernels compute in bfloat16 or float32")
     if any(w.device != x.device for w in weights):
         raise ValueError("x and the weights must be on one device")
-    widths, packed = _prepare(weights)
+    widths, packed = (_prepare_f32 if f32 else _prepare)(weights)
     n = x.shape[0]
     if x.ndim != 2 or x.shape[1] != widths[0]:
         raise ValueError(f"x must be [N, {widths[0]}], got "
                          f"{tuple(x.shape)}")
-    x = x.to(torch.bfloat16)
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    x = x.to(compute_dtype)
+    if not x.is_contiguous() or x.data_ptr() % (4 if f32 else 16):
         raise ValueError("x must be contiguous and start on a 16-byte "
-                         "boundary")
+                         "boundary (4 in float32)")
     out = torch.empty((n, widths[-1]), dtype=torch.float32, device=x.device)
     if n:
         dims = (ctypes.c_int * len(widths))(*widths)
+        lib = _library()
+        fn = lib.fused_mlp_forward_f32 if f32 else lib.fused_mlp_forward
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _library().fused_mlp_forward(
-                x.data_ptr(), packed.data_ptr(), dims, len(weights),
-                out.data_ptr(), n, stream)
+            err = fn(x.data_ptr(), packed.data_ptr(), dims, len(weights),
+                     out.data_ptr(), n, stream)
         if err != 0:
-            raise RuntimeError(f"fused_mlp_forward launch failed: "
-                               f"cudaError {err}")
-        LAUNCHES += 1
+            raise RuntimeError(f"fused_mlp launch ({compute_dtype}) failed:"
+                               f" cudaError {err}")
+        if f32:
+            LAUNCHES_F32 += 1
+        else:
+            LAUNCHES += 1
     return out

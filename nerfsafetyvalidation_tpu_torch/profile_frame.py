@@ -2,7 +2,8 @@
 the card.
 
     python3 -m nerfsafetyvalidation_tpu_torch.profile_frame \\
-        [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8|train]
+        [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8|
+                staged|staged_bf16|train]
 
 Loads the flagship teacher (or, for the ref_backbone modes, the hash-grid
 reference backbone), refreshes its occupancy 4x as bench.py does, renders
@@ -12,7 +13,11 @@ under `torch.profiler` and prints the device time by kernel, the device
 time of the hand-written kernels (K1 points_mlp, K3 sigma_color, K4
 fused_mlp, K5 fold_build), the number of device kernels, and the device's
 busy share of the frame's wall time; then the frame's wall time without the
-profiler.
+profiler. The staged modes (`staged`, `staged_bf16`: the reference
+backbone through the staged render, 157 chunks of 4,096 rays x 512
+samples) read no occupancy and warm up with one frame; they also print the
+device time of the corner hash-grid encode, from CUDA events around every
+`encode_pos` call of one more frame.
 
 `--mode train` does the same for training steps of the teacher at full
 width (flagship.TRAIN_CFG, through K5) from a seeded init on the spheres
@@ -31,8 +36,8 @@ import torch
 from . import flagship as F
 
 KERNEL_NAMES = {"K1": "points_mlp", "K3": "sigma_color",
-                "K4": "fused_mlp_kernel", "K5": "fold_fwd_kernel",
-                "K5 backward": "fold_bwd_kernel"}
+                "K4": "fused_mlp_kernel", "K4 f32": "fused_mlp_f32_kernel",
+                "K5": "fold_fwd_kernel", "K5 backward": "fold_bwd_kernel"}
 
 
 def _timed(fn):
@@ -83,12 +88,37 @@ def _train_setup(dev):
     return trainer, batches, info
 
 
+def _encode_ms(net, frame):
+    """(device ms, calls) of `net.encode_pos` in one frame: CUDA events
+    around each call, read after the frame."""
+    events = []
+    encode = net.encode_pos
+
+    def timed(x):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = encode(x)
+        b.record()
+        events.append((a, b))
+        return out
+
+    net.encode_pos = timed
+    frame()
+    del net.encode_pos
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events), len(events)
+
+
 def _frame_profile(mode, dev, acts):
-    """(profiled wall ms, unprofiled wall ms, profile) of one frame."""
+    """(profiled wall ms, unprofiled wall ms, profile, a line on the
+    encode or '') of one frame."""
+    staged = mode in F.STAGED_MODES
+    warm, reps = (1, 2) if staged else (3, 4)
     with torch.inference_mode():
         if F.MODES[mode]["net"].startswith("ref"):
             nets, stored = F.load_ref_nets(dev)
-            state = F.refresh(nets["ref"], stored)
+            state = None if staged else F.refresh(nets["ref"], stored)
         else:
             teacher, stored = F.load_teacher_net(dev)
             nets = {"teacher": teacher, "student": F.load_student_net(dev)}
@@ -98,7 +128,7 @@ def _frame_profile(mode, dev, acts):
         def frame():
             return F.render(mode, nets, state, o, d)
 
-        for _ in range(3):
+        for _ in range(warm):
             frame()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -107,11 +137,17 @@ def _frame_profile(mode, dev, acts):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        for _ in range(4):
+        for _ in range(reps):
             frame()
         torch.cuda.synchronize()
-        plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 4
-    return wall_ms, plain_wall_ms, prof
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        info = ""
+        if staged:
+            enc_ms, calls = _encode_ms(nets[F.MODES[mode]["net"]], frame)
+            info = (f"corner hash-grid encode: {enc_ms:.3f} ms of device "
+                    f"time in {calls} calls (one a chunk), CUDA "
+                    "events around each call of one more frame")
+    return wall_ms, plain_wall_ms, prof, info
 
 
 def main(argv=None):
@@ -144,7 +180,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 8
     else:
-        wall_ms, plain_wall_ms, prof = _frame_profile(args.mode, dev, acts)
+        wall_ms, plain_wall_ms, prof, info = _frame_profile(args.mode, dev,
+                                                            acts)
 
     by_name = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():

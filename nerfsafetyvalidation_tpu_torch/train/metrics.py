@@ -21,5 +21,9 @@ class PSNRMeter:
         self.N += 1
         return psnr
 
+    def clear(self):
+        self.V = 0.0
+        self.N = 0
+
     def measure(self):
         return self.V / max(self.N, 1)

@@ -7,21 +7,26 @@ then one of 4 morton-strided blocks in rotation, each through a freshly
 folded table), then one step: the pixel-wise random background for RGBA
 targets, the marched render `run_grid` with the phased sample budget, the
 MSE, the backward, the Adam update, the learning-rate decay and, where
-`ema_decay` is set, the per-step EMA.
+`ema_decay` is set, the per-step EMA. Evaluation (`eval_step`,
+`evaluate_one_epoch`, `evaluate`) renders whole views through the staged
+uniform-sampling render, on the EMA parameters where there are some, and
+scores them with the PSNR meter; it writes no images.
 
 The JAX trainer jits the step; here it runs eagerly. Its random draws
 (background, march jitter, refresh jitter) come from a torch.Generator
 seeded `opt.seed + 1`, or are handed in, as the tests hand in the JAX
 trainer's own draws. Not ported: the uniform-sampling render
 (grid_ray=False), the error map, CLIP guidance, the fused multi-step scan,
-checkpoints, evaluation and `fold_warmup_scale`.
+checkpoints, `test` and `fold_warmup_scale`.
 """
 
 import torch
 
 from ..data.rays import srgb_to_linear
-from ..models.renderer import (RendererState, mark_untrained_grid,
+from ..models import make_network
+from ..models.renderer import (RendererState, mark_untrained_grid, render,
                                run_grid, update_extra_state)
+from .metrics import PSNRMeter
 
 
 def default_optimizer(params, opt):
@@ -68,8 +73,11 @@ class Trainer:
         self.global_step = 0
         self.local_step = 0
         self._grid_block = 0
-        # the epochs' mean losses, and every step's loss (floats)
-        self.stats = {"loss": [], "step_loss": []}
+        # the epochs' mean losses, every step's loss, and each evaluation's
+        # mean loss and PSNR (floats)
+        self.stats = {"loss": [], "step_loss": [], "valid_loss": [],
+                      "results": []}
+        self.metrics = [PSNRMeter()]
 
     # ------------------------------------------------------------- phases
     def _grid_max_samples(self):
@@ -195,3 +203,70 @@ class Trainer:
             self.train_one_epoch(train_loader)
             if on_epoch is not None:
                 on_epoch(self)
+
+    # ---------------------------------------------------------- evaluation
+    def eval_net(self):
+        """The net that evaluation renders (trainer.py:570-571): the
+        trained one, or the same net with the EMA parameters where the
+        trainer keeps them; folded for inference."""
+        net = self.net
+        if self.ema_params is not None:
+            ws = self.ema_params
+            if len(ws) != len(net.param_list()):
+                raise ValueError("the EMA does not cover every parameter")
+            n_pyr, n_sig = len(net.pyramid), len(net.sigma_net)
+            net = make_network(net.cfg, {
+                "encoder": {"pyramid": ws[:n_pyr], "hash": ws[n_pyr]},
+                "sigma_net": ws[n_pyr + 1:n_pyr + 1 + n_sig],
+                "color_net": ws[n_pyr + 1 + n_sig:]}, device=self.device)
+        with torch.no_grad():
+            return net.to_folded()
+
+    def eval_step(self, data, net=None):
+        """One batch of whole views {'rays_o', 'rays_d' [B, H * W, 3],
+        'images' [B, H, W, C]} through the staged render (trainer.py:
+        573-591: max_ray_batch, num_steps and upsample_steps from opt,
+        white background). Returns (pred_rgb [B, H, W, 3], pred_depth [B,
+        H, W], gt_rgb [B, H, W, 3], loss float)."""
+        opt = self.opt
+        images = data["images"]
+        B, H, W, C = images.shape
+        img_rgb = images[..., :3]
+        if getattr(opt, "color_space", "srgb") == "linear":
+            img_rgb = srgb_to_linear(img_rgb)
+        gt_rgb = img_rgb if C == 3 else \
+            img_rgb * images[..., 3:] + (1 - images[..., 3:])
+        with torch.no_grad():
+            out = render(net or self.eval_net(), data["rays_o"],
+                         data["rays_d"], staged=True,
+                         max_ray_batch=getattr(opt, "max_ray_batch", 4096),
+                         num_steps=getattr(opt, "num_steps", 128),
+                         upsample_steps=getattr(opt, "upsample_steps", 128),
+                         bg_color=1.0)
+        pred_rgb = out["image"].reshape(B, H, W, 3)
+        pred_depth = out["depth"].reshape(B, H, W)
+        loss = float(torch.mean((pred_rgb - gt_rgb) ** 2))
+        return pred_rgb, pred_depth, gt_rgb, loss
+
+    def evaluate_one_epoch(self, loader):
+        """Every view of `loader` through `eval_step` (trainer.py:593-622):
+        the mean loss, returned and kept in stats['valid_loss'], and the
+        PSNR meter's mean, kept in stats['results']."""
+        for metric in self.metrics:
+            metric.clear()
+        net = self.eval_net()
+        total_loss, count = 0.0, 0
+        for data in loader:
+            pred, _, gt, loss = self.eval_step(data, net)
+            total_loss += loss
+            count += 1
+            for metric in self.metrics:
+                metric.update(pred, gt)
+        avg = total_loss / max(count, 1)
+        self.stats["valid_loss"].append(avg)
+        self.stats["results"].append(
+            self.metrics[0].measure() if self.metrics else avg)
+        return avg
+
+    def evaluate(self, loader):
+        return self.evaluate_one_epoch(loader)

@@ -14,12 +14,13 @@ the last epoch's train loss, s/step and steps/s (host clock around the
 epochs, each ending in a device wait), the K5 launches, the mean PSNR
 against the analytic ground truth beside bench.py's 28 dB spheres gate,
 and the card's name and power limit; then one JSON line of those numbers.
-It also scores the `fast` frame at 200x200 on the dataset's two validation
-views (the views on which the JAX package's training runs report their
-validation PSNR, though they render it by uniform sampling, which the port
-does not have). With several seeds (each seeds the init, the pixel draws
-and the trainer's draws; 0 is bench.py's run) it trains once per seed and
-prints one JSON line each.
+It also scores the dataset's two 200x200 validation views, the views on
+which the JAX package's training runs report their validation PSNR: in
+the `fast` frame, and through the trainer's `evaluate` as the JAX runs
+score them (the staged render, 128 uniform steps, no upsampling; JAX's
+28.43 dB, scripts/bench_budget_convergence.py). With several seeds (each
+seeds the init, the pixel draws and the trainer's draws; 0 is bench.py's
+run) it trains once per seed and prints one JSON line each.
 """
 
 import argparse
@@ -36,6 +37,9 @@ from .ops.hopper import fold_build, sigma_color
 from .train.metrics import PSNRMeter
 
 GATE_DB = 28.0      # bench.py's spheres gate (bench.py:72-75)
+# the JAX package's validation PSNR of its 1920-step teacher through
+# `Trainer.evaluate` (ROADMAP.md Queue 3; scripts/bench_budget_convergence.py)
+JAX_EVAL_DB = 28.43
 
 
 def main(argv=None):
@@ -116,6 +120,12 @@ def train_one(dev, smi, splits, iters, seed):
                   for im in val["images"]]
     val_psnrs, val_mean = _score(served, state, val["poses"], val_truths,
                                  res_val)
+    t0 = time.perf_counter()
+    val_set = F.train_dataset(dev, opt=opt, splits=splits, type="val")
+    trainer.evaluate(val_set.dataloader())
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    eval_psnr = trainer.stats["results"][-1]
     last = trainer.stats["loss"][-1]
     print(f"seed {seed}: data {t_data:.2f} s; trained {steps} steps in "
           f"{t_train:.2f} s: {t_train / steps:.5f} s/step, "
@@ -129,6 +139,11 @@ def train_one(dev, smi, splits, iters, seed):
           f"{res_val}x{res_val} on the 2 validation views: "
           f"{[round(p, 3) for p in val_psnrs]}, mean {val_mean:.3f}"
           f" dB")
+    print(f"seed {seed}: evaluate (staged render, {opt.num_steps} uniform "
+          f"steps, upsampling {opt.upsample_steps}) on the 2 validation "
+          f"views: PSNR {eval_psnr:.3f} dB (JAX's 1920-step run: "
+          f"{JAX_EVAL_DB} dB), mean loss {trainer.stats['valid_loss'][-1]:.6f}"
+          f"; {t_eval:.2f} s")
     print(smi)
     print(json.dumps({"seed": seed, "steps": steps,
                       "s_per_step": t_train / steps,
@@ -136,7 +151,10 @@ def train_one(dev, smi, splits, iters, seed):
                       "k5_launches": list(launches), "psnr": psnrs,
                       "psnr_mean": mean, "gate_db": GATE_DB,
                       "val_psnr": val_psnrs,
-                      "val_psnr_mean": val_mean, "card": smi}), flush=True)
+                      "val_psnr_mean": val_mean,
+                      "val_psnr_evaluate": eval_psnr,
+                      "jax_val_psnr_evaluate": JAX_EVAL_DB,
+                      "card": smi}), flush=True)
 
 
 if __name__ == "__main__":

@@ -257,3 +257,131 @@ def test_cache_keeps_its_weights_alive():
                           wgmma_b(ws_t[1].to(torch.bfloat16))])
         torch.testing.assert_close(packed[-1], want, rtol=0, atol=0)
         del ws, ws_t
+
+
+# ------------------------------------------------------------ K4 in f32
+
+
+def test_cpu_wrapper_f32_is_the_plain_version():
+    x, ws = _chain(NETS["sigma"], rows=40)
+    x_t, ws_t = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    before = (K.LAUNCHES, K.LAUNCHES_F32)
+    torch.testing.assert_close(K.fused_mlp(x_t, ws_t, torch.float32),
+                               K.fused_mlp_plain(x_t, ws_t, torch.float32),
+                               rtol=0, atol=0)
+    assert (K.LAUNCHES, K.LAUNCHES_F32) == before
+
+
+def test_f32_non_cpu_tensor_never_takes_the_plain_path():
+    """An f32 call on a tensor off the CPU goes to the f32 kernel or
+    raises (the meta device has no kernel): it never runs the plain
+    version, and counts no launch."""
+    ws = [torch.empty((31, 64), device="meta"),
+          torch.empty((64, 64), device="meta"),
+          torch.empty((64, 3), device="meta")]
+    before = (K.LAUNCHES, K.LAUNCHES_F32)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        K.fused_mlp(torch.empty((8, 31), device="meta"), ws, torch.float32)
+    assert (K.LAUNCHES, K.LAUNCHES_F32) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_requiring_input_raises(dtype):
+    """K4 has no backward on the card: an input or weight that requires
+    grad raises before anything else, in either compute dtype."""
+    ws = [torch.empty((32, 64), device="meta"),
+          torch.empty((64, 16), device="meta", requires_grad=True)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.fused_mlp(torch.empty((8, 32), device="meta"), ws, dtype)
+    x = torch.empty((8, 32), device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.fused_mlp(x, [w.detach() for w in ws], dtype)
+
+
+def test_f32_other_compute_dtypes_raise():
+    ws = [torch.empty((32, 16), device="meta")]
+    with pytest.raises(ValueError):
+        K.fused_mlp(torch.empty((8, 32), device="meta"), ws, torch.float16)
+
+
+@pytest.mark.parametrize("shapes", [[(32, 64), (16, 15)],
+                                    [(32, 129), (129, 3)],
+                                    [(8, 8)] * 9])
+def test_f32_shapes_beyond_the_kernel_raise(shapes):
+    with pytest.raises(ValueError):
+        K._prepare_f32([torch.zeros(s) for s in shapes])
+
+
+def test_f32_image_of_the_ref_nets():
+    """Every layer zero-padded to [K_l, N_l] f32 row-major, one after the
+    other: the sigma net [32, 64] + [64, 16] (12 KB), the color net
+    [32, 64] + [64, 64] + [64, 16] (28 KB), both resident in a block
+    beside the 128 x 68-float activation tile."""
+    for name, want_shapes in (("sigma", [(32, 64), (64, 16)]),
+                              ("color", [(32, 64), (64, 64), (64, 16)])):
+        _, ws = _chain(NETS[name], seed=4)
+        ws_t = [torch.from_numpy(w) for w in ws]
+        widths, packed = K._prepare_f32(ws_t)
+        assert widths == NETS[name]
+        assert K._f32_shapes(widths) == want_shapes
+        assert packed.dtype == torch.float32 and packed.is_contiguous()
+        off = 0
+        for w, (k, n) in zip(ws_t, want_shapes):
+            layer = packed[off:off + k * n].reshape(k, n)
+            assert torch.equal(layer[:w.shape[0], :w.shape[1]], w)
+            assert not layer[w.shape[0]:].any()
+            assert not layer[:, w.shape[1]:].any()
+            off += k * n
+        assert off == packed.numel()
+        plan = K._plan_f32(widths)
+        assert plan["resident"] and plan["pitch"] == 68
+        assert plan["weights"] == 4 * off
+        assert K._prepare_f32(ws_t)[1] is packed       # built once
+        assert K._prepare(ws_t)[1] is not packed       # the bf16 image apart
+
+
+@pytest.mark.parametrize("layers", range(1, K.MAX_LAYERS + 1))
+def test_f32_plan_takes_every_shape(layers):
+    """The f32 kernel takes every chain the contract allows (1-8 layers,
+    widths 1-128): its weights stay in shared memory where they fit beside
+    the activation tile, else one layer at a time, and a block's shared
+    memory fits 232,448 bytes either way."""
+    for d_in in (None, 1, 31, 128):
+        for width in range(1, K.MAX_WIDTH + 1):
+            widths = [d_in or width] + [width] * layers
+            plan = K._plan_f32(widths)
+            assert plan["total"] <= K.MAX_SMEM
+            assert plan["pitch"] % 4 == 0 and plan["pitch"] % 32 in (4, 20)
+            shapes = K._f32_shapes(widths)
+            assert all(n in (16, 32, 64, 128) and k % 16 == 0
+                       for k, n in shapes)
+            sizes = [4 * k * n for k, n in shapes]
+            assert plan["weights"] == (sum(sizes) if plan["resident"]
+                                       else max(sizes))
+            ws = [torch.zeros((a, b)) for a, b in zip(widths, widths[1:])]
+            assert K._widths(ws, f32=True) == widths
+
+
+@pytest.mark.parametrize("n_cols", [16, 32, 64, 128])
+def test_f32_layer_split_covers_every_output_once(n_cols):
+    """The f32 kernel's split of a layer (csrc/fused_mlp.cu f32_layer):
+    256 threads, N / 4 column groups of 4 adjacent columns, 1024 / N row
+    groups, thread (rg, cg) holding rows rg + (1024 / N) i: every output
+    of the 128-row tile once; the rows one warp reads start on distinct
+    banks or are the same row (pitch 68 or 132 floats: 4 banks apart)."""
+    cg_n = n_cols // 4
+    rg_n = 256 // cg_n
+    tm = 128 // rg_n
+    covered = np.zeros((128, n_cols), np.int64)
+    for t in range(256):
+        rg, cg = divmod(t, cg_n)
+        for i in range(tm):
+            covered[rg + rg_n * i, 4 * cg:4 * cg + 4] += 1
+    assert (covered == 1).all()
+    for pitch in (68, 132):
+        for warp in range(8):
+            rows = {t // cg_n for t in range(32 * warp, 32 * warp + 32)}
+            banks = [(r * pitch) % 32 for r in rows]
+            # each row's float4 covers 4 banks: no two rows overlap
+            spans = {b + j for b in banks for j in range(4)}
+            assert len(spans) == 4 * len(rows)
