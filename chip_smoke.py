@@ -71,8 +71,11 @@ Phases, each printing its elapsed seconds:
      the padded last one (its rgbs and sigmas too) again through the plain
      field, compared;
  10b. gradients: K1 on a CUDA tensor returns the plain chain's gradients;
-     K3 and K4, which have no backward yet, raise where autograd would
-     need one;
+     K3, which has no backward yet, raises where autograd would need one;
+     K4 in bf16 and in f32, on both nets of the ref backbone at 98,304 and
+     2,097,152 rows (a marched training step's rows and a uniform one's),
+     launches its kernel once and returns the gradients of its recompute
+     (the VJP of the JAX package's _xla_mlp) bit for bit;
  11. train: the teacher trained from a seeded init at full width
      (flagship.TRAIN_CFG, train_gather="foldrow_pallas") on the in-memory
      48-view 200x200 spheres set, 144 steps with the schedule cut (see
@@ -82,6 +85,18 @@ Phases, each printing its elapsed seconds:
      render); then one step through "foldrow_pallas" against one through
      "foldrow" from the trained parameters with the same draws, the updates
      compared;
+ 11b. dataset directory: the same 48-view set (and its 2 validation and 4
+     test views) written as a blender directory through data/png.py, and
+     decoded back equal, both timed;
+ 11c. main_nerf -O --ff, main_nerf --ff: the port's training CLI, as a
+     user runs it, on that directory at the CLI's defaults (but --bound 1
+     --scale 1): -O --ff 192 iters (4 epochs; bf16, the march, K4 forward
+     and backward) and --ff 8 iters (one epoch of 48 steps; f32, 512
+     uniform samples a ray, K4's f32 kernel); then the final evaluation and
+     the test frames. Each: s/step, K4 (bf16 or f32, never the other)
+     launched at least twice a training step, the losses finite, -O's last
+     epoch mean under its first, the test frames written, and the last
+     checkpoint reloaded into a fresh net equal to the trained one;
  12. kernels K6, K7: the row gathers at every shape of the gather probe's
      sections E and F and at a ragged M, bit-exact against table[idx] (K7
      for each nslot), with kernel, plain, library (index_select) and bound
@@ -95,7 +110,8 @@ Phases, each printing its elapsed seconds:
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
-the training, K2's path and the probe, and read just after. The
+the training, each main_nerf run, K2's path and the probe, and read just
+after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -106,6 +122,7 @@ CUDA device the script fails before printing anything.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -138,6 +155,19 @@ TRAIN_STEPS, TRAIN_WARMUP = 144, 64
 # 16 steps': measured 0.170 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
 # section 6), bound about twice that
 LOSS_FALL = 0.35
+
+# K4's forward and gradients are checked at the rows of a marched training
+# step (4,096 rays x a budget of 16 after the warm-up: 65,536; x 24 before
+# it: 98,304) and of a uniform one (4,096 x 512)
+K4_GRAD_ROWS = (65536, 98304, 2097152)
+# the reference training CLI (main_nerf) on the spheres set written as a
+# blender directory (48 training views at 200x200, 2 validation, 4 test):
+# -O --ff for 4 epochs (K4 bf16 forward and backward, the march) and --ff
+# for 8 iters, one whole epoch (K4 f32, 512 uniform samples a ray), both
+# at the CLI's defaults but --bound 1 --scale 1 (the scene's box)
+MAIN_NERF_RUNS = (("-O --ff", ["-O", "--ff", "--iters", "192"], "K4",
+                   "K4 f32"),
+                  ("--ff", ["--ff", "--iters", "8"], "K4 f32", "K4"))
 BARRED = ("fast", "guided", "baked_h160_ak8")
 
 # Kernel vs plain, both bf16 with f32 sums. The two sum in different
@@ -374,6 +404,9 @@ def main():
     from nerfsafetyvalidation_tpu_torch.ops.mip_encoding import (
         materialize_dense)
     from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
+    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch.data.png import read_png
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import write_dataset
     from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
     from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
 
@@ -1366,26 +1399,88 @@ def main():
               f"plain chain's: {same}")
         check(all(same), "K1's gradients differ from the plain chain's")
         tsn_g = [w.detach().clone().requires_grad_() for w in tsn]
-        ref_sn_g = [w.detach().clone().requires_grad_()
-                    for w in ref_nets["ref"].sigma_net]
         enc3 = torch.zeros((64, tsn_g[0].shape[0]), dtype=bf, device=dev)
-        enc4 = torch.zeros((64, ref_sn_g[0].shape[0]), device=dev)
-        for kname, call in (
-                ("K3", lambda: sigma_color.fused_sigma_color(
-                    enc3, enc3[:, :16].contiguous(), tsn_g, tcn)),
-                ("K4", lambda: fused_mlp.fused_mlp(enc4, ref_sn_g))):
-            before = counts()[kname]
-            try:
-                call()
-                raised = None
-            except RuntimeError as e:          # the guard under test
-                raised = str(e)
-            print(f"{kname} with a weight that requires grad: raised "
-                  f"{raised!r}")
-            check(raised is not None and "no backward" in raised,
-                  f"{kname} did not refuse a call that needs its backward")
-            check(counts()[kname] == before, f"{kname} launched anyway")
-        del sn1, cn1, x1, g_k1, tsn_g, ref_sn_g
+        before = counts()["K3"]
+        try:
+            sigma_color.fused_sigma_color(enc3, enc3[:, :16].contiguous(),
+                                          tsn_g, tcn)
+            raised = None
+        except RuntimeError as e:          # the guard under test
+            raised = str(e)
+        print(f"K3 with a weight that requires grad: raised {raised!r}")
+        check(raised is not None and "no backward" in raised,
+              "K3 did not refuse a call that needs its backward")
+        check(counts()["K3"] == before, "K3 launched anyway")
+        # K4's backward: the VJP of fused_mlp_reference (the JAX
+        # package's _xla_mlp), recomputed; the forward launches the
+        # kernel. At a marched training step's rows and a uniform one's,
+        # both nets of the ref backbone, seeded x and cotangents: the
+        # kernel's output must agree with the plain version (TOL_K4 in
+        # bf16, TOL_K4_F32 in f32), and the gradients must equal
+        # autograd's through the recompute, bit for bit
+        g4 = torch.Generator(device=dev).manual_seed(12)
+        for dname, dt, key in (("bf16", bf, "K4"),
+                               ("f32", torch.float32, "K4 f32")):
+            for rows in K4_GRAD_ROWS:
+                for which, net_ws in (("sigma", ref.sigma_net),
+                                      ("color", ref.color_net)):
+                    ws = [w.detach().clone().requires_grad_()
+                          for w in net_ws]
+                    x4 = torch.randn((rows, ws[0].shape[0]), generator=g4,
+                                     device=dev).to(dt).requires_grad_()
+                    cot = torch.randn((rows, ws[-1].shape[1]), generator=g4,
+                                      device=dev)
+                    before = counts()
+                    out = fused_mlp.fused_mlp(x4, ws, dt)
+                    got = torch.autograd.grad(out, [x4] + ws, cot)
+                    after = counts()
+                    with torch.no_grad():
+                        out = out.float()
+                        plain = fused_mlp.fused_mlp_plain(
+                            x4.detach(), [w.detach() for w in ws],
+                            dt).float()
+                    fwd_ok = out.shape == plain.shape and bool(
+                        torch.isfinite(out).all())
+                    if dt is bf:
+                        rel = (out - plain).abs() / plain.abs().clamp(
+                            min=1.0)
+                        t_max, t_mean = TOL_K4[which]
+                        fwd_ok &= (float(rel.max()) <= t_max
+                                   and float(rel.mean()) <= t_mean)
+                        fwd_txt = (f"max rel {float(rel.max()):.3e} mean "
+                                   f"{float(rel.mean()):.3e} (tolerance "
+                                   f"{t_max}, {t_mean})")
+                        del rel
+                    else:
+                        fwd_ok &= torch.allclose(out, plain,
+                                                 rtol=TOL_K4_F32[0],
+                                                 atol=TOL_K4_F32[1])
+                        fwd_txt = (f"max abs "
+                                   f"{float((out - plain).abs().max()):.3e}"
+                                   f" (rtol {TOL_K4_F32[0]}, atol "
+                                   f"{TOL_K4_F32[1]})")
+                    print(f"K4 {dname} {which} net at {rows} rows, output "
+                          f"vs plain: {fwd_txt}")
+                    check(fwd_ok, f"K4 {dname} {which} net's output at "
+                          f"{rows} rows disagrees with the plain version")
+                    want = torch.autograd.grad(
+                        fused_mlp.fused_mlp_reference(x4, ws, dt),
+                        [x4] + ws, cot)
+                    same = [torch.equal(a, b) for a, b in zip(got, want)]
+                    finite = all(bool(torch.isfinite(a).all()) for a in got)
+                    print(f"K4 {dname} {which} net at {rows} rows with "
+                          f"gradients: launched {after[key] - before[key]}"
+                          f" time(s); (x, weights) gradients equal to the "
+                          f"recompute's: {same}; finite {finite}")
+                    check(after[key] == before[key] + 1 and all(
+                        after[k] == before[k] for k in after if k != key),
+                          f"K4 {dname} with gradients did not launch its "
+                          "kernel once")
+                    check(all(same) and finite, f"K4 {dname}'s gradients "
+                          "differ from the recompute's")
+                    del ws, x4, cot, out, plain, got, want
+        torch.cuda.empty_cache()
+        del sn1, cn1, x1, g_k1, tsn_g
 
     with Phase("train"):
         t0 = time.perf_counter()
@@ -1459,7 +1554,7 @@ def main():
             twin = make_network(replace(F.TRAIN_CFG, train_gather=route),
                                 net.params_tree(), device=dev,
                                 trainable=True)
-            tr = Trainer(opt, twin)
+            tr = Trainer(opt, twin, mute=True)
             tr.renderer_state, tr.global_step = t_state, steps
             _, loss = tr.train_step(batch, bg=bg, perturb=jit)
             stepped.append((float(loss), [w.detach().clone() for w in
@@ -1503,6 +1598,98 @@ def main():
               "tolerance")
         del stepped, net, trainer, dataset, splits
         torch.cuda.empty_cache()
+
+    with Phase("dataset directory"):
+        # the spheres set written through data/png.py, then decoded back
+        t0 = time.perf_counter()
+        data_root = tempfile.TemporaryDirectory()
+        data_dir = str(Path(data_root.name) / "spheres")
+        splits = F.train_splits()
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_dataset(data_dir, splits)
+        t_write = time.perf_counter() - t0
+        files = sorted(Path(data_dir).glob("*.png"))
+        t0 = time.perf_counter()
+        decoded = {f.stem: read_png(f) for f in files}
+        t_read = time.perf_counter() - t0
+        exact = all(np.array_equal(
+            decoded[f"{split}_{k:03d}"].astype(np.float32) / 255.0, img)
+            for split, data in splits.items()
+            for k, img in enumerate(data["images"]))
+        print(f"dataset directory: {len(files)} RGBA PNGs at "
+              f"{F.TRAIN_RES}x{F.TRAIN_RES} (traced in {t_gen:.2f} s), "
+              f"written in {t_write:.2f} s, decoded in {t_read:.2f} s "
+              f"({1e3 * t_read / len(files):.1f} ms a view); decoded equal"
+              f" to the splits: {exact}")
+        check(len(files) == 54 and exact, "the dataset directory does not "
+              "read back as written")
+        del splits, decoded
+
+    main_nerf_stats = {}
+    for name, extra, key, other in MAIN_NERF_RUNS:
+        with Phase(f"main_nerf {name}"):
+            ws_dir = str(Path(data_root.name) / f"ws{len(main_nerf_stats)}")
+            marks = []
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            tr = main_nerf.main(
+                [data_dir, "--workspace", ws_dir, "--bound", "1", "--scale",
+                 "1", "--seed", "0", *extra], device="cuda",
+                on_epoch=lambda t: marks.append((counts(),
+                                                 time.perf_counter())))
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+            after = counts()
+            steps = tr.global_step
+            t_steps = sum(tr.epoch_times)
+            trained = marks[-1][0]
+            losses = tr.stats["loss"]
+            frames = sorted(Path(ws_dir, "results").glob("*.png"))
+            print(f"main_nerf {name}: {steps} steps in {len(losses)} "
+                  f"epochs, {t_steps:.2f} s of epochs: "
+                  f"{t_steps / steps:.5f} s/step; epochs "
+                  f"{[round(v, 2) for v in tr.epoch_times]} s; {t_all:.2f} "
+                  f"s in all (load, train, checkpoints, evaluate, test); "
+                  f"{smi}")
+            print(f"main_nerf {name}: {key} launches in training "
+                  f"{trained[key]} ({trained[key] / steps:.2f} a step), in "
+                  f"all {after[key]}; {other} {after[other]}; epoch mean "
+                  f"losses {[round(v, 6) for v in losses]}; test-split "
+                  f"evaluate PSNR {tr.stats['results'][-1]:.3f} dB; "
+                  f"{len(frames)} frames written; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            check(trained[key] >= 2 * steps, f"main_nerf {name} launched "
+                  f"{key} {trained[key]} times in {steps} steps")
+            check(after[other] == 0, f"main_nerf {name} launched {other}")
+            check(bool(np.isfinite(tr.stats["step_loss"]).all()),
+                  f"main_nerf {name}: a training loss is not finite")
+            if "-O" in extra:
+                check(losses[-1] < losses[0], f"main_nerf {name}: the last"
+                      f" epoch's mean loss {losses[-1]} is not under the "
+                      f"first's {losses[0]}")
+            check(len(frames) == 8 and np.isfinite(tr.stats["results"][-1]),
+                  f"main_nerf {name}: the test split's frames or PSNR")
+            # the checkpoint the run left reloads into a fresh net
+            net2 = make_network(tr.net.cfg, None, device=dev,
+                                trainable=True)
+            tr2 = Trainer(tr.opt, net2, ema_decay=0.95, workspace=ws_dir,
+                          use_checkpoint="latest", mute=True)
+            same = all(torch.equal(a, b) for a, b in zip(
+                net2.param_list() + tr2.ema_params,
+                tr.net.param_list() + tr.ema_params))
+            print(f"main_nerf {name}: checkpoint reloaded at epoch "
+                  f"{tr2.epoch}, step {tr2.global_step}; parameters and EMA"
+                  f" equal: {same}")
+            check(same and tr2.global_step == steps, f"main_nerf {name}: "
+                  "the checkpoint does not reload the trained net")
+            main_nerf_stats[name] = dict(
+                steps=steps, s_per_step=t_steps / steps,
+                launches=trained[key], key=key)
+            del tr, tr2, net2
+            torch.cuda.empty_cache()
+    data_root.cleanup()
 
     with Phase("kernels K6, K7"):
         gg = torch.Generator(device=dev).manual_seed(6)
@@ -1606,7 +1793,9 @@ def main():
          "max_abs_err_f32": k4_err32, "ms_f32": k4_ms32,
          "ms_cold_f32": k4_cold32, "plain_ms_f32": k4_plain_ms32,
          "bound_ms_f32": k4_bound32, "bound_by_f32": k4_by32,
-         "library_ms_f32": k4_lib_ms32},
+         "library_ms_f32": k4_lib_ms32,
+         "launches_main_nerf_O_ff": main_nerf_stats["-O --ff"]["launches"],
+         "launches_main_nerf_ff_f32": main_nerf_stats["--ff"]["launches"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",

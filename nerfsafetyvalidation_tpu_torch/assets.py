@@ -5,9 +5,10 @@ teacher; `bench_assets/refbb*.ckpt`, the hash-grid reference backbone)
 pickle `ml_dtypes.bfloat16` arrays and the JAX package's `RendererState`;
 neither package exists where the port runs.
 `_Unpickler` maps bfloat16 to its raw bits (uint16; the checkpoints hold no
-other uint16 arrays) and the state to a plain stand-in, and refuses every
-class outside numpy. `load_checkpoint` decodes the bits to float32, as
-bench.py's `_upcast_asset` upcasts the stored bfloat16 before rendering.
+other uint16 arrays), the state and optax's optimizer states to plain
+stand-ins, and refuses every other class outside numpy. `load_checkpoint`
+decodes the bits to float32, as bench.py's `_upcast_asset` upcasts the
+stored bfloat16 before rendering.
 The student pkls (`bench_student*.pkl`) hold float32 numpy `[in, out]`
 weight lists.
 """
@@ -27,12 +28,22 @@ class _PickledState:
         self.__dict__.update(state)
 
 
+class _PickledTuple(tuple):
+    """Stand-in for optax's state namedtuples (a JAX checkpoint's
+    'optimizer'): their fields, as a tuple."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) == ("ml_dtypes", "bfloat16"):
             return np.uint16            # the bf16 bits, undecoded
         if name == "RendererState" and module.endswith("models.renderer"):
             return _PickledState
+        if module == "optax" or module.startswith("optax."):
+            return _PickledTuple
         if module != "numpy" and not module.startswith("numpy."):
             raise pickle.UnpicklingError(f"refusing {module}.{name}")
         try:
@@ -87,19 +98,27 @@ def load_checkpoint(path, device="cuda"):
     grid); state is the full RendererState, the density grid and mean
     density as float32."""
     blob = _load(path)
-    rs = _upcast(blob["renderer_state"].__dict__)
+    state = renderer_state_from(blob["renderer_state"].__dict__, device)
+    return params_from_jax(_upcast(blob["model"]), device), state
+
+
+def renderer_state_from(fields, device="cuda") -> RendererState:
+    """A RendererState from a checkpoint's fields (a dict of arrays, the
+    bf16 ones as bits): the density grid and mean density as float32."""
+    rs = _upcast(dict(fields))
     skip = rs.get("skip_grid")
-    state = RendererState(
+    return RendererState(
         density_bitfield=torch.as_tensor(
             np.asarray(rs["density_bitfield"], dtype=np.uint8),
             device=device),
-        density_grid=torch.as_tensor(rs["density_grid"], device=device),
-        mean_density=torch.as_tensor(rs["mean_density"], device=device),
+        density_grid=torch.as_tensor(
+            np.asarray(rs["density_grid"], dtype=np.float32), device=device),
+        mean_density=torch.as_tensor(
+            np.asarray(rs["mean_density"], dtype=np.float32), device=device),
         iter_density=torch.as_tensor(
             np.asarray(rs["iter_density"], dtype=np.int32), device=device),
         skip_grid=None if skip is None else torch.as_tensor(
             np.asarray(skip, dtype=np.uint8), device=device))
-    return params_from_jax(_upcast(blob["model"]), device), state
 
 
 def params_from_jax(tree, device="cuda"):

@@ -1,5 +1,6 @@
 """Network configuration: the fields of the JAX package's `NetworkConfig`
-(nerfsafetyvalidation_tpu/config.py) that the ported paths read."""
+(nerfsafetyvalidation_tpu/config.py) that the ported paths read, and
+`network_config_from_opt`, which builds one from the CLI's flags."""
 
 import math
 from dataclasses import dataclass
@@ -52,3 +53,28 @@ class NetworkConfig:
     def grid_resolution(self) -> int:
         return int(2048 * self.bound) if self.desired_resolution is None \
             else self.desired_resolution
+
+
+def network_config_from_opt(opt) -> NetworkConfig:
+    """A NetworkConfig from an argparse-style namespace with the reference
+    CLI's flags (the JAX package's config.py:168-187): `--cuda_ray` marches
+    (grid_ray), `--fp16` computes in bfloat16, `--ff` (or `--tcnn`) runs
+    the MLPs through the fused kernel."""
+    extra = {}
+    if getattr(opt, "encoding", "hashgrid") == "mipfold":
+        # the mip-fold backbone's defaults: 8 power-of-two scales
+        # 16..2048, 4 channels each
+        extra = dict(num_levels=8, level_dim=4, aligned_levels=True)
+    return NetworkConfig(
+        encoding=getattr(opt, "encoding", "hashgrid"),
+        bound=opt.bound,
+        **extra,
+        density_scale=1.0,
+        min_near=opt.min_near,
+        density_thresh=opt.density_thresh,
+        bg_radius=opt.bg_radius,
+        grid_ray=getattr(opt, "cuda_ray", False),
+        compute_dtype="bfloat16" if getattr(opt, "fp16", False)
+        else "float32",
+        fused=getattr(opt, "ff", False) or getattr(opt, "tcnn", False),
+    )

@@ -3,12 +3,19 @@ package's nerfsafetyvalidation_tpu/data/synthetic.py (`orbit_pose`,
 `camera_rays`, `trace`, `scene_views`, `generate_dataset`); the "gauntlet"
 tracer is not ported yet.
 
-`generate_dataset` keeps its blender-format splits in memory instead of
-writing PNGs and transforms_*.json: each image holds the values a PNG round
-trip gives ((img * 255).clip(0, 255) truncated to uint8, then / 255), and
-each pose the float32 matrix the JSON would hold."""
+`generate_dataset` keeps its blender-format splits in memory: each image
+holds the values a PNG round trip gives ((img * 255).clip(0, 255)
+truncated to uint8, then / 255), and each pose the float32 matrix the JSON
+would hold. `write_dataset` writes such splits as the JAX package's
+`generate_dataset` writes its directory: transforms_{train,val,test}.json
+and one RGBA PNG a view (data/png.py)."""
+
+import json
+import os
 
 import numpy as np
+
+from .png import write_png
 
 SPHERES = [
     # (center, radius, albedo)
@@ -151,3 +158,26 @@ def generate_dataset(n_train=48, n_val=4, n_test=8, H=200, W=200,
         splits[split] = {"images": img8.astype(np.float32) / 255.0,
                          "poses": poses, "camera_angle_x": FOV_X}
     return splits
+
+
+def write_dataset(path, splits):
+    """Write `generate_dataset`'s splits as a blender-format directory, in
+    the JAX package's layout (synthetic.py:333-355): `{split}_{k:03d}.png`
+    (RGBA, 8 bits) and transforms_{split}.json {'camera_angle_x', 'frames':
+    [{'file_path': './{split}_{k:03d}', 'transform_matrix'}]}. Returns
+    path."""
+    os.makedirs(path, exist_ok=True)
+    for split, data in splits.items():
+        frames = []
+        for k, (img, pose) in enumerate(zip(data["images"], data["poses"])):
+            name = f"{split}_{k:03d}"
+            # the stored values are uint8 / 255: back to the bytes exactly
+            write_png(os.path.join(path, name + ".png"),
+                      np.round(np.asarray(img) * 255.0).astype(np.uint8))
+            frames.append({"file_path": f"./{name}",
+                           "transform_matrix": np.asarray(
+                               pose, dtype=np.float32).tolist()})
+        with open(os.path.join(path, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": data["camera_angle_x"],
+                       "frames": frames}, f)
+    return path

@@ -14,7 +14,11 @@ CLI's defaults (`staged`: `--ff` in the default float32, K4's f32 kernel;
 Training: `TRAIN_CFG` and `TRAIN_OPT` are bench.py's `_train_flagship`
 (bench.py:153-256) with `train_gather="foldrow_pallas"`, the route of
 kernel K5; `train_flagship` runs that schedule on the spheres set from a
-seeded init and refreshes the trained occupancy 4x."""
+seeded init and refreshes the trained occupancy 4x. `REF_TRAIN_CFG` and
+`REF_TRAIN_OPT` are bench.py's `_train_ref_backbone` (bench.py:354-426),
+the schedule `refbb.ckpt` was trained with; `train_ref` runs it, through
+kernel K4 (`fused`, the CLI's `--ff`) or the plain chain (bench.py's own
+route), and refreshes the occupancy 4x with seeds 100-103."""
 
 from dataclasses import replace
 from pathlib import Path
@@ -81,6 +85,22 @@ TRAIN_OPT = dict(
     # upsampling (bench.py:201-203)
     num_steps=128, upsample_steps=0, max_ray_batch=4096)
 
+# bench.py:354-426: the hash-grid reference backbone trained through the
+# march in bf16, 960 steps of 4096 rays on the same 48 views
+REF_TRAIN_CFG = replace(REF_CFG, fused=False, grid_ray=True)
+REF_TRAIN_ITERS = 960       # min(BENCH_ITERS, 960)
+REF_TRAIN_OPT = dict(
+    TRAIN_OPT, iters=REF_TRAIN_ITERS, grid_max_samples=48,
+    grid_samples_per_hit=2, grid_sample_budget_per_ray=24,
+    grid_warmup_steps=128, grid_budget_after_warmup=16,
+    grid_max_samples_after_warmup=32)
+# the port's ref_backbone PSNR on pose 0 of the committed refbb.ckpt, which
+# holds that schedule's result (chip runs, PERF.md section 6), and the
+# band a port-trained net of the same schedule must lie in, on the mean
+# over seeds
+REF_CKPT_DB = 27.018
+REF_BAND_DB = 0.5
+
 _FAST = dict(tile=131072, max_samples=16, max_steps=512, dt_gamma=DT_GAMMA,
              bg_color=1.0)
 # the observation render of the reference's entry points at the CLI's
@@ -146,12 +166,15 @@ def load_ref_nets(device):
     return nets, stored
 
 
-def refresh(net, state, seed: int = 100, n: int = REFRESHES):
-    """n occupancy refreshes through `net`, jittered from one seeded
-    generator (bench.py refreshes with PRNGKey(100 + i); the draws
-    differ)."""
+def refresh(net, state, seed: int = 100, n: int = REFRESHES,
+            reseed: bool = False):
+    """n occupancy refreshes through `net`, jittered from one generator
+    seeded `seed`, or with `reseed` the i-th from one seeded seed + i
+    (bench.py refreshes with PRNGKey(100 + i); the draws differ)."""
     gen = torch.Generator(device=state.density_grid.device).manual_seed(seed)
-    for _ in range(n):
+    for i in range(n):
+        if reseed:
+            gen.manual_seed(seed + i)
         state = update_extra_state(net, state, generator=gen,
                                    grid_size=net.cfg.grid_size)
     return state
@@ -223,11 +246,43 @@ def train_flagship(device, iters: int = TRAIN_ITERS, opt=None, dataset=None,
     gen = torch.Generator(device=device).manual_seed(seed)
     net = make_network(TRAIN_CFG, None, device=device, trainable=True,
                        generator=gen)
-    trainer = Trainer(opt, net)
+    trainer = Trainer(opt, net, mute=True)
     loader = dataset.dataloader(torch.Generator(
         device=device).manual_seed(seed))
-    trainer.train(loader, -(-iters // len(loader)), on_epoch=on_epoch)
+    trainer.train(loader, None, -(-iters // len(loader)), on_epoch=on_epoch)
     with torch.no_grad():
         net.to_folded()
         state = refresh(net, trainer.renderer_state)
     return net, state, trainer
+
+
+def ref_train_opt(**overrides):
+    """REF_TRAIN_OPT as the attribute namespace the trainer reads."""
+    return SimpleNamespace(**dict(REF_TRAIN_OPT, **overrides))
+
+
+def train_ref(device, fused: bool, iters: int = REF_TRAIN_ITERS, opt=None,
+              dataset=None, seed: int = 0, on_epoch=None):
+    """Train the hash-grid reference backbone from a seeded init with
+    bench.py's `_train_ref_backbone` schedule, both MLPs through K4 when
+    `fused` (else the plain chain), then refresh its occupancy 4x, the
+    i-th jittered from seed 100 + i. Returns (net, state, trainer)."""
+    opt = opt or ref_train_opt(iters=iters, seed=seed)
+    dataset = dataset or train_dataset(device, opt=opt)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    net = make_network(replace(REF_TRAIN_CFG, fused=fused), None,
+                       device=device, trainable=True, generator=gen)
+    trainer = Trainer(opt, net, mute=True)
+    loader = dataset.dataloader(torch.Generator(
+        device=device).manual_seed(seed))
+    trainer.train(loader, None, -(-iters // len(loader)), on_epoch=on_epoch)
+    with torch.no_grad():
+        state = refresh(net, trainer.renderer_state, seed=100, reseed=True)
+    return net, state, trainer
+
+
+def serving_ref(net):
+    """A trained reference backbone as `ref_backbone` serves it: the same
+    parameters in REF_CFG (both MLPs through K4, bf16)."""
+    return make_network(REF_CFG, net.params_tree(),
+                        device=net.embeddings.device)

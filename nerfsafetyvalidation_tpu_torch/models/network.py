@@ -18,6 +18,15 @@ Weights are [in, out], so a layer is `x @ W`.
   rounds its last layer to the compute dtype too (a no-op in f32);
   without it they are plain matmul chains whose last layer stays f32
   (the JAX package leaves that route to XLA).
+
+Training: `init(generator)` draws fresh weights as the JAX `init` does
+(the table uniform in +-1e-4, each [in, out] weight uniform in
++-1/sqrt(in)), from a torch.Generator, so the draws differ from JAX's.
+With `trainable` every parameter takes gradients: the table is cast to the
+compute dtype at every call while autograd records (the JAX `encode_pos`
+casts it at every call), so the gradient reaches the float32 table; a cast
+copy is kept for calls without autograd, made again after the table
+changes.
 """
 
 import numpy as np
@@ -27,9 +36,11 @@ from torch import nn
 from ..config import NetworkConfig
 from ..ops.activation import trunc_exp
 from ..ops.freq_encoding import freq_encode, freq_output_dim
-from ..ops.hash_encoding import HashGridSpec, hash_grid_encode
-from ..ops.hopper.fused_mlp import fused_mlp, fused_mlp_plain
-from ..ops.hopper.points_mlp import (_dot, fused_points_sigma_color,
+from ..ops.hash_encoding import HashGridSpec, hash_grid_encode, hash_grid_init
+from ..ops.hopper._nvcc import weights_key
+from ..ops.hopper.fused_mlp import (fused_mlp, fused_mlp_plain,
+                                    fused_mlp_reference)
+from ..ops.hopper.points_mlp import (fused_points_sigma_color,
                                      fused_points_sigma_color_plain)
 from ..ops.sh_encoding import sh_encode, sh_output_dim
 
@@ -41,15 +52,6 @@ def _linear_init(generator, in_dim: int, out_dim: int):
     u = torch.rand((in_dim, out_dim), generator=generator,
                    device=generator.device)
     return u * (2.0 * bound) - bound
-
-
-def _mlp(weights, h, dtype):
-    """Bias-free MLP with ReLU between layers; f32 output."""
-    for i, w in enumerate(weights):
-        h = _dot(h, w, dtype)
-        if i != len(weights) - 1:
-            h = torch.relu(h)
-    return h
 
 
 def _widths(d_in, hidden, layers, d_out):
@@ -70,10 +72,14 @@ def grid_spec_of(cfg: NetworkConfig) -> HashGridSpec:
 class NeRFNetwork(nn.Module):
     """params: {"sigma_net": [[in, out], ...], "color_net": [...]}, and
     for a hash grid {"encoder": {"embeddings": [rows, level_dim]}}, numpy
-    arrays or tensors (see assets.params_from_jax); stored as float32 on
-    `device`. Their shapes must be the ones `cfg` describes."""
+    arrays or tensors (see assets.params_from_jax), or None for
+    `init(generator)` (a generator on `device` seeded 0 where none is
+    given); stored as float32 `nn.Parameter`s on `device`, which take
+    gradients when `trainable`. Their shapes must be the ones `cfg`
+    describes."""
 
-    def __init__(self, cfg: NetworkConfig, params, device="cuda"):
+    def __init__(self, cfg: NetworkConfig, params=None, device="cuda",
+                 trainable: bool = False, generator=None):
         super().__init__()
         if cfg.encoding not in ("frequency", "hashgrid"):
             raise NotImplementedError("NeRFNetwork has the frequency and "
@@ -94,29 +100,89 @@ class NeRFNetwork(nn.Module):
             self.in_dim = freq_output_dim(3, cfg.multires)
         self.in_dim_dir = sh_output_dim(cfg.sh_degree)
 
-        def t(w):
-            return torch.as_tensor(w, dtype=torch.float32, device=device)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            params = self.init(generator)
+
+        def p(w):
+            w = torch.as_tensor(w, dtype=torch.float32, device=device)
+            # a trainable net updates in place: never into the caller's
+            # arrays
+            return nn.Parameter(w.detach().clone() if trainable else w,
+                                requires_grad=trainable)
 
         def plist(ws):
-            return nn.ParameterList(nn.Parameter(t(w), requires_grad=False)
-                                    for w in ws)
+            return nn.ParameterList(p(w) for w in ws)
 
         self.sigma_net = plist(params["sigma_net"])
         self.color_net = plist(params["color_net"])
-        want = (_widths(self.in_dim, cfg.hidden_dim, cfg.num_layers,
+        want = self._shapes()
+        got = [tuple(w.shape) for w in [*self.sigma_net, *self.color_net]]
+        if self.grid_spec is not None:
+            self.embeddings = p(params["encoder"]["embeddings"])
+            want.insert(0, (self.grid_spec.offsets[-1], cfg.level_dim))
+            got.insert(0, tuple(self.embeddings.shape))
+            self._table = None
+        if got != want:
+            raise ValueError(f"weights {got} do not match the config {want}")
+
+    def _shapes(self):
+        """[in, out] of every layer, the sigma net's then the color net's."""
+        cfg = self.cfg
+        return (_widths(self.in_dim, cfg.hidden_dim, cfg.num_layers,
                         1 + cfg.geo_feat_dim)
                 + _widths(self.in_dim_dir + cfg.geo_feat_dim,
                           cfg.hidden_dim_color, cfg.num_layers_color, 3))
-        got = [tuple(w.shape) for w in [*self.sigma_net, *self.color_net]]
+
+    def init(self, generator):
+        """A fresh params pytree (float32 tensors on the generator's
+        device), drawn in the JAX `init`'s order (network.py:125-160): the
+        table uniform in +-1e-4 (`hash_grid_init`), then each [in, out]
+        weight uniform in +-1/sqrt(in) (torch nn.Linear's default). The
+        draws come from `generator`, so they differ from JAX's."""
+        params = {}
         if self.grid_spec is not None:
-            self.embeddings = t(params["encoder"]["embeddings"])
-            want.insert(0, (self.grid_spec.offsets[-1], cfg.level_dim))
-            got.insert(0, tuple(self.embeddings.shape))
-            # the table the encoder gathers from, in the compute dtype (the
-            # JAX encode_pos casts it at every call)
-            self.table = self.embeddings.to(self.compute_dtype)
-        if got != want:
-            raise ValueError(f"weights {got} do not match the config {want}")
+            params["encoder"] = {"embeddings": hash_grid_init(
+                generator, self.grid_spec)}
+        mlp = [_linear_init(generator, *shape) for shape in self._shapes()]
+        n_sigma = self.cfg.num_layers
+        params["sigma_net"] = mlp[:n_sigma]
+        params["color_net"] = mlp[n_sigma:]
+        return params
+
+    def param_list(self):
+        """Every parameter in the JAX package's init order (table, sigma
+        net, color net)."""
+        table = [self.embeddings] if self.grid_spec is not None else []
+        return [*table, *self.sigma_net, *self.color_net]
+
+    def params_tree(self, ws=None):
+        """The parameters, or the tensors `ws` given in `param_list`'s
+        order, as the JAX package's pytree of detached tensors (what the
+        constructor takes)."""
+        ws = [w.detach() for w in (self.param_list() if ws is None else ws)]
+        tree = {}
+        if self.grid_spec is not None:
+            tree["encoder"] = {"embeddings": ws.pop(0)}
+        n_sigma = len(self.sigma_net)
+        tree["sigma_net"], tree["color_net"] = ws[:n_sigma], ws[n_sigma:]
+        return tree
+
+    @property
+    def table(self):
+        """The table the encoder gathers from, in the compute dtype. While
+        autograd records for a trainable table it is cast at this call;
+        otherwise a cast copy is kept until the table changes (its version
+        or storage)."""
+        emb = self.embeddings
+        if torch.is_grad_enabled() and emb.requires_grad:
+            return emb.to(self.compute_dtype)
+        key = weights_key([emb])
+        if self._table is None or self._table[0] != key:
+            with torch.no_grad():
+                self._table = (key, emb.to(self.compute_dtype))
+        return self._table[1]
 
     def encode_pos(self, x):
         if self.grid_spec is None:
@@ -132,7 +198,7 @@ class NeRFNetwork(nn.Module):
         """A grid net's MLP: through K4 with cfg.fused (its plain version
         with `plain`), else the plain matmul chain."""
         if not (self.cfg.fused and self.grid_spec is not None):
-            return _mlp(list(weights), h, self.compute_dtype)
+            return fused_mlp_reference(h, list(weights), self.compute_dtype)
         prefix = h.shape[:-1]
         fn = fused_mlp_plain if plain else fused_mlp
         out = fn(h.reshape(-1, h.shape[-1]).contiguous(), list(weights),

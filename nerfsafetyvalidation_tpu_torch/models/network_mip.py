@@ -33,7 +33,8 @@ from ..ops.hopper._nvcc import weights_key
 from ..ops.mip_encoding import (MipFoldSpec, build_mip_fold_table,
                                 mip_fold_encode, mip_fold_init)
 from ..ops.sh_encoding import sh_encode, sh_output_dim
-from .network import _linear_init, _mlp, _widths
+from ..ops.hopper.fused_mlp import fused_mlp_reference
+from .network import _linear_init, _widths
 
 
 def mip_spec_of(cfg: NetworkConfig) -> MipFoldSpec:
@@ -135,13 +136,15 @@ class NeRFNetworkMip(nn.Module):
         hash table, sigma net, color net)."""
         return [*self.pyramid, self.hash, *self.sigma_net, *self.color_net]
 
-    def params_tree(self):
-        """The parameters as the JAX package's pytree of detached tensors
-        (what the constructor takes)."""
-        return {"encoder": {"pyramid": [g.detach() for g in self.pyramid],
-                            "hash": self.hash.detach()},
-                "sigma_net": [w.detach() for w in self.sigma_net],
-                "color_net": [w.detach() for w in self.color_net]}
+    def params_tree(self, ws=None):
+        """The parameters, or the tensors `ws` given in `param_list`'s
+        order, as the JAX package's pytree of detached tensors (what the
+        constructor takes)."""
+        ws = [w.detach() for w in (self.param_list() if ws is None else ws)]
+        n_pyr, n_sig = len(self.pyramid), len(self.sigma_net)
+        return {"encoder": {"pyramid": ws[:n_pyr], "hash": ws[n_pyr]},
+                "sigma_net": ws[n_pyr + 1:n_pyr + 1 + n_sig],
+                "color_net": ws[n_pyr + 1 + n_sig:]}
 
     def _encoder_params(self):
         return list(self.pyramid) + [self.hash]
@@ -179,16 +182,16 @@ class NeRFNetworkMip(nn.Module):
 
     def density(self, x):
         """x: [..., 3] -> {'sigma': [...], 'geo_feat': [..., 15]}."""
-        h = _mlp(list(self.sigma_net), self.encode_pos(x),
-                 self.compute_dtype)
+        h = fused_mlp_reference(self.encode_pos(x), list(self.sigma_net),
+                                self.compute_dtype)
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
     def color(self, d, geo_feat, mask=None):
         """rgb [..., 3], 0 where `mask` ([...] bool) is false."""
         d_enc = self.encode_dir(d)
         h = torch.cat([d_enc, geo_feat.to(d_enc.dtype)], dim=-1)
-        rgb = torch.sigmoid(_mlp(list(self.color_net), h,
-                                 self.compute_dtype))
+        rgb = torch.sigmoid(fused_mlp_reference(h, list(self.color_net),
+                                                self.compute_dtype))
         if mask is not None:
             rgb = torch.where(mask[..., None], rgb, 0.0)
         return rgb

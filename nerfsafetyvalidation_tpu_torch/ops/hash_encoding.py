@@ -18,6 +18,11 @@ bits, so they equal the JAX package's uint32 arithmetic. With a bfloat16
 table the blend rounds as JAX does (`_blend`, which the mip-fold encoder
 shares).
 
+The encode is differentiable with respect to the table: the corner rows
+are one gather, whose backward sums each row's duplicates in a fixed order
+(`index_put_` with accumulate), so two runs give the same gradient bit for
+bit. `hash_grid_init` draws a fresh table.
+
 The aligned spec (`aligned=True`) and the cell and folded layouts of the
 JAX package are not ported.
 """
@@ -155,6 +160,15 @@ class HashGridSpec:
             strides=tuple(strides))
 
 
+def hash_grid_init(generator, spec: HashGridSpec, std: float = 1e-4):
+    """A fresh table [offsets[-1], level_dim] float32, uniform in +-std
+    (hash_encoding.py:153; grid.py:133-135), drawn from `generator` on its
+    device."""
+    u = torch.rand((spec.offsets[-1], spec.level_dim), generator=generator,
+                   device=generator.device)
+    return u * (2.0 * std) - std
+
+
 @lru_cache(maxsize=32)
 def _level_constants(spec: HashGridSpec, n_active: int, device: str):
     """Per-level constants of the first n_active levels as tensors on
@@ -230,13 +244,15 @@ def hash_grid_encode(embeddings, x, spec: HashGridSpec, bound: float = 1.0,
     """Encode positions x [..., D] in [-bound, bound] with the corner-layout
     table embeddings [offsets[-1], C] -> [..., L * C] level-major, in the
     table's dtype, ENCODE_CHUNK samples at a time. Levels >= max_level
-    encode to zero and are not gathered."""
+    encode to zero and are not gathered. Differentiable with respect to
+    `embeddings`."""
     prefix = x.shape[:-1]
     x = x.reshape(-1, spec.input_dim)
     n_active = _n_active(spec, max_level)
     out = torch.empty((x.shape[0], spec.output_dim), dtype=embeddings.dtype,
                       device=embeddings.device)
     for i in range(0, x.shape[0], ENCODE_CHUNK):
+        # under autograd the writes record their slices' backward
         out[i:i + ENCODE_CHUNK] = _encode_corner_chunk(
             embeddings, x[i:i + ENCODE_CHUNK], spec, bound, n_active)
     return out.reshape(prefix + (spec.output_dim,))

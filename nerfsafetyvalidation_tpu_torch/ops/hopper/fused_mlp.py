@@ -26,6 +26,17 @@ are packed once per set as every layer zero-padded to [K_l, N_l] f32,
 row-major, one after another (`_f32_shapes`, `_pack_f32`); a block keeps
 them in shared memory where they fit beside its 128-row activation tile,
 else loads one layer at a time (`_plan_f32`).
+
+Gradients (both dtypes, and on the CPU too): `fused_mlp` is an autograd
+Function whose forward launches the kernel (the plain version on a CPU
+tensor) and whose backward is the vector-Jacobian product of
+`fused_mlp_reference`, recomputed under autograd: the JAX package's
+`_xla_mlp`, whose VJP its `custom_vjp` takes (`_fused_bwd`), with the
+compute dtype's operands, f32 sums and the last layer kept in f32. Its
+casts round each cotangent to the compute dtype where JAX's `astype` VJP
+does. The weight cache is keyed by each weight's version as well as its
+storage, so an optimizer's in-place update repacks the kernel's image
+before the next launch.
 """
 
 import ctypes
@@ -33,7 +44,7 @@ from pathlib import Path
 
 import torch
 
-from ._nvcc import WeightCache, compile_source, refuse_grad
+from ._nvcc import WeightCache, compile_source
 from .points_mlp import _dot, wgmma_b
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_mlp.cu"
@@ -91,18 +102,50 @@ def _library():
     return _lib
 
 
-def fused_mlp_plain(x, weights, compute_dtype=torch.bfloat16):
-    """The kernel's function in plain PyTorch: operands rounded to
-    `compute_dtype`, f32 sums, ReLU between layers, every layer's output
-    rounded to `compute_dtype`. x [N, D_0]; weights [in, out] each.
-    Returns [N, D_L] f32."""
+def fused_mlp_reference(x, weights, compute_dtype=torch.bfloat16):
+    """The JAX package's `_xla_mlp` (fused_mlp.py:107-114), whose VJP is
+    K4's backward: operands rounded to `compute_dtype`, f32 sums, ReLU
+    between layers, the last layer kept in f32 (the kernel rounds it)."""
     h = x
     for i, w in enumerate(weights):
         h = _dot(h, w, compute_dtype)
         if i != len(weights) - 1:
             h = torch.relu(h)
-        h = h.to(compute_dtype).float()
     return h
+
+
+def fused_mlp_plain(x, weights, compute_dtype=torch.bfloat16):
+    """The kernel's function in plain PyTorch: `fused_mlp_reference` with
+    its last layer rounded to `compute_dtype` too (each layer's input is
+    rounded by the next product already). x [N, D_0]; weights [in, out]
+    each. Returns [N, D_L] f32."""
+    return fused_mlp_reference(x, weights, compute_dtype).to(
+        compute_dtype).float()
+
+
+class _K4(torch.autograd.Function):
+    """out = launch(x, weights); the backward recomputes
+    fused_mlp_reference(x, weights) under autograd and takes its
+    vector-Jacobian product with the cotangent."""
+
+    @staticmethod
+    def forward(ctx, launch, compute_dtype, x, *weights):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(x, *weights)
+        return launch(x, weights)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            args = [a.detach().requires_grad_(n)
+                    for a, n in zip(ctx.saved_tensors, need)]
+            out = fused_mlp_reference(args[0], args[1:], ctx.compute_dtype)
+            wrt = [a for a, n in zip(args, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g_out,
+                                             allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None
+                                    for n in need)
 
 
 def _pad16(v):
@@ -230,26 +273,36 @@ def _pack(weights):
 
 def fused_mlp(x, weights, compute_dtype=torch.bfloat16):
     """Bias-free ReLU MLP over x [N, D_0] with weights [in, out] each;
-    returns [N, D_L] f32, every layer rounded to `compute_dtype`.
+    returns [N, D_L] f32, every layer rounded to `compute_dtype`;
+    differentiable (the backward is `fused_mlp_reference`'s VJP).
 
-    A CPU tensor takes the plain version, under autograd. A CUDA tensor
-    launches a kernel: the bf16 one, or with compute_dtype float32 the f32
-    one; either takes at most MAX_LAYERS layers of widths up to MAX_WIDTH.
-    x is cast to the compute dtype and must then be contiguous (and, in
-    bf16, start on a 16-byte boundary). It has no backward yet: where
-    autograd would need one, and for anything else, it raises."""
-    global LAUNCHES, LAUNCHES_F32
+    A CPU tensor takes the plain version. A CUDA tensor launches a kernel:
+    the bf16 one, or with compute_dtype float32 the f32 one; either takes
+    at most MAX_LAYERS layers of widths up to MAX_WIDTH. x is cast to the
+    compute dtype and must then be contiguous (and, in bf16, start on a
+    16-byte boundary); anything else raises."""
     if x.device.type == "cpu":
-        return fused_mlp_plain(x, weights, compute_dtype)
-    refuse_grad("K4", [x, *weights])
-    if x.device.type != "cuda":
+        def launch(x_, ws):
+            return fused_mlp_plain(x_, ws, compute_dtype)
+    elif x.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {x.device}")
+    else:
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError("the CUDA kernels compute in bfloat16 or "
+                             "float32")
+        if any(w.device != x.device for w in weights):
+            raise ValueError("x and the weights must be on one device")
+
+        def launch(x_, ws):
+            return _launch(x_, ws, compute_dtype)
+    return _K4.apply(launch, compute_dtype, x, *weights)
+
+
+def _launch(x, weights, compute_dtype):
+    """One launch of the kernel of `compute_dtype` on CUDA tensors."""
+    global LAUNCHES, LAUNCHES_F32
     f32 = compute_dtype == torch.float32
-    if not f32 and compute_dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernels compute in bfloat16 or float32")
-    if any(w.device != x.device for w in weights):
-        raise ValueError("x and the weights must be on one device")
-    widths, packed = (_prepare_f32 if f32 else _prepare)(weights)
+    widths, packed = (_prepare_f32 if f32 else _prepare)(list(weights))
     n = x.shape[0]
     if x.ndim != 2 or x.shape[1] != widths[0]:
         raise ValueError(f"x must be [N, {widths[0]}], got "

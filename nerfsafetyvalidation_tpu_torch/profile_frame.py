@@ -3,7 +3,7 @@ the card.
 
     python3 -m nerfsafetyvalidation_tpu_torch.profile_frame \\
         [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8|
-                staged|staged_bf16|train]
+                staged|staged_bf16|train|train_O_ff|train_ff]
 
 Loads the flagship teacher (or, for the ref_backbone modes, the hash-grid
 reference backbone), refreshes its occupancy 4x as bench.py does, renders
@@ -24,6 +24,10 @@ width (flagship.TRAIN_CFG, through K5) from a seeded init on the spheres
 set: 20 steps of warm-up (two full refreshes among them), 4 steps under the
 profiler, then 8 steps without it; and apart, with a device wait around
 each, the march of one batch, a full and a partial refresh.
+`--mode train_O_ff` and `train_ff` do it for the training CLI's steps
+(`main_nerf`'s trainer, net and options for `-O --ff` or `--ff` at the
+CLI's defaults but --bound 1 --scale 1) of the hash-grid net from a
+seeded init on the same 48 views: K4 and its backward.
 Needs a CUDA card.
 """
 
@@ -60,7 +64,7 @@ def _train_setup(dev):
     dataset = F.train_dataset(dev, opt=opt)
     net = make_network(F.TRAIN_CFG, None, device=dev, trainable=True,
                        generator=torch.Generator(device=dev).manual_seed(0))
-    trainer = Trainer(opt, net)
+    trainer = Trainer(opt, net, mute=True)
     trainer.start(dataset)
     batches = iter(dataset.dataloader())
     for _ in range(20):
@@ -86,6 +90,34 @@ def _train_setup(dev):
             f"{m['ts'].shape[1]} slots x {o.shape[0]} rays); full refresh "
             f"{full_ms:.3f} ms, partial {part_ms:.3f} ms")
     return trainer, batches, info
+
+
+CLI_MODES = {"train_O_ff": ["-O", "--ff"], "train_ff": ["--ff"]}
+
+
+def _cli_train_setup(dev, flags):
+    """The training CLI's trainer for `flags` after 20 steps, its loader's
+    iterator, and a line on the run."""
+    from .cli import apply_O_flag, build_parser
+    from .config import network_config_from_opt
+    from .data.provider import NeRFDataset
+    from .models import make_network
+    from .train.trainer import Trainer
+    opt = apply_O_flag(build_parser("train").parse_args(
+        ["-", *flags, "--bound", "1", "--scale", "1", "--seed", "0"]),
+        "train")
+    dataset = NeRFDataset(opt, F.train_splits(), type="train", device=dev)
+    net = make_network(network_config_from_opt(opt), None, device=dev,
+                       trainable=True,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    trainer = Trainer(opt, net, ema_decay=0.95, mute=True)
+    trainer.start(dataset)
+    batches = iter(dataset.dataloader())
+    for _ in range(20):
+        trainer.iteration(next(batches))
+    return trainer, batches, (f"main_nerf {' '.join(flags)}: "
+                              f"{net.cfg.compute_dtype}, grid_ray "
+                              f"{net.cfg.grid_ray}, fused {net.cfg.fused}")
 
 
 def _encode_ms(net, frame):
@@ -152,8 +184,8 @@ def _frame_profile(mode, dev, acts):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=sorted(F.MODES) + ["train"],
-                    default="baked_h160_ak8")
+    ap.add_argument("--mode", choices=sorted(F.MODES) + ["train"]
+                    + sorted(CLI_MODES), default="baked_h160_ak8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
@@ -161,8 +193,9 @@ def main(argv=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     info, unit, reps = "", "frame", 1
-    if args.mode == "train":
-        trainer, batches, info = _train_setup(dev)
+    if args.mode.startswith("train"):
+        trainer, batches, info = _train_setup(dev) if args.mode == "train" \
+            else _cli_train_setup(dev, CLI_MODES[args.mode])
         unit, reps = "step", 4
 
         def frame():

@@ -27,3 +27,6 @@ class PSNRMeter:
 
     def measure(self):
         return self.V / max(self.N, 1)
+
+    def report(self):
+        return f"PSNR = {self.measure():.6f}"

@@ -1,31 +1,45 @@
 """The training loop of the port (nerfsafetyvalidation_tpu/train/
-trainer.py, `Trainer`), for occupancy-marched training (cfg.grid_ray).
+trainer.py, `Trainer`), for any net with `param_list()`: the mip-fold
+teacher and the hash-grid `NeRFNetwork`.
 
-One iteration: the occupancy refresh on its schedule (every
-`update_extra_interval` steps; full probes while the grid still carves,
-then one of 4 morton-strided blocks in rotation, each through a freshly
-folded table), then one step: the pixel-wise random background for RGBA
-targets, the marched render `run_grid` with the phased sample budget, the
-MSE, the backward, the Adam update, the learning-rate decay and, where
-`ema_decay` is set, the per-step EMA. Evaluation (`eval_step`,
-`evaluate_one_epoch`, `evaluate`) renders whole views through the staged
-uniform-sampling render, on the EMA parameters where there are some, and
-scores them with the PSNR meter; it writes no images.
+One iteration: with cfg.grid_ray, the occupancy refresh on its schedule
+(every `update_extra_interval` steps; full probes while the grid still
+carves, then one of 4 morton-strided blocks in rotation; a mip-fold net
+probes through a freshly folded table), then one step: the pixel-wise
+random background for RGBA targets, the render (with cfg.grid_ray the
+marched `run_grid` with the phased sample budget; else the uniform `run`
+with jittered samples and, with `upsample_steps`, samples drawn from the
+pdf), the MSE, the backward, the Adam update, the learning-rate decay and,
+where `ema_decay` is set, the per-step EMA. `train` runs epochs over a
+loader, saves a checkpoint every `ckpt_interval` epochs and the last, and
+evaluates every `eval_interval` epochs, keeping the best file.
+Evaluation (`eval_step`, `evaluate_one_epoch`, `evaluate`) renders whole
+views through the staged uniform-sampling render, on the EMA parameters
+where there are some, scores them with the PSNR meter and, with a
+workspace, writes each view's PNG; `test` renders a split's views staged
+and writes their RGB and depth PNGs, as the JAX package's PNG fallback
+does (no video).
 
 The JAX trainer jits the step; here it runs eagerly. Its random draws
-(background, march jitter, refresh jitter) come from a torch.Generator
-seeded `opt.seed + 1`, or are handed in, as the tests hand in the JAX
-trainer's own draws. Not ported: the uniform-sampling render
-(grid_ray=False), the error map, CLIP guidance, the fused multi-step scan,
-checkpoints, `test` and `fold_warmup_scale`.
+(background, march jitter or sample jitter and pdf draws, refresh jitter)
+come from a torch.Generator seeded `opt.seed + 1`, or are handed in, as
+the tests hand in the JAX trainer's own draws. Not ported: the error map,
+CLIP guidance, data parallelism, the fused multi-step scan,
+`fold_warmup_scale`, `save_mesh` and the other `--render_mode`s of `test`.
 """
 
+import os
+import time
+
+import numpy as np
 import torch
 
-from ..data.rays import srgb_to_linear
+from ..data.png import write_png
+from ..data.rays import linear_to_srgb, srgb_to_linear
 from ..models import make_network
 from ..models.renderer import (RendererState, mark_untrained_grid, render,
-                               run_grid, update_extra_state)
+                               run, run_grid, update_extra_state)
+from .checkpoint import CheckpointManager
 from .metrics import PSNRMeter
 
 
@@ -44,40 +58,101 @@ def default_optimizer(params, opt):
     return optimizer, scheduler
 
 
-class Trainer:
-    """Trains `net` (a trainable `NeRFNetworkMip`) in place. opt carries
-    the JAX trainer's knobs (argparse-style attributes)."""
+def param_leaves(tree):
+    """A params pytree's tensors in the nets' `param_list` order: the
+    encoder's (pyramid grids and hash table, or the table), the sigma net,
+    the color net."""
+    enc = tree.get("encoder", {})
+    leaves = list(enc.get("pyramid", [])) + [enc[k] for k in
+                                             ("hash", "embeddings")
+                                             if k in enc]
+    return leaves + list(tree["sigma_net"]) + list(tree["color_net"])
 
-    def __init__(self, opt, net, ema_decay=None):
+
+def _png8(img):
+    return (np.asarray(img) * 255).clip(0, 255).astype(np.uint8)
+
+
+class Trainer:
+    """Trains `net` (a trainable net with `param_list()`) in place. opt
+    carries the JAX trainer's knobs (argparse-style attributes). With a
+    `workspace`, the trainer logs to `log_{name}.txt` there, keeps its
+    checkpoints under `checkpoints/` and, unless `use_checkpoint` is
+    'scratch', starts from the one it names ('latest', 'latest_model',
+    'best' or a path), as the JAX trainer does."""
+
+    def __init__(self, opt, net, ema_decay=None, name: str = "ngp",
+                 workspace=None, use_checkpoint: str = "latest",
+                 eval_interval: int = 1, max_keep_ckpt: int = 2,
+                 ckpt_interval: int = 1, mute: bool = False):
         cfg = net.cfg
-        if not cfg.grid_ray:
-            raise NotImplementedError("the port trains through the occupancy"
-                                      " march only (cfg.grid_ray)")
         if cfg.bg_radius > 0:
             raise NotImplementedError("the background net is not ported")
+        self.name = name
         self.opt = opt
         self.net = net
-        self.device = net.hash.device
+        self.mute = mute
+        self.workspace = workspace
+        self.eval_interval = eval_interval
+        self.ckpt_interval = max(1, int(ckpt_interval))
         self.params = [p for p in net.param_list() if p.requires_grad]
-        if not self.params:
-            raise ValueError("the net has no trainable parameters")
+        if len(self.params) != len(net.param_list()):
+            raise ValueError("the net is not trainable (build it with "
+                             "trainable=True)")
+        self.device = self.params[0].device
         self.optimizer, self.scheduler = default_optimizer(self.params, opt)
         self.ema_decay = ema_decay
         self.ema_params = None if ema_decay is None else \
             [p.detach().clone() for p in self.params]
         self.renderer_state = RendererState.create(
-            cfg.cascade, cfg.grid_size, device=self.device)
+            cfg.cascade, cfg.grid_size, device=self.device) \
+            if cfg.grid_ray else None
         self.generator = torch.Generator(device=self.device).manual_seed(
             getattr(opt, "seed", 0) + 1)
         self.epoch = 0
         self.global_step = 0
         self.local_step = 0
         self._grid_block = 0
-        # the epochs' mean losses, every step's loss, and each evaluation's
-        # mean loss and PSNR (floats)
+        # the epochs' mean losses, every step's loss, each evaluation's
+        # mean loss and PSNR (floats), the checkpoints written
         self.stats = {"loss": [], "step_loss": [], "valid_loss": [],
-                      "results": []}
-        self.metrics = [PSNRMeter()]
+                      "results": [], "checkpoints": [], "best_result": None}
+        # seconds of each training epoch (host clock; each ends waiting for
+        # its losses, so for the device)
+        self.epoch_times = []
+        self.psnr = PSNRMeter()
+        self.log_ptr = None
+        self.ckpt = None
+        if workspace is not None:
+            os.makedirs(workspace, exist_ok=True)
+            self.log_ptr = open(os.path.join(workspace, f"log_{name}.txt"),
+                                "a+")
+            self.ckpt = CheckpointManager(os.path.join(workspace,
+                                                       "checkpoints"),
+                                          name=name, max_keep=max_keep_ckpt)
+        n_params = sum(p.numel() for p in self.params)
+        self.log(f"[INFO] Trainer: {name} | "
+                 f"{time.strftime('%Y-%m-%d_%H-%M-%S')} | {self.device} | "
+                 f"{cfg.compute_dtype} | {workspace}")
+        self.log(f"[INFO] #parameters: {n_params}")
+        if self.ckpt is not None:
+            if use_checkpoint == "scratch":
+                self.log("[INFO] Training from scratch ...")
+            else:
+                path = self.ckpt.resolve(use_checkpoint)
+                if path is None:
+                    self.log(f"[INFO] no checkpoint for {use_checkpoint!r}, "
+                             "training from scratch")
+                else:
+                    self.log(f"[INFO] Loading {path} ...")
+                    self.load_checkpoint(
+                        path, model_only=use_checkpoint == "latest_model")
+
+    def log(self, *args):
+        if not self.mute:
+            print(*args, flush=True)
+        if self.log_ptr:
+            print(*args, file=self.log_ptr, flush=True)
 
     # ------------------------------------------------------------- phases
     def _grid_max_samples(self):
@@ -96,12 +171,13 @@ class Trainer:
         return getattr(self.opt, "grid_sample_budget_per_ray", 16)
 
     # --------------------------------------------------------------- steps
-    def train_step(self, data, bg=None, perturb=None):
+    def train_step(self, data, bg=None, perturb=None, draws=None):
         """One optimisation step on a batch {'rays_o', 'rays_d' [B, N, 3],
-        'images' [B, N, C]}. bg ([B, N, 3] uniforms for an RGBA target)
-        and perturb ([B * N] march jitter) are drawn from the trainer's
-        generator unless handed in. Returns (pred [B * N, 3], loss []),
-        both detached."""
+        'images' [B, N, C]}. The draws come from the trainer's generator
+        unless handed in: bg ([B, N, 3] uniforms for an RGBA target);
+        with cfg.grid_ray perturb ([B * N] march jitter), else draws
+        ({'perturb': [B * N, num_steps], 'pdf': [B * N, upsample_steps]},
+        see `run`). Returns (pred [B * N, 3], loss []), both detached."""
         opt = self.opt
         images = data["images"]
         img_rgb = images[..., :3]
@@ -117,16 +193,23 @@ class Trainer:
             bg = torch.ones_like(img_rgb)
             gt = img_rgb
         flat_o = data["rays_o"].reshape(-1, 3)
-        out = run_grid(
-            self.net, self.renderer_state, flat_o,
-            data["rays_d"].reshape(-1, 3),
-            max_samples=self._grid_max_samples(),
-            max_steps=getattr(opt, "max_steps", 1024),
-            dt_gamma=getattr(opt, "dt_gamma", 0.0),
-            bg_color=bg.reshape(-1, 3),
-            perturb=self.generator if perturb is None else perturb,
-            samples_per_hit=getattr(opt, "grid_samples_per_hit", 1),
-            sample_budget=flat_o.shape[0] * self._budget_per_ray())
+        flat_d = data["rays_d"].reshape(-1, 3)
+        if self.net.cfg.grid_ray:
+            out = run_grid(
+                self.net, self.renderer_state, flat_o, flat_d,
+                max_samples=self._grid_max_samples(),
+                max_steps=getattr(opt, "max_steps", 1024),
+                dt_gamma=getattr(opt, "dt_gamma", 0.0),
+                bg_color=bg.reshape(-1, 3),
+                perturb=self.generator if perturb is None else perturb,
+                samples_per_hit=getattr(opt, "grid_samples_per_hit", 1),
+                sample_budget=flat_o.shape[0] * self._budget_per_ray())
+        else:
+            out = run(self.net, flat_o, flat_d,
+                      num_steps=getattr(opt, "num_steps", 128),
+                      upsample_steps=getattr(opt, "upsample_steps", 128),
+                      bg_color=bg.reshape(-1, 3), perturb=True,
+                      generator=self.generator, training=True, draws=draws)
         pred = out["image"]
         loss = torch.mean((pred - gt.reshape(-1, 3)) ** 2)
 
@@ -142,13 +225,15 @@ class Trainer:
         return pred.detach(), loss.detach()
 
     def _maybe_refresh(self, jitter=None):
-        """The occupancy refresh, every `update_extra_interval` steps:
-        full while the grid carves (up to grid_warmup_steps), then the
-        morton-strided block `_grid_block` of `grid_partial_blocks`, in
-        rotation. It probes through a table folded from the current
-        parameters. `jitter` hands in the probe draws."""
+        """With cfg.grid_ray, the occupancy refresh every
+        `update_extra_interval` steps: full while the grid carves (up to
+        grid_warmup_steps), then the morton-strided block `_grid_block` of
+        `grid_partial_blocks`, in rotation; a mip-fold net probes through a
+        table folded from the current parameters. `jitter` hands in the
+        probe draws."""
         opt = self.opt
-        if self.global_step % getattr(opt, "update_extra_interval", 16):
+        if self.renderer_state is None or \
+                self.global_step % getattr(opt, "update_extra_interval", 16):
             return
         warmup = getattr(opt, "grid_warmup_steps", 0)
         n_blocks = int(getattr(opt, "grid_partial_blocks", 4))
@@ -160,47 +245,67 @@ class Trainer:
             block = self._grid_block
             self._grid_block = (block + 1) % n_blocks
         with torch.no_grad():
-            self.net.to_folded()
+            if hasattr(self.net, "to_folded"):
+                self.net.to_folded()
             self.renderer_state = update_extra_state(
                 self.net, self.renderer_state, generator=self.generator,
                 jitter=jitter, grid_size=gs, n_blocks=n_blocks, block=block)
 
-    def iteration(self, data, bg=None, perturb=None, jitter=None):
+    def iteration(self, data, bg=None, perturb=None, jitter=None,
+                  draws=None):
         """One iteration of the epoch loop: the refresh on its schedule,
         then a step (the step count goes up first, as in the JAX loop).
         Returns (pred, loss)."""
         self._maybe_refresh(jitter)
         self.local_step += 1
         self.global_step += 1
-        return self.train_step(data, bg=bg, perturb=perturb)
+        return self.train_step(data, bg=bg, perturb=perturb, draws=draws)
 
     # -------------------------------------------------------------- epochs
     def train_one_epoch(self, loader):
         """Returns the epoch's mean loss."""
+        self.log(f"==> Start Training Epoch {self.epoch} ...")
+        t0 = time.perf_counter()
         self.local_step = 0
         losses = [self.iteration(data)[1] for data in loader]
-        if not losses:
-            return 0.0
-        losses = torch.stack(losses).cpu()       # one wait for the epoch
-        self.stats["step_loss"].extend(losses.tolist())
-        avg = float(losses.sum()) / len(losses)
+        avg = 0.0
+        if losses:
+            losses = torch.stack(losses).cpu()   # one wait for the epoch
+            self.stats["step_loss"].extend(losses.tolist())
+            avg = float(losses.sum()) / len(losses)
         self.stats["loss"].append(avg)
+        self.epoch_times.append(time.perf_counter() - t0)
+        self.log(f"==> Finished Epoch {self.epoch}. avg loss {avg:.6f} "
+                 f"({self.epoch_times[-1]:.2f} s)")
         return avg
 
     def start(self, dataset):
-        """Mark the cells no training camera sees (once, before the first
-        epoch, as the JAX `train` does)."""
-        self.renderer_state = mark_untrained_grid(
-            self.net.cfg, self.renderer_state, dataset.poses,
-            dataset.intrinsics, grid_size=self.net.cfg.grid_size)
+        """With cfg.grid_ray, mark the cells no training camera sees (once,
+        before the first epoch, as the JAX `train` does)."""
+        if self.renderer_state is not None:
+            self.renderer_state = mark_untrained_grid(
+                self.net.cfg, self.renderer_state, dataset.poses,
+                dataset.intrinsics, grid_size=self.net.cfg.grid_size)
 
-    def train(self, train_loader, max_epochs: int, on_epoch=None):
-        """Epochs self.epoch + 1 .. max_epochs over the loader;
-        `on_epoch(self)` runs after each."""
+    def train(self, train_loader, valid_loader, max_epochs: int,
+              on_epoch=None):
+        """Epochs self.epoch + 1 .. max_epochs over train_loader
+        (trainer.py:544-560): a full checkpoint every `ckpt_interval`
+        epochs and after the last, an evaluation on valid_loader every
+        `eval_interval` epochs followed by the best file; `on_epoch(self)`
+        runs after each epoch."""
         self.start(train_loader._data)
         for epoch in range(self.epoch + 1, max_epochs + 1):
             self.epoch = epoch
             self.train_one_epoch(train_loader)
+            if self.ckpt is not None and (
+                    epoch % self.ckpt_interval == 0 or epoch == max_epochs):
+                self.save_checkpoint(full=True, best=False)
+            if valid_loader is not None and \
+                    self.epoch % self.eval_interval == 0:
+                self.evaluate_one_epoch(valid_loader)
+                if self.ckpt is not None:
+                    self.save_checkpoint(full=False, best=True)
             if on_epoch is not None:
                 on_epoch(self)
 
@@ -208,19 +313,26 @@ class Trainer:
     def eval_net(self):
         """The net that evaluation renders (trainer.py:570-571): the
         trained one, or the same net with the EMA parameters where the
-        trainer keeps them; folded for inference."""
+        trainer keeps them; a mip-fold net folded for inference."""
         net = self.net
         if self.ema_params is not None:
-            ws = self.ema_params
-            if len(ws) != len(net.param_list()):
+            if len(self.ema_params) != len(net.param_list()):
                 raise ValueError("the EMA does not cover every parameter")
-            n_pyr, n_sig = len(net.pyramid), len(net.sigma_net)
-            net = make_network(net.cfg, {
-                "encoder": {"pyramid": ws[:n_pyr], "hash": ws[n_pyr]},
-                "sigma_net": ws[n_pyr + 1:n_pyr + 1 + n_sig],
-                "color_net": ws[n_pyr + 1 + n_sig:]}, device=self.device)
+            net = make_network(net.cfg, net.params_tree(self.ema_params),
+                               device=self.device)
+        if hasattr(net, "to_folded"):
+            with torch.no_grad():
+                net.to_folded()
+        return net
+
+    def _render_views(self, net, data, bg_color=None):
+        opt = self.opt
         with torch.no_grad():
-            return net.to_folded()
+            return render(net, data["rays_o"], data["rays_d"], staged=True,
+                          max_ray_batch=getattr(opt, "max_ray_batch", 4096),
+                          num_steps=getattr(opt, "num_steps", 128),
+                          upsample_steps=getattr(opt, "upsample_steps", 128),
+                          bg_color=bg_color)
 
     def eval_step(self, data, net=None):
         """One batch of whole views {'rays_o', 'rays_d' [B, H * W, 3],
@@ -228,45 +340,144 @@ class Trainer:
         573-591: max_ray_batch, num_steps and upsample_steps from opt,
         white background). Returns (pred_rgb [B, H, W, 3], pred_depth [B,
         H, W], gt_rgb [B, H, W, 3], loss float)."""
-        opt = self.opt
         images = data["images"]
         B, H, W, C = images.shape
         img_rgb = images[..., :3]
-        if getattr(opt, "color_space", "srgb") == "linear":
+        if getattr(self.opt, "color_space", "srgb") == "linear":
             img_rgb = srgb_to_linear(img_rgb)
         gt_rgb = img_rgb if C == 3 else \
             img_rgb * images[..., 3:] + (1 - images[..., 3:])
-        with torch.no_grad():
-            out = render(net or self.eval_net(), data["rays_o"],
-                         data["rays_d"], staged=True,
-                         max_ray_batch=getattr(opt, "max_ray_batch", 4096),
-                         num_steps=getattr(opt, "num_steps", 128),
-                         upsample_steps=getattr(opt, "upsample_steps", 128),
-                         bg_color=1.0)
+        out = self._render_views(net or self.eval_net(), data, bg_color=1.0)
         pred_rgb = out["image"].reshape(B, H, W, 3)
         pred_depth = out["depth"].reshape(B, H, W)
         loss = float(torch.mean((pred_rgb - gt_rgb) ** 2))
         return pred_rgb, pred_depth, gt_rgb, loss
 
-    def evaluate_one_epoch(self, loader):
+    def evaluate_one_epoch(self, loader, name=None):
         """Every view of `loader` through `eval_step` (trainer.py:593-622):
         the mean loss, returned and kept in stats['valid_loss'], and the
-        PSNR meter's mean, kept in stats['results']."""
-        for metric in self.metrics:
-            metric.clear()
+        PSNR meter's mean, kept in stats['results']; with a workspace each
+        view's PNG under validation/."""
+        self.log(f"++> Evaluate at epoch {self.epoch} ...")
+        if name is None:
+            name = f"{self.name}_ep{self.epoch:04d}"
+        self.psnr.clear()
         net = self.eval_net()
         total_loss, count = 0.0, 0
-        for data in loader:
+        for i, data in enumerate(loader):
             pred, _, gt, loss = self.eval_step(data, net)
             total_loss += loss
             count += 1
-            for metric in self.metrics:
-                metric.update(pred, gt)
+            self.psnr.update(pred, gt)
+            if self.workspace is not None:
+                out_dir = os.path.join(self.workspace, "validation")
+                os.makedirs(out_dir, exist_ok=True)
+                write_png(os.path.join(out_dir, f"{name}_{i:04d}_rgb.png"),
+                          _png8(pred[0].cpu()))
         avg = total_loss / max(count, 1)
         self.stats["valid_loss"].append(avg)
-        self.stats["results"].append(
-            self.metrics[0].measure() if self.metrics else avg)
+        self.stats["results"].append(self.psnr.measure())
+        self.log(self.psnr.report())
+        self.log(f"++> Evaluate epoch {self.epoch} Finished. loss "
+                 f"{avg:.6f}")
         return avg
 
-    def evaluate(self, loader):
-        return self.evaluate_one_epoch(loader)
+    def evaluate(self, loader, name=None):
+        return self.evaluate_one_epoch(loader, name)
+
+    def test(self, loader, save_path=None, name=None):
+        """Render the views of `loader` (trainer.py:627-716) through the
+        staged render (opt's max_ray_batch, num_steps, upsample_steps; no
+        background colour given, so white) and write each one's RGB and
+        depth PNGs, `{name}_{i:04d}_rgb.png` and `_depth.png`, as the JAX
+        package does where it has no video writer. Returns the paths."""
+        mode = getattr(self.opt, "render_mode", "staged")
+        if mode != "staged":
+            raise NotImplementedError(f"render_mode {mode!r} is not ported "
+                                      "to the trainer's test; use 'staged'")
+        if save_path is None:
+            save_path = os.path.join(self.workspace or ".", "results")
+        if name is None:
+            name = f"{self.name}_ep{self.epoch:04d}"
+        os.makedirs(save_path, exist_ok=True)
+        self.log(f"==> Start Test, save results to {save_path}")
+        net = self.eval_net()
+        paths = []
+        for i, data in enumerate(loader):
+            H, W = data["H"], data["W"]
+            out = self._render_views(net, data)
+            pred = out["image"].reshape(H, W, 3)
+            if getattr(self.opt, "color_space", "srgb") == "linear":
+                pred = linear_to_srgb(pred)
+            depth = out["depth"].reshape(H, W)
+            for kind, img in (("rgb", pred), ("depth", depth)):
+                path = os.path.join(save_path, f"{name}_{i:04d}_{kind}.png")
+                write_png(path, _png8(img.cpu()))
+                paths.append(path)
+        self.log("==> Finished Test.")
+        return paths
+
+    # ---------------------------------------------------------- checkpoint
+    def _optimizer_state(self):
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def save_checkpoint(self, full=False, best=False):
+        """Through the CheckpointManager (trainer.py:726-742): the best
+        file holds the evaluated parameters (the EMA's where there is
+        one) and the last result; an epoch file the parameters, the
+        occupancy state and, when `full`, the optimizer and the EMA."""
+        net = self.net
+        if best:
+            result = self.stats["results"][-1] if self.stats["results"] \
+                else None
+            ws = self.ema_params if self.ema_params is not None \
+                else self.params
+            return self.ckpt.save(self.epoch, self.global_step,
+                                  net.params_tree(ws), stats=self.stats,
+                                  best=True, best_result=result)
+        path = self.ckpt.save(
+            self.epoch, self.global_step, net.params_tree(),
+            stats=self.stats, optimizer=self._optimizer_state(),
+            ema_params=None if self.ema_params is None
+            else net.params_tree(self.ema_params),
+            renderer_state=self.renderer_state, full=full)
+        self.stats["checkpoints"].append(path)
+        return path
+
+    def load_checkpoint(self, checkpoint=None, model_only=False):
+        """A checkpoint of either package (trainer.py:744-766): its
+        parameters into the net, in place; unless `model_only`, the epoch,
+        step, stats, occupancy state, the EMA and this package's own
+        optimizer state (a JAX file's optax state is left alone)."""
+        if checkpoint is None:
+            checkpoint = self.ckpt.resolve("latest")
+            if checkpoint is None:
+                self.log("[WARN] No checkpoint found, model randomly "
+                         "initialized.")
+                return
+        state = CheckpointManager.load(checkpoint, device=self.device)
+        if "model" in state:
+            with torch.no_grad():
+                for p, w in zip(self.net.param_list(),
+                                param_leaves(state["model"]), strict=True):
+                    p.copy_(w)
+        if model_only:
+            return
+        self.epoch = state.get("epoch", 0)
+        self.global_step = state.get("global_step", 0)
+        self.stats.update(state.get("stats", {}))
+        if "renderer_state" in state and self.renderer_state is not None:
+            self.renderer_state = state["renderer_state"]
+        if "torch_optimizer" in state:
+            self.optimizer.load_state_dict(
+                state["torch_optimizer"]["optimizer"])
+            self.scheduler.load_state_dict(
+                state["torch_optimizer"]["scheduler"])
+        if "ema" in state and self.ema_params is not None:
+            with torch.no_grad():
+                for e, w in zip(self.ema_params, param_leaves(state["ema"]),
+                                strict=True):
+                    e.copy_(w)
+        self.log(f"[INFO] loaded {checkpoint} at epoch {self.epoch}, "
+                 f"global step {self.global_step}")

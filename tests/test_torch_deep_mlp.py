@@ -3,9 +3,9 @@ the encoding-in mode of K1's kernel) and the gradients of K1 and K2, on the
 CPU: K2's plain version against the JAX package's Pallas kernel
 `fused_sigma_color_deep` (interpret mode on the CPU) and `_xla_ref_deep`;
 both plain versions' gradients against `jax.vjp` of the JAX functions; the
-autograd Function the card's path goes through; and the guard that keeps
-K3 and K4, which have no backward yet, from losing a gradient on the
-card."""
+autograd Function the card's path goes through; the guard that keeps K3,
+which has no backward yet, from losing a gradient on the card; and K4's
+autograd Function, whose backward is the VJP of the JAX `_xla_mlp`."""
 
 import jax
 import jax.numpy as jnp
@@ -229,24 +229,46 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
             pm.fused_sigma_color_deep(enc, sh, meta[:6], meta[6:], dt)
 
 
-def test_k3_k4_refuse_a_gradient_off_the_cpu():
-    """K3 and K4 have no backward on the card: where autograd would need
-    one they raise (RuntimeError) before anything else; without a weight
-    that requires grad, or under no_grad, they go on to the device check
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_k3_k4_refuse_a_gradient_off_the_cpu(kernel):
+    """K3 has no backward on the card: where autograd would need one it
+    raises (RuntimeError) before anything else; without a weight that
+    requires grad, or under no_grad, it goes on to the device check
     (ValueError for the meta device). K1 and K2 have a backward and never
-    refuse."""
+    refuse. K4 has one now (the VJP of `fused_mlp_reference`, the JAX
+    `_xla_mlp`): with weights that require grad it goes on to the device
+    check too, and its autograd Function, launched by the plain forward
+    on the CPU as on the card, returns that VJP bit for bit, for x and
+    every weight."""
     def meta(shape, grad=False):
         return torch.empty(shape, device="meta", requires_grad=grad)
 
+    if kernel == "K4":
+        for grad in (True, False):
+            with pytest.raises(ValueError):
+                k4.fused_mlp(meta((8, 32)), [meta((32, 64), grad),
+                                             meta((64, 16), grad)])
+        rng = np.random.default_rng(8)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.normal(size=(40, 31)).astype(np.float32))
+            ws = [torch.tensor(rng.normal(0, 0.2, s).astype(np.float32))
+                  for s in ((31, 64), (64, 64), (64, 3))]
+            g = torch.tensor(rng.normal(size=(40, 3)).astype(np.float32))
+            leaves = [t.clone().requires_grad_() for t in [x] + ws]
+            got = torch.autograd.grad(
+                k4.fused_mlp(leaves[0], leaves[1:], dt), leaves, g)
+            leaves = [t.clone().requires_grad_() for t in [x] + ws]
+            want = torch.autograd.grad(
+                k4.fused_mlp_reference(leaves[0], leaves[1:], dt), leaves,
+                g)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
     w3 = [(32, 64), (64, 16), (31, 64), (64, 64), (64, 3)]
     for grad, exc in ((True, RuntimeError), (False, ValueError)):
         ws = [meta(s, grad) for s in w3]
         with pytest.raises(exc):
             k3.fused_sigma_color(meta((8, 32)), meta((8, 16)), ws[:2],
                                  ws[2:])
-        with pytest.raises(exc):
-            k4.fused_mlp(meta((8, 32)), [meta((32, 64), grad),
-                                         meta((64, 16), grad)])
     ws = [meta(s, True) for s in w3]
     with torch.no_grad(), pytest.raises(ValueError):
         k3.fused_sigma_color(meta((8, 32)), meta((8, 16)), ws[:2], ws[2:])

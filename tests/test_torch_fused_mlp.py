@@ -287,15 +287,22 @@ def test_f32_non_cpu_tensor_never_takes_the_plain_path():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grad_requiring_input_raises(dtype):
-    """K4 has no backward on the card: an input or weight that requires
-    grad raises before anything else, in either compute dtype."""
+    """Checks that an input or weight that requires grad is ACCEPTED, in
+    either compute dtype: on the CPU the output carries K4's backward (the
+    VJP of `fused_mlp_reference`), and the only error left is the device
+    check's ValueError off the CPU and the card (the meta device), which
+    any meta call raises. The name is kept from when K4 had no backward
+    and refused such an input."""
     ws = [torch.empty((32, 64), device="meta"),
           torch.empty((64, 16), device="meta", requires_grad=True)]
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         K.fused_mlp(torch.empty((8, 32), device="meta"), ws, dtype)
     x = torch.empty((8, 32), device="meta", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         K.fused_mlp(x, [w.detach() for w in ws], dtype)
+    out = K.fused_mlp(torch.ones((8, 32), requires_grad=True),
+                      [torch.ones((32, 64)), torch.ones((64, 16))], dtype)
+    assert type(out.grad_fn).__name__ == "_K4Backward"
 
 
 def test_f32_other_compute_dtypes_raise():
