@@ -22,9 +22,11 @@ Phases, each printing its elapsed seconds:
      one index_add_, held to the kernel within rounding) and bound times;
   4. kernel K1: against its plain PyTorch version on 131,072 rows of points
      on real camera rays with the committed 160x6 student, with kernel,
-     plain, library (bf16 torch.matmul chain) and bound times; then at the
-     kernel's other widths, H = 192 and 256 (seeded weights, 8,192 rows
-     each), against its plain version;
+     plain, library (bf16 torch.matmul chain) and bound times; the same
+     rows through the committed 192- and 256-wide students (the
+     baked_h192 and baked modes' nets), with the same four times each;
+     then at the kernel's other widths, H = 192 and 256 (seeded weights,
+     8,192 rows each), against its plain version;
   4b. kernel K2: the same rows' frequency encoding through K2 against its
      plain version in bf16 and in f32, and beside K1; K2's path, one
      forward and backward of a loss through K2 with the counts at 0 before
@@ -59,8 +61,9 @@ Phases, each printing its elapsed seconds:
      levels below 8; PSNR and its gap to BENCH_r05, pose 0 again through
      the plain version, and once more through the unfused plain matmul
      chain (the route BENCH_r05 ran), as a check;
- 10c. kernel K4 f32: the same shaded tile through the float32 net (the
-     CLI's --ff without -O): the f32 kernel against its plain version at
+ 10c. kernel K4 f32: the same shaded tile through the float32 net (a
+     fused float32 NeRFNetwork built directly; the CLI's --ff builds
+     NeRFNetworkFF, bf16): the f32 kernel against its plain version at
      rtol 5e-4 / atol 1e-5, with kernel, plain, library (the f32
      torch.matmul chain, TF32 off) and bound times, warm and cold, and 20
      reruns bit-identical to the first;
@@ -90,13 +93,15 @@ Phases, each printing its elapsed seconds:
      decoded back equal, both timed;
  11c. main_nerf -O --ff, main_nerf --ff: the port's training CLI, as a
      user runs it, on that directory at the CLI's defaults (but --bound 1
-     --scale 1): -O --ff 192 iters (4 epochs; bf16, the march, K4 forward
-     and backward) and --ff 8 iters (one epoch of 48 steps; f32, 512
-     uniform samples a ray, K4's f32 kernel); then the final evaluation and
-     the test frames. Each: s/step, K4 (bf16 or f32, never the other)
-     launched at least twice a training step, the losses finite, -O's last
-     epoch mean under its first, the test frames written, and the last
-     checkpoint reloaded into a fresh net equal to the trained one;
+     --scale 1): -O --ff 192 iters (4 epochs; the march) and --ff 8 iters
+     (one epoch of 48 steps; 512 uniform samples a ray); both build
+     NeRFNetworkFF (bf16, the FFMLP widths 32-64-64-16 and 32-64-64-64-3)
+     and train it through K4's bf16 kernel forward and backward; then the
+     final evaluation and the test frames. Each: s/step, the net's class,
+     dtype and widths, K4 bf16 launched at least twice a training step and
+     K4 f32 never, the losses finite, -O's last epoch mean under its first,
+     the test frames written, and the last checkpoint reloaded into a
+     fresh net equal to the trained one;
  12. kernels K6, K7: the row gathers at every shape of the gather probe's
      sections E and F and at a ragged M, bit-exact against table[idx] (K7
      for each nslot), with kernel, plain, library (index_select) and bound
@@ -106,12 +111,20 @@ Phases, each printing its elapsed seconds:
      bit-exact, one JSON line per shape;
  13. gather probe: the port's scripts/bench_gather.py --quick, all
      sections, with the counts at 0 before and read after (the path that
-     runs K6 and K7).
+     runs K6 and K7);
+ 14. bench: the port's bench (nerfsafetyvalidation_tpu_torch/bench.py,
+     bench.py's gate) with BENCH_SCENES=spheres, as a user runs it, with
+     the counts at 0 before and read after and every call of K1's, K3's
+     and K4's plain versions counted: its gate passes; all six modes
+     (baked_h160_ak8, baked_h160, baked_h192, baked through K1 at H = 160,
+     160, 192, 256; guided and fast through K3) and both reference lines
+     (through K4) lie within 0.15 dB of BENCH_r05, mean and min; K1 ran at
+     each width, K3 and K4 ran, and no plain version was called.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
-the training, each main_nerf run, K2's path and the probe, and read just
-after. The
+the training, each main_nerf run, K2's path, the probe and the bench, and
+read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -120,6 +133,7 @@ CUDA device the script fails before printing anything.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -136,6 +150,8 @@ ROOT = Path(__file__).resolve().parent
 # the reference backbone is scored on pose 0 alone (bench.py:808)
 BENCH_R05 = {"fast": (31.08, 30.75), "guided": (30.74, 30.41),
              "baked_h160_ak8": (30.04, 29.97),
+             "baked_h160": (30.17, 30.00), "baked_h192": (30.20, 29.85),
+             "baked": (30.10, 29.79),
              "ref_backbone": (27.06, 27.06),
              "ref_backbone_ml8": (26.64, 26.64)}
 # The port computes the same function from the same weights, so a mode
@@ -162,12 +178,15 @@ LOSS_FALL = 0.35
 K4_GRAD_ROWS = (65536, 98304, 2097152)
 # the reference training CLI (main_nerf) on the spheres set written as a
 # blender directory (48 training views at 200x200, 2 validation, 4 test):
-# -O --ff for 4 epochs (K4 bf16 forward and backward, the march) and --ff
-# for 8 iters, one whole epoch (K4 f32, 512 uniform samples a ray), both
-# at the CLI's defaults but --bound 1 --scale 1 (the scene's box)
+# -O --ff for 4 epochs (the march) and --ff for 8 iters, one whole epoch
+# (512 uniform samples a ray), both at the CLI's defaults but --bound 1
+# --scale 1 (the scene's box). --ff builds NeRFNetworkFF, bf16 with or
+# without -O: both runs launch K4's bf16 kernel forward and backward, at
+# the FFMLP widths (FF_WIDTHS), and never its f32 one
 MAIN_NERF_RUNS = (("-O --ff", ["-O", "--ff", "--iters", "192"], "K4",
                    "K4 f32"),
-                  ("--ff", ["--ff", "--iters", "8"], "K4 f32", "K4"))
+                  ("--ff", ["--ff", "--iters", "8"], "K4", "K4 f32"))
+FF_WIDTHS = ([32, 64, 64, 16], [32, 64, 64, 64, 3])
 BARRED = ("fast", "guided", "baked_h160_ak8")
 
 # Kernel vs plain, both bf16 with f32 sums. The two sum in different
@@ -404,7 +423,9 @@ def main():
     from nerfsafetyvalidation_tpu_torch.ops.mip_encoding import (
         materialize_dense)
     from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
-    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch import bench, main_nerf
+    from nerfsafetyvalidation_tpu_torch.models.network_ff import (
+        NeRFNetworkFF)
     from nerfsafetyvalidation_tpu_torch.data.png import read_png
     from nerfsafetyvalidation_tpu_torch.data.synthetic import write_dataset
     from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
@@ -424,8 +445,7 @@ def main():
     builds = {"K1, K2": points_mlp, "K3": sigma_color, "K4": fused_mlp,
               "K5": fold_build, "K6, K7": gather,
               "K7 variants": k7_variants}
-    counters = {"K1": (points_mlp, "LAUNCHES"),
-                "K2": (points_mlp, "LAUNCHES_DEEP"),
+    counters = {"K2": (points_mlp, "LAUNCHES_DEEP"),
                 "K3": (sigma_color, "LAUNCHES"),
                 "K4": (fused_mlp, "LAUNCHES"),
                 "K4 f32": (fused_mlp, "LAUNCHES_F32"),
@@ -437,9 +457,18 @@ def main():
     def reset_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        points_mlp.LAUNCHES_BY_WIDTH.clear()
 
     def counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        return {"K1": sum(points_mlp.LAUNCHES_BY_WIDTH.values()),
+                **{k: getattr(mod, attr)
+                   for k, (mod, attr) in counters.items()}}
+
+    def plain_calls():
+        """Calls of the plain versions of K1/K2, K3 and K4 so far, as each
+        plain function counts them."""
+        return {"K1, K2": points_mlp.PLAIN_CALLS,
+                "K3": sigma_color.PLAIN_CALLS, "K4": fused_mlp.PLAIN_CALLS}
 
     with Phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -593,7 +622,7 @@ def main():
         torch.cuda.empty_cache()
 
     student = F.load_student_net(dev)
-    nets = {"teacher": teacher, "student": student}
+    nets = {"teacher": teacher, "student_h160": student}
     tcfg, scfg = teacher.cfg, student.cfg
     sn, cn = list(student.sigma_net), list(student.color_net)
     bf = torch.bfloat16
@@ -659,6 +688,54 @@ def main():
               f"{k1_ms:.4f}, plain_ms {k1_plain_ms:.4f}, library_ms "
               f"{k1_lib_ms:.4f}, bound_ms {k1_bound:.4f} ({k1_by}); {smi}")
         k1_out = got
+        k1_shapes = [dict(hidden=160, rows=K1_ROWS, ms=k1_ms,
+                          plain_ms=k1_plain_ms, library_ms=k1_lib_ms,
+                          bound_ms=k1_bound, bound_by=k1_by,
+                          max_abs_err=k1_err)]
+
+        # the bench's other students (bench_student_h192x6.pkl and the
+        # 256-wide bench_student.pkl) on the same rows: the shapes of their
+        # K=16 tiles in the baked_h192 and baked frames
+        for hid in (192, 256):
+            s_net = F.load_student_net(dev, "spheres", hid)
+            sn_h, cn_h = list(s_net.sigma_net), list(s_net.color_net)
+
+            def k1_h(sn_h=sn_h, cn_h=cn_h):
+                return points_mlp.fused_points_sigma_color(x, sh, sn_h,
+                                                           cn_h, 12)
+
+            def k1_h_plain(sn_h=sn_h, cn_h=cn_h):
+                return points_mlp.fused_points_sigma_color_plain(
+                    x, sh, sn_h, cn_h, 12)
+
+            sn_hb = [w.to(bf) for w in sn_h]
+            cn_hb = [w.to(bf) for w in cn_h]
+
+            def k1_h_library(sn_hb=sn_hb, cn_hb=cn_hb):
+                return library_chain(freq_encode(x, 12).to(bf), sn_hb, cn_hb)
+
+            got_h = k1_h()
+            torch.cuda.synchronize()
+            err_h = compare(torch, f"K1 H={hid} (committed student)", got_h,
+                            k1_h_plain(), TOL_K1)
+            macs_h = sum(w.shape[0] * w.shape[1] for w in sn_h + cn_h)
+            bound_h, by_h = bound_ms(
+                2.0 * K1_ROWS * macs_h,
+                K1_ROWS * (3 * 4 + 16 * 2 + 8 * 4)
+                + 2 * sum(w.numel() for w in sn_h + cn_h))
+            ms_h = cuda_ms(torch, k1_h, 50)
+            plain_h = cuda_ms(torch, k1_h_plain, 10)
+            lib_h = cuda_ms(torch, k1_h_library, 20)
+            print(f"K1 H={hid} at {K1_ROWS} rows ({macs_h} MAC/row): "
+                  f"kernel_ms {ms_h:.4f}, plain_ms {plain_h:.4f}, "
+                  f"library_ms {lib_h:.4f}, bound_ms {bound_h:.4f} "
+                  f"({by_h}); {smi}")
+            k1_shapes.append(dict(hidden=hid, rows=K1_ROWS, ms=ms_h,
+                                  plain_ms=plain_h, library_ms=lib_h,
+                                  bound_ms=bound_h, bound_by=by_h,
+                                  max_abs_err=err_h))
+            k1_err = max(k1_err, err_h)
+            del s_net, sn_h, cn_h, sn_hb, cn_hb, got_h
 
         # the kernel's other widths (another ring and k-chunking each):
         # seeded weights of the student's shapes, points in the box,
@@ -1194,7 +1271,7 @@ def main():
                   f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}")
 
     with Phase("kernel K4 f32"), torch.inference_mode():
-        # phase 9's shaded tile through the float32 net (--ff without -O):
+        # phase 9's shaded tile through the float32 net (REF_CFG_F32):
         # the sigma net on its f32 encoding, the color net on [SH | geo]
         ref32 = ref_nets["ref_f32"]
         sn, cn = list(ref32.sigma_net), list(ref32.color_net)
@@ -1389,9 +1466,9 @@ def main():
             return torch.autograd.grad((s_ * r_s).sum() + (c_ * r_c).sum(),
                                        [x1] + sn1 + cn1)
 
-        n1 = points_mlp.LAUNCHES
+        n1 = counts()["K1"]
         g_k1 = k1_grads(points_mlp.fused_points_sigma_color)
-        check(points_mlp.LAUNCHES == n1 + 1, "K1's gradient call did not "
+        check(counts()["K1"] == n1 + 1, "K1's gradient call did not "
               "launch K1")
         same = [torch.equal(a, b) for a, b in zip(
             g_k1, k1_grads(points_mlp.fused_points_sigma_color_plain))]
@@ -1414,16 +1491,27 @@ def main():
         # K4's backward: the VJP of fused_mlp_reference (the JAX
         # package's _xla_mlp), recomputed; the forward launches the
         # kernel. At a marched training step's rows and a uniform one's,
-        # both nets of the ref backbone, seeded x and cotangents: the
-        # kernel's output must agree with the plain version (TOL_K4 in
-        # bf16, TOL_K4_F32 in f32), and the gradients must equal
-        # autograd's through the recompute, bit for bit
+        # both nets of the ref backbone, and in bf16 also both nets of
+        # NeRFNetworkFF (what --ff trains; seeded weights), seeded x and
+        # cotangents: the kernel's output must agree with the plain
+        # version (TOL_K4 in bf16, TOL_K4_F32 in f32), and the gradients
+        # must equal autograd's through the recompute, bit for bit
         g4 = torch.Generator(device=dev).manual_seed(12)
-        for dname, dt, key in (("bf16", bf, "K4"),
-                               ("f32", torch.float32, "K4 f32")):
+        ff = NeRFNetworkFF(F.REF_CFG, device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(13))
+        ref_nets4 = (("sigma", "sigma", ref.sigma_net),
+                     ("color", "color", ref.color_net))
+        ff_nets4 = (("FF sigma", "sigma", ff.sigma_net),
+                    ("FF color", "color", ff.color_net))
+        check([[w.shape[0] for w in ws] + [ws[-1].shape[1]]
+               for _, _, ws in ff_nets4] == list(FF_WIDTHS),
+              "the FF nets are not at the FF widths")
+        for dname, dt, key, nets4 in (
+                ("bf16", bf, "K4", ref_nets4 + ff_nets4),
+                ("f32", torch.float32, "K4 f32", ref_nets4)):
             for rows in K4_GRAD_ROWS:
-                for which, net_ws in (("sigma", ref.sigma_net),
-                                      ("color", ref.color_net)):
+                for which, role, net_ws in nets4:
                     ws = [w.detach().clone().requires_grad_()
                           for w in net_ws]
                     x4 = torch.randn((rows, ws[0].shape[0]), generator=g4,
@@ -1444,7 +1532,7 @@ def main():
                     if dt is bf:
                         rel = (out - plain).abs() / plain.abs().clamp(
                             min=1.0)
-                        t_max, t_mean = TOL_K4[which]
+                        t_max, t_mean = TOL_K4[role]
                         fwd_ok &= (float(rel.max()) <= t_max
                                    and float(rel.mean()) <= t_mean)
                         fwd_txt = (f"max rel {float(rel.max()):.3e} mean "
@@ -1479,6 +1567,7 @@ def main():
                     check(all(same) and finite, f"K4 {dname}'s gradients "
                           "differ from the recompute's")
                     del ws, x4, cot, out, plain, got, want
+        del ff
         torch.cuda.empty_cache()
         del sn1, cn1, x1, g_k1, tsn_g
 
@@ -1660,6 +1749,15 @@ def main():
                   f"evaluate PSNR {tr.stats['results'][-1]:.3f} dB; "
                   f"{len(frames)} frames written; peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            widths = [[ws[0].shape[0]] + [w.shape[1] for w in ws]
+                      for ws in (tr.net.sigma_net, tr.net.color_net)]
+            print(f"main_nerf {name}: {type(tr.net).__name__}, "
+                  f"{tr.net.cfg.compute_dtype}, fused {tr.net.cfg.fused}, "
+                  f"sigma net {widths[0]}, color net {widths[1]}")
+            check(type(tr.net).__name__ == "NeRFNetworkFF"
+                  and tr.net.cfg.compute_dtype == "bfloat16"
+                  and tuple(widths) == FF_WIDTHS,
+                  f"main_nerf {name} did not build NeRFNetworkFF in bf16")
             check(trained[key] >= 2 * steps, f"main_nerf {name} launched "
                   f"{key} {trained[key]} times in {steps} steps")
             check(after[other] == 0, f"main_nerf {name} launched {other}")
@@ -1672,7 +1770,7 @@ def main():
             check(len(frames) == 8 and np.isfinite(tr.stats["results"][-1]),
                   f"main_nerf {name}: the test split's frames or PSNR")
             # the checkpoint the run left reloads into a fresh net
-            net2 = make_network(tr.net.cfg, None, device=dev,
+            net2 = make_network(tr.net.cfg, None, device=dev, opt=tr.opt,
                                 trainable=True)
             tr2 = Trainer(tr.opt, net2, ema_decay=0.95, workspace=ws_dir,
                           use_checkpoint="latest", mute=True)
@@ -1762,6 +1860,58 @@ def main():
         check(all(r["device"] == smi for r in records),
               "a probe record does not name the card")
 
+    with Phase("bench"):
+        # the port's bench (nerfsafetyvalidation_tpu_torch/bench.py) on the
+        # spheres scene, as a user runs it: all six modes of bench.py's
+        # gate and the reference-backbone line, through K1 at three widths,
+        # K3 and K4, with the plain versions' calls counted
+        os.environ["BENCH_SCENES"] = "spheres"
+        reset_counts()
+        t0 = time.perf_counter()
+        plain_before = plain_calls()
+        line = bench.main([], device="cuda")
+        torch.cuda.synchronize()
+        t_bench = time.perf_counter() - t0
+        bench_launches = counts()
+        plain_seen = {k: n - plain_before[k]
+                      for k, n in plain_calls().items()}
+        by_width = dict(points_mlp.LAUNCHES_BY_WIDTH)
+        print(f"bench: {t_bench:.2f} s; launches {bench_launches}, K1 by "
+              f"width {by_width}; plain-version calls {plain_seen}; "
+              f"headline {line['mode']} {line['value']} rays/s, gate_pass "
+              f"{line['gate_pass']}; {smi}")
+        check(not any(plain_seen.values()), f"the bench called plain "
+              f"versions {plain_seen}")
+        check(line["gate_pass"] and line["device"] == smi,
+              "the bench's headline did not pass its gate")
+        check(line["launches"]["K1"] == {str(h): n for h, n in
+                                         sorted(by_width.items())}
+              and line["launches"]["K3"] == bench_launches["K3"]
+              and line["launches"]["K4"] == bench_launches["K4"],
+              "the bench's launch counts are not the run's")
+        check(all(by_width.get(h, 0) > 0 for h in (160, 192, 256))
+              and bench_launches["K3"] > 0 and bench_launches["K4"] > 0
+              and bench_launches["K4 f32"] == 0,
+              "the bench did not launch K1 at every width, K3 and K4")
+        ref_line = line["ref_backbone"]
+        got = {m: (float(np.mean(line["modes"][m]["spheres"]
+                                 ["psnr_poses"])),
+                   float(np.min(line["modes"][m]["spheres"]["psnr_poses"])))
+               for m in bench.MODE_ORDER}
+        got["ref_backbone"] = (ref_line["psnr"],) * 2
+        got["ref_backbone_ml8"] = (ref_line["masked"]["psnr"],) * 2
+        for m, (mean, low) in got.items():
+            ref_mean, ref_min = BENCH_R05[m]
+            sc = line["modes"].get(m, {})
+            print(f"bench {m}: spheres {mean:.3f}/{low:.3f} dB, BENCH_r05 "
+                  f"{ref_mean}/{ref_min}, gap {mean - ref_mean:+.3f}/"
+                  f"{low - ref_min:+.3f} (band {GAP_BAND}); pass "
+                  f"{sc.get('pass')}, {sc.get('rays_per_s')} rays/s")
+            check(abs(mean - ref_mean) <= GAP_BAND
+                  and abs(low - ref_min) <= GAP_BAND,
+                  f"bench {m} PSNR {mean:.3f}/{low:.3f} dB is more than "
+                  f"{GAP_BAND} dB from BENCH_r05's {ref_mean}/{ref_min}")
+
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
     kernel_line = {"kernels": [
@@ -1769,7 +1919,9 @@ def main():
          "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
          "replaces": f"{pallas}:480", "launches": launches["K1"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
+         "shapes": k1_shapes, "launches_bench": bench_launches["K1"],
+         "launches_bench_by_width": by_width},
         {"name": "fused_sigma_color_deep", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
          "replaces": f"{pallas}:302", "launches": k2_launches,
@@ -1782,7 +1934,8 @@ def main():
          "replaces": f"{pallas}:164", "launches": launches["K3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms,
-         "ms_cold": k3_cold, "shapes": k3_shapes},
+         "ms_cold": k3_cold, "shapes": k3_shapes,
+         "launches_bench": bench_launches["K3"]},
         {"name": "fused_mlp", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
@@ -1795,7 +1948,8 @@ def main():
          "bound_ms_f32": k4_bound32, "bound_by_f32": k4_by32,
          "library_ms_f32": k4_lib_ms32,
          "launches_main_nerf_O_ff": main_nerf_stats["-O --ff"]["launches"],
-         "launches_main_nerf_ff_f32": main_nerf_stats["--ff"]["launches"]},
+         "launches_main_nerf_ff": main_nerf_stats["--ff"]["launches"],
+         "launches_bench": bench_launches["K4"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",

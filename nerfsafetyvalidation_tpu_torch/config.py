@@ -58,8 +58,9 @@ class NetworkConfig:
 def network_config_from_opt(opt) -> NetworkConfig:
     """A NetworkConfig from an argparse-style namespace with the reference
     CLI's flags (the JAX package's config.py:168-187): `--cuda_ray` marches
-    (grid_ray), `--fp16` computes in bfloat16, `--ff` (or `--tcnn`) runs
-    the MLPs through the fused kernel."""
+    (grid_ray), `--fp16` computes in bfloat16, `--ff` (or `--tcnn`) sets
+    `fused`. Which net the flags build, and in which dtype, is
+    `models.make_network(cfg, params, opt=opt)`'s: `--ff` forces bfloat16."""
     extra = {}
     if getattr(opt, "encoding", "hashgrid") == "mipfold":
         # the mip-fold backbone's defaults: 8 power-of-two scales

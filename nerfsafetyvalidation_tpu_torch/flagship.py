@@ -1,15 +1,20 @@
-"""bench.py's spheres configuration in the port: the trained mip-fold
-teacher of `bench_assets/flagship.ckpt` with its occupancy refreshed 4x,
-the committed 160x6 student, the four held-out poses at 800x800, and the
-frame settings of the modes `fast`, `guided` and `baked_h160_ak8`
-(bench.py:177-181, :233-241, :431, :574-606); and bench.py's
+"""bench.py's configurations in the port, for each of its two scenes
+("spheres", "gauntlet"; `scene_assets`, bench.py:72-82): the trained
+mip-fold teacher of `bench_assets/flagship{,_gauntlet}.ckpt` with its
+occupancy refreshed 4x, the committed 6-layer students of width 160, 192
+and 256, the four held-out poses at 800x800, and the frame settings of the
+modes `fast`, `guided`, `baked_h160_ak8`, `baked_h160`, `baked_h192` and
+`baked` (bench.py:177-181, :233-241, :431, :574-660); and bench.py's
 reference-backbone line: the trained hash-grid `NeRFNetwork` of
-`bench_assets/refbb.ckpt` with its own occupancy refreshed 4x, rendered
+`bench_assets/refbb{,_gauntlet}.ckpt` with its own occupancy refreshed 4x,
+rendered
 with all 16 levels (`ref_backbone`) and with the levels below 8 only
 (`ref_backbone_ml8`) (bench.py:354-425, :805-845); and the same net as the
 reference's entry points observe a trained NeRF: the staged render at the
-CLI's defaults (`staged`: `--ff` in the default float32, K4's f32 kernel;
-`staged_bf16`: `--ff -O`).
+CLI's defaults, on a fused `NeRFNetwork` built directly (`staged`: float32,
+K4's f32 kernel; `staged_bf16`: bfloat16, K4's bf16 kernel). No JAX command
+line builds either net: `-O` without `--ff` runs the unfused chain, and
+`--ff` builds `NeRFNetworkFF`, a bf16 net of another topology.
 
 Training: `TRAIN_CFG` and `TRAIN_OPT` are bench.py's `_train_flagship`
 (bench.py:153-256) with `train_gather="foldrow_pallas"`, the route of
@@ -17,8 +22,8 @@ kernel K5; `train_flagship` runs that schedule on the spheres set from a
 seeded init and refreshes the trained occupancy 4x. `REF_TRAIN_CFG` and
 `REF_TRAIN_OPT` are bench.py's `_train_ref_backbone` (bench.py:354-426),
 the schedule `refbb.ckpt` was trained with; `train_ref` runs it, through
-kernel K4 (`fused`, the CLI's `--ff`) or the plain chain (bench.py's own
-route), and refreshes the occupancy 4x with seeds 100-103."""
+kernel K4 (`fused`) or the plain chain (bench.py's own route), and
+refreshes the occupancy 4x with seeds 100-103."""
 
 from dataclasses import replace
 from pathlib import Path
@@ -40,9 +45,27 @@ from .models.renderer import (render_frame_fast, render_frame_guided,
 from .train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
-CKPT = ROOT / "bench_assets" / "flagship.ckpt"
-STUDENT = ROOT / "bench_assets" / "bench_student_h160x6.pkl"
-REF_CKPT = ROOT / "bench_assets" / "refbb.ckpt"
+ASSETS = ROOT / "bench_assets"
+SCENES = ("spheres", "gauntlet")
+# the students' hidden widths (6 layers each) and their asset names'
+# suffixes (bench.py `_get_student`: the 256-wide one is the base name)
+STUDENT_WIDTHS = {160: "_h160x6", 192: "_h192x6", 256: ""}
+
+
+def scene_assets(scene: str = "spheres"):
+    """The committed assets of a bench scene: {'teacher', 'ref': the
+    checkpoints, 'students': {hidden width: the student pkl}}."""
+    if scene not in SCENES:
+        raise ValueError(f"bench scenes are {SCENES}, not {scene!r}")
+    tag = "" if scene == "spheres" else f"_{scene}"
+    return {"teacher": ASSETS / f"flagship{tag}.ckpt",
+            "ref": ASSETS / f"refbb{tag}.ckpt",
+            "students": {h: ASSETS / f"bench_student{tag}{s}.pkl"
+                         for h, s in STUDENT_WIDTHS.items()}}
+
+
+CKPT = scene_assets()["teacher"]
+REF_CKPT = scene_assets()["ref"]
 
 RES = 800
 FOV_X = 0.6911
@@ -55,16 +78,24 @@ TEACHER_CFG = NetworkConfig(
     encoding="mipfold", bound=1.0, compute_dtype="bfloat16", num_levels=8,
     level_dim=4, base_resolution=16, fold_max_scale=128,
     log2_hashmap_size=19, density_thresh=10.0, grid_size=128, fused=True)
-STUDENT_CFG = replace(student_config(
-    NetworkConfig(bound=1.0, compute_dtype="bfloat16", grid_size=128),
-    multires=12, hidden_dim=160, num_layers=6), fused=True)
+
+
+def student_cfg(hidden: int = 160):
+    """The 6-layer student of width `hidden`, through K1."""
+    return replace(student_config(
+        NetworkConfig(bound=1.0, compute_dtype="bfloat16", grid_size=128),
+        multires=12, hidden_dim=hidden, num_layers=6), fused=True)
+
+
 # bench.py:371-373 (16 levels x 2 channels from 16, 2^19 rows, desired
 # resolution 2048); both MLPs through K4
 REF_CFG = NetworkConfig(encoding="hashgrid", bound=1.0,
                         compute_dtype="bfloat16", density_thresh=10.0,
                         fused=True)
-# the same net as `network_config_from_opt` builds it for --ff without
-# --fp16 (config.py:184-185): float32, both MLPs through K4's f32 kernel
+# the config `network_config_from_opt` gives for --ff without --fp16
+# (config.py:184-185), built directly as a fused float32 `NeRFNetwork`
+# (--ff itself builds `NeRFNetworkFF`, bf16): the only net that launches
+# K4's f32 kernel
 REF_CFG_F32 = replace(REF_CFG, compute_dtype="float32")
 
 # bench.py:177-215: the teacher trained at the served width, through K5
@@ -109,6 +140,17 @@ _FAST = dict(tile=131072, max_samples=16, max_steps=512, dt_gamma=DT_GAMMA,
 STAGED = dict(staged=True, max_ray_batch=4096, num_steps=512,
               upsample_steps=0, bg_color=1.0, perturb=False)
 
+
+
+def _baked(hidden, **extra):
+    """bench.py's `mode_baked_k(16, hidden_dim=hidden, num_layers=6)`
+    (:574-593): the scout frame over the student of width `hidden`."""
+    return dict(net=f"student_h{hidden}", kernel="K1", frame=dict(
+        prepass_factor=8, prepass_mode="scout", scout_samples=64,
+        max_samples=16, tile=8192, max_steps=512, dt_gamma=DT_GAMMA,
+        bg_color=1.0, margin_cells=6.0, **extra))
+
+
 # frame settings of each mode; the net each mode shades, and its kernel
 MODES = {
     "fast": dict(net="teacher", kernel="K3", frame=_FAST),
@@ -116,11 +158,10 @@ MODES = {
         prepass_factor=8, max_samples=16, tile=16384, max_steps=512,
         dt_gamma=DT_GAMMA, prepass_mode="march", bg_color=1.0,
         margin_cells=6.0)),
-    "baked_h160_ak8": dict(net="student", kernel="K1", frame=dict(
-        prepass_factor=8, prepass_mode="scout", scout_samples=64,
-        max_samples=16, tile=8192,
-        adaptive_k=8, adaptive_span_cells=24.0, bg_color=1.0,
-        margin_cells=6.0)),
+    "baked_h160_ak8": _baked(160, adaptive_k=8, adaptive_span_cells=24.0),
+    "baked_h160": _baked(160),
+    "baked_h192": _baked(192),
+    "baked": _baked(256),
     "ref_backbone": dict(net="ref", kernel="K4", frame=_FAST),
     "ref_backbone_ml8": dict(net="ref_ml8", kernel="K4", frame=_FAST),
     "staged": dict(net="ref_f32", kernel="K4 f32", frame=STAGED),
@@ -147,18 +188,20 @@ def holdout_poses():
     return [orbit_pose(th, ph, 2.4) for th, ph in HOLDOUT]
 
 
-def load_teacher_net(device):
+def load_teacher_net(device, scene: str = "spheres"):
     """(folded teacher, the checkpoint's stored RendererState)."""
-    params, stored = load_checkpoint(CKPT, device=device)
+    params, stored = load_checkpoint(scene_assets(scene)["teacher"],
+                                     device=device)
     return make_network(TEACHER_CFG, params, device=device).to_folded(), \
         stored
 
 
-def load_ref_nets(device):
+def load_ref_nets(device, scene: str = "spheres"):
     """({'ref': the reference backbone, 'ref_ml8': the same params at
     max_level 8, 'ref_f32': the same params in float32}, the checkpoint's
     stored RendererState). The three share the params' tensors."""
-    params, stored = load_checkpoint(REF_CKPT, device=device)
+    params, stored = load_checkpoint(scene_assets(scene)["ref"],
+                                     device=device)
     nets = {"ref": make_network(REF_CFG, params, device=device),
             "ref_ml8": make_network(replace(REF_CFG, max_level=REF_MAX_LEVEL),
                                     params, device=device),
@@ -187,15 +230,25 @@ def serving_net(net):
                         device=net.hash.device).to_folded()
 
 
-def load_student_net(device):
-    return make_network(STUDENT_CFG, params_from_jax(load_student(STUDENT),
-                                                     device), device=device)
+def load_student_net(device, scene: str = "spheres", hidden: int = 160):
+    """The committed student of width `hidden` of a scene."""
+    path = scene_assets(scene)["students"][hidden]
+    return make_network(student_cfg(hidden), params_from_jax(
+        load_student(path), device), device=device)
+
+
+def load_students(device, scene: str = "spheres"):
+    """{'student_h160': ..., 'student_h192': ..., 'student_h256': ...}, the
+    nets the baked modes shade."""
+    return {f"student_h{h}": load_student_net(device, scene, h)
+            for h in STUDENT_WIDTHS}
 
 
 def render(mode, nets, state, rays_o, rays_d, res: int = RES,
            plain_field: bool = False):
     """One frame of `mode` (a key of MODES); nets maps the mode's net name
-    ('teacher', 'student', 'ref', 'ref_ml8', 'ref_f32') to its network.
+    ('teacher', 'student_h160' / '_h192' / '_h256', 'ref', 'ref_ml8',
+    'ref_f32') to its network.
     The staged modes read no occupancy (`state` may be None) and return
     the staged render's dict with the batch axis dropped: 'image' [N, 3],
     'depth' and 'aggregated_density' [N], and the last chunk's 'rgbs' and

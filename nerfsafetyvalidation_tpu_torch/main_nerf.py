@@ -4,8 +4,11 @@ main_nerf.py (reference main_nerf.py:8-142), with the same flags.
     python -m nerfsafetyvalidation_tpu_torch.main_nerf <dataset dir> [flags]
 
 `-O` expands to bf16 compute, the occupancy-marched training render and
-preloaded images; `--ff` runs the hash-grid net's MLPs through kernel K4
-(its bf16 kernel under `-O`, else its f32 one). It builds the net from a
+preloaded images. The net is the JAX package's dispatch on the flags
+(`models.make_network`): `--ff` builds `NeRFNetworkFF`, which computes in
+bfloat16 with both MLPs through kernel K4 with or without `-O` (without
+it, training renders 512 uniform samples a ray); `--tcnn` raises, as its
+net is not ported. It builds the net from a
 seed, the dataset's loaders and the trainer (EMA 0.95, an evaluation every
 50 epochs), trains whole epochs up to `--iters` steps, keeping its
 checkpoints under `<workspace>/checkpoints`, then evaluates the test split
@@ -32,7 +35,7 @@ def main(argv=None, device="cuda", on_epoch=None):
     opt = apply_O_flag(build_parser("train").parse_args(argv), "train")
     gen = seed_everything(opt.seed, device)
     net = make_network(network_config_from_opt(opt), None, device=device,
-                       trainable=True, generator=gen)
+                       opt=opt, trainable=True, generator=gen)
 
     def dataset(type, **kw):
         return NeRFDataset(opt, type=type, device=device, **kw)

@@ -1,16 +1,25 @@
 """NeRF fields and frame renderer of the port."""
 
 from .network import NeRFNetwork
+from .network_ff import NeRFNetworkFF
 from .network_mip import NeRFNetworkMip
 
 
-def make_network(cfg, params, device="cuda", **kw):
-    """Backbone dispatch: the mip-fold teacher (which also takes
-    `trainable` and `generator`, see NeRFNetworkMip), or `NeRFNetwork` for
-    the frequency and hash-grid fields."""
+def make_network(cfg, params, device="cuda", opt=None, **kw):
+    """Backbone dispatch, in the JAX package's order (models/__init__.py:
+    10-23): the mip-fold teacher (which also takes `trainable` and
+    `generator`, see NeRFNetworkMip); with the CLI's options `opt`,
+    `--tcnn` (not ported: raises) and `--ff` (`NeRFNetworkFF`); else
+    `NeRFNetwork` for the frequency and hash-grid fields."""
     if cfg.encoding == "mipfold":
         return NeRFNetworkMip(cfg, params, device=device, **kw)
+    if opt is not None and getattr(opt, "tcnn", False):
+        raise NotImplementedError(
+            "--tcnn builds the JAX package's NeRFNetworkTCNN "
+            "(models/network_tcnn.py), which is not ported yet")
+    if opt is not None and getattr(opt, "ff", False):
+        return NeRFNetworkFF(cfg, params, device=device, **kw)
     return NeRFNetwork(cfg, params, device=device, **kw)
 
 
-__all__ = ["NeRFNetwork", "NeRFNetworkMip", "make_network"]
+__all__ = ["NeRFNetwork", "NeRFNetworkFF", "NeRFNetworkMip", "make_network"]

@@ -127,13 +127,22 @@ class NeRFNetwork(nn.Module):
         if got != want:
             raise ValueError(f"weights {got} do not match the config {want}")
 
+    # zero columns appended to the color net's input [SH | geo_feat]
+    color_pad = 0
+
+    def _sigma_shapes(self):
+        cfg = self.cfg
+        return _widths(self.in_dim, cfg.hidden_dim, cfg.num_layers,
+                       1 + cfg.geo_feat_dim)
+
+    def _color_shapes(self):
+        cfg = self.cfg
+        return _widths(self.in_dim_dir + cfg.geo_feat_dim + self.color_pad,
+                       cfg.hidden_dim_color, cfg.num_layers_color, 3)
+
     def _shapes(self):
         """[in, out] of every layer, the sigma net's then the color net's."""
-        cfg = self.cfg
-        return (_widths(self.in_dim, cfg.hidden_dim, cfg.num_layers,
-                        1 + cfg.geo_feat_dim)
-                + _widths(self.in_dim_dir + cfg.geo_feat_dim,
-                          cfg.hidden_dim_color, cfg.num_layers_color, 3))
+        return self._sigma_shapes() + self._color_shapes()
 
     def init(self, generator):
         """A fresh params pytree (float32 tensors on the generator's
@@ -146,7 +155,7 @@ class NeRFNetwork(nn.Module):
             params["encoder"] = {"embeddings": hash_grid_init(
                 generator, self.grid_spec)}
         mlp = [_linear_init(generator, *shape) for shape in self._shapes()]
-        n_sigma = self.cfg.num_layers
+        n_sigma = len(self._sigma_shapes())
         params["sigma_net"] = mlp[:n_sigma]
         params["color_net"] = mlp[n_sigma:]
         return params
@@ -211,16 +220,21 @@ class NeRFNetwork(nn.Module):
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
     def color(self, d, geo_feat, mask=None, plain: bool = False):
-        """d: [..., 3], geo_feat [..., 15] -> rgb [..., 3]; where `mask`
-        ([...] bool) is false the rgb is 0, as in the JAX `color`: the
-        shapes stay, nothing is compacted."""
+        """d: [..., 3], geo_feat [..., 15] -> rgb [..., 3]. The color net
+        reads [SH(d) | geo_feat | `color_pad` zeros]. Where `mask` ([...]
+        bool) is false the rgb is 0, as in the JAX `color`: the shapes
+        stay, nothing is compacted."""
         d_enc = self.encode_dir(d)
         if self.cfg.fused and self.grid_spec is not None:
             # K4 reads its input in the compute dtype; geo_feat is exact in
             # it already, so only SH(d) rounds, as JAX's cast of the concat
             # (a no-op in float32)
             d_enc = d_enc.to(self.compute_dtype)
-        h = torch.cat([d_enc, geo_feat.to(d_enc.dtype)], dim=-1)
+        parts = [d_enc, geo_feat.to(d_enc.dtype)]
+        if self.color_pad:
+            parts.append(d_enc.new_zeros(d_enc.shape[:-1]
+                                         + (self.color_pad,)))
+        h = torch.cat(parts, dim=-1)
         rgb = torch.sigmoid(self._chain(self.color_net, h, plain))
         if mask is not None:
             rgb = torch.where(mask[..., None], rgb, 0.0)

@@ -173,11 +173,14 @@ def hash_grid_init(generator, spec: HashGridSpec, std: float = 1e-4):
 def _level_constants(spec: HashGridSpec, n_active: int, device: str):
     """Per-level constants of the first n_active levels as tensors on
     `device`: scales [La] f32; use_hash, sizes, offsets [La, 1] and
-    strides [La, 1, D] int64; corner bits [2^D, D] int64."""
+    strides [La, 1, D] int64; corner bits [2^D, D] int64. Made outside
+    inference mode, whatever the caller's: a cached inference tensor could
+    not be saved for the backward of a later call under autograd."""
     la = slice(0, n_active)
 
     def t(v, dtype=torch.int64):
-        return torch.tensor(v, dtype=dtype, device=device)
+        with torch.inference_mode(False):
+            return torch.tensor(v, dtype=dtype, device=device)
 
     return dict(
         scales=t(np.float32(spec.scales[la]), torch.float32),

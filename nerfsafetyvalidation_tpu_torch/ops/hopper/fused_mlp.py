@@ -61,9 +61,11 @@ BARRIER_BYTES = 128
 F32_ROWS = 128        # rows of a tile in the f32 kernel
 
 # launches of the CUDA kernels since the last reset (never the plain
-# path): the bf16 kernel, and the f32 one
+# path): the bf16 kernel, and the f32 one; and the calls of the plain
+# version
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+PLAIN_CALLS = 0
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -119,6 +121,8 @@ def fused_mlp_plain(x, weights, compute_dtype=torch.bfloat16):
     its last layer rounded to `compute_dtype` too (each layer's input is
     rounded by the next product already). x [N, D_0]; weights [in, out]
     each. Returns [N, D_L] f32."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
     return fused_mlp_reference(x, weights, compute_dtype).to(
         compute_dtype).float()
 

@@ -56,9 +56,11 @@ LAYOUT = {torch.bfloat16: "wgmma-B-kmajor-noswizzle",
           torch.float32: "rowmajor-f32"}
 
 # launches of each CUDA kernel since the last reset (never the plain path):
-# K1, and K2 in either dtype
-LAUNCHES = 0
+# K1's by the sigma net's hidden width (their sum is K1's count), and K2's
+# in either dtype; and the calls of the plain chain (K1's and K2's)
+LAUNCHES_BY_WIDTH = {}
 LAUNCHES_DEEP = 0
+PLAIN_CALLS = 0
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -100,6 +102,8 @@ def fused_sigma_color_deep_plain(enc, sh, sigma_net, color_net,
     """K2's function in plain PyTorch: the JAX package's `_xla_ref_deep`
     chain with the same rounding points. enc [N, D_enc], sh [N, 16].
     Returns (sigma [N] f32, rgb [N, 3] f32)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
     h = enc
     n_sig = len(sigma_net)
     for i, w in enumerate(sigma_net):
@@ -300,13 +304,13 @@ def fused_points_sigma_color(x, sh, sigma_net, color_net, multires,
     if 3 + 6 * multires != sigma_net[0].shape[0]:
         raise ValueError("multires does not match the first sigma layer")
     n_sig = len(sigma_net)
+    hidden = sigma_net[0].shape[1]
 
     def launch(*args):
-        global LAUNCHES
         out = _run("points_mlp_forward", *_split(args, n_sig),
                    torch.bfloat16, 8, multires)
         if n:
-            LAUNCHES += 1
+            LAUNCHES_BY_WIDTH[hidden] = LAUNCHES_BY_WIDTH.get(hidden, 0) + 1
         return out
 
     def plain(*args):

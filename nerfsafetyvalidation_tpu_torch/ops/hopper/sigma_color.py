@@ -39,8 +39,10 @@ IMAGE_SHAPES = ((ENC, HID), (HID, GEO), (SH, COLOR), (GEO, COLOR),
                 (COLOR, COLOR), (COLOR, IMAGE_LAST))
 WEIGHT_BYTES = 2 * sum(k * n for k, n in IMAGE_SHAPES)
 
-# launches of the CUDA kernel since the last reset (never the plain path)
+# launches of the CUDA kernel since the last reset (never the plain path),
+# and the calls of its plain version
 LAUNCHES = 0
+PLAIN_CALLS = 0
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -76,6 +78,8 @@ def fused_sigma_color_plain(enc, sh, sigma_net, color_net,
                             compute_dtype=torch.bfloat16):
     """The kernel's function in plain PyTorch: operands rounded to
     `compute_dtype`, f32 sums. Returns (sigma [N] f32, rgb [N, 3] f32)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
     w1, w2 = sigma_net
     c1, c2, c3 = color_net
     dt = compute_dtype

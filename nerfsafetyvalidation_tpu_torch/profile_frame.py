@@ -2,8 +2,9 @@
 the card.
 
     python3 -m nerfsafetyvalidation_tpu_torch.profile_frame \\
-        [--mode fast|guided|baked_h160_ak8|ref_backbone|ref_backbone_ml8|
-                staged|staged_bf16|train|train_O_ff|train_ff]
+        [--mode fast|guided|baked_h160_ak8|baked_h160|baked_h192|baked|
+                ref_backbone|ref_backbone_ml8|staged|staged_bf16|train|
+                train_O_ff|train_ff]
 
 Loads the flagship teacher (or, for the ref_backbone modes, the hash-grid
 reference backbone), refreshes its occupancy 4x as bench.py does, renders
@@ -26,8 +27,9 @@ profiler, then 8 steps without it; and apart, with a device wait around
 each, the march of one batch, a full and a partial refresh.
 `--mode train_O_ff` and `train_ff` do it for the training CLI's steps
 (`main_nerf`'s trainer, net and options for `-O --ff` or `--ff` at the
-CLI's defaults but --bound 1 --scale 1) of the hash-grid net from a
-seeded init on the same 48 views: K4 and its backward.
+CLI's defaults but --bound 1 --scale 1) of `NeRFNetworkFF`, the hash-grid
+net in bfloat16, from a seeded init on the same 48 views: K4 and its
+backward, through the march (`-O`) or 512 uniform samples a ray.
 Needs a CUDA card.
 """
 
@@ -108,7 +110,7 @@ def _cli_train_setup(dev, flags):
         "train")
     dataset = NeRFDataset(opt, F.train_splits(), type="train", device=dev)
     net = make_network(network_config_from_opt(opt), None, device=dev,
-                       trainable=True,
+                       opt=opt, trainable=True,
                        generator=torch.Generator(device=dev).manual_seed(0))
     trainer = Trainer(opt, net, ema_decay=0.95, mute=True)
     trainer.start(dataset)
@@ -153,7 +155,7 @@ def _frame_profile(mode, dev, acts):
             state = None if staged else F.refresh(nets["ref"], stored)
         else:
             teacher, stored = F.load_teacher_net(dev)
-            nets = {"teacher": teacher, "student": F.load_student_net(dev)}
+            nets = {"teacher": teacher, **F.load_students(dev)}
             state = F.refresh(teacher, stored)
         o, d = F.pose_rays(F.holdout_poses()[0], dev)
 

@@ -36,7 +36,6 @@ import torch
 
 from ..data.png import write_png
 from ..data.rays import linear_to_srgb, srgb_to_linear
-from ..models import make_network
 from ..models.renderer import (RendererState, mark_untrained_grid, render,
                                run, run_grid, update_extra_state)
 from .checkpoint import CheckpointManager
@@ -318,8 +317,8 @@ class Trainer:
         if self.ema_params is not None:
             if len(self.ema_params) != len(net.param_list()):
                 raise ValueError("the EMA does not cover every parameter")
-            net = make_network(net.cfg, net.params_tree(self.ema_params),
-                               device=self.device)
+            net = type(net)(net.cfg, net.params_tree(self.ema_params),
+                            device=self.device)
         if hasattr(net, "to_folded"):
             with torch.no_grad():
                 net.to_folded()

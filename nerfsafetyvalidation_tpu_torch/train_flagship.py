@@ -29,7 +29,8 @@ With `--net ref` it trains the hash-grid reference backbone (16 levels x
 bf16) with bench.py's `_train_ref_backbone` schedule (flagship.
 REF_TRAIN_OPT: 960 steps of 4096 rays through the march on the same 48
 views), once per seed and route: `fused`, both MLPs through kernel K4 and
-its backward (the CLI's `--ff` route), and `plain`, the plain matmul chain
+its backward (the net of bench.py's config built with `fused=True`; the
+CLI's `--ff` builds another topology, `NeRFNetworkFF`), and `plain`, the plain matmul chain
 (bench.py's own); then refreshes the occupancy 4x with seeds 100-103 and
 renders pose 0 at 800x800 in `ref_backbone` (bench.py's `_ref_line`,
 through K4), and prints its PSNR beside 27.018 dB, the port's score of the

@@ -184,27 +184,37 @@ def test_a_resize_raises(tmp_path, jax_dir):
 # ------------------------------------------------------------ checkpoints
 
 
-def _params(seed=4):
-    net_j = j_make(JConfig(**NET))
+# the CLI's options the nets are built with: the fused NeRFNetwork of NET
+# without --ff, NeRFNetworkFF with it; each package's make_network
+# dispatches on them
+OPTS = {"net": types.SimpleNamespace(ff=False, tcnn=False),
+        "ff": types.SimpleNamespace(ff=True, tcnn=False)}
+
+
+def _params(opt, seed=4):
+    net_j = j_make(JConfig(**NET), OPTS[opt])
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(net_j.init, jax.random.PRNGKey(0))
     return net_j, jax.tree_util.tree_map(
         lambda s: rng.normal(0, 0.4, s.shape).astype(np.float32), shapes)
 
 
-def _port_trainer(tmp_path, params=None, **kw):
-    net = t_make(TConfig(**NET), params, device="cpu", trainable=True)
+def _port_trainer(tmp_path, opt, params=None, **kw):
+    net = t_make(TConfig(**NET), params, device="cpu", opt=OPTS[opt],
+                 trainable=True)
+    assert type(net).__name__ == ("NeRFNetworkFF" if opt == "ff"
+                                  else "NeRFNetwork")
     return TT.Trainer(_opt(), net, workspace=str(tmp_path), mute=True,
                       **kw)
 
 
-def test_port_checkpoint_loads_in_jax(tmp_path):
+def test_port_checkpoint_loads_in_jax(tmp_path, opt="net"):
     """A full port checkpoint: the JAX package's `CheckpointManager.load`
     reads it, its params equal the port's, and its epoch, step and
     occupancy arrays are there; the optimizer state sits under a key the
     JAX trainer does not read."""
-    _, p = _params()
-    tr = _port_trainer(tmp_path, params_from_jax(p, "cpu"),
+    _, p = _params(opt)
+    tr = _port_trainer(tmp_path, opt, params_from_jax(p, "cpu"),
                        use_checkpoint="scratch", ema_decay=0.9)
     tr.epoch, tr.global_step = 3, 30
     path = tr.save_checkpoint(full=True)
@@ -225,11 +235,11 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
                                   tr.renderer_state.density_bitfield.numpy())
 
 
-def test_jax_checkpoint_loads_in_the_port(tmp_path):
+def test_jax_checkpoint_loads_in_the_port(tmp_path, opt="net"):
     """A full JAX checkpoint (optax state, EMA, the occupancy state) loads
     through the port's safe unpickler: the port's parameters, EMA, epoch,
     step and occupancy equal JAX's, and optax's state is left alone."""
-    net_j, p = _params(seed=5)
+    net_j, p = _params(opt, seed=5)
     tr_j = JTrainer("ngp", _opt(), net_j, params=jax.tree_util.tree_map(
         jnp.asarray, p), workspace=str(tmp_path), use_checkpoint="scratch",
         mute=True, ema_decay=0.9)
@@ -237,7 +247,8 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     tr_j.ema_params = jax.tree_util.tree_map(lambda w: w * 0.5,
                                              tr_j.ema_params)
     tr_j.save_checkpoint(full=True)
-    tr_t = _port_trainer(tmp_path, use_checkpoint="latest", ema_decay=0.9)
+    tr_t = _port_trainer(tmp_path, opt, use_checkpoint="latest",
+                         ema_decay=0.9)
     assert (tr_t.epoch, tr_t.global_step) == (2, 17)
     for a, b in zip(tr_t.net.param_list(), TT.param_leaves(p)):
         np.testing.assert_array_equal(a.detach().numpy(), b)
@@ -249,12 +260,12 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     assert not tr_t.optimizer.state      # optax's state is not read
 
 
-def test_port_checkpoint_resumes_the_same_run(tmp_path):
+def test_port_checkpoint_resumes_the_same_run(tmp_path, opt="net"):
     """Save after two steps, load into a fresh trainer, and take a third
     step in both: the same parameters, bit for bit (Adam's moments and
     the schedule's count come back); the rolling window keeps max_keep
     files and 'best' falls back to the latest."""
-    _, p = _params(seed=6)
+    _, p = _params(opt, seed=6)
     rng = np.random.default_rng(0)
     o = np.stack([rng.uniform(-0.5, 0.5, 64), rng.uniform(-0.5, 0.5, 64),
                   np.full(64, -2.5)], -1).astype(np.float32)[None]
@@ -262,7 +273,7 @@ def test_port_checkpoint_resumes_the_same_run(tmp_path):
     im = rng.uniform(size=(1, 64, 3)).astype(np.float32)
     data = {"rays_o": torch.from_numpy(o), "rays_d": torch.from_numpy(d),
             "images": torch.from_numpy(im)}
-    tr = _port_trainer(tmp_path, params_from_jax(p, "cpu"),
+    tr = _port_trainer(tmp_path, opt, params_from_jax(p, "cpu"),
                        use_checkpoint="scratch", max_keep_ckpt=2)
     for epoch in (1, 2, 3):
         tr.epoch = epoch
@@ -270,7 +281,7 @@ def test_port_checkpoint_resumes_the_same_run(tmp_path):
         tr.save_checkpoint(full=True)
     ckpts = sorted(os.listdir(tmp_path / "checkpoints"))
     assert ckpts == ["ngp_ep0002.ckpt", "ngp_ep0003.ckpt"]
-    tr2 = _port_trainer(tmp_path, use_checkpoint="best")
+    tr2 = _port_trainer(tmp_path, opt, use_checkpoint="best")
     tr2.generator.set_state(tr.generator.get_state())
     for t in (tr, tr2):
         t.iteration(data)
@@ -279,12 +290,23 @@ def test_port_checkpoint_resumes_the_same_run(tmp_path):
     assert tr2.scheduler.last_epoch == tr.scheduler.last_epoch == 4
 
 
+@pytest.mark.parametrize("test", [test_port_checkpoint_loads_in_jax,
+                                  test_jax_checkpoint_loads_in_the_port,
+                                  test_port_checkpoint_resumes_the_same_run],
+                         ids=["port_in_jax", "jax_in_port", "resume"])
+def test_ff_checkpoints(tmp_path, test):
+    """The three checkpoint tests above on the `--ff` net
+    (NeRFNetworkFF in both packages)."""
+    test(tmp_path, "ff")
+
+
 # --------------------------------------------------------------- main_nerf
 
 
 def test_main_trains_tests_and_reloads(tmp_path):
     """`main` on a 4-view 24x24 directory written by the port, `--ff`
-    (float32, uniform samples through K4's plain version): one whole
+    (NeRFNetworkFF in bfloat16, uniform samples through K4's plain
+    version and its recomputed backward): one whole
     epoch of 4 steps for `--iters 3`, a checkpoint, the test split's frames
     as PNGs; then `--test` loads the checkpoint into a fresh net (the EMA
     parameters are not the evaluated ones there: JAX's `--test` trainer
@@ -297,7 +319,8 @@ def test_main_trains_tests_and_reloads(tmp_path):
             "1", "--scale", "1", "--seed", "1", "--ff"]
     tr = main_nerf.main(argv, device="cpu")
     assert tr.global_step == 4 and tr.epoch == 1
-    assert tr.net.cfg.fused and tr.net.cfg.compute_dtype == "float32"
+    assert type(tr.net).__name__ == "NeRFNetworkFF"
+    assert tr.net.cfg.fused and tr.net.cfg.compute_dtype == "bfloat16"
     assert np.isfinite(tr.stats["loss"]).all()
     ws = tmp_path / "ws"
     assert os.listdir(ws / "checkpoints") == ["ngp_ep0001.ckpt"]

@@ -132,8 +132,7 @@ def test_synthetic_scene_copy():
     o_t, d_t = t_syn.camera_rays(pose, intr, 24, 32)
     o_j, d_j = j_syn.camera_rays(pose, intr, 24, 32)
     np.testing.assert_array_equal(d_t, d_j)
-    for a, b in zip(t_syn.trace_scene(o_t, d_t, "spheres"),
-                    j_syn.trace_scene(o_j, d_j, "spheres")):
-        np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        t_syn.trace_scene(o_t, d_t, "gauntlet")
+    for scene in ("spheres", "gauntlet"):
+        for a, b in zip(t_syn.trace_scene(o_t, d_t, scene),
+                        j_syn.trace_scene(o_j, d_j, scene)):
+            np.testing.assert_array_equal(a, b)

@@ -70,12 +70,15 @@ def test_cpu_wrapper_is_the_plain_version():
     x, sh, sn, cn = (torch.from_numpy(a) if isinstance(a, np.ndarray)
                      else [torch.from_numpy(w) for w in a]
                      for a in _nets(rows=64))
-    before = pm.LAUNCHES
+    before = dict(pm.LAUNCHES_BY_WIDTH), pm.PLAIN_CALLS
     got = pm.fused_points_sigma_color(x, sh, sn, cn, 12)
     want = pm.fused_points_sigma_color_plain(x, sh, sn, cn, 12)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert pm.LAUNCHES == before          # the plain path is never counted
+    # the plain path is never counted as a launch, and counts as two plain
+    # calls (the wrapper's and this test's)
+    assert pm.LAUNCHES_BY_WIDTH == before[0]
+    assert pm.PLAIN_CALLS == before[1] + 2
 
 
 @pytest.mark.parametrize("hidden,n_sig", [(160, 6), (192, 3)])

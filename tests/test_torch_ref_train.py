@@ -4,10 +4,12 @@ gradient with respect to the float32 table through the cast to the
 compute dtype; the gradient of a uniform-sampling render through the
 fused field (K4's plain forward and its recompute backward, the encode's
 scatter); and whole steps of the port's `Trainer` against the JAX
-`Trainer` with the JAX trainer's draws handed in, on both kernel routes of
-the reference's training CLI: `-O --ff` (bfloat16, the occupancy march
-with compaction) and `--ff` (float32, the uniform `run` with jittered
-samples and upsampling).
+`Trainer` with the JAX trainer's draws handed in, on two routes of the
+fused `NeRFNetwork` (the config's `fused=True`, built directly): bfloat16
+through the occupancy march with compaction ("O_ff", the training CLI's
+`-O` route) and float32 through the uniform `run` with jittered samples
+and upsampling ("ff", the CLI's route without `-O`; the CLI's `--ff`
+itself builds `NeRFNetworkFF`, tests/test_torch_network_ff.py).
 
 The net is small (4 levels x 2 channels from base 4, a 2^10 table, 16-wide
 MLPs, a 16^3 grid), its weights drawn by numpy from a seed (the table
@@ -46,7 +48,7 @@ NET = dict(encoding="hashgrid", bound=1.0, num_levels=4, level_dim=2,
            base_resolution=4, log2_hashmap_size=10, desired_resolution=32,
            hidden_dim=16, hidden_dim_color=16, fused=True, grid_size=G,
            density_thresh=10.0)
-# the two routes: -O --ff (bf16, marched) and --ff (f32, uniform)
+# the two routes: bf16 marched (-O's) and f32 uniform
 ROUTES = {"O_ff": dict(compute_dtype="bfloat16", grid_ray=True),
           "ff": dict(compute_dtype="float32", grid_ray=False)}
 N_MARCH, N_UNIFORM, STEPS, UPSAMPLE = 256, 64, 32, 16
@@ -315,8 +317,8 @@ def _run_steps(route, n_steps):
 def test_trainer_steps_match_jax(route):
     """Four iterations of each route. A parameter whose gradient is near
     zero may move the other way under Adam (its first step is lr times the
-    gradient's sign): 2 lr apart. Measured, float32 (`--ff`): losses 6.5e-8
-    relative; parameters 1.7e-6 apart at most. bfloat16 (`-O --ff`, the
+    gradient's sign): 2 lr apart. Measured, float32 ("ff"): losses 6.5e-8
+    relative; parameters 1.7e-6 apart at most. bfloat16 ("O_ff", the
     march handed JAX's refreshed state): losses 5.7e-4 relative; after the
     first update 0.39% of each tensor's entries more than 1e-6 apart, each
     by 2 lr; after the later ones the bf16 gradients' last bits move

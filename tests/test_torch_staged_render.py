@@ -415,7 +415,7 @@ EAGER_TOL = {"ray": (1e-5, 1e-6), "sample": (1e-5, 1e-6)}
 def test_refbb_staged_rays_match_jax():
     """The slice at full width: the hash-grid reference backbone (16
     levels x 2 channels, 2^19 rows, 32 -> 64 -> 16 and 31 -> 64 -> 64 ->
-    3) in the CLI's default float32 with --ff (K4 in float32), 16 rays of
+    3) fused in float32 (`staged`'s net; K4 in float32), 16 rays of
     the flagship's pose 0 through the staged render at 512 steps, one
     chunk of 8,192 rows, against the JAX package's (K4 in interpret
     mode); and one `run` of the same rays against JAX's run outside a
@@ -455,8 +455,9 @@ def test_refbb_staged_rays_match_jax():
 
 def test_staged_modes_are_the_cli_defaults():
     """`staged` is the reference backbone as `network_config_from_opt`
-    builds it for --ff (float32, fused), `staged_bf16` for --ff -O
-    (bfloat16); both render with the observation render's settings at the
+    gives for --ff (float32, fused), built directly as a fused
+    `NeRFNetwork` (--ff itself builds `NeRFNetworkFF`), `staged_bf16` the
+    same in bfloat16; both render with the observation render's settings at the
     CLI's defaults (validate.py's render_fn: staged, bg_color 1.0, no
     jitter, num_steps / upsample_steps / max_ray_batch from the parser)."""
     from dataclasses import replace
