@@ -119,12 +119,35 @@ Phases, each printing its elapsed seconds:
      (baked_h160_ak8, baked_h160, baked_h192, baked through K1 at H = 160,
      160, 192, 256; guided and fast through K3) and both reference lines
      (through K4) lie within 0.15 dB of BENCH_r05, mean and min; K1 ran at
-     each width, K3 and K4 ran, and no plain version was called.
+     each width, K3 and K4 ran, and no plain version was called;
+ 15. rollouts: the batched rollout engine (validation/batched.py
+     FullBatchedRolloutEngine) as validate.py --batched_rollouts builds
+     it, on envConfig.json's dynamics and disturbances (12 steps of 1/6 s,
+     hover actions), 16 sims, 100x100 observations, from the state whose
+     observation camera is held-out pose 0, over the SDF of the teacher's
+     density on the scene's box at 40 cells a metre: a Monte Carlo run of
+     each observation path, `scout` (the 160x6 student over the teacher's
+     occupancy, K1), `fast` and `guided` (the teacher, K3), `uniform` (the
+     ref net, 64 samples a ray, K4), with the same standard normals: its
+     kernel launched and no plain version called, sigma_d finite and >= 0,
+     the reward finite, step 0 on the same points on every path; the
+     start's observation through the kernel and through the plain field
+     (image at the frames' bounds, the UQ's inputs at TOL_UQ_STATS);
+     rollouts/s, s per sim-step, the collision rate;
+ 16. rollouts cem: two CEM iterations (16 sims, 5 elite) on `scout`, the
+     27-column CSV written to a temporary directory, its rows checked to
+     stop at each sim's first collision;
+ 17. bench_rollouts: the port's bench_rollouts, its two JSON lines;
+ 18. sigma clipping: the shaded samples whose sigma pre-activation s0
+     exceeds 15 (where K1 and K3 clip it) through the unclipped plain
+     chain, in pose 0's 800x800 `fast` and `baked_h160` frames and in each
+     rollout path's observation, and S_d2 and sigma_d through the kernel
+     route and through that chain.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
-the training, each main_nerf run, K2's path, the probe and the bench, and
-read just after. The
+the training, each main_nerf run, K2's path, the probe, the bench and each
+rollout phase, and read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -132,6 +155,7 @@ Every failed check raises and ends the run with a non-zero exit; without a
 CUDA device the script fails before printing anything.
 """
 
+import csv
 import json
 import os
 import subprocess
@@ -400,6 +424,66 @@ def popcount(torch, bytes_u8):
     return int(table[bytes_u8.long()].sum())
 
 
+# The rollout phases (nerfsafetyvalidation_tpu_torch/validation/batched.py)
+# on the spheres assets, as flagship.rollout_engine sets them up: the SDF of
+# the teacher's density over the scene's box at the JAX package's 40 cells
+# a metre (validation/utils/sdf.py; its default extents are Stonehenge's).
+SDF_BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+# each path's kernel (the nets: flagship.ROLLOUT_NETS)
+ROLLOUT_KERNELS = {"scout": "K1", "fast": "K3", "guided": "K3",
+                   "uniform": "K4"}
+CEM_RUN = dict(m=16, m_elite=5, kmax=2)
+# One observation through the kernel vs the plain field (same state, same
+# settings): the image at the frames' bounds (TOL_IMG_MAX / MEAN); the
+# UQ's five inputs (S_c2d2, S_cd, mean image, mean and std of sigma),
+# relative. Stated before the first run on the card: the kernels round as
+# their plain versions do and sum in other orders, a per-sample error of
+# ~1e-5 on average (TOL_K1 / TOL_K3 / TOL_K4 means) that the sums over
+# 10^5-10^6 slots average down; bound 1e-3.
+TOL_UQ_STATS = 1e-3
+E15 = float(np.exp(15.0))   # sigma where the kernels clip s0 at 15
+
+
+class S0Count:
+    """A field that shades 1 where `net`'s sigma exceeds e^15 (its s0 > 15;
+    everywhere with `every`) and 0 elsewhere, rgb 1: a frame rendered
+    through it with return_moments has S_d = the number of such slots
+    among those the frame shades (masked slots count 0), on the windows
+    and march of the real field (the guided frames get `net` as their
+    prepass_net)."""
+
+    def __init__(self, net, every=False):
+        self.net, self.cfg, self.every = net, net.cfg, every
+
+    def __call__(self, x, d, plain=False):
+        sigma, rgb = self.net(x, d)
+        hit = sigma.new_ones(sigma.shape) if self.every \
+            else (sigma > E15).to(sigma.dtype)
+        return hit, rgb.new_ones(rgb.shape)
+
+
+def cem_csv_rows_stop(rows, steps):
+    """The 27-column CEM CSV: every row 27 fields; each (iteration, sim)'s
+    rows are steps 0.. in order, stop at its first collision (or run all
+    `steps`), and carry everCollided = whether one of them collided.
+    Returns (rows, sims that collided)."""
+    groups = {}
+    for r in rows:
+        check(len(r) == 27, f"a CEM CSV row has {len(r)} columns, not 27")
+        groups.setdefault((r[0], r[1]), []).append(r)
+    hits = 0
+    for key, g in groups.items():
+        coll = [r[25] == "True" for r in g]
+        check([int(r[2]) for r in g] == list(range(len(g)))
+              and not any(coll[:-1])
+              and (coll[-1] or len(g) == steps)
+              and all((r[26] == "True") == coll[-1] for r in g),
+              f"the CEM CSV rows of {key} do not stop at the first "
+              "collision")
+        hits += coll[-1]
+    return len(rows), hits
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -430,6 +514,10 @@ def main():
     from nerfsafetyvalidation_tpu_torch.data.synthetic import write_dataset
     from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
     from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
+    from nerfsafetyvalidation_tpu_torch import bench_rollouts
+    from nerfsafetyvalidation_tpu_torch.models.renderer import (
+        render_frame_guided)
+    from nerfsafetyvalidation_tpu_torch.validation.utils.sdf import build_sdf
 
     # float32 products in full float32 (the plain versions' sums, and K2
     # f32's library chain)
@@ -1912,6 +2000,233 @@ def main():
                   f"bench {m} PSNR {mean:.3f}/{low:.3f} dB is more than "
                   f"{GAP_BAND} dB from BENCH_r05's {ref_mean}/{ref_min}")
 
+    # ---- the batched rollout engines on the spheres assets
+    with Phase("rollouts setup"), torch.inference_mode():
+        env = F.envconfig()
+        steps = env["steps"]
+        lo, hi = SDF_BOX
+
+        def density(pts):
+            # world (raw-frame) points -> the NGP frame the field reads
+            x = torch.from_numpy(pts[:, [1, 2, 0]].copy()).to(dev)
+            return teacher.density(x)["sigma"]
+
+        t0 = time.perf_counter()
+        sdf = build_sdf(density, start=lo, end=hi, granularity=40)
+        t_sdf = time.perf_counter() - t0
+        occupied = float((sdf == 0).mean())
+        rnets = {"teacher": teacher, "student_h160": student, "ref": ref}
+
+        def engine(path, net):
+            return F.rollout_engine(path, net, state, sdf, lo, 40,
+                                    device=dev)
+
+        start = engine("uniform", ref).start_state.cpu().numpy()
+        print(f"rollouts: SDF of the teacher's density (> 10) on "
+              f"{sdf.shape} cells over {lo}..{hi} m at 40 cells/m, "
+              f"{occupied:.4f} of them occupied, max distance "
+              f"{sdf.max():.3f} m, built in {t_sdf:.2f} s; envConfig.json: "
+              f"{steps} steps of {env['dt']:.4f} s, g {env['g']}, mass "
+              f"{env['mass']}, hover action [{env['mass'] * env['g']}, 0, "
+              f"0, 0], disturbance std {env['noise_std'].tolist()}; start "
+              f"state (held-out pose 0) {np.round(start, 5).tolist()}; "
+              f"{F.ROLLOUT_SIMS} sims, {F.ROLLOUT_OBS}^2 observations")
+        check(0 < occupied < 0.5, "the SDF's grid is empty or full")
+        unfused = {
+            "teacher": make_network(replace(F.TEACHER_CFG, fused=False),
+                                    teacher.params_tree(),
+                                    device=dev).to_folded(),
+            "student_h160": make_network(replace(student.cfg, fused=False),
+                                         student.params_tree(), device=dev),
+            "ref": make_network(replace(ref.cfg, fused=False),
+                                ref.params_tree(), device=dev)}
+        z = torch.randn((F.ROLLOUT_SIMS, steps, 12), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def uq_of(eng, out):
+        """(the UQ's five inputs [5], sigma_d) of one observation."""
+        stats = eng._obs_stats(out)
+        return stats[0], float(eng._gaussian_uq_moments(
+            *stats.unbind(-1))[1][0])
+
+    def s_d2(out):
+        """sum sigma^2 over an observation's shaded slots."""
+        if "uq_moments" in out:
+            return float(out["uq_moments"][3])
+        return float((out["sigmas"].double() ** 2).sum())
+
+    def clip_record(n_hi, n_all, k_out, u_out, sd_k, sd_u):
+        return dict(n_hi=n_hi, n_all=n_all, share=n_hi / max(n_all, 1),
+                    S_d2_kernel=s_d2(k_out), S_d2_unclipped=s_d2(u_out),
+                    sigma_d_kernel=sd_k, sigma_d_unclipped=sd_u)
+
+    def clip_count(eng, path, net_name, o, d, kernel_out):
+        """Samples with s0 > 15 among an observation's shaded slots (through
+        the unclipped plain chain), and the UQ through the kernel route and
+        through that chain."""
+        real = unfused[net_name]
+        uneng = engine(path, real)
+        call = uneng._obs_call()
+        plain_out = call(o, d)
+        if path == "uniform":
+            sig = plain_out["sigmas"]
+            n_hi, n_all = int((sig > E15).sum()), sig.numel()
+        else:
+            kw = dict(call.keywords)
+            if path in ("guided", "scout"):
+                kw["prepass_net"] = real
+            n_hi, n_all = (int(round(float(call.func(
+                S0Count(real, every), *call.args[1:], o, d, **kw)[
+                    "uq_moments"][2]))) for every in (False, True))
+        return clip_record(n_hi, n_all, kernel_out, plain_out,
+                           uq_of(uneng, kernel_out)[1],
+                           uq_of(uneng, plain_out)[1])
+
+    rollout_launches = {"K1": 0, "K3": 0, "K4": 0}
+    rollouts, clipping = {}, {}
+    step0 = None
+    for path, kernel in ROLLOUT_KERNELS.items():
+        net_name = F.ROLLOUT_NETS[path]
+        with Phase(f"rollouts {path}"), torch.inference_mode():
+            eng = engine(path, rnets[net_name])
+            reset_counts()
+            plain_before = plain_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.monte_carlo(None, F.ROLLOUT_SIMS, z=z)  # numpy: waits
+            t_run = time.perf_counter() - t0
+            n = counts()
+            plain_seen = {k: v - plain_before[k]
+                          for k, v in plain_calls().items()}
+            rollout_launches[kernel] += n[kernel]
+            sig, rew = out["sigma_d"], out["reward"]
+            if step0 is None:
+                step0 = out["positions"][:, 0]
+            rate = F.ROLLOUT_SIMS / t_run
+            per_step = t_run / (F.ROLLOUT_SIMS * steps)
+            coll = float(out["ever_collided"].mean())
+            print(f"rollouts {path}: {net_name} through {kernel} "
+                  f"({n[kernel]} launches; all {n}; plain-version calls "
+                  f"{plain_seen}): {t_run:.3f} s, {rate:.3f} rollouts/s, "
+                  f"{per_step:.5f} s per sim-step, collision rate {coll}; "
+                  f"sigma_d {float(sig.min()):.4g}..{float(sig.max()):.4g}"
+                  f", reward {float(rew.min()):.4g}..{float(rew.max()):.4g}"
+                  f", risk min {float(out['risk'].min()):.4g}; {smi}")
+            check(n[kernel] > 0, f"rollouts {path} never launched {kernel}")
+            check(not any(plain_seen.values()),
+                  f"rollouts {path} called plain versions {plain_seen}")
+            check(bool(np.isfinite(sig).all() and (sig >= 0).all()
+                       and np.isfinite(rew).all()),
+                  f"rollouts {path}: sigma_d or the reward not finite")
+            check(np.array_equal(out["positions"][:, 0], step0),
+                  f"rollouts {path}: step 0 landed elsewhere than on the "
+                  "first path")
+            # one observation (the start state's) through the kernel and
+            # through the plain field
+            o, d = eng._obs_rays(eng._pose_from_state(
+                torch.from_numpy(start).to(dev)[None]))
+            call = eng._obs_call()
+            k_out = call(o, d)
+            p_out = call(o, d, plain_field=True)
+            (s_k, sd_k), (s_p, sd_p) = uq_of(eng, k_out), uq_of(eng, p_out)
+            img_err = (k_out["image"] - p_out["image"]).abs()
+            rel = float(((s_k - s_p).abs()
+                         / s_p.abs().clamp(min=1e-30)).max())
+            print(f"rollouts {path}: the start's observation, kernel vs "
+                  f"plain field: image max abs {float(img_err.max()):.3e}"
+                  f", mean {float(img_err.mean()):.3e}; UQ inputs "
+                  f"{s_k.tolist()} vs {s_p.tolist()} (max rel {rel:.3e});"
+                  f" sigma_d {sd_k:.6g} vs {sd_p:.6g}")
+            check(float(img_err.max()) <= TOL_IMG_MAX
+                  and float(img_err.mean()) <= TOL_IMG_MEAN
+                  and rel <= TOL_UQ_STATS,
+                  f"rollouts {path}: the kernel's observation disagrees "
+                  f"with the plain field's (image {TOL_IMG_MAX} / "
+                  f"{TOL_IMG_MEAN}, UQ inputs rel {TOL_UQ_STATS})")
+            clipping[f"rollouts {path}"] = clip_count(eng, path, net_name,
+                                                      o, d, k_out)
+            rollouts[path] = dict(rollouts_per_s=rate, s=t_run,
+                                  s_per_sim_step=per_step,
+                                  collision_rate=coll, launches=n[kernel])
+            del eng, out, k_out, p_out
+
+    with Phase("rollouts cem"), torch.inference_mode():
+        eng = engine("scout", student)
+        reset_counts()
+        plain_before = plain_calls()
+        with tempfile.TemporaryDirectory() as tmp:
+            csv_path = os.path.join(tmp, "cem.csv")
+            t0 = time.perf_counter()
+            res = eng.cem(torch.Generator(device=dev).manual_seed(2),
+                          csv_path=csv_path, **CEM_RUN)
+            t_cem = time.perf_counter() - t0
+            with open(csv_path, newline="") as f:
+                n_rows, hits = cem_csv_rows_stop(list(csv.reader(f)), steps)
+        n = counts()
+        plain_seen = {k: v - plain_before[k] for k, v in plain_calls().items()}
+        rollout_launches["K1"] += n["K1"]
+        n_roll = CEM_RUN["m"] * CEM_RUN["kmax"]
+        print(f"rollouts cem (scout, m {CEM_RUN['m']}, elite "
+              f"{CEM_RUN['m_elite']}, kmax {CEM_RUN['kmax']}): {t_cem:.3f} "
+              f"s, {n_roll / t_cem:.3f} rollouts/s; history "
+              f"{res['history']}; the CSV: {n_rows} rows of 27 columns, "
+              f"{hits} sims' rows stopping at a collision; proposal "
+              f"variances {float(res['vars'].min()):.3e}.."
+              f"{float(res['vars'].max()):.3e}; K1 launches {n['K1']}; "
+              f"plain-version calls {plain_seen}; {smi}")
+        check(n["K1"] > 0 and not any(plain_seen.values()),
+              "the CEM did not run through K1 alone")
+        check(bool(np.isfinite(res["means"]).all()
+                   and (res["vars"] > 0).all()
+                   and (res["vars"] <= 0.1).all()),
+              "the CEM's proposal is not finite or leaves (0, 0.1]")
+        rollouts["cem"] = dict(rollouts_per_s=n_roll / t_cem, s=t_cem,
+                               csv_rows=n_rows, collided=hits,
+                               launches=n["K1"])
+        del eng
+
+    with Phase("bench_rollouts"):
+        reset_counts()
+        lines = bench_rollouts.main(device="cuda")
+        print(f"bench_rollouts: launches {counts()} (the full engine's net "
+              f"is the JAX script's: float32, unfused)")
+        check(len(lines) == 2 and all(ln["device"] == smi and ln["value"] > 0
+                                      for ln in lines),
+              "bench_rollouts did not print its two lines")
+
+    with Phase("sigma clipping"), torch.inference_mode():
+        # pose 0 at 800^2: the teacher's fast frame (K3) and the student's
+        # baked_h160 frame (K1); then every rollout path's observation
+        o, d, _ = views[0]
+        eng = engine("fast", teacher)
+        for name, kernel_net, real in (
+                ("fast", teacher, unfused["teacher"]),
+                ("baked_h160", student, unfused["student_h160"])):
+            frame = dict(F.MODES[name]["frame"], return_moments=True)
+            if name == "fast":
+                def render(net, **kw):
+                    return render_frame_fast(net, state, o, d, **frame)
+            else:
+                def render(net, **kw):
+                    return render_frame_guided(net, state, o, d, RES, RES,
+                                               **kw, **frame)
+            k_out, u_out = render(kernel_net), render(real)
+            n_hi, n_all = (int(round(float(render(
+                S0Count(real, every), prepass_net=real)["uq_moments"][2])))
+                for every in (False, True))
+            clipping[f"{name} 800^2 pose 0"] = clip_record(
+                n_hi, n_all, k_out, u_out, uq_of(eng, k_out)[1],
+                uq_of(eng, u_out)[1])
+        for what, c in clipping.items():
+            print(f"sigma clipping, {what}: {c['n_hi']} of {c['n_all']} "
+                  f"shaded samples with s0 > 15 ({c['share']:.3e}); S_d2 "
+                  f"kernel {c['S_d2_kernel']:.7g}, unclipped "
+                  f"{c['S_d2_unclipped']:.7g}; sigma_d kernel "
+                  f"{c['sigma_d_kernel']:.7g}, unclipped "
+                  f"{c['sigma_d_unclipped']:.7g}; {smi}")
+        print("sigma clipping: " + json.dumps(clipping))
+        print("rollouts: " + json.dumps(rollouts))
+
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
     kernel_line = {"kernels": [
@@ -1921,7 +2236,8 @@ def main():
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
          "shapes": k1_shapes, "launches_bench": bench_launches["K1"],
-         "launches_bench_by_width": by_width},
+         "launches_bench_by_width": by_width,
+         "launches_rollouts": rollout_launches["K1"]},
         {"name": "fused_sigma_color_deep", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
          "replaces": f"{pallas}:302", "launches": k2_launches,
@@ -1935,7 +2251,8 @@ def main():
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms,
          "ms_cold": k3_cold, "shapes": k3_shapes,
-         "launches_bench": bench_launches["K3"]},
+         "launches_bench": bench_launches["K3"],
+         "launches_rollouts": rollout_launches["K3"]},
         {"name": "fused_mlp", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
@@ -1949,7 +2266,8 @@ def main():
          "library_ms_f32": k4_lib_ms32,
          "launches_main_nerf_O_ff": main_nerf_stats["-O --ff"]["launches"],
          "launches_main_nerf_ff": main_nerf_stats["--ff"]["launches"],
-         "launches_bench": bench_launches["K4"]},
+         "launches_bench": bench_launches["K4"],
+         "launches_rollouts": rollout_launches["K4"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",
@@ -1975,7 +2293,9 @@ def main():
     ]}
     check(len(kernel_line["kernels"]) == 8 and all(
               k["launches"] > 0 for k in kernel_line["kernels"])
-          and kernel_line["kernels"][3]["launches_f32"] > 0,
+          and kernel_line["kernels"][3]["launches_f32"] > 0
+          and all(kernel_line["kernels"][i]["launches_rollouts"] > 0
+                  for i in (0, 2, 3)),
           "a kernel of the slice's paths was never launched")
     print(json.dumps(kernel_line))
     print(smi)

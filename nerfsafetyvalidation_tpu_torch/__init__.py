@@ -24,5 +24,9 @@ uniform-sampling render the reference's entry points observe a trained
 NeRF with (`models.renderer.run`, staged `render`, `render_tiles`,
 `ops.compositing`, `ops.sample_pdf`) and the trainer's evaluation
 through it, with K4 in float32 (the JAX package's default compute dtype)
-as a second CUDA kernel of `ops.hopper.fused_mlp`.
+as a second CUDA kernel of `ops.hopper.fused_mlp`; and the batched rollout
+engines (`validation.batched`: Monte Carlo and cross-entropy populations
+stepped together, with `nav` dynamics, `validation.utils.sdf`, and each
+observation rendered through the frames above and their kernels),
+measured by `bench_rollouts`.
 """

@@ -27,11 +27,12 @@ def nerf_matrix_to_ngp(pose, scale=0.33, offset=(0, 0, 0)):
 
 
 def get_rays(poses, intrinsics, H: int, W: int, device="cuda"):
-    """poses: [B, 4, 4] c2w; intrinsics: (fx, fy, cx, cy). Returns
-    {'rays_o', 'rays_d'}: [B, H*W, 3] float32 on `device`, pixel centres at
-    +0.5, unit directions."""
-    poses = torch.as_tensor(np.asarray(poses), dtype=torch.float32,
-                            device=device)
+    """poses: [B, 4, 4] c2w (numpy, or a tensor); intrinsics: (fx, fy, cx,
+    cy). Returns {'rays_o', 'rays_d'}: [B, H*W, 3] float32 on `device`,
+    pixel centres at +0.5, unit directions."""
+    if not isinstance(poses, torch.Tensor):
+        poses = np.asarray(poses)
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
     B = poses.shape[0]
     fx, fy, cx, cy = [float(v) for v in np.asarray(intrinsics).reshape(-1)[:4]]
     j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),

@@ -25,6 +25,7 @@ the schedule `refbb.ckpt` was trained with; `train_ref` runs it, through
 kernel K4 (`fused`) or the plain chain (bench.py's own route), and
 refreshes the occupancy 4x with seeds 100-103."""
 
+import json
 from dataclasses import replace
 from pathlib import Path
 from types import SimpleNamespace
@@ -43,6 +44,8 @@ from .models.renderer import render as render_staged
 from .models.renderer import (render_frame_fast, render_frame_guided,
                               update_extra_state)
 from .train.trainer import Trainer
+from .validation.batched import (FullBatchedRolloutEngine,
+                                 start_state_from_pose)
 
 ROOT = Path(__file__).resolve().parents[1]
 ASSETS = ROOT / "bench_assets"
@@ -169,6 +172,50 @@ MODES = {
 }
 MARCHED = ("fast", "ref_backbone", "ref_backbone_ml8")
 STAGED_MODES = ("staged", "staged_bf16")
+
+
+# the batched rollout engines on the spheres assets: validate.py's
+# --batched_rollouts observation side (cli.py:95), 16 sims, each path's net
+# (the student over the teacher's occupancy, the teacher, the ref net
+# without occupancy), envConfig.json's dynamics and disturbances, hover
+# actions, the start whose observation camera is held-out pose 0
+ROLLOUT_OBS = 100
+ROLLOUT_SIMS = 16
+ROLLOUT_NETS = {"scout": "student_h160", "fast": "teacher",
+                "guided": "teacher", "uniform": "ref"}
+
+
+def envconfig(path=ROOT / "envConfig.json"):
+    """envConfig.json's dynamics and disturbances: {'steps', 'dt' (T_final
+    / steps), 'g', 'mass', 'I', 'noise_mean', 'noise_std'}."""
+    cfg = json.loads(Path(path).read_text())
+    plan, agent, mpc = cfg["planner_cfg"], cfg["agent_cfg"], cfg["mpc_cfg"]
+    steps = int(plan["steps"])
+    return dict(steps=steps, dt=plan["T_final"] / steps, g=agent["g"],
+                mass=agent["mass"], I=np.asarray(agent["I"], np.float32),
+                noise_mean=np.asarray(mpc["mpc_noise_mean"], np.float32),
+                noise_std=np.asarray(mpc["mpc_noise_std"], np.float32))
+
+
+def rollout_engine(path, net, state, sdf, sdf_start, granularity,
+                   steps=None, device="cuda"):
+    """The FullBatchedRolloutEngine of observation path `path` over `net`
+    (and `state`'s occupancy, but for `uniform`): envConfig.json's
+    dynamics and disturbances for `steps` steps (default its 12), hover
+    actions [m g, 0, 0, 0], the start state of held-out pose 0, 100^2
+    observations of the scene's camera."""
+    env = envconfig()
+    T = env["steps"] if steps is None else steps
+    return FullBatchedRolloutEngine(
+        actions=np.tile(np.float32([env["mass"] * env["g"], 0.0, 0.0, 0.0]),
+                        (T, 1)),
+        dt=env["dt"], g=env["g"], mass=env["mass"], I=env["I"], sdf=sdf,
+        sdf_start=sdf_start, granularity=granularity,
+        noise_mean=env["noise_mean"], noise_std=env["noise_std"],
+        start_state=start_state_from_pose(holdout_poses()[0]), net=net,
+        renderer_state=None if path == "uniform" else state,
+        obs_render=path, obs_res=ROLLOUT_OBS, base_intrinsics=intrinsics(),
+        base_res=RES, device=device)
 
 
 def intrinsics(res: int = RES):

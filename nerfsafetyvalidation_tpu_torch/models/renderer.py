@@ -235,10 +235,21 @@ def _pad_rays(rays_o, rays_d, n):
             torch.cat([rays_d, fill_d]))
 
 
+def _uq_moments(rgbs, sigmas):
+    """The Gaussian UQ's sample moments [S_c2d2, S_cd, S_d, S_d2] of one
+    tile: sums of (c sigma)^2, c sigma, sigma and sigma^2 over its slots
+    (rgbs [T, K, 3]; sigmas [T, K], 0 in the slots the tile masks out)."""
+    cd = rgbs * sigmas[..., None]
+    return torch.stack([torch.sum(cd * cd), torch.sum(cd), torch.sum(sigmas),
+                        torch.sum(sigmas ** 2)])
+
+
 def _shade_marched_tile(net, cfg, o, d, ts, count, nr, fr, Kb, dt_min,
-                        dt_max, dt_gamma, bg_color, plain=False):
+                        dt_max, dt_gamma, bg_color, plain=False,
+                        moments=False):
     """Shade one sorted tile's first Kb sample slots and composite them.
-    Returns (img [T, 3], depth, agg, ws, depth_abs)."""
+    Returns (img [T, 3], depth, agg, ws, depth_abs, the tile's UQ moments
+    (masked slots as sigma = 0) or None)."""
     T = o.shape[0]
     ts = ts[:, :Kb]
     mask = torch.arange(Kb, device=o.device)[None, :] < count[:, None]
@@ -249,20 +260,24 @@ def _shade_marched_tile(net, cfg, o, d, ts, count, nr, fr, Kb, dt_min,
                        -cfg.bound, cfg.bound).reshape(-1, 3)
     dirs = d[:, None, :].expand(T, Kb, 3).reshape(-1, 3)
     sigmas, rgbs = net(xyzs, dirs, plain=plain)
-    res = composite_marched(sigmas.reshape(T, Kb), rgbs.reshape(T, Kb, 3),
-                            dts, rs, ts, mask, nr, fr,
+    sigmas, rgbs = sigmas.reshape(T, Kb), rgbs.reshape(T, Kb, 3)
+    res = composite_marched(sigmas, rgbs, dts, rs, ts, mask, nr, fr,
                             density_scale=cfg.density_scale)
     ws = res["weights_sum"]
     img = res["image"] + (1.0 - ws)[..., None] * bg_color
     safe = torch.where(fr > nr, fr - nr, 1.0)
     depth = torch.clamp(res["depth"] - nr, min=0.0) / safe
-    return img, depth, res["aggregated_density"], ws, res["depth_abs"]
+    mom = _uq_moments(rgbs, torch.where(mask, sigmas, 0.0)) if moments \
+        else None
+    return img, depth, res["aggregated_density"], ws, res["depth_abs"], mom
 
 
 def render_frame_fast(net, state: RendererState, rays_o, rays_d,
                       tile: int = 131072, max_samples: int = 16,
                       max_steps: int = 512, dt_gamma: float = 0.0,
-                      bg_color: float = 1.0, plain_field: bool = False):
+                      bg_color: float = 1.0, samples_per_hit: int = 2,
+                      march_tile: int = 32768, return_moments: bool = False,
+                      plain_field: bool = False):
     """Marched frame: march every ray, sort the rays by sample count, shade
     the sorted rays in tiles at the smallest sufficient slot count (4, 8 or
     K), skip tiles without samples, and unsort.
@@ -271,14 +286,19 @@ def render_frame_fast(net, state: RendererState, rays_o, rays_d,
     sorted, stably, unfinished first and then by sample count; phase 2
     resumes only the unfinished prefix, for up to `max_steps` more
     iterations (the JAX version runs it per 32,768-ray march tile; the
-    result is the same, since the loop is a no-op for a finished ray).
-    Rays are padded to a whole number of tiles as in the JAX version.
-    Emission is paired (samples_per_hit=2), the JAX version's default.
+    result is the same, since the loop is a no-op for a finished ray), so
+    `march_tile`, the JAX version's march tile, is accepted and changes
+    nothing. Rays are padded to a whole number of tiles as in the JAX
+    version. `samples_per_hit` samples are emitted a step (2 pairs them).
 
     Returns {'image' [N, 3], 'depth', 'aggregated_density', 'weights_sum',
     'depth_abs' [N], 'tile_bucket' [n_tiles] int64 numpy: 0 empty, b > 0
     shaded with the b-th of the slot counts (4, 8, K), 'march' (phase-1
-    iterations, rays unfinished after them, phase-2 iterations)}.
+    iterations, rays unfinished after them, phase-2 iterations)}, and
+    with `return_moments` 'uq_moments' [4]: [S_c2d2, S_cd, S_d, S_d2], the
+    sums of (c sigma)^2, c sigma, sigma and sigma^2 over every shaded slot
+    of every tile, a masked slot counting as sigma = 0 (what the batched
+    engines' Gaussian UQ reads).
     `plain_field` shades through the field's plain version instead of its
     kernel."""
     cfg = net.cfg
@@ -293,7 +313,7 @@ def render_frame_fast(net, state: RendererState, rays_o, rays_d,
     march = dict(bitfield=state.density_bitfield, bound=cfg.bound,
                  cascade=cfg.cascade, grid_size=cfg.grid_size,
                  max_samples=K, max_steps=max_steps, dt_gamma=dt_gamma,
-                 skip_grid=state.skip_grid, samples_per_hit=2)
+                 skip_grid=state.skip_grid, samples_per_hit=samples_per_hit)
 
     # ---- phase 1: a fixed budget of iterations for every ray
     p1, (t_c, count_c, ts_c) = march_rays(
@@ -336,16 +356,29 @@ def render_frame_fast(net, state: RendererState, rays_o, rays_d,
                      device=dev)
     depth = torch.zeros((N,), dtype=torch.float32, device=dev)
     agg, ws, dabs = (torch.zeros_like(depth) for _ in range(3))
+    moms = []
     for i in np.nonzero(bucket)[0]:
         r = slice(i * tile, (i + 1) * tile)
-        img[r], depth[r], agg[r], ws[r], dabs[r] = _shade_marched_tile(
+        img[r], depth[r], agg[r], ws[r], dabs[r], mom = _shade_marched_tile(
             net, cfg, o_s[r], d_s[r], ts_s[r], count_s[r], nr_s[r], fr_s[r],
             sizes[bucket[i] - 1], dt_min, dt_max, dt_gamma, bg_color,
-            plain=plain_field)
-    return {"image": img[pos][:N0], "depth": depth[pos][:N0],
-            "aggregated_density": agg[pos][:N0],
-            "weights_sum": ws[pos][:N0], "depth_abs": dabs[pos][:N0],
-            "tile_bucket": bucket, "march": (iters[0], n_active, iters[1])}
+            plain=plain_field, moments=return_moments)
+        moms.append(mom)
+    out = {"image": img[pos][:N0], "depth": depth[pos][:N0],
+           "aggregated_density": agg[pos][:N0],
+           "weights_sum": ws[pos][:N0], "depth_abs": dabs[pos][:N0],
+           "tile_bucket": bucket, "march": (iters[0], n_active, iters[1])}
+    if return_moments:
+        out["uq_moments"] = _sum_moments(moms, dev)
+    return out
+
+
+def _sum_moments(moms, device):
+    """The frame's moments: the shaded tiles' summed in tile order (an
+    empty tile adds nothing)."""
+    if not moms:
+        return torch.zeros((4,), dtype=torch.float32, device=device)
+    return torch.stack(moms).sum(dim=0)
 
 
 def _scout_field(net, pre_o, pre_d, S, cfg, aabb, bitfield=None,
@@ -401,9 +434,9 @@ def _window_grids(pre_dabs, pre_ws, h, w):
 
 
 def _window_shade_tile(net, cfg, o, d, ta, tb, nr, fr, ht, K, bg_color,
-                       plain=False):
+                       plain=False, moments=False):
     """Shade one tile of rays with K uniform samples in [ta, tb]. Returns
-    (img [T, 3], depth, agg, ws)."""
+    (img [T, 3], depth, agg, ws, the tile's UQ moments or None)."""
     T = o.shape[0]
     dtw = (tb - ta) / K
     jj = torch.arange(K, dtype=torch.float32, device=o.device) + 0.5
@@ -424,7 +457,8 @@ def _window_shade_tile(net, cfg, o, d, ta, tb, nr, fr, ht, K, bg_color,
     depth = torch.sum(wgt * torch.clamp(z - nr[:, None], min=0.0),
                       dim=-1) / safe
     agg = torch.sum(wgt * sigmas, dim=-1)
-    return img, depth, agg, ws
+    return img, depth, agg, ws, _uq_moments(rgbs, sigmas) if moments \
+        else None
 
 
 def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
@@ -435,12 +469,15 @@ def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
                         adaptive_span_cells: float = 12.5,
                         prepass_mode: str = "march", prepass_net=None,
                         max_steps: int = 512, dt_gamma: float = 1.0 / 64,
+                        return_moments: bool = False,
                         plain_field: bool = False):
     """rays_o/d: [H*W, 3] row-major, on the device that renders. Returns
     {'image' [N, 3], 'depth', 'aggregated_density', 'weights_sum' [N],
     'tile_bucket' [n_tiles] int64 numpy: 0 empty, 1 adaptive_k, 2 K,
     'march': the march prepass's iteration counts (render_frame_fast), or
-    None}.
+    None}, and with `return_moments` 'uq_moments' [4] as render_frame_fast
+    gives them, over the fine pass's shaded slots (the prepass adds
+    none).
 
     prepass_mode "scout" finds each block's depth with `scout_samples`
     uniform samples through the prepass net's density head, masked by the
@@ -533,16 +570,22 @@ def render_frame_guided(net, state: RendererState, rays_o, rays_d, H: int,
     depth = torch.zeros((n_tiles, tile), dtype=torch.float32, device=dev)
     agg = torch.zeros_like(depth)
     ws = torch.zeros_like(depth)
+    moms = []
     for i in np.nonzero(bucket)[0]:
         kb = adaptive_k if bucket[i] == 1 else K
-        img[i], depth[i], agg[i], ws[i] = _window_shade_tile(
+        img[i], depth[i], agg[i], ws[i], mom = _window_shade_tile(
             net, cfg, o_s[i], d_s[i], t0_s[i], t1_s[i], nr_s[i], fr_s[i],
-            hit_s[i], kb, bg_color, plain=plain_field)
-    return {"image": img.reshape(-1, 3)[:N],
-            "depth": depth.reshape(-1)[:N],
-            "aggregated_density": agg.reshape(-1)[:N],
-            "weights_sum": ws.reshape(-1)[:N],
-            "tile_bucket": bucket, "march": march}
+            hit_s[i], kb, bg_color, plain=plain_field,
+            moments=return_moments)
+        moms.append(mom)
+    out = {"image": img.reshape(-1, 3)[:N],
+           "depth": depth.reshape(-1)[:N],
+           "aggregated_density": agg.reshape(-1)[:N],
+           "weights_sum": ws.reshape(-1)[:N],
+           "tile_bucket": bucket, "march": march}
+    if return_moments:
+        out["uq_moments"] = _sum_moments(moms, dev)
+    return out
 
 
 # --------------------------------------------------------------------------

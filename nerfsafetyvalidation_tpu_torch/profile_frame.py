@@ -4,7 +4,8 @@ the card.
     python3 -m nerfsafetyvalidation_tpu_torch.profile_frame \\
         [--mode fast|guided|baked_h160_ak8|baked_h160|baked_h192|baked|
                 ref_backbone|ref_backbone_ml8|staged|staged_bf16|train|
-                train_O_ff|train_ff]
+                train_O_ff|train_ff|rollout_scout|rollout_fast|
+                rollout_guided|rollout_uniform]
 
 Loads the flagship teacher (or, for the ref_backbone modes, the hash-grid
 reference backbone), refreshes its occupancy 4x as bench.py does, renders
@@ -25,6 +26,10 @@ width (flagship.TRAIN_CFG, through K5) from a seeded init on the spheres
 set: 20 steps of warm-up (two full refreshes among them), 4 steps under the
 profiler, then 8 steps without it; and apart, with a device wait around
 each, the march of one batch, a full and a partial refresh.
+`--mode rollout_scout|rollout_fast|rollout_guided|rollout_uniform` does it
+for one step of the batched rollout engine (flagship.rollout_engine: 16
+sims, 100x100 observations of each path's net) and times one observation,
+the 16, and the UQ's Adam apart.
 `--mode train_O_ff` and `train_ff` do it for the training CLI's steps
 (`main_nerf`'s trainer, net and options for `-O --ff` or `--ff` at the
 CLI's defaults but --bound 1 --scale 1) of `NeRFNetworkFF`, the hash-grid
@@ -37,6 +42,7 @@ import argparse
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from . import flagship as F
@@ -184,10 +190,45 @@ def _frame_profile(mode, dev, acts):
     return wall_ms, plain_wall_ms, prof, info
 
 
+ROLLOUT_MODES = {f"rollout_{path}": path for path in F.ROLLOUT_NETS}
+
+
+def _rollout_setup(path, dev):
+    """(one step of the rollout path's engine over F.ROLLOUT_SIMS sims, as a
+    function; a line timing its parts): the smoke's engine
+    (flagship.rollout_engine) cut to one step, over a free-space SDF of the
+    smoke's shape (a lookup costs the same)."""
+    name = F.ROLLOUT_NETS[path]
+    if name == "ref":
+        nets, _ = F.load_ref_nets(dev)
+        state = None
+    else:
+        teacher, stored = F.load_teacher_net(dev)
+        nets = {"teacher": teacher, **F.load_students(dev)}
+        state = F.refresh(teacher, stored)
+    sdf = np.ones((80, 80, 80), np.float32)
+    eng = F.rollout_engine(path, nets[name], state, sdf, (-1.0, -1.0, -1.0),
+                           40, steps=1, device=dev)
+    z = torch.randn((F.ROLLOUT_SIMS, 1, 12), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    states = eng.start_state.expand(F.ROLLOUT_SIMS, 12)
+    eng.run(z)
+    stats, obs_ms = _timed(lambda: eng._render_stats(states[:1]))
+    _, all_ms = _timed(lambda: eng._render_stats(states))
+    _, uq_ms = _timed(lambda: eng._gaussian_uq_moments(
+        *stats.expand(F.ROLLOUT_SIMS, 5).unbind(-1)))
+    info = (f"rollout {path} ({name}, {F.ROLLOUT_OBS}^2): one observation "
+            f"{obs_ms:.3f} ms, the {F.ROLLOUT_SIMS} sims' {all_ms:.3f} ms, "
+            f"the UQ's {eng.uq_iters} Adam steps over them {uq_ms:.3f} ms "
+            "(wall, between device waits)")
+    return (lambda: eng.run(z)), info
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=sorted(F.MODES) + ["train"]
-                    + sorted(CLI_MODES), default="baked_h160_ak8")
+                    + sorted(CLI_MODES) + sorted(ROLLOUT_MODES),
+                    default="baked_h160_ak8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
@@ -195,13 +236,19 @@ def main(argv=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     info, unit, reps = "", "frame", 1
-    if args.mode.startswith("train"):
-        trainer, batches, info = _train_setup(dev) if args.mode == "train" \
-            else _cli_train_setup(dev, CLI_MODES[args.mode])
-        unit, reps = "step", 4
+    if args.mode.startswith(("train", "rollout")):
+        if args.mode.startswith("rollout"):
+            with torch.inference_mode():
+                frame, info = _rollout_setup(ROLLOUT_MODES[args.mode], dev)
+            unit, reps = "step", 2
+        else:
+            trainer, batches, info = _train_setup(dev) \
+                if args.mode == "train" \
+                else _cli_train_setup(dev, CLI_MODES[args.mode])
+            unit, reps = "step", 4
 
-        def frame():
-            trainer.iteration(next(batches))
+            def frame():
+                trainer.iteration(next(batches))
 
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
