@@ -4,6 +4,7 @@ CUDA card.
 
     python3 chip_smoke.py
 
+(`--closed-loop-intrinsics` runs only the probe of that name, below.)
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
@@ -142,12 +143,45 @@ Phases, each printing its elapsed seconds:
      exceeds 15 (where K1 and K3 clip it) through the unclipped plain
      chain, in pose 0's 800x800 `fast` and `baked_h160` frames and in each
      rollout path's observation, and S_d2 and sigma_d through the kernel
-     route and through that chain.
+     route and through that chain;
+ 19. validate --ff MC, validate --ff CEM: the port's validate CLI
+     (`validate.main`, --batched_rollouts) as a user runs it, each in a
+     temporary working directory holding envConfig.json (16 and 10 sims;
+     its epochs, iterations and camera kept), the SDF of the phase's own
+     net at the simulator's grid (validation/utils/sdf.py) and the
+     checkpoint of the main_nerf -O --ff run (NeRFNetworkFF, bf16), on a
+     spheres directory whose test view (the intrinsics) is 800^2, as the
+     camera is (VALIDATE_RES), at 64 samples a ray, Python's `random`
+     seeded 0: the restarts of the CLI's "Path not found" loop (at most
+     5), A*'s occupied share of its 20^3 grid and the path's length,
+     learn_init's seconds and first and last cost (which must fall), K4's
+     launches in A*'s 100^3 probe, in learn_init and in the observations
+     (each at least one; the plain version never), rollouts/s, the
+     collision rate, sigma_d's range and the CSV's rows (the MC CSV's 23
+     columns; the CEM CSV's 27, each sim's rows stopping at its first
+     collision); then K4 against its plain chain at the learned plan: the
+     planner's cost and its gradient in the knots (TOL_K4's sigma bound),
+     its collision term and that term's gradient (TOL_K4_COLLISION; a
+     planted K4 error must fail it), and the start's observation (the
+     frames' image bounds, the UQ's inputs at TOL_UQ_STATS);
+ 20. validate --closed_loop: the same on an unfused hash-grid net, 4
+     sims: the CLI's default float32 NeRFNetwork, trained by `main_nerf
+     --cuda_ray --iters 192` on the same directory ("validate nets", which
+     also loads bench_assets/refbb.ckpt into that net and prints the share
+     of A*'s grid it leaves occupied: too much for a path, see
+     VALIDATE_UNFUSED), envConfig's 100 estimator
+     iterations and 250 replan epochs a step, 800^2 camera, 32^2 interest
+     grid: s per sim-step, the estimate's, replan's and UQ's milliseconds
+     a population step, the mean distance between the estimated and the
+     true position, finite estimates and rewards, no K4 launch;
+ 21. the refusals: --closed_loop --ff, --batched_obs_render guided
+     without --fast_render, and --fast_render each exit with their
+     message within seconds, before anything loads.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
-the training, each main_nerf run, K2's path, the probe, the bench and each
-rollout phase, and read just after. The
+the training, each main_nerf run, K2's path, the probe, the bench, each
+rollout phase and each validate run, and read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -158,6 +192,7 @@ CUDA device the script fails before printing anything.
 import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -245,6 +280,19 @@ TOL_K3 = dict(rgb=(1e-2, 1e-6), sigma=(1.5e-2, 2e-6))
 # instead of f32 sums moves them by 7.8e-3 / 3.5e-8 and 7.8e-3 / 5.4e-8
 # (NVIDIA H100 80GB HBM3). Bounds: about 3x the maxima, 15-20x the means.
 TOL_K4 = dict(sigma=(2.5e-2, 1e-6), color=(2.5e-2, 2e-6))
+# The planner's collision term through K4 against the plain chain, per
+# knot relative to its largest, and its gradient in the knots relative to
+# the largest component: 1e6 times the mean over 500 body points of
+# sigma^2 times the speed. At TOL_K4's mean rate a sigma-net output lands
+# on the neighbouring bf16 value about once in 140,000 rows, and the term
+# reads (S+3) x 500 (5,500 at the smoke's plan), so it mostly sees f32 sum
+# order; one such flip at the densest point with |log sigma| < 4 moves
+# sigma^2 by <= 3.2%. Bound: TOL_K4's. The planted error below (sigma 3%
+# high, the term 6.2%) must fail it; the whole cost, which 1000 fz^2
+# dominates, moves 0.2%. Measured: the term equal, its gradient 5.4e-3;
+# planted 6.2e-2 / 6.9e-2 (NVIDIA H100 80GB HBM3).
+TOL_K4_COLLISION = 2.5e-2
+PLANTED_K4_LOG_SIGMA = 0.03
 # K4 in f32 against its plain version (rtol, atol): the JAX package's own
 # tolerance of its f32 kernel against the f32 chain (tests/
 # test_fused_mlp.py:263-269). FFMA in order against cuBLAS's f32 products
@@ -484,6 +532,412 @@ def cem_csv_rows_stop(rows, steps):
     return len(rows), hits
 
 
+# The validate phases: the port's validate CLI (nerfsafetyvalidation_tpu_
+# torch/validate.py) as a user runs it, each in a temporary working
+# directory with envConfig.json (n_simulations cut), the SDF of the
+# phase's own net (validation/utils/sdf.py at the simulator's 40 cells/m
+# grid) and its checkpoint, on the spheres set written as a directory:
+# (name, flags, stress test, sims, checkpoint: "ff" for the main_nerf -O
+# --ff run's, "unfused" for VALIDATE_UNFUSED's). Every run draws 64
+# samples a ray (the CLI's default is 512; the rollout phases' 64);
+# envConfig's epochs, estimator iterations and 800^2 camera stay.
+VALIDATE_STEPS = 64
+VALIDATE_RUNS = (
+    ("--ff MC", ["--ff"], "Monte Carlo", 16, "ff"),
+    ("--ff CEM", ["--ff"], "Cross Entropy Method", 10, "ff"),
+    ("--closed_loop", ["--closed_loop"], "Monte Carlo", 4, "unfused"))
+# The closed loop's net: the CLI's default float32 NeRFNetwork, unfused.
+# refbb.ckpt loads into it (--bound 1 --scale 1), but its march-trained
+# density leaves 76.5% of A*'s 20^3 grid occupied (printed below), where a
+# path rarely fits: at the smoke's seed A* found none in 6 draws. So the
+# smoke trains one with main_nerf as the -O --ff run is trained, without
+# --ff and fp16: 192 iters through the march (--cuda_ray), float32,
+# unfused.
+VALIDATE_UNFUSED = ["--cuda_ray", "--iters", "192"]
+# The validate CLI reads the intrinsics of its dataset's test split, and
+# the closed loop's interest pixels lie on envConfig's 800^2 camera: the
+# phases read a spheres directory whose one test view is 800^2 (the
+# reference's Stonehenge set is 800^2). With the 200^2 training set the
+# pixels would lie up to 68 degrees off the axis on one side (its focal
+# length is 278 px, cx 100).
+VALIDATE_RES = 800
+# command lines the port refuses (each a SystemExit before anything loads;
+# the first two loop forever in the JAX CLI)
+VALIDATE_REFUSALS = (
+    ("--closed_loop --ff", ["--closed_loop", "--ff"], "--closed_loop --ff"),
+    ("--batched_obs_render guided", ["--batched_obs_render", "guided"],
+     "restart loop"),
+    ("--fast_render", ["--fast_render"], "to_cell"))
+# the validate CLI's restart loop: a phase fails after this many restarts
+MAX_RESTARTS = 5
+BLENDER_TO_NERF = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+
+
+class Places:
+    """Patches methods (name, class, attribute) so that each call adds its
+    K4 launches and seconds (between device waits) to its place's name, and
+    keeps the last object each was called on; `hooks[name]` = (before,
+    after) run on that object outside the counted window. `restore()`
+    undoes the patches."""
+
+    def __init__(self, sync, fused_mlp, places, hooks=None):
+        self.k4, self.s, self.last, self.saved = {}, {}, {}, []
+        self.sync, self.fused_mlp, self.hooks = sync, fused_mlp, hooks or {}
+        for name, cls, attr in places:
+            orig = getattr(cls, attr)
+            self.saved.append((cls, attr, orig))
+            self.k4.setdefault(name, 0)
+            self.s.setdefault(name, 0.0)
+            setattr(cls, attr, self._wrap(name, orig))
+
+    def _wrap(self, name, orig):
+        def call(obj, *a, **k):
+            before, after = self.hooks.get(name, (None, None))
+            if before:
+                before(obj)
+            self.sync()
+            n0, t0 = self.fused_mlp.LAUNCHES, time.perf_counter()
+            try:
+                return orig(obj, *a, **k)
+            finally:
+                self.sync()
+                self.k4[name] += self.fused_mlp.LAUNCHES - n0
+                self.s[name] += time.perf_counter() - t0
+                self.last[name] = obj
+                if after:
+                    after(obj)
+        return call
+
+    def restore(self):
+        for cls, attr, orig in reversed(self.saved):
+            setattr(cls, attr, orig)
+
+
+def _workdir(data_dir, stress, sims):
+    env = json.loads((ROOT / "envConfig.json").read_text())
+    env.update(n_simulations=sims, stress_test=stress)
+    Path("envConfig.json").write_text(json.dumps(env))
+    return [data_dir, "--workspace", "ws", "--bound", "1", "--scale", "1",
+            "--seed", "0", "--batched_rollouts", "--num_steps",
+            str(VALIDATE_STEPS)]
+
+
+def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
+    """One validate CLI run on the card (see VALIDATE_RUNS); returns its
+    numbers."""
+    import random
+    from nerfsafetyvalidation_tpu_torch.cli import apply_O_flag, build_parser
+    from nerfsafetyvalidation_tpu_torch.config import network_config_from_opt
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.nav.planner import (
+        Planner, planner_cost_terms)
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
+    from nerfsafetyvalidation_tpu_torch.validation.batched import (
+        FullBatchedRolloutEngine)
+    from nerfsafetyvalidation_tpu_torch.validation.closed_loop import (
+        ClosedLoopBatchedEngine)
+    from nerfsafetyvalidation_tpu_torch.validation.simulators import (
+        NerfSimulator)
+    from nerfsafetyvalidation_tpu_torch.validation.utils.sdf import build_sdf
+
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    places = None
+    try:
+        argv = _workdir(data_dir, stress, sims) + extra
+        os.makedirs("ws/checkpoints")
+        shutil.copy(ckpt, "ws/checkpoints/ngp_ep0001.ckpt")
+        # the SDF of the phase's own net, through the CLI's density closure
+        opt = apply_O_flag(build_parser("validate").parse_args(argv),
+                           "validate")
+        net = make_network(network_config_from_opt(opt), None, device="cuda",
+                           opt=opt, trainable=True)
+        Trainer(opt, net, workspace="ws", use_checkpoint=opt.ckpt, mute=True)
+        rot = torch.tensor(BLENDER_TO_NERF, device="cuda")
+        sync = torch.cuda.synchronize
+
+        def density(pts):
+            with torch.inference_mode():
+                x = torch.from_numpy(pts).cuda() @ rot
+                return net.density(x)["sigma"]
+        os.makedirs("validation/utils")
+        t0 = time.perf_counter()
+        sdf = build_sdf(density, out_path="validation/utils/sdf.npy")
+        t_sdf = time.perf_counter() - t0
+        sdf_occupied = float((sdf == 0).mean())
+        del net
+
+        draws = []
+        real_generate = V.generate_path
+
+        def generate(*ranges):
+            draws.append(ranges)
+            check(len(draws) <= 1 + MAX_RESTARTS, f"validate {argv[-1]}: "
+                  f"more than {MAX_RESTARTS} 'Path not found' restarts")
+            return real_generate(*ranges)
+        V.generate_path = generate
+        costs = {}
+
+        def cost(key):
+            def record(planner):
+                with torch.no_grad():
+                    costs[key] = float(planner.total_cost())
+            return record
+        def astar_said(planner):
+            occ = getattr(planner, "occupied", None)
+            print(f"validate: A* from {planner.start_state[:3].tolist()} to "
+                  f"{planner.end_state[:3].tolist()}, 20^3 grid "
+                  f"{'not built' if occ is None else float(occ.mean())} "
+                  "occupied", flush=True)
+        places = Places(sync, fused_mlp, [
+            ("reset", NerfSimulator, "reset"),
+            ("astar", Planner, "a_star_init"),
+            ("learn_init", Planner, "learn_init"),
+            ("observations", FullBatchedRolloutEngine, "_render_stats"),
+            ("run", FullBatchedRolloutEngine, "monte_carlo"),
+            ("run", FullBatchedRolloutEngine, "cem"),
+            ("run", ClosedLoopBatchedEngine, "monte_carlo"),
+            ("target", ClosedLoopBatchedEngine, "_target_pixels"),
+            ("estimate", ClosedLoopBatchedEngine, "_estimate"),
+            ("replan", ClosedLoopBatchedEngine, "_replan"),
+            ("uq", FullBatchedRolloutEngine, "_gaussian_uq_moments")],
+            hooks={"learn_init": (cost("first"), cost("last")),
+                   "astar": (None, astar_said)})
+        random.seed(0)
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        plain0 = fused_mlp.PLAIN_CALLS
+        t0 = time.perf_counter()
+        res = V.main(argv, device="cuda")
+        sync()
+        t_all = time.perf_counter() - t0
+        launches = fused_mlp.LAUNCHES
+        plain = fused_mlp.PLAIN_CALLS - plain0
+        places.restore()
+        V.generate_path = real_generate
+
+        sim = places.last["reset"]
+        planner = sim.traj
+        T = int(planner.get_actions().shape[0])
+        eng = places.last["run"]
+        csvs = {f.name: list(csv.reader(open(f, newline="")))
+                for f in Path("results").glob("collisionValues*.csv")}
+        check(len(csvs) == 1 and all(csvs.values()),
+              f"validate {extra}: no CSV with rows under results/")
+        (csv_name, rows), = csvs.items()
+        stats = dict(
+            restarts=len(draws) - 1, sdf_s=t_sdf, sdf_occupied=sdf_occupied,
+            astar_occupied=float(planner.occupied.mean()),
+            knots=int(planner.states.shape[0]), steps=T, wall_s=t_all,
+            learn_init_s=places.s["learn_init"],
+            learn_init_cost=[costs.get("first"), costs.get("last")],
+            k4={k: places.k4[k] for k in ("astar", "learn_init",
+                                          "observations")},
+            k4_all=launches, plain_calls=plain, run_s=places.s["run"],
+            csv=csv_name, csv_rows=len(rows))
+        ff = "--ff" in extra
+        print(f"validate {' '.join(extra)} ({stress}, {sims} sims, "
+              f"{VALIDATE_STEPS} samples a ray): {stats['restarts']} "
+              f"restarts; SDF {sdf.shape} in {t_sdf:.2f} s, "
+              f"{sdf_occupied:.4f} occupied; A* grid 20^3 "
+              f"{stats['astar_occupied']:.4f} occupied, path of "
+              f"{stats['knots']} cells, {T} steps; learn_init "
+              f"{stats['learn_init_s']:.3f} s, cost {costs.get('first')} -> "
+              f"{costs.get('last')}; K4 launches {stats['k4']} "
+              f"(all {launches}), plain calls {plain}; wall {t_all:.2f} s; "
+              f"{smi}")
+        check(plain == 0, f"validate {extra}: K4's plain version was called")
+        check(all(stats["k4"].values()) if ff else launches == 0,
+              f"validate {extra}: K4 launches {stats['k4']} (all {launches})")
+        check(costs["last"] < costs["first"], f"validate {extra}: "
+              f"learn_init did not lower the cost {costs}")
+        if isinstance(eng, ClosedLoopBatchedEngine):
+            est, true = res["est_states"], res["true_states"]
+            err = float(np.linalg.norm(est[..., :3] - true[..., :3],
+                                       axis=-1).mean())
+            n_steps = sims * T
+            stats.update(
+                s_per_sim_step=stats["run_s"] / n_steps,
+                ms_per_step={k: 1e3 * places.s[k] / T for k in (
+                    "target", "estimate", "replan", "observations", "uq")},
+                est_pos_err_m=err, collision_rate=res["collision_rate"],
+                sigma_d=[float(res["sigma_d"].min()),
+                         float(res["sigma_d"].max())])
+            print(f"validate --closed_loop: {stats['run_s']:.2f} s for "
+                  f"{sims} sims x {T} steps: {stats['s_per_sim_step']:.4f} "
+                  f"s per sim-step; per population step (ms) "
+                  f"{ {k: round(v, 2) for k, v in stats['ms_per_step'].items()} }"
+                  f"; estimated position off the true one by {err:.5f} m "
+                  f"on average; collision rate {res['collision_rate']}; "
+                  f"sigma_d {stats['sigma_d']}; CSV {len(rows)} rows; {smi}")
+            check(np.isfinite(est).all() and np.isfinite(
+                res["reward"]).all(), "validate --closed_loop: an estimate "
+                "or a reward is not finite")
+            return stats
+        n_roll = sims if stress == "Monte Carlo" else max(sims, 10) * 5
+        sig = res["sigma_d"] if "sigma_d" in res else None
+        stats.update(rollouts_per_s=n_roll / stats["run_s"])
+        if stress == "Monte Carlo":
+            check(all(len(r) == 23 for r in rows), "validate MC CSV columns")
+            check(bool(np.isfinite(res["reward"]).all()
+                       and np.isfinite(sig).all() and (sig >= 0).all()),
+                  "validate MC: sigma_d or the reward is not finite")
+            stats.update(collision_rate=float(res["collided"].any(1).mean()),
+                         sigma_d=[float(sig.min()), float(sig.max())])
+            print(f"validate --ff MC: {n_roll} rollouts in "
+                  f"{stats['run_s']:.3f} s, {stats['rollouts_per_s']:.3f} "
+                  f"rollouts/s; collision rate {stats['collision_rate']}; "
+                  f"sigma_d {stats['sigma_d']}; the CSV {len(rows)} rows; "
+                  f"{smi}")
+        else:
+            n_rows, hits = cem_csv_rows_stop(rows, T)
+            stats.update(history=res["history"], collided=hits)
+            print(f"validate --ff CEM: {n_roll} rollouts in "
+                  f"{stats['run_s']:.3f} s, {stats['rollouts_per_s']:.3f} "
+                  f"rollouts/s; the 27-column CSV {n_rows} rows, {hits} "
+                  f"sims' rows stopping at a collision; history "
+                  f"{res['history']}; {smi}")
+            check(bool(np.isfinite(res["means"]).all()),
+                  "validate CEM: the proposal is not finite")
+        # K4 on this path against its plain version (after the counts):
+        # the planner's cost and its gradient in the knots at the learned
+        # plan, and the start's observation
+        stats.update(validate_k4_checks(torch, sim, planner, eng,
+                                        planner_cost_terms))
+        return stats
+    finally:
+        if places is not None:
+            places.restore()
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def validate_k4_checks(torch, sim, planner, eng, planner_cost_terms):
+    """K4 against its plain chain at the learned plan, with the cost's fade
+    mask at 1: the planner's collision term [S+3] (the only term that
+    reads the density) relative to its largest value, and its gradient in
+    the knots relative to the largest component, at TOL_K4_COLLISION; the
+    whole cost too (TOL_K4's sigma bound), which the 1000 fz^2 term
+    dominates. A planted K4 error (PLANTED_K4_LOG_SIGMA added to the sigma
+    net's first output, sigma 3% high) must fail the collision check.
+    Then the start's observation through K4 and the plain field (the
+    frames' image bounds, the UQ's inputs at TOL_UQ_STATS)."""
+    from nerfsafetyvalidation_tpu_torch.models import network
+    rot = torch.tensor(BLENDER_TO_NERF, device="cuda")
+    net = sim.net
+
+    def cost(plain):
+        def density(x):
+            return net.density(x.reshape(-1, 3) @ rot, plain=plain)[
+                "sigma"].reshape(x.shape[:-1])
+        knots = planner.states.detach().clone().requires_grad_(True)
+        total, col = planner_cost_terms(
+            knots, planner.initial_accel, planner.start_state,
+            planner.end_state, max(planner.fade_out_epoch, 0),
+            density_fn=density, dt=planner.dt, g_vec=planner.g, J=planner.J,
+            mass=planner.mass, robot_body=planner.robot_body,
+            fade_out_epoch=planner.fade_out_epoch,
+            fade_out_sharpness=planner.fade_out_sharpness)
+        g_tot, = torch.autograd.grad(total.mean(), knots, retain_graph=True)
+        g_col, = torch.autograd.grad(col.sum(), knots)
+        return total.detach(), g_tot, col.detach(), g_col
+
+    def errs(k, p):
+        (c_k, g_k, l_k, gl_k), (c_p, g_p, l_p, gl_p) = k, p
+        return dict(
+            cost=float(((c_k - c_p).abs() / c_p.abs().clamp(min=1.0)).max()),
+            grad=float((g_k - g_p).abs().max()
+                       / g_p.abs().max().clamp(min=1e-30)),
+            col=float((l_k - l_p).abs().max()
+                      / l_p.abs().max().clamp(min=1e-30)),
+            col_grad=float((gl_k - gl_p).abs().max()
+                           / gl_p.abs().max().clamp(min=1e-30)))
+    p = cost(True)
+    e = errs(cost(False), p)
+    real_k4 = network.fused_mlp
+
+    def planted(h, weights, dtype):
+        out = real_k4(h, weights, dtype)
+        return torch.cat([out[:, :1] + PLANTED_K4_LOG_SIGMA, out[:, 1:]], 1)
+    network.fused_mlp = planted
+    try:
+        e_planted = errs(cost(False), p)
+    finally:
+        network.fused_mlp = real_k4
+    with torch.inference_mode():
+        o, d = eng._obs_rays(eng._pose_from_state(eng.start_state[None]))
+        call = eng._obs_call()
+        k_out, p_out = call(o, d), call(o, d, plain_field=True)
+        img = (k_out["image"] - p_out["image"]).abs()
+        st_k, st_p = eng._obs_stats(k_out)[0], eng._obs_stats(p_out)[0]
+        st_err = float(((st_k - st_p).abs() / st_p.abs().clamp(
+            min=1e-30)).max())
+    tol, tol_col = TOL_K4["sigma"][0], TOL_K4_COLLISION
+    print(f"validate K4 vs plain: planner cost [{p[0].shape[0]}] max rel "
+          f"{e['cost']:.3e} (cost up to {float(p[0].max()):.4g}), its "
+          f"gradient in the knots max {e['grad']:.3e} of its largest "
+          f"{float(p[1].abs().max()):.4g}; the collision term max "
+          f"{e['col']:.3e} of its largest {float(p[2].abs().max()):.4g}, "
+          f"its gradient max {e['col_grad']:.3e} of its largest "
+          f"{float(p[3].abs().max()):.4g}; with a planted K4 error of "
+          f"{PLANTED_K4_LOG_SIGMA} on log sigma: cost {e_planted['cost']:.3e}"
+          f", gradient {e_planted['grad']:.3e}, collision term "
+          f"{e_planted['col']:.3e}, its gradient {e_planted['col_grad']:.3e}"
+          f"; the start's observation image max {float(img.max()):.3e} mean "
+          f"{float(img.mean()):.3e}, UQ inputs max rel {st_err:.3e}")
+    check(e["cost"] <= tol and e["grad"] <= tol, "validate: the planner's "
+          f"cost or gradient through K4 is off the plain chain's by more "
+          f"than {tol}")
+    check(e["col"] <= tol_col and e["col_grad"] <= tol_col, "validate: the "
+          "planner's collision term or its gradient through K4 is off the "
+          f"plain chain's by more than {tol_col}")
+    check(e_planted["col"] > tol_col or e_planted["col_grad"] > tol_col,
+          "validate: the collision check does not see a planted K4 error")
+    check(float(img.max()) <= TOL_IMG_MAX and float(img.mean())
+          <= TOL_IMG_MEAN and st_err <= TOL_UQ_STATS,
+          "validate: the observation through K4 is off the plain field's")
+    return dict(k4_cost_rel=e["cost"], k4_grad_rel=e["grad"],
+                k4_collision_rel=e["col"], k4_collision_grad_rel=e["col_grad"],
+                planted=e_planted, obs_img_max=float(img.max()),
+                obs_stats_rel=st_err)
+
+
+def astar_occupied(torch, net):
+    """The share of A*'s 20^3 grid that the planner marks occupied for a
+    net, through the validate CLI's density closure (Planner.a_star_init's
+    100^3 probe, max-pooled, above 0.3)."""
+    lin = np.linspace(-1, 1, 100, dtype=np.float32)
+    pts = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    rot = torch.tensor(BLENDER_TO_NERF, device="cuda")
+    with torch.inference_mode():
+        sig = net.density(torch.from_numpy(pts.reshape(-1, 3)).cuda()
+                          @ rot)["sigma"].float().cpu().numpy()
+    return float((sig.reshape(20, 5, 20, 5, 20, 5).max(axis=(1, 3, 5))
+                  > 0.3).mean())
+
+
+def validate_refusal(V, data_dir, extra, msg):
+    """The CLI refuses `extra` with `msg` within seconds, before loading."""
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    try:
+        argv = _workdir(data_dir, "Monte Carlo", 16) + extra
+        t0 = time.perf_counter()
+        why = None
+        try:
+            V.main(argv, device="cuda")
+        except SystemExit as e:
+            why = str(e)
+        dt = time.perf_counter() - t0
+        print(f"validate {' '.join(extra)}: refused in {dt:.3f} s: {why}")
+        check(why is not None and msg in why and dt < 10.0
+              and os.listdir(".") == ["envConfig.json"],
+              f"validate {extra} was not refused at once")
+    finally:
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -518,6 +972,7 @@ def main():
     from nerfsafetyvalidation_tpu_torch.models.renderer import (
         render_frame_guided)
     from nerfsafetyvalidation_tpu_torch.validation.utils.sdf import build_sdf
+    from nerfsafetyvalidation_tpu_torch import validate as validate_cli
 
     # float32 products in full float32 (the plain versions' sums, and K2
     # f32's library chain)
@@ -1875,7 +2330,6 @@ def main():
                 launches=trained[key], key=key)
             del tr, tr2, net2
             torch.cuda.empty_cache()
-    data_root.cleanup()
 
     with Phase("kernels K6, K7"):
         gg = torch.Generator(device=dev).manual_seed(6)
@@ -2227,6 +2681,72 @@ def main():
         print("sigma clipping: " + json.dumps(clipping))
         print("rollouts: " + json.dumps(rollouts))
 
+
+    # ---- validate (the port's validate CLI, as a user runs it) ----------
+    with Phase("validate nets"):
+        from nerfsafetyvalidation_tpu_torch.cli import (apply_O_flag,
+                                                        build_parser)
+        from nerfsafetyvalidation_tpu_torch.data.synthetic import (
+            generate_dataset)
+        val_dir = str(Path(data_root.name) / f"spheres{VALIDATE_RES}")
+        write_dataset(val_dir, generate_dataset(
+            n_train=1, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES))
+        from nerfsafetyvalidation_tpu_torch.config import (
+            network_config_from_opt)
+        # refbb.ckpt into the CLI's default net, and its A* grid
+        opt = apply_O_flag(build_parser("validate").parse_args(
+            [data_dir, "--bound", "1", "--scale", "1"]), "validate")
+        net = make_network(network_config_from_opt(opt), None, device=dev,
+                           opt=opt, trainable=True)
+        with tempfile.TemporaryDirectory() as ws:
+            tr = Trainer(opt, net, workspace=ws, mute=True,
+                         use_checkpoint=str(ROOT / "bench_assets/refbb.ckpt"))
+        refbb_occ = astar_occupied(torch, net)
+        print(f"validate nets: refbb.ckpt loads into the CLI's default "
+              f"{type(net).__name__} ({net.cfg.compute_dtype}, fused "
+              f"{net.cfg.fused}) at step {tr.global_step}; A*'s 20^3 grid "
+              f"{refbb_occ:.4f} occupied")
+        del net, tr
+        reset_counts()
+        ws_unfused = str(Path(data_root.name) / "ws_unfused")
+        t0 = time.perf_counter()
+        tr = main_nerf.main([data_dir, "--workspace", ws_unfused, "--bound",
+                             "1", "--scale", "1", "--seed", "0",
+                             *VALIDATE_UNFUSED], device="cuda")
+        t_unfused = time.perf_counter() - t0
+        n = counts()
+        unfused_occ = astar_occupied(torch, tr.net)
+        print(f"validate nets: main_nerf {' '.join(VALIDATE_UNFUSED)}: "
+              f"{type(tr.net).__name__} ({tr.net.cfg.compute_dtype}, fused "
+              f"{tr.net.cfg.fused}), {tr.global_step} steps, last epoch's "
+              f"loss {tr.stats['loss'][-1]:.6f}, {t_unfused:.2f} s; A*'s "
+              f"20^3 grid {unfused_occ:.4f} occupied; K4 launches "
+              f"{n['K4']}, {n['K4 f32']} (f32); {smi}")
+        check(type(tr.net).__name__ == "NeRFNetwork" and not tr.net.cfg.fused
+              and tr.net.cfg.compute_dtype == "float32"
+              and n["K4"] == n["K4 f32"] == 0,
+              "validate's unfused net is not the CLI's float32 NeRFNetwork")
+        del tr
+    ckpts = {k: sorted(Path(data_root.name, ws, "checkpoints").glob(
+        "ngp_ep*.ckpt"))[-1] for k, ws in (("ff", "ws0"),
+                                           ("unfused", "ws_unfused"))}
+    validate_stats = {"nets": dict(refbb_astar_occupied=refbb_occ,
+                                   unfused_astar_occupied=unfused_occ,
+                                   unfused_train_s=t_unfused)}
+    k4_validate = {"astar": 0, "learn_init": 0, "observations": 0}
+    for name, extra, stress, sims, ckpt in VALIDATE_RUNS:
+        with Phase(f"validate {name}"):
+            validate_stats[name] = validate_phase(
+                torch, validate_cli, val_dir, extra, stress, sims,
+                ckpts[ckpt], smi)
+            for place, n in validate_stats[name]["k4"].items():
+                k4_validate[place] += n
+    for name, extra, msg in VALIDATE_REFUSALS:
+        with Phase(f"validate refuses {name}"):
+            validate_refusal(validate_cli, val_dir, extra, msg)
+    print("validate: " + json.dumps(validate_stats))
+    data_root.cleanup()
+
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
     kernel_line = {"kernels": [
@@ -2267,7 +2787,8 @@ def main():
          "launches_main_nerf_O_ff": main_nerf_stats["-O --ff"]["launches"],
          "launches_main_nerf_ff": main_nerf_stats["--ff"]["launches"],
          "launches_bench": bench_launches["K4"],
-         "launches_rollouts": rollout_launches["K4"]},
+         "launches_rollouts": rollout_launches["K4"],
+         "launches_validate": k4_validate},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",
@@ -2295,7 +2816,8 @@ def main():
               k["launches"] > 0 for k in kernel_line["kernels"])
           and kernel_line["kernels"][3]["launches_f32"] > 0
           and all(kernel_line["kernels"][i]["launches_rollouts"] > 0
-                  for i in (0, 2, 3)),
+                  for i in (0, 2, 3))
+          and all(k4_validate.values()),
           "a kernel of the slice's paths was never launched")
     print(json.dumps(kernel_line))
     print(smi)
@@ -2304,5 +2826,48 @@ def main():
                                              "count": count}}))
 
 
+def closed_loop_intrinsics():
+    """`python3 chip_smoke.py --closed-loop-intrinsics`: the validate
+    --closed_loop phase (20) twice on the same net, its intrinsics read
+    from the 200^2 training directory and from the 800^2 test view
+    (VALIDATE_RES), printing each run's numbers. Not part of the smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch import validate as validate_cli
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (
+        generate_dataset, write_dataset)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {"200^2 training set": str(Path(root) / "spheres"),
+                f"{VALIDATE_RES}^2 test view": str(
+                    Path(root) / f"spheres{VALIDATE_RES}")}
+        write_dataset(dirs["200^2 training set"], F.train_splits())
+        write_dataset(dirs[f"{VALIDATE_RES}^2 test view"], generate_dataset(
+            n_train=1, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES))
+        ws = str(Path(root) / "ws_unfused")
+        main_nerf.main([dirs["200^2 training set"], "--workspace", ws,
+                        "--bound", "1", "--scale", "1", "--seed", "0",
+                        *VALIDATE_UNFUSED], device="cuda")
+        ckpt = sorted(Path(ws, "checkpoints").glob("ngp_ep*.ckpt"))[-1]
+        for name, d in dirs.items():
+            with Phase(f"validate --closed_loop, intrinsics of the {name}"):
+                st = validate_phase(torch, validate_cli, d, ["--closed_loop"],
+                                    "Monte Carlo", 4, ckpt, smi)
+            print(f"intrinsics of the {name}: estimate off the truth by "
+                  f"{st['est_pos_err_m']:.5f} m on average, sigma_d "
+                  f"{st['sigma_d']}; {smi}", flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--closed-loop-intrinsics"]:
+        closed_loop_intrinsics()
+    else:
+        main()

@@ -28,5 +28,8 @@ as a second CUDA kernel of `ops.hopper.fused_mlp`; and the batched rollout
 engines (`validation.batched`: Monte Carlo and cross-entropy populations
 stepped together, with `nav` dynamics, `validation.utils.sdf`, and each
 observation rendered through the frames above and their kernels),
-measured by `bench_rollouts`.
+measured by `bench_rollouts`; and the validate CLI's population modes
+(`validate`: the planner of `nav.planner` over A* in `csrc/astar.cpp`,
+`validation.simulators.NerfSimulator.reset`, the open-loop engines on the
+planned actions and the closed-loop engine of `validation.closed_loop`).
 """

@@ -1,9 +1,12 @@
 """Network configuration: the fields of the JAX package's `NetworkConfig`
 (nerfsafetyvalidation_tpu/config.py) that the ported paths read, and
-`network_config_from_opt`, which builds one from the CLI's flags."""
+`network_config_from_opt`, which builds one from the CLI's flags; and
+`EnvConfig`, the validation job's envConfig.json schema with the JAX
+package's defaults."""
 
+import json
 import math
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass, field
 from typing import Optional
 
 
@@ -79,3 +82,51 @@ def network_config_from_opt(opt) -> NetworkConfig:
         else "float32",
         fused=getattr(opt, "ff", False) or getattr(opt, "tcnn", False),
     )
+
+
+@dataclass
+class EnvConfig:
+    """The validation job's config (envConfig.json): the JAX package's
+    `EnvConfig` (config.py:123-160), the same keys and defaults."""
+    simulator: str = "NerfSimulator"
+    stress_test: str = "Monte Carlo"
+    uq_method: str = "Gaussian Approximation"
+    n_simulations: int = 100
+    estimator_cfg: dict = field(default_factory=lambda: {
+        "dil_iter": 3, "kernel_size": 5, "batch_size": 1024, "lrate": 1e-3,
+        "N_iter": 100, "render_viz": False, "show_rate": [20, 100]})
+    agent_cfg: dict = field(default_factory=lambda: {
+        "body_lims": [[-0.05, 0.05], [-0.05, 0.05], [-0.02, 0.02]],
+        "body_nbins": [10, 10, 5], "mass": 1.0, "g": 10.0,
+        "I": [[1, 0, 0], [0, 1, 0], [0, 0, 1]],
+        "path": "./sim_img_cache", "blend_file": "stonehenge.blend"})
+    planner_cfg: dict = field(default_factory=lambda: {
+        "x_range": [-1.15, 0.8], "y_range": [-1.2, 0.9],
+        "z_range": [0.05, 0.45],
+        "start_pos": [-0.75, -0.235, 0.25], "end_pos": [0.2, -0.74, 0.3],
+        "start_R": [0.0, 0.0, 0.0], "end_R": [0.0, 0.0, 0.0],
+        "T_final": 2.0, "steps": 12, "planner_lr": 0.001,
+        "epochs_init": 1000, "fade_out_epoch": 0, "fade_out_sharpness": 10,
+        "epochs_update": 250})
+    mpc_cfg: dict = field(default_factory=lambda: {
+        "mpc_noise_mean": [0.0] * 12,
+        "mpc_noise_std": [2e-2] * 3 + [1e-2] * 3 + [2e-2] * 3 + [1e-2] * 3})
+    camera_cfg: dict = field(default_factory=lambda: {
+        "half_res": False, "white_bg": True, "res_x": 800, "res_y": 800,
+        "trans": True, "mode": "RGBA"})
+
+    @staticmethod
+    def load(path: str = "envConfig.json") -> "EnvConfig":
+        """The file's top-level keys replace the defaults (whole values);
+        unknown keys are ignored."""
+        with open(path) as f:
+            raw = json.load(f)
+        cfg = EnvConfig()
+        for k, v in raw.items():
+            if hasattr(cfg, k):
+                setattr(cfg, k, v)
+        return cfg
+
+    def dump(self, path: str):
+        with open(path, "w") as f:
+            json.dump(asdict(self), f, indent=2)

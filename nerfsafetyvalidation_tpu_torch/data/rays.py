@@ -1,6 +1,7 @@
 """Pinhole rays, pose convention and colour space
 (nerfsafetyvalidation_tpu/data/rays.py: `get_rays` without subsampling,
-`nerf_matrix_to_ngp`, `srgb_to_linear`, `linear_to_srgb`)."""
+`rays_for_pixels`, `nerf_matrix_to_ngp`, `srgb_to_linear`,
+`linear_to_srgb`)."""
 
 import numpy as np
 import torch
@@ -47,3 +48,21 @@ def get_rays(poses, intrinsics, H: int, W: int, device="cuda"):
     rays_d = torch.einsum("nk,bjk->bnj", directions, poses[:, :3, :3])
     rays_o = poses[:, None, :3, 3].expand(rays_d.shape)
     return {"rays_o": rays_o, "rays_d": rays_d}
+
+
+def rays_for_pixels(pose, intrinsics, coords):
+    """The rays of the pixels coords [B, 2] (row, col, integers) of the
+    camera pose [4, 4] c2w (a tensor; differentiable in it): equal, bit
+    for bit, to `get_rays(pose[None], intrinsics, H, W)` indexed at those
+    pixels (the same pixel centres, normalisation and rotation). Returns
+    (rays_o [B, 3], rays_d [B, 3]) on the pose's device."""
+    pose = pose.to(torch.float32)
+    fx, fy, cx, cy = [float(v) for v in np.asarray(intrinsics).reshape(-1)[:4]]
+    i = coords[:, 1].to(device=pose.device, dtype=torch.float32) + 0.5
+    j = coords[:, 0].to(device=pose.device, dtype=torch.float32) + 0.5
+    directions = torch.stack([(i - cx) / fx, (j - cy) / fy,
+                              torch.ones_like(i)], dim=-1)
+    directions = directions / torch.linalg.norm(directions, dim=-1,
+                                                keepdim=True)
+    rays_d = torch.einsum("nk,jk->nj", directions, pose[:3, :3])
+    return pose[:3, 3].expand(rays_d.shape), rays_d

@@ -336,16 +336,19 @@ def train_dataset(device, res: int = TRAIN_RES, n_views: int = N_TRAIN_VIEWS,
 
 
 def train_flagship(device, iters: int = TRAIN_ITERS, opt=None, dataset=None,
-                   seed: int = 0, on_epoch=None):
+                   seed: int = 0, on_epoch=None,
+                   train_gather: str = "foldrow_pallas"):
     """Train the teacher from a seeded init for `iters` steps (whole epochs
     of the dataset, as bench.py's ceil(iters / views)), then refresh its
-    occupancy 4x through the trained field. Returns (net, state,
-    trainer); `on_epoch(trainer)` runs after every epoch."""
+    occupancy 4x through the trained field. `train_gather` is the dense
+    fetch's route: "foldrow_pallas" (the fold through kernel K5) or
+    "foldrow" (the same fold as a slice stack under autograd). Returns
+    (net, state, trainer); `on_epoch(trainer)` runs after every epoch."""
     opt = opt or train_opt(iters=iters, seed=seed)
     dataset = dataset or train_dataset(device, opt=opt)
     gen = torch.Generator(device=device).manual_seed(seed)
-    net = make_network(TRAIN_CFG, None, device=device, trainable=True,
-                       generator=gen)
+    net = make_network(replace(TRAIN_CFG, train_gather=train_gather), None,
+                       device=device, trainable=True, generator=gen)
     trainer = Trainer(opt, net, mute=True)
     loader = dataset.dataloader(torch.Generator(
         device=device).manual_seed(seed))

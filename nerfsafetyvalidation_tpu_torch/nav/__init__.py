@@ -1,2 +1,3 @@
-"""Navigation (nerfsafetyvalidation_tpu/nav/): the rotation math and the
-quadrotor dynamics that the batched rollout engines step."""
+"""Navigation (nerfsafetyvalidation_tpu/nav/): the rotation math, the
+quadrotor dynamics and agent, the camera backends, A* and the trajectory
+planner."""

@@ -1,9 +1,10 @@
 """Rotation / SE(3) math (nerfsafetyvalidation_tpu/nav/math_utils.py):
 `rot_x`, `nerf_matrix_to_ngp` (the JAX `nerf_matrix_to_ngp_jax`),
 `skew_matrix`, `_acos_safe`, `rot_matrix_to_vec`, `vec_to_rot_matrix` and
-`next_rotation` in torch, batched over leading dimensions, float32 like the
-JAX versions. The JAX module's numpy helpers (`mahalanobis`, `nearestPD`,
-the SE(3) errors) serve the estimator, which is not ported yet.
+`next_rotation` and `mahalanobis` in torch, batched over leading
+dimensions, float32 like the JAX versions. The JAX module's numpy helpers
+(`nearestPD`, the SE(3) errors) serve the sequential estimator, which is
+not ported yet.
 
 The JAX package's Taylor guards are kept: `rot_matrix_to_vec` switches to
 angle / (2 sin angle) ~ 1/2 + angle^2 / 12 below an angle of 1e-4, and
@@ -89,3 +90,17 @@ def vec_to_rot_matrix(rot_vec):
 def next_rotation(R, omega, dt):
     """One SO(3) exponential step, R @ exp(skew(omega dt))."""
     return R @ vec_to_rot_matrix(omega * dt)
+
+
+def mahalanobis(u, v, cov):
+    """(u - v)^T cov^-1 (u - v) for u, v [..., n] and cov [..., n, n]."""
+    delta = u - v
+    return (delta[..., None, :] @ torch.linalg.inv(cov)
+            @ delta[..., :, None])[..., 0, 0]
+
+
+def as_f32(x, device):
+    """x (numpy, a list, or a tensor) as a float32 tensor on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)

@@ -2,13 +2,15 @@
 card with bench.py's whole schedule, and score it.
 
     python3 -m nerfsafetyvalidation_tpu_torch.train_flagship [--iters N]
-        [--seed S ...]
+        [--seed S ...] [--train-gather foldrow_pallas|foldrow]
     python3 -m nerfsafetyvalidation_tpu_torch.train_flagship --net ref
         [--iters N] [--seed S ...]
 
 It trains `flagship.TRAIN_CFG` (bench.py's `_train_flagship` with
 train_gather="foldrow_pallas", so the fold is built by kernel K5 forward
-and backward every step) from a seeded init: 1920 steps of 4096 rays on the
+and backward every step; `--train-gather foldrow` builds the same fold as
+a slice stack under autograd, the route of the JAX package's training
+runs, and launches no K5) from a seeded init: 1920 steps of 4096 rays on the
 48-view 200x200 spheres set, the occupancy refreshed every 16 steps. Then it
 refreshes the occupancy 4x through the trained field, renders bench.py's
 `fast` frame at 800x800 on the four held-out poses through K3, and prints
@@ -65,6 +67,10 @@ def main(argv=None):
     ap.add_argument("--net", choices=["teacher", "ref"], default="teacher")
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--seed", type=int, nargs="+", default=[0])
+    ap.add_argument("--train-gather", choices=["foldrow_pallas", "foldrow"],
+                    default="foldrow_pallas",
+                    help="the teacher's dense fetch in training: the fold "
+                         "through K5, or the slice stack under autograd")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_flagship runs on a CUDA card only")
@@ -104,7 +110,8 @@ def main(argv=None):
     fold_build.build()
     sigma_color.build()
     for seed in args.seed:
-        train_one(dev, smi, splits, args.iters or F.TRAIN_ITERS, seed)
+        train_one(dev, smi, splits, args.iters or F.TRAIN_ITERS, seed,
+                  args.train_gather)
 
 
 def _truths(poses, res=F.RES):
@@ -135,7 +142,7 @@ def _score(served, state, poses, truths, res, mode="fast"):
     return psnrs, meter.measure()
 
 
-def train_one(dev, smi, splits, iters, seed):
+def train_one(dev, smi, splits, iters, seed, train_gather="foldrow_pallas"):
     opt = F.train_opt(iters=iters, seed=seed)
     t0 = time.perf_counter()
     dataset = F.train_dataset(dev, opt=opt, splits=splits)
@@ -151,12 +158,17 @@ def train_one(dev, smi, splits, iters, seed):
     t0 = time.perf_counter()
     net, state, trainer = F.train_flagship(dev, iters=iters, opt=opt,
                                            dataset=dataset, seed=seed,
-                                           on_epoch=on_epoch)
+                                           on_epoch=on_epoch,
+                                           train_gather=train_gather)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     steps = trainer.global_step
     t_train = epoch_s[-1] - t0
     launches = (fold_build.LAUNCHES, fold_build.LAUNCHES_BWD)
+    if (min(launches) < steps) if train_gather == "foldrow_pallas" \
+            else any(launches):
+        raise SystemExit(f"train_flagship: K5 launched {launches} times in "
+                         f"{steps} steps of the {train_gather} route")
 
     served = F.serving_net(net)
     sigma_color.LAUNCHES = 0
@@ -177,7 +189,8 @@ def train_one(dev, smi, splits, iters, seed):
     t_eval = time.perf_counter() - t0
     eval_psnr = trainer.stats["results"][-1]
     last = trainer.stats["loss"][-1]
-    print(f"seed {seed}: data {t_data:.2f} s; trained {steps} steps in "
+    print(f"seed {seed}, train_gather {train_gather}: data {t_data:.2f} s; "
+          f"trained {steps} steps in "
           f"{t_train:.2f} s: {t_train / steps:.5f} s/step, "
           f"{steps / t_train:.3f} steps/s (with the final 4x refresh "
           f"{t_all:.2f} s); last epoch's mean loss {last:.6f}; K5 launches "
@@ -195,7 +208,8 @@ def train_one(dev, smi, splits, iters, seed):
           f"{JAX_EVAL_DB} dB), mean loss {trainer.stats['valid_loss'][-1]:.6f}"
           f"; {t_eval:.2f} s")
     print(smi)
-    print(json.dumps({"seed": seed, "steps": steps,
+    print(json.dumps({"seed": seed, "train_gather": train_gather,
+                      "steps": steps,
                       "s_per_step": t_train / steps,
                       "steps_per_s": steps / t_train, "last_epoch_loss": last,
                       "k5_launches": list(launches), "psnr": psnrs,

@@ -45,18 +45,12 @@ import torch
 from ..data.rays import get_rays
 from ..models import renderer as R
 from ..nav.agent import drone_dynamics
-from ..nav.math_utils import (nerf_matrix_to_ngp, rot_matrix_to_vec, rot_x,
-                               vec_to_rot_matrix)
+from ..nav.math_utils import (as_f32 as _f32, nerf_matrix_to_ngp,
+                               rot_matrix_to_vec, rot_x, vec_to_rot_matrix)
+from ..utils.adam import Adam
 from .stresstests.cross_entropy import _weighted_mean_cov
 
 _LOG_2PI = float(np.log(2.0 * np.pi))
-
-
-def _f32(x, device):
-    """x (numpy, a list, or a tensor) as a float32 tensor on `device`."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
 def _no_mesh(mesh):
@@ -161,6 +155,61 @@ class BatchedRolloutEngine:
         lo, hi = self._log_clip
         return torch.sum(torch.minimum(torch.maximum(logpdf, lo), hi),
                          dim=-1)
+
+    def _sdf_check_interp(self, prev_state, state, step_idx: int):
+        """4-point interpolated SDF check, the sequential simulator's
+        np.interp over its history: with N = step + 2 states, the last 4 of
+        the 4N-point refinement lie at fractions j (N - 1) / (4N - 1) -
+        (N - 2) of the last segment. prev_state/state [m, 12] -> (hit [m],
+        the SDF value at the first colliding point (else the last) [m],
+        that point [m, 3])."""
+        n = step_idx + 2.0          # small integers: exact in float32
+        js = torch.arange(4, dtype=torch.float32, device=self.device) \
+            + (4.0 * n - 4.0)
+        frac = js * (n - 1.0) / (4.0 * n - 1.0) - (n - 2.0)
+        pts = prev_state[:, None, :3] + frac[None, :, None] \
+            * (state[:, :3] - prev_state[:, :3])[:, None]         # [m, 4, 3]
+        vals = self._sdf_lookup(pts)
+        hit = vals < 1.0 / self.granularity
+        any_hit = hit.any(dim=1)
+        idx = torch.where(any_hit, hit.to(torch.int32).argmax(dim=1), 3)
+        rows = torch.arange(pts.shape[0], device=self.device)
+        return any_hit, vals[rows, idx], pts[rows, idx]
+
+    def _append_cem_csv(self, csv_path, k, out, adj, means, covs, p_mean,
+                        p_cov):
+        """One CEM iteration's rows (see `cem`); the per-step log-densities
+        under p and q are full mvn, the cumulative ones running sums."""
+        os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
+        m = out["noises"].shape[0]
+        lp_steps = np.stack([self._mvn_logpdf(out["noises"][:, t], p_mean[t],
+                                              p_cov[t])
+                             for t in range(self.steps)], axis=1)
+        lq_steps = np.stack([self._mvn_logpdf(out["noises"][:, t], means[t],
+                                              covs[t])
+                             for t in range(self.steps)], axis=1)
+        lp_cum = np.cumsum(lp_steps, axis=1)
+        lq_cum = np.cumsum(lq_steps, axis=1)
+        with open(csv_path, "a", newline="") as f:
+            w = csv.writer(f)
+            for i in range(m):
+                ever = bool(out["collided"][i].any())
+                for t in range(self.steps):
+                    row = [k, i, t]
+                    row.extend(out["noises"][i, t].tolist())
+                    row.append(float(out["reward_prev"][i, t]))
+                    row.append(float(out["sigma_d"][i, t]))
+                    row.append(float(adj[i, t]))
+                    row.extend(out["positions"][i, t].tolist())
+                    row.append(float(lp_steps[i, t]))
+                    row.append(float(lq_steps[i, t]))
+                    row.append(float(lp_cum[i, t]))
+                    row.append(float(lq_cum[i, t]))
+                    row.append(bool(out["collided"][i, t]))
+                    row.append(ever)
+                    w.writerow(row)
+                    if out["collided"][i, t]:
+                        break
 
     @torch.no_grad()
     def run(self, noises):
@@ -456,20 +505,11 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         the start is returned. Returns (mu_d, |sigma_d|): the objective is
         symmetric in sigma."""
         degenerate = S_c2d2 < 1e-18
-        b1, b2, eps, lr = 0.9, 0.999, 1e-8, self.uq_lr
         mu, sig = d_mean, d_std
-        m_mu = m_sig = v_mu = v_sig = torch.zeros_like(mu)
-        for i in range(self.uq_iters):
-            g_mu, g_sig = _uq_grad(S_c2d2, S_cd, r_mean, mu, sig)
-            m_mu = b1 * m_mu + (1 - b1) * g_mu
-            m_sig = b1 * m_sig + (1 - b1) * g_sig
-            v_mu = b2 * v_mu + (1 - b2) * g_mu ** 2
-            v_sig = b2 * v_sig + (1 - b2) * g_sig ** 2
-            # the bias corrections as the JAX loop computes them, in float32
-            c1 = float(np.float32(1) - np.float32(b1) ** np.float32(i + 1))
-            c2 = float(np.float32(1) - np.float32(b2) ** np.float32(i + 1))
-            mu = mu - lr * (m_mu / c1) / (torch.sqrt(v_mu / c2) + eps)
-            sig = sig - lr * (m_sig / c1) / (torch.sqrt(v_sig / c2) + eps)
+        adam = Adam([mu, sig], self.uq_lr)
+        for _ in range(self.uq_iters):
+            mu, sig = adam.step([mu, sig],
+                                _uq_grad(S_c2d2, S_cd, r_mean, mu, sig))
         keep = degenerate | ~(torch.isfinite(mu) & torch.isfinite(sig))
         return (torch.where(keep, d_mean, mu),
                 torch.abs(torch.where(keep, d_std, sig)))
@@ -480,26 +520,6 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         return torch.clamp(likelihood - ps * sigma_d_opt, -ps * 2, ps)
 
     # ---------------------------------------------------------------- rollout
-    def _sdf_check_interp(self, prev_state, state, step_idx: int):
-        """4-point interpolated SDF check, the sequential simulator's
-        np.interp over its history: with N = step + 2 states, the last 4 of
-        the 4N-point refinement lie at fractions j (N - 1) / (4N - 1) -
-        (N - 2) of the last segment. prev_state/state [m, 12] -> (hit [m],
-        the SDF value at the first colliding point (else the last) [m],
-        that point [m, 3])."""
-        n = step_idx + 2.0          # small integers: exact in float32
-        js = torch.arange(4, dtype=torch.float32, device=self.device) \
-            + (4.0 * n - 4.0)
-        frac = js * (n - 1.0) / (4.0 * n - 1.0) - (n - 2.0)
-        pts = prev_state[:, None, :3] + frac[None, :, None] \
-            * (state[:, :3] - prev_state[:, :3])[:, None]         # [m, 4, 3]
-        vals = self._sdf_lookup(pts)
-        hit = vals < 1.0 / self.granularity
-        any_hit = hit.any(dim=1)
-        idx = torch.where(any_hit, hit.to(torch.int32).argmax(dim=1), 3)
-        rows = torch.arange(pts.shape[0], device=self.device)
-        return any_hit, vals[rows, idx], pts[rows, idx]
-
     def _run_body(self, z, q_mean, q_chol, adapt_gain: float):
         """z/q_mean: [m, T, 12]; q_chol: [T, 12, 12]. Per step: the
         disturbance q_mean + scale (z @ L^T), scale = 1 + adapt_gain 0.01
@@ -639,41 +659,6 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         return {"means": means, "covs": covs,
                 "vars": np.stack([np.diag(c) for c in covs]),
                 "history": history}
-
-    def _append_cem_csv(self, csv_path, k, out, adj, means, covs, p_mean,
-                        p_cov):
-        """One CEM iteration's rows (see `cem`); the per-step log-densities
-        under p and q are full mvn, the cumulative ones running sums."""
-        os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
-        m = out["noises"].shape[0]
-        lp_steps = np.stack([self._mvn_logpdf(out["noises"][:, t], p_mean[t],
-                                              p_cov[t])
-                             for t in range(self.steps)], axis=1)
-        lq_steps = np.stack([self._mvn_logpdf(out["noises"][:, t], means[t],
-                                              covs[t])
-                             for t in range(self.steps)], axis=1)
-        lp_cum = np.cumsum(lp_steps, axis=1)
-        lq_cum = np.cumsum(lq_steps, axis=1)
-        with open(csv_path, "a", newline="") as f:
-            w = csv.writer(f)
-            for i in range(m):
-                ever = bool(out["collided"][i].any())
-                for t in range(self.steps):
-                    row = [k, i, t]
-                    row.extend(out["noises"][i, t].tolist())
-                    row.append(float(out["reward_prev"][i, t]))
-                    row.append(float(out["sigma_d"][i, t]))
-                    row.append(float(adj[i, t]))
-                    row.extend(out["positions"][i, t].tolist())
-                    row.append(float(lp_steps[i, t]))
-                    row.append(float(lq_steps[i, t]))
-                    row.append(float(lp_cum[i, t]))
-                    row.append(float(lq_cum[i, t]))
-                    row.append(bool(out["collided"][i, t]))
-                    row.append(ever)
-                    w.writerow(row)
-                    if out["collided"][i, t]:
-                        break
 
 
 def _direct_stats(rgbs, sigmas, image):
