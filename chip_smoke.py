@@ -175,8 +175,32 @@ Phases, each printing its elapsed seconds:
      a population step, the mean distance between the estimated and the
      true position, finite estimates and rewards, no K4 launch;
  21. the refusals: --closed_loop --ff, --batched_obs_render guided
-     without --fast_render, and --fast_render each exit with their
-     message within seconds, before anything loads.
+     without --fast_render, and --fast_render, and on the sequential path
+     --ff and --tcnn, each exit with their message within seconds, before
+     anything loads;
+ 22. sequential MC: the port's validate CLI without --batched_rollouts,
+     as a user runs it, envConfig.json as shipped (NerfSimulator, Monte
+     Carlo, the Gaussian UQ, the 800^2 camera, the estimator's 1,024-pixel
+     batch and 100 Adam steps, the planner's 1000 + 250 epochs), --camera
+     nerf, on phase 20's net (the CLI's default float32 NeRFNetwork: no
+     kernel on this path in either package), cut to SEQ_SIMS sims and 64
+     samples a ray: the seconds per sim-step of the NeRF camera's
+     capture, the observation render, the UQ's render and fit, the
+     estimator's fit, its Hessian, the replan and the SDF check; the
+     estimate's distance from the true position at each step; the CSV's
+     rows (24 columns), the collisions, the interest-point detector,
+     sigma_d and the reward; every tensor of the fit and the Hessian on
+     the card, every estimate and covariance finite, measurement_fn's
+     value and gradient on the card against the CPU's from the same
+     inputs (TOL_MEAS), no K4 launch;
+ 23. sequential CEM: the port's CrossEntropyMethod on that simulator, m =
+     2, m_elite = 1, kmax = 1 (SEQ_CEM; its 27-column CSV, each sim's rows
+     stopping at its first collision), the same numbers;
+ 24. simulate: `simulate.main` as a user runs it (envConfig.json as
+     shipped, --camera nerf, 64 samples a ray; when A* finds no path
+     between envConfig's start and goal in this net, the MC phase's path,
+     said so): the seconds per step of the capture, the fit, the Hessian
+     and the replan, the estimate's distance from the truth a step.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
@@ -568,6 +592,10 @@ VALIDATE_REFUSALS = (
     ("--batched_obs_render guided", ["--batched_obs_render", "guided"],
      "restart loop"),
     ("--fast_render", ["--fast_render"], "to_cell"))
+# and on the sequential path (without --batched_rollouts)
+SEQUENTIAL_REFUSALS = (
+    ("--ff (sequential)", ["--ff"], "--ff on the sequential path"),
+    ("--tcnn (sequential)", ["--tcnn"], "NeRFNetworkTCNN"))
 # the validate CLI's restart loop: a phase fails after this many restarts
 MAX_RESTARTS = 5
 BLENDER_TO_NERF = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
@@ -622,51 +650,62 @@ def _workdir(data_dir, stress, sims):
             str(VALIDATE_STEPS)]
 
 
+def load_cli_net(torch, argv, ckpt, entry="validate"):
+    """The net the CLI builds for `argv`, the checkpoint `ckpt` copied to
+    ws/checkpoints and loaded as the CLI loads it. Returns (net, opt)."""
+    from nerfsafetyvalidation_tpu_torch.cli import apply_O_flag, build_parser
+    from nerfsafetyvalidation_tpu_torch.config import network_config_from_opt
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
+    os.makedirs("ws/checkpoints", exist_ok=True)
+    shutil.copy(ckpt, "ws/checkpoints/ngp_ep0001.ckpt")
+    opt = apply_O_flag(build_parser(entry).parse_args(argv), entry)
+    net = make_network(network_config_from_opt(opt), None, device="cuda",
+                       opt=opt, trainable=True)
+    Trainer(opt, net, workspace="ws", use_checkpoint=opt.ckpt, mute=True)
+    return net, opt
+
+
+def write_net_sdf(torch, argv, ckpt):
+    """validation/utils/sdf.npy of the net `argv` loads from `ckpt`, through
+    the CLI's density closure (validation/utils/sdf.py at the simulator's
+    40 cells/m grid). Returns (the SDF, its seconds)."""
+    from nerfsafetyvalidation_tpu_torch.validation.utils.sdf import build_sdf
+    net, _ = load_cli_net(torch, argv, ckpt)
+    rot = torch.tensor(BLENDER_TO_NERF, device="cuda")
+
+    def density(pts):
+        with torch.inference_mode():
+            x = torch.from_numpy(pts).cuda() @ rot
+            return net.density(x)["sigma"]
+    os.makedirs("validation/utils", exist_ok=True)
+    t0 = time.perf_counter()
+    sdf = build_sdf(density, out_path="validation/utils/sdf.npy")
+    return sdf, time.perf_counter() - t0
+
+
 def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
     """One validate CLI run on the card (see VALIDATE_RUNS); returns its
     numbers."""
     import random
-    from nerfsafetyvalidation_tpu_torch.cli import apply_O_flag, build_parser
-    from nerfsafetyvalidation_tpu_torch.config import network_config_from_opt
-    from nerfsafetyvalidation_tpu_torch.models import make_network
     from nerfsafetyvalidation_tpu_torch.nav.planner import (
         Planner, planner_cost_terms)
     from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
-    from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
     from nerfsafetyvalidation_tpu_torch.validation.batched import (
         FullBatchedRolloutEngine)
     from nerfsafetyvalidation_tpu_torch.validation.closed_loop import (
         ClosedLoopBatchedEngine)
     from nerfsafetyvalidation_tpu_torch.validation.simulators import (
         NerfSimulator)
-    from nerfsafetyvalidation_tpu_torch.validation.utils.sdf import build_sdf
 
     old, work = os.getcwd(), tempfile.mkdtemp()
     os.chdir(work)
     places = None
     try:
         argv = _workdir(data_dir, stress, sims) + extra
-        os.makedirs("ws/checkpoints")
-        shutil.copy(ckpt, "ws/checkpoints/ngp_ep0001.ckpt")
-        # the SDF of the phase's own net, through the CLI's density closure
-        opt = apply_O_flag(build_parser("validate").parse_args(argv),
-                           "validate")
-        net = make_network(network_config_from_opt(opt), None, device="cuda",
-                           opt=opt, trainable=True)
-        Trainer(opt, net, workspace="ws", use_checkpoint=opt.ckpt, mute=True)
-        rot = torch.tensor(BLENDER_TO_NERF, device="cuda")
-        sync = torch.cuda.synchronize
-
-        def density(pts):
-            with torch.inference_mode():
-                x = torch.from_numpy(pts).cuda() @ rot
-                return net.density(x)["sigma"]
-        os.makedirs("validation/utils")
-        t0 = time.perf_counter()
-        sdf = build_sdf(density, out_path="validation/utils/sdf.npy")
-        t_sdf = time.perf_counter() - t0
+        sdf, t_sdf = write_net_sdf(torch, argv, ckpt)
         sdf_occupied = float((sdf == 0).mean())
-        del net
+        sync = torch.cuda.synchronize
 
         draws = []
         real_generate = V.generate_path
@@ -916,12 +955,14 @@ def astar_occupied(torch, net):
                   > 0.3).mean())
 
 
-def validate_refusal(V, data_dir, extra, msg):
-    """The CLI refuses `extra` with `msg` within seconds, before loading."""
+def validate_refusal(V, data_dir, extra, msg, batched=True):
+    """The CLI refuses `extra` with `msg` within seconds, before loading
+    (with --batched_rollouts, or on the sequential path)."""
     old, work = os.getcwd(), tempfile.mkdtemp()
     os.chdir(work)
     try:
-        argv = _workdir(data_dir, "Monte Carlo", 16) + extra
+        argv = [a for a in _workdir(data_dir, "Monte Carlo", 16)
+                if batched or a != "--batched_rollouts"] + extra
         t0 = time.perf_counter()
         why = None
         try:
@@ -934,6 +975,386 @@ def validate_refusal(V, data_dir, extra, msg):
               and os.listdir(".") == ["envConfig.json"],
               f"validate {extra} was not refused at once")
     finally:
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# The sequential phases: the port's validate CLI without --batched_rollouts
+# (envConfig.json as shipped: NerfSimulator, Monte Carlo, the Gaussian UQ,
+# the 800^2 camera, the estimator's batch of 1024 pixels and 100 Adam
+# steps, the planner's 1000 + 250 epochs), its CrossEntropyMethod on the
+# same simulator, and the simulate entry point, on VALIDATE_UNFUSED's net
+# (the CLI's default float32 NeRFNetwork: no kernel on this path in either
+# package) with --camera nerf. Cut: the population (SEQ_SIMS sims; CEM
+# m = 2, m_elite = 1, kmax = 1) and the samples a ray (VALIDATE_STEPS).
+SEQ_SIMS = 2
+SEQ_CEM = dict(m=2, m_elite=1, kmax=1)
+# measurement_fn at the last fit's optimum, its value and its gradient in
+# the state, on the card and on the CPU from the same inputs (the net's
+# weights copied to the CPU). float32 on both, other summation orders
+# (cuBLAS and the CPU's, the mean over 1,024 pixels, the compositing): the
+# value ~1e-6 relative; bound 1e-4. The gradient: as above per sample, but
+# a sample whose position lies within a last-bit difference of a hash
+# cell's face (the rays' directions come from an einsum, summed in other
+# orders) takes the neighbouring cell's slope on one side only; stated
+# before the first run: bound 1e-2 of the gradient's largest component.
+TOL_MEAS = dict(loss=1e-4, grad=1e-2)
+# the per-step seconds the phases print, by place (see sequential_places)
+SEQ_PARTS = ("camera", "observation", "uq render", "uq fit", "fit",
+             "hessian", "replan", "sdf")
+
+
+def sequential_places(torch, fused_mlp):
+    """Places over the sequential step's parts: the agent's capture (the
+    NeRF camera), the observation render, the UQ's render and its fit (the
+    sums and scipy), the estimator's Adam fit, its Hessian (with the rest
+    of estimate_state under 'estimate'), the replan, the SDF check, and
+    the step and reset as wholes."""
+    from nerfsafetyvalidation_tpu_torch.nav import estimator as E
+    from nerfsafetyvalidation_tpu_torch.nav.agent import Agent
+    from nerfsafetyvalidation_tpu_torch.nav.planner import Planner
+    from nerfsafetyvalidation_tpu_torch.uq.gaussian_approximation import (
+        GaussianApproximationDensityUncertainty as GA)
+    from nerfsafetyvalidation_tpu_torch.validation.simulators import (
+        NerfSimulator)
+    return Places(torch.cuda.synchronize, fused_mlp, [
+        ("reset", NerfSimulator, "reset"),
+        ("astar", Planner, "a_star_init"),
+        ("learn_init", Planner, "learn_init"),
+        ("step", NerfSimulator, "step"),
+        ("camera", Agent, "step"),
+        ("observation", E.Estimator, "render_from_pose"),
+        ("uq render", E.Estimator, "render_for_uncertainty"),
+        ("uq fit", GA, "__init__"), ("uq fit", GA, "optimize"),
+        ("estimate", E.Estimator, "estimate_state"),
+        ("fit", E.Estimator, "fit"),
+        ("hessian", E, "hessian_rows"),
+        ("replan", Planner, "learn_update"),
+        ("sdf", NerfSimulator, "_sdf_check")])
+
+
+class FitWatch:
+    """Wraps Estimator.measurement_fn: every call's state, start state,
+    covariance, target and batch must lie on the card (the tensors of the
+    fit and of the Hessian), and after each estimate_state the estimate and
+    its covariance must be finite; records each step's distance between the
+    estimated and the true position."""
+
+    def __init__(self, E):
+        self.E, self.orig = E, E.Estimator.measurement_fn
+        self.off_card, self.calls, self.err, self.bad = [], 0, [], []
+        watch = self
+
+        def measurement_fn(est, state, start_state, sig, target, batch):
+            watch.calls += 1
+            for name, t in (("state", state), ("start_state", start_state),
+                            ("sig", sig), ("target", target),
+                            ("batch", batch)):
+                if t.device.type != "cuda":
+                    watch.off_card.append((name, str(t.device)))
+            return watch.orig(est, state, start_state, sig, target, batch)
+        E.Estimator.measurement_fn = measurement_fn
+
+    def after_estimate(self, est):
+        xt, sig = est.xt, est.sig
+        true = est.agent.x
+        self.err.append(float((xt[:3] - true[:3]).norm()))
+        if not (bool(xt.isfinite().all()) and bool(sig.isfinite().all())):
+            self.bad.append(est.iteration)
+
+    def restore(self):
+        if self.E is not None:
+            self.E.Estimator.measurement_fn = self.orig
+            self.E = None
+
+
+def measurement_card_vs_cpu(torch, est, sim, opt):
+    """measurement_fn's value and gradient 0.01 off the estimator's last
+    estimate in every coordinate (its target, batch, estimate and
+    covariance) on the card, and on the CPU with the net's weights copied
+    there: TOL_MEAS."""
+    import copy
+    from nerfsafetyvalidation_tpu_torch.data.rays import get_rays
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.models import renderer as R
+    net = sim.net
+    net_cpu = make_network(net.cfg, {k: ([w.cpu() for w in v]
+                                         if isinstance(v, list) else
+                                         {kk: vv.cpu() for kk, vv in
+                                          v.items()})
+                                     for k, v in net.params_tree().items()},
+                           device="cpu")
+    H, W = est.target.shape[:2]
+    intr = sim.dataset_intrinsics
+
+    def value_grad(e, dev):
+        # 0.01 off the optimum, so that the prior's gradient is not 0
+        leaf = (est.xt.detach() + 0.01).to(dev).requires_grad_(True)
+        loss = e.measurement_fn(leaf, est.xt.to(dev), est.sig.to(dev),
+                                est.target.to(dev), est.batch.to(dev))
+        g, = torch.autograd.grad(loss, leaf)
+        return float(loss.detach()), g.cpu()
+    card = value_grad(est, "cuda")
+    cpu_est = copy.copy(est)
+    cpu_est.device = torch.device("cpu")
+    cpu_est.get_rays = lambda pose: get_rays(pose, intr, H, W, device="cpu")
+    cpu_est.render_batch_fn = lambda o, d: R.render(
+        net_cpu, o, d, staged=False, bg_color=1.0, num_steps=opt.num_steps,
+        upsample_steps=opt.upsample_steps)
+    cpu = value_grad(cpu_est, "cpu")
+    loss_rel = abs(card[0] - cpu[0]) / max(abs(cpu[0]), 1e-30)
+    grad_rel = float((card[1] - cpu[1]).abs().max()
+                     / cpu[1].abs().max().clamp(min=1e-30))
+    return dict(loss_card=card[0], loss_cpu=cpu[0], loss_rel=loss_rel,
+                grad_rel=grad_rel, grad_max=float(cpu[1].abs().max()))
+
+
+def _seq_times(places, n_steps):
+    per = {k: places.s[k] / max(n_steps, 1) for k in SEQ_PARTS}
+    per["estimate other"] = (places.s["estimate"] - places.s["fit"]
+                             - places.s["hessian"]) / max(n_steps, 1)
+    per["step"] = places.s["step"] / max(n_steps, 1)
+    return per
+
+
+def sequential_phase(torch, V, data_dir, ckpt, smi):
+    """(a) validate's default sequential Monte Carlo and (b) the port's
+    CrossEntropyMethod on the same simulator, in one temporary working
+    directory (envConfig.json with n_simulations SEQ_SIMS, the SDF of the
+    net, its checkpoint). Returns their numbers."""
+    import random
+    from nerfsafetyvalidation_tpu_torch.nav import estimator as E
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.validation.distributions import (
+        SeedableMultivariateNormal)
+    from nerfsafetyvalidation_tpu_torch.validation.stresstests import (
+        CrossEntropyMethod)
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    places = watch = None
+    stats = {}
+    real_generate = V.generate_path
+    try:
+        env = json.loads((ROOT / "envConfig.json").read_text())
+        env["n_simulations"] = SEQ_SIMS
+        Path("envConfig.json").write_text(json.dumps(env))
+        argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale",
+                "1", "--seed", "0", "--num_steps", str(VALIDATE_STEPS),
+                "--camera", "nerf"]
+        sdf, t_sdf = write_net_sdf(torch, argv, ckpt)
+        draws = []
+
+        def generate(*ranges):
+            draws.append(ranges)
+            check(len(draws) <= 1 + MAX_RESTARTS, "sequential validate: "
+                  f"more than {MAX_RESTARTS} 'Path not found' restarts")
+            return real_generate(*ranges)
+        V.generate_path = generate
+        watch = FitWatch(E)
+        places = sequential_places(torch, fused_mlp)
+        places.hooks["estimate"] = (None, watch.after_estimate)
+        random.seed(0)
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        with Phase("sequential MC"):
+            t0 = time.perf_counter()
+            V.main(argv, device="cuda")
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+            rows = list(csv.reader(open(
+                f"results/collisionValuesBlenderMC_n{SEQ_SIMS}.csv",
+                newline="")))
+            n_steps = len(watch.err)
+            steps = json.loads(Path("results/coordinates.json")
+                               .read_text())["steps"]
+            sim = places.last["reset"]
+            check("fit" in places.last, "sequential MC: the estimator never "
+                  "fitted (no interest points in any observation)")
+            est = places.last["fit"]
+            check(len(rows) == n_steps > 0 and all(len(r) == 24
+                                                   for r in rows),
+                  "sequential MC: the CSV's rows are not one a step of 24 "
+                  "columns")
+            check(all(np.isfinite(float(v)) for r in rows
+                      for v in r[2:22]), "sequential MC: a CSV number is "
+                  "not finite")
+            reward = [float(r[20]) for r in rows]
+            sigma_d = [float(r[21]) for r in rows]
+            hits = sum(r[-2] == "True" for r in rows)
+            check(not watch.off_card, "sequential MC: a tensor of the fit "
+                  f"is not on cuda: {watch.off_card[:5]}")
+            watch.restore()     # the CPU comparison below is off the card
+            meas = measurement_card_vs_cpu(
+                torch, est, sim, V.apply_O_flag(
+                    V.build_parser("validate").parse_args(argv), "validate"))
+            per = _seq_times(places, n_steps)
+            start, end, _ = V.load_coords()
+            stats["MC"] = dict(path=[start, end],
+                wall_s=t_all, restarts=len(draws) - 1, steps=steps,
+                sim_steps=n_steps, sdf_s=t_sdf,
+                sdf_occupied=float((sdf == 0).mean()),
+                astar_occupied=float(sim.traj.occupied.mean()),
+                reset_s=places.s["reset"], learn_init_s=places.s[
+                    "learn_init"], s_per_sim_step=per,
+                est_err_m=list(watch.err), collisions=hits,
+                csv_rows=len(rows), detector=E.detector(),
+                sigma_d=[min(sigma_d), max(sigma_d)],
+                reward=[min(reward), max(reward)],
+                measurement=meas, fit_calls=watch.calls,
+                k4=fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32)
+            _print_seq("sequential MC", stats["MC"], smi)
+            check(not watch.bad, f"sequential MC: a state or covariance is "
+                  f"not finite (steps {watch.bad})")
+            check(meas["loss_rel"] <= TOL_MEAS["loss"]
+                  and meas["grad_rel"] <= TOL_MEAS["grad"],
+                  f"sequential MC: measurement_fn on the card differs from "
+                  f"the CPU's beyond {TOL_MEAS}: {meas}")
+            check(stats["MC"]["k4"] == 0, "sequential MC launched K4 on "
+                  "the CLI's unfused float32 net")
+
+        with Phase("sequential CEM"):
+            for k in places.s:
+                places.s[k] = 0.0
+            watch = FitWatch(E)
+            places.hooks["estimate"] = (None, watch.after_estimate)
+            mean = np.asarray(env["mpc_cfg"]["mpc_noise_mean"], np.float32)
+            cov = np.diag(np.asarray(env["mpc_cfg"]["mpc_noise_std"],
+                                     np.float32) ** 2)
+            q = SeedableMultivariateNormal([mean] * steps, [cov] * steps,
+                                           noise_seed=0, device="cuda")
+            p = SeedableMultivariateNormal([mean] * steps, [cov] * steps,
+                                           noise_seed=0, device="cuda")
+            cem = CrossEntropyMethod(sim, q, p, noise_seed=0,
+                                     blend_file=None, workspace="ws",
+                                     **SEQ_CEM)
+            t0 = time.perf_counter()
+            res = cem.optimize()
+            torch.cuda.synchronize()
+            t_cem = time.perf_counter() - t0
+            rows = list(csv.reader(open(
+                "results/collisionValuesCEM_m{m}melite{m_elite}k{kmax}.csv"
+                .format(**SEQ_CEM), newline="")))
+            n_rows, cem_hits = cem_csv_rows_stop(rows, steps)
+            n_cem = len(watch.err)
+            reward = [float(r[15]) for r in rows]
+            sigma_d = [float(r[16]) for r in rows]
+            stats["CEM"] = dict(
+                wall_s=t_cem, sim_steps=n_cem, csv_rows=n_rows,
+                collisions=cem_hits, s_per_sim_step=_seq_times(places,
+                                                               n_cem),
+                est_err_m=list(watch.err), detector=E.detector(),
+                sigma_d=[min(sigma_d), max(sigma_d)],
+                reward=[min(reward), max(reward)],
+                best_value=float(res[5]),
+                k4=fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32)
+            _print_seq("sequential CEM", stats["CEM"], smi)
+            check(not watch.bad, "sequential CEM: a state or covariance is "
+                  "not finite")
+            check(not watch.off_card, "sequential CEM: a tensor of the fit "
+                  "is not on cuda")
+            check(all(np.isfinite(np.asarray(m)).all() for m in res[0])
+                  and np.isfinite(res[5]), "sequential CEM: the proposal "
+                  "or the best value is not finite")
+            check(stats["CEM"]["k4"] == 0, "sequential CEM launched K4")
+        return stats
+    finally:
+        if places is not None:
+            places.restore()
+        if watch is not None:
+            watch.restore()
+        V.generate_path = real_generate
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _print_seq(name, st, smi):
+    per = {k: round(v, 4) for k, v in st["s_per_sim_step"].items()}
+    errs = [round(e, 4) for e in st["est_err_m"]]
+    print(f"{name}: {st['sim_steps']} sim-steps in {st['wall_s']:.2f} s; "
+          f"seconds per sim-step {per}; the estimate off the true position "
+          f"(m) at each step {errs}; CSV {st['csv_rows']} rows, "
+          f"{st['collisions']} collisions; detector {st['detector']}; "
+          f"sigma_d {st['sigma_d']}; reward {st['reward']}; K4 launches "
+          f"{st['k4']}; {smi}", flush=True)
+    if "measurement" in st:
+        m = st["measurement"]
+        print(f"{name}: measurement_fn card vs CPU at the last fit: loss "
+              f"{m['loss_card']:.8g} vs {m['loss_cpu']:.8g} (rel "
+              f"{m['loss_rel']:.3e}, bound {TOL_MEAS['loss']}), gradient "
+              f"max {m['grad_rel']:.3e} of its largest {m['grad_max']:.4g} "
+              f"(bound {TOL_MEAS['grad']})", flush=True)
+
+
+def simulate_phase(torch, data_dir, ckpt, fallback_path, smi):
+    """(c) `simulate` as a user runs it (envConfig.json as shipped, the
+    net's checkpoint, --camera nerf, VALIDATE_STEPS samples a ray). When
+    A* finds no path between envConfig's start and goal in this net, the
+    phase says so and flies the MC phase's path (fallback_path: start,
+    goal) instead. Returns its numbers."""
+    from nerfsafetyvalidation_tpu_torch import simulate as S
+    from nerfsafetyvalidation_tpu_torch.nav import estimator as E
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    places = watch = None
+    try:
+        env = json.loads((ROOT / "envConfig.json").read_text())
+        Path("envConfig.json").write_text(json.dumps(env))
+        argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale",
+                "1", "--seed", "0", "--num_steps", str(VALIDATE_STEPS),
+                "--camera", "nerf"]
+        load_cli_net(torch, argv, ckpt, entry="simulate")
+        watch = FitWatch(E)
+        places = sequential_places(torch, fused_mlp)
+        places.hooks["estimate"] = (None, watch.after_estimate)
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        path = "envConfig's"
+        t0 = time.perf_counter()
+        try:
+            states = S.main(argv, device="cuda")
+        except (ValueError, AssertionError) as e:
+            print(f"simulate: A* finds no path from envConfig's start to its "
+                  f"goal in this net ({type(e).__name__}: {e}); flying the "
+                  f"sequential MC phase's path {fallback_path}", flush=True)
+            env["planner_cfg"].update(start_pos=list(fallback_path[0]),
+                                      end_pos=list(fallback_path[1]))
+            Path("envConfig.json").write_text(json.dumps(env))
+            path = "the MC phase's"
+            for k in places.s:
+                places.s[k] = 0.0
+            watch.err.clear()
+            t0 = time.perf_counter()
+            states = S.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        n = states.shape[0] - 1
+        per = _seq_times(places, n)
+        st = dict(wall_s=t_all, path=path, sim_steps=n,
+                  learn_init_s=places.s["learn_init"],
+                  s_per_sim_step=dict({k: per[k] for k in (
+                      "camera", "fit", "hessian", "estimate other",
+                      "replan")}, step=t_all / max(n, 1)),
+                  est_err_m=list(watch.err), detector=E.detector(),
+                  replans=len(os.listdir("paths/ws/replan_poses")),
+                  k4=fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32)
+        per = {k: round(v, 4) for k, v in st["s_per_sim_step"].items()}
+        print(f"simulate ({path} path): {n} steps in {t_all:.2f} s "
+              f"(learn_init {st['learn_init_s']:.2f} s); seconds per step "
+              f"{per}; the estimate off the true position (m) at each "
+              f"step {[round(e, 4) for e in st['est_err_m']]}; replan "
+              f"files {st['replans']}; detector {st['detector']}; K4 "
+              f"launches {st['k4']}; {smi}", flush=True)
+        check(np.isfinite(states).all() and not watch.bad,
+              "simulate: a state or covariance is not finite")
+        check(not watch.off_card, "simulate: a tensor of the fit is not on "
+              "cuda")
+        check(len(watch.err) == n, "simulate: not one estimate a step")
+        check(st["k4"] == 0, "simulate launched K4")
+        return st
+    finally:
+        if places is not None:
+            places.restore()
+        if watch is not None:
+            watch.restore()
         os.chdir(old)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2744,7 +3165,19 @@ def main():
     for name, extra, msg in VALIDATE_REFUSALS:
         with Phase(f"validate refuses {name}"):
             validate_refusal(validate_cli, val_dir, extra, msg)
+    for name, extra, msg in SEQUENTIAL_REFUSALS:
+        with Phase(f"validate refuses {name}"):
+            validate_refusal(validate_cli, val_dir, extra, msg,
+                             batched=False)
     print("validate: " + json.dumps(validate_stats))
+
+    # ---- the sequential path: validate's default command, CEM, simulate -
+    seq_stats = sequential_phase(torch, validate_cli, val_dir,
+                                 ckpts["unfused"], smi)
+    with Phase("simulate"):
+        seq_stats["simulate"] = simulate_phase(
+            torch, val_dir, ckpts["unfused"], seq_stats["MC"]["path"], smi)
+    print("sequential: " + json.dumps(seq_stats))
     data_root.cleanup()
 
     print(f"total {time.perf_counter() - t_start:.2f} s")
@@ -2866,8 +3299,48 @@ def closed_loop_intrinsics():
                   f"{st['sigma_d']}; {smi}", flush=True)
 
 
+def sequential_only():
+    """`python3 chip_smoke.py --sequential`: the sequential phases alone
+    (sequential MC, sequential CEM, simulate) on a freshly trained
+    VALIDATE_UNFUSED net, printing their numbers. Not part of the smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch import validate as validate_cli
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (
+        generate_dataset, write_dataset)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        train_dir = str(Path(root) / "spheres")
+        val_dir = str(Path(root) / f"spheres{VALIDATE_RES}")
+        write_dataset(train_dir, F.train_splits())
+        write_dataset(val_dir, generate_dataset(
+            n_train=1, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES))
+        ws = str(Path(root) / "ws_unfused")
+        with Phase("validate nets"):
+            main_nerf.main([train_dir, "--workspace", ws, "--bound", "1",
+                            "--scale", "1", "--seed", "0",
+                            *VALIDATE_UNFUSED], device="cuda")
+        ckpt = sorted(Path(ws, "checkpoints").glob("ngp_ep*.ckpt"))[-1]
+        st = sequential_phase(torch, validate_cli, val_dir, ckpt, smi)
+        with Phase("simulate"):
+            st["simulate"] = simulate_phase(torch, val_dir, ckpt,
+                                            st["MC"]["path"], smi)
+        print("sequential: " + json.dumps(st))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--closed-loop-intrinsics"]:
         closed_loop_intrinsics()
+    elif sys.argv[1:] == ["--sequential"]:
+        sequential_only()
     else:
         main()

@@ -2,9 +2,8 @@
 `rot_x`, `nerf_matrix_to_ngp` (the JAX `nerf_matrix_to_ngp_jax`),
 `skew_matrix`, `_acos_safe`, `rot_matrix_to_vec`, `vec_to_rot_matrix` and
 `next_rotation` and `mahalanobis` in torch, batched over leading
-dimensions, float32 like the JAX versions. The JAX module's numpy helpers
-(`nearestPD`, the SE(3) errors) serve the sequential estimator, which is
-not ported yet.
+dimensions, float32 like the JAX versions; and the numpy SE(3) errors
+(`calcSO3Err`, `calcSE3Err`) that the sequential estimator prints.
 
 The JAX package's Taylor guards are kept: `rot_matrix_to_vec` switches to
 angle / (2 sin angle) ~ 1/2 + angle^2 / 12 below an angle of 1e-4, and
@@ -104,3 +103,22 @@ def as_f32(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def calcSO3Err(R_gt, R_est):
+    """The angle between two rotations [3, 3] in degrees (numpy;
+    math_utils.py:83-91)."""
+    rotDiff = np.dot(R_gt, np.transpose(R_est))
+    trace = np.trace(rotDiff)
+    if trace < -1 and (-1 - trace) < 1e-4:
+        return np.rad2deg(np.arccos(-1))
+    if trace > 3 and (trace - 3) < 1e-4:
+        return np.rad2deg(np.arccos(1))
+    return np.rad2deg(np.arccos((trace - 1.0) / 2.0))
+
+
+def calcSE3Err(T_gt, T_est):
+    """(translation error, rotation error in degrees) of two [4, 4] poses."""
+    ang = calcSO3Err(T_gt[0:3, 0:3], T_est[0:3, 0:3])
+    t_err = np.linalg.norm(T_gt[0:3, 3] - T_est[0:3, 3])
+    return t_err, ang

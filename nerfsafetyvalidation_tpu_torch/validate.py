@@ -1,9 +1,8 @@
-"""Safety validation of a trained NeRF: the population modes of the JAX
-package's root validate.py (reference validate.py:23-344), with the same
-flags and envConfig.json.
+"""Safety validation of a trained NeRF: the JAX package's root validate.py
+(reference validate.py:23-344), with the same flags and envConfig.json.
 
     python -m nerfsafetyvalidation_tpu_torch.validate <dataset dir> \\
-        --batched_rollouts [--closed_loop] [flags]
+        [--batched_rollouts [--closed_loop]] [flags]
 
 From the working directory it reads envConfig.json and
 validation/utils/sdf.npy, and the checkpoint `--ckpt` names under
@@ -14,6 +13,15 @@ net the flags build (`--ff`: NeRFNetworkFF through kernel K4), reads the
 test split's intrinsics, and builds the NerfSimulator. `reset` runs A* on
 the density and the planner's `learn_init`; when A* finds no path the
 restart loop draws a new path and a new seed (validate.py:313-341).
+
+Without `--batched_rollouts` (the default): the sequential stress tests,
+each simulation reset and stepped one MPC step at a time
+(NerfSimulator.step: the observation, the online Gaussian UQ, the
+estimator, the replan, the SDF check). Monte Carlo appends to
+results/collisionValuesBlenderMC_n<N>.csv; the cross-entropy method (10
+sims, 5 elite, 5 iterations) to results/collisionValuesCEM_m10melite5k5.csv.
+When `blender` is on PATH and envConfig names a blend file, Blender
+draws the trajectories at the end.
 
 `--batched_rollouts`: the planner's actions roll out open-loop through
 FullBatchedRolloutEngine (the `uniform` observation at
@@ -26,13 +34,12 @@ every step, the Gaussian UQ reward unless `--closed_loop_uq none`), writing
 results/collisionValuesClosedLoop{MC_n<N>,CEM_m<M>melite5k5}.csv.
 
 Refused, with a message and a non-zero exit, before anything is loaded:
-the sequential modes and `-r` replay (MonteCarlo, CrossEntropyMethod, the
-Estimator and replay.py: slice F1 of the port), BlenderSimulator,
-`--fast_render` (NeRFNetwork.to_cell and render_grid_staged: slice B2/B4),
-the Bayesian-Laplace UQ (slice E), and two combinations on which the JAX
-CLI restarts forever: `--closed_loop --ff` (its estimator's jax.hessian
+`-r` replay and BlenderSimulator (ROADMAP Queue 1 item 6), `--fast_render`
+(item 5), the Bayesian-Laplace UQ (item 4), `--tcnn` (item 9), and three
+combinations on which the JAX CLI restarts forever: `--ff` on the
+sequential path and `--closed_loop --ff` (the estimator's jax.hessian
 through the fused kernel raises ValueError, which the restart loop takes
-for a missing path) and `--batched_obs_render fast|guided|scout` without
+for a missing path), and `--batched_obs_render fast|guided|scout` without
 `--fast_render` (its fallback engine raises ValueError without the
 occupancy state).
 
@@ -42,6 +49,8 @@ device='cpu'."""
 import csv
 import os
 import random
+import shutil
+import subprocess
 
 import numpy as np
 import torch
@@ -58,7 +67,9 @@ from .train.trainer import Trainer
 from .utils.seeding import seed_everything
 from .validation.batched import BatchedRolloutEngine, FullBatchedRolloutEngine
 from .validation.closed_loop import ClosedLoopBatchedEngine
+from .validation.distributions import SeedableMultivariateNormal
 from .validation.simulators import NerfSimulator
+from .validation.stresstests import CrossEntropyMethod, MonteCarlo
 from .validation.utils.paths import generate_path, load_coords, save_coords
 
 # samples a batched call renders at most: the open-loop engine's
@@ -71,35 +82,42 @@ CLOSED_LOOP_SAMPLES = 2 ** 22
 def refusal(opt, env):
     """Why the port does not run this command line, or None."""
     if getattr(opt, "r", False):
-        return ("-r replays through the sequential simulators and "
-                "validation/replay.py, which wait for slice F1 of the port")
-    if not opt.batched_rollouts:
-        return ("the sequential stress tests (MonteCarlo, "
-                "CrossEntropyMethod, the Estimator) wait for slice F1 of "
-                "the port: run with --batched_rollouts")
+        return ("-r replays through the BlenderSimulator and "
+                "validation/replay.py, which are not ported yet (ROADMAP "
+                "Queue 1 item 6)")
     if env.simulator == "BlenderSimulator":
-        return "BlenderSimulator is not ported (slice F1)"
+        return "BlenderSimulator is not ported yet (ROADMAP Queue 1 item 6)"
     if env.simulator != "NerfSimulator":
         return f"Unrecognized simulator {env.simulator}"
     if env.stress_test not in ("Monte Carlo", "Cross Entropy Method"):
         return f"Unrecognized stress test {env.stress_test}"
+    if opt.tcnn:
+        return ("--tcnn builds the JAX package's NeRFNetworkTCNN "
+                "(models/network_tcnn.py), which is not ported yet (ROADMAP "
+                "Queue 1 item 9)")
     if opt.fast_render:
         return ("--fast_render needs NeRFNetwork.to_cell and "
-                "render_grid_staged, which wait for slices B2 and B4 of the "
-                "port")
-    if opt.batched_obs_render != "uniform":
+                "render_grid_staged, which are not ported yet (ROADMAP "
+                "Queue 1 item 5)")
+    if opt.batched_rollouts and opt.batched_obs_render != "uniform":
         return (f"--batched_obs_render {opt.batched_obs_render} needs "
                 "--fast_render's occupancy state; without it the JAX CLI "
                 "falls back to 'scout', whose engine raises ValueError, and "
                 "the restart loop retries forever")
     if env.uq_method == "Bayesian Laplace Approximation" or (
-            opt.closed_loop and opt.closed_loop_uq == "laplace"):
-        return ("the in-scan Bayesian-Laplace UQ waits for slice E of the "
-                "port (get_sigma_net_flat and the MAP fit)")
+            opt.batched_rollouts and opt.closed_loop
+            and opt.closed_loop_uq == "laplace"):
+        return ("the Bayesian-Laplace UQ (get_sigma_net_flat and the MAP "
+                "fit) is not ported yet (ROADMAP Queue 1 item 4)")
     if env.uq_method != "Gaussian Approximation":
-        return (f"--batched_rollouts does not support uq_method "
-                f"{env.uq_method!r}")
-    if opt.closed_loop and (opt.ff or opt.tcnn):
+        return f"Unrecognized uncertainty quantification method " \
+               f"{env.uq_method!r}"
+    if opt.ff and not opt.batched_rollouts:
+        return ("--ff on the sequential path: the estimator's Hessian "
+                "through the fused MLP raises ValueError in the JAX CLI, "
+                "whose restart loop then retries forever; run it without "
+                "--ff")
+    if opt.batched_rollouts and opt.closed_loop and opt.ff:
         return ("--closed_loop --ff: the estimator's Hessian through the "
                 "fused MLP raises ValueError in the JAX CLI, whose restart "
                 "loop then retries forever; run --closed_loop without --ff")
@@ -238,8 +256,50 @@ def validate_closed_loop(simulator, stresstest, noise_mean, noise_std,
     return res
 
 
+def validate(simulator, stresstest, noise_mean, noise_std, n_simulations,
+             steps, blend_file, workspace, opt, device="cuda"):
+    """validate.py:23-54: the population modes with --batched_rollouts,
+    else the sequential stress test; then, when `blender` is on PATH and
+    a blend file is named, Blender draws the trajectories. Returns the
+    stress test's result (MonteCarlo, or CEM's optimize() tuple)."""
+    if opt.batched_rollouts:
+        return validate_batched(simulator, stresstest, noise_mean, noise_std,
+                                n_simulations, opt, device)
+    if stresstest == "Monte Carlo":
+        print(f"Starting Monte Carlo test with {n_simulations} simulations "
+              f"and {steps} steps each")
+        res = MonteCarlo(simulator, n_simulations, steps, noise_mean,
+                         noise_std, blend_file, workspace, opt.iter,
+                         noise_seed=opt.seed, device=device)
+        res.validate()
+    else:
+        print(f"Starting Cross Entropy Method test with {n_simulations} "
+              f"simulations and {steps} steps each")
+        mean = np.asarray(noise_mean, np.float32)
+        cov = np.diag(np.asarray(noise_std, np.float32) ** 2)
+        q = SeedableMultivariateNormal([mean] * steps, [cov] * steps,
+                                       noise_seed=opt.seed, device=device)
+        p = SeedableMultivariateNormal([mean] * steps, [cov] * steps,
+                                       noise_seed=opt.seed, device=device)
+        cem = CrossEntropyMethod(simulator, q, p, 10, 5, 5, opt.seed,
+                                 blend_file, workspace, opt.iter, opt.k)
+        res = cem.optimize()
+        means, covs, _, bm, bc, bv = res
+        print(f"Means: {means}")
+        print(f"Covariance Matrices: {covs}")
+        print(f"Best solution means: {bm}")
+        print(f"Best solution covariance matrix: {bc}")
+        print(f"Best objective value: {bv}")
+    # the trajectories drawn in Blender (validate.py:52-53)
+    if shutil.which("blender") and blend_file:
+        subprocess.run(["blender", blend_file, "-P",
+                        "scripts/blender/viz_data_blend.py", "--background",
+                        "--", opt.workspace, str(0.02)], check=False)
+    return res
+
+
 def main(argv=None, device="cuda"):
-    """Returns the last stress test's result."""
+    """Returns the stress test's result (see `validate`)."""
     opt = apply_O_flag(build_parser("validate").parse_args(argv), "validate")
     env = EnvConfig.load("envConfig.json")
     why = refusal(opt, env)
@@ -347,8 +407,10 @@ def main(argv=None, device="cuda"):
     # or the start or goal is occupied (AssertionError)
     while True:
         try:
-            res = validate_batched(simulator, env.stress_test, noise_mean,
-                                   noise_std, env.n_simulations, opt, device)
+            res = validate(simulator, env.stress_test, noise_mean,
+                           noise_std, env.n_simulations, steps,
+                           agent_cfg["blend_file"], opt.workspace, opt,
+                           device)
             break
         except (ValueError, AssertionError):
             print("Path not found; restarting with new path...")

@@ -1,3 +1,3 @@
 """Safety validation (nerfsafetyvalidation_tpu/validation/): the batched
-rollout engines (open-loop and closed-loop), the NeRF simulator, and the
-pieces of the stress tests they use."""
+rollout engines (open-loop and closed-loop), the NeRF and toy simulators,
+the sequential stress tests and their seedable distributions."""

@@ -25,10 +25,11 @@ steps, the Adam iterations and the replan epochs are Python loops over
 tensors of the whole population: one render of every sim's pixels an
 iteration, one density query of every sim's body points an epoch. Sims do
 not interact, so the gradient of the population's summed loss is each
-sim's gradient, and 12 double-backward products with one-hot directions
-give every sim's 12x12 Hessian (the Hessian of the sum is block-diagonal).
-The dynamics' 12x12 Jacobian comes from 12 backward passes the same way
-(JAX takes it in forward mode; the derivative is the same).
+sim's gradient, and 12 double-backward products give every sim's 12x12
+Hessian (the Hessian of the sum is block-diagonal); the dynamics' 12x12
+Jacobian comes from 12 backward passes the same way (utils/autodiff.py,
+which the sequential estimator shares; JAX takes the Jacobian in forward
+mode, the derivative is the same).
 
 `sim_group` runs at most that many sims at a time. The render runs through
 the net's own chain (with `--ff`, K4, whose backward is a recompute of
@@ -47,6 +48,7 @@ from ..nav.math_utils import (as_f32, mahalanobis, nerf_matrix_to_ngp, rot_x,
                               vec_to_rot_matrix)
 from ..nav.planner import calc_everything, planner_cost_terms
 from ..utils.adam import Adam
+from ..utils.autodiff import hessian_rows, jacobian_rows
 from .batched import BatchedRolloutEngine, _cem_proposal_update, _no_mesh
 
 # rays a call when the "frame" target renders a whole observation
@@ -182,12 +184,7 @@ class ClosedLoopBatchedEngine(BatchedRolloutEngine):
             xt_prop = self._dynamics(xt, action)
         # the Jacobian at the propagated state, as the sequential estimator
         # takes it: row i of every sim's from one backward of output i
-        with torch.enable_grad():
-            leaf = xt_prop.detach().requires_grad_(True)
-            out = self._dynamics(leaf, action)
-            A = torch.stack([torch.autograd.grad(out[:, i].sum(), leaf,
-                                                 retain_graph=i < 11)[0]
-                             for i in range(12)], dim=1)
+        A = jacobian_rows(lambda x: self._dynamics(x, action), xt_prop)
         with torch.no_grad():
             sig_prop = A @ sig @ A.transpose(-1, -2) + self.Q
 
@@ -206,14 +203,7 @@ class ClosedLoopBatchedEngine(BatchedRolloutEngine):
             s, = adam.step([s], [grad])
         if not self.filter:
             return s, sig_prop
-        with torch.enable_grad():
-            leaf = s.detach().requires_grad_(True)
-            grad, = torch.autograd.grad(loss(leaf), leaf, create_graph=True)
-            rows = [torch.autograd.grad(grad[:, k].sum(), leaf,
-                                        retain_graph=k < 11)[0]
-                    for k in range(12)]
-        hess = torch.stack(rows, dim=1)
-        return s, torch.linalg.inv(hess)
+        return s, torch.linalg.inv(hessian_rows(loss, s))
 
     def _replan(self, knots, ia, start18):
         """epochs_update Adam steps from a fresh optimizer on every sim's

@@ -7,9 +7,11 @@ files: when paths/<exp>/init_poses/0.json existed before the reset,
 `learn_init` is skipped, the cached files are copied back, and the
 planner keeps its A* knots (the reference's quirk, kept).
 
-What the population modes of the validate CLI read of it is here. The
-sequential `step` (the estimator's pose fit and the online UQ) is not
-ported: it raises."""
+`step` is one sequential MPC step (NerfSimulator.py:66-155): the planner's
+next action through the disturbed dynamics, the observation rendered at
+the true pose, the online Gaussian UQ on a second render of it, the
+estimator's fit and posterior, the replan from the estimate, and the SDF
+check at the last 4 of the states interpolated over the run so far."""
 
 import os
 import pathlib
@@ -19,9 +21,12 @@ import numpy as np
 import torch
 
 from ...nav.agent import Agent
-from ...nav.math_utils import as_f32, rot_matrix_to_vec
+from ...nav.estimator import Estimator
+from ...nav.math_utils import as_f32, rot_matrix_to_vec, vec_to_rot_matrix
 from ...nav.planner import Planner
+from ...uq.orchestrator import uncertainty
 from ...utils.seeding import seed_everything
+from ..utils.blender import worldToIndex
 from ..utils.files import cache_poses, restore_poses
 from .base import Env, disturbance_action_space, rgb_observation_space
 
@@ -93,12 +98,87 @@ class NerfSimulator(Env):
         self.res_y = camera_cfg.get("res_y", 800)
 
     def step(self, disturbance, num_interpolated_points: int = 4):
-        """One sequential MPC step (NerfSimulator.py:66-155)."""
-        raise NotImplementedError(
-            "NerfSimulator.step needs the sequential Estimator (slice D3, "
-            "nav/estimator.py) and the UQ orchestrator (slice E, "
-            "uq/orchestrator.py), which are not ported yet; the population "
-            "modes (--batched_rollouts) do not call it")
+        """One validated MPC step (NerfSimulator.py:66-155); disturbance
+        [12]. Returns (collided, collisionVal, position [3], sigma,
+        trace): with the Gaussian UQ, sigma is sigma_d and trace mu_d."""
+        action = self.traj.get_next_action().detach()
+
+        true_pose, true_state, gt_img = self.dynamics.step(
+            action, noise=as_f32(disturbance, self.device))
+        self.current_state = true_state
+        self.true_states = np.vstack((self.true_states, true_state))
+
+        # linear interpolation on the states (NerfSimulator.py:93-98)
+        x = np.arange(self.true_states.shape[0])
+        xnew = np.linspace(x.min(), x.max(),
+                           self.true_states.shape[0] * num_interpolated_points)
+        interp = np.empty((xnew.shape[0], self.true_states.shape[1]))
+        for i in range(self.true_states.shape[1]):
+            interp[:, i] = np.interp(xnew, x, self.true_states[:, i])
+
+        nerf_image = self.filter.render_from_pose(true_pose)
+        nerf_image = nerf_image.cpu().numpy().reshape(self.res_y, self.res_x,
+                                                      -1)
+        nerf_image_u8 = (nerf_image * 255).astype(np.uint8)
+
+        # the online uncertainty (NerfSimulator.py:110)
+        trace, sigma = uncertainty(
+            self.uq_method,
+            rendered_output=self.filter.render_for_uncertainty(true_pose),
+            net=self.net, lr=self.filter.lrate, H=self.res_y, W=self.res_x,
+            **self.uq_kwargs)
+
+        os.makedirs("./sim_img_cache", exist_ok=True)
+        try:
+            import matplotlib.image
+            matplotlib.image.imsave("./sim_img_cache/blenderRender.png",
+                                    np.asarray(gt_img))
+            matplotlib.image.imsave("./sim_img_cache/NeRFRender.png",
+                                    nerf_image_u8)
+        except Exception:
+            pass
+
+        state_est = self.filter.estimate_state(nerf_image_u8, true_pose,
+                                               action)
+        state_est = torch.cat([state_est[:6],
+                               vec_to_rot_matrix(state_est[6:9]).reshape(-1),
+                               state_est[9:]])
+        self.traj.update_state(state_est)
+        self.traj.learn_update(self.iter)
+
+        collided, collisionVal, current_state = self._sdf_check(
+            interp[-num_interpolated_points:])
+        if not collided:
+            self.iter += 1
+        return collided, collisionVal, current_state[:3], sigma, trace
+
+    def _sdf_check(self, states):
+        """The SDF at each interpolated state [k, 12] in turn until one
+        collides (below 1 / GRANULARITY); a state off the grid is printed
+        and does not collide (NerfSimulator.py:131-155). Returns
+        (collided, the last SDF value read (9999 if none), the state)."""
+        collisionVal = 9999
+        collided = False
+        for current_state in states:
+            try:
+                xi = worldToIndex(current_state[0], self.START_X,
+                                  self.GRANULARITY)
+                yi = worldToIndex(current_state[1], self.START_Y,
+                                  self.GRANULARITY)
+                zi = worldToIndex(current_state[2], self.START_Z,
+                                  self.GRANULARITY)
+                if xi < 0 or yi < 0 or zi < 0:
+                    raise IndexError
+                collisionVal = self.sdf[xi, yi, zi]
+                collided = collisionVal < (1 / self.GRANULARITY)
+            except IndexError:
+                print(f"We are out of bounds with current state "
+                      f"{current_state}")
+                collided = False
+            if collided:
+                print(f"Drone collided in state {current_state}")
+                break
+        return collided, collisionVal, current_state
 
     def reward(self, likelihood, sigma_d_opt, trace=None):
         """Safety-masked reward (NerfSimulator.py:159-181)."""
@@ -115,7 +195,7 @@ class NerfSimulator(Env):
 
     def reset(self):
         """NerfSimulator.py:183-223: a fresh workspace, numpy and torch
-        seeded, the agent and the planner built, A* (raises ValueError or
+        seeded, the agent, the estimator and the planner built, A* (raises ValueError or
         AssertionError when there is no path), then `learn_init` and the
         pose cache, or, when the cache existed, the cached files copied back
         and the A* knots kept."""
@@ -130,12 +210,16 @@ class NerfSimulator(Env):
         self.dynamics = Agent(self.agent_cfg, self.camera_cfg,
                               self.blender_cfg, camera=self.camera,
                               device=self.device)
-        # the sequential estimator (slice D3) is not ported: the population
-        # modes estimate in-engine (validation/closed_loop.py) or not at all
-        self.filter = None
+        self.filter = Estimator(self.filter_cfg, self.dynamics,
+                                self.true_start_state,
+                                get_rays_fn=self.get_rays_fn,
+                                render_fn=self.render_fn,
+                                render_batch_fn=self.render_batch_fn,
+                                device=self.device)
         traj = Planner(self.start_state, self.end_state, self.planner_cfg,
                        self.density_fn, device=self.device)
         traj.basefolder = self.basefolder
+        self.filter.basefolder = self.basefolder
 
         traj.a_star_init()
 

@@ -239,12 +239,16 @@ REFUSALS = {
     "guided_no_fast_render": (["--batched_obs_render", "guided"], {},
                               "restart loop", True),
     "fast_render": (["--fast_render"], {}, "to_cell", True),
-    "sequential": ([], {}, "slice F1", False),
+    "sequential": (["--ff"], {}, "--ff on the sequential path", False),
     "replay": (["--r"], {}, "replay", True),
     "blender": ([], {"simulator": "BlenderSimulator"}, "BlenderSimulator",
                 True),
     "laplace": ([], {"uq_method": "Bayesian Laplace Approximation"},
-                "slice E", True),
+                "Queue 1 item 4", True),
+    "laplace_sequential": ([], {"uq_method":
+                                "Bayesian Laplace Approximation"},
+                           "Queue 1 item 4", False),
+    "tcnn": (["--tcnn"], {}, "NeRFNetworkTCNN", False),
 }
 
 
