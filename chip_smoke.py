@@ -4,7 +4,9 @@ CUDA card.
 
     python3 chip_smoke.py
 
-(`--closed-loop-intrinsics` runs only the probe of that name, below.)
+(`--closed-loop-intrinsics` runs only the probe of that name, below;
+`--sequential` phases 22-24 alone, `--laplace` phases 25-28 alone, each
+on freshly trained nets.)
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
@@ -171,9 +173,10 @@ Phases, each printing its elapsed seconds:
      of A*'s grid it leaves occupied: too much for a path, see
      VALIDATE_UNFUSED), envConfig's 100 estimator
      iterations and 250 replan epochs a step, 800^2 camera, 32^2 interest
-     grid: s per sim-step, the estimate's, replan's and UQ's milliseconds
-     a population step, the mean distance between the estimated and the
-     true position, finite estimates and rewards, no K4 launch;
+     grid, the plan's first CL_STEPS steps: s per sim-step, the
+     estimate's, replan's and UQ's milliseconds a population step, the
+     mean distance between the estimated and the true position, finite
+     estimates and rewards, no K4 launch;
  21. the refusals: --closed_loop --ff, --batched_obs_render guided
      without --fast_render, and --fast_render, and on the sequential path
      --ff and --tcnn, each exit with their message within seconds, before
@@ -183,8 +186,9 @@ Phases, each printing its elapsed seconds:
      Carlo, the Gaussian UQ, the 800^2 camera, the estimator's 1,024-pixel
      batch and 100 Adam steps, the planner's 1000 + 250 epochs), --camera
      nerf, on phase 20's net (the CLI's default float32 NeRFNetwork: no
-     kernel on this path in either package), cut to SEQ_SIMS sims and 64
-     samples a ray: the seconds per sim-step of the NeRF camera's
+     kernel on this path in either package), cut to SEQ_SIMS sims, each
+     sim's first SEQ_STEPS steps and 64 samples a ray: the seconds per
+     sim-step of the NeRF camera's
      capture, the observation render, the UQ's render and fit, the
      estimator's fit, its Hessian, the replan and the SDF check; the
      estimate's distance from the true position at each step; the CSV's
@@ -194,13 +198,50 @@ Phases, each printing its elapsed seconds:
      value and gradient on the card against the CPU's from the same
      inputs (TOL_MEAS), no K4 launch;
  23. sequential CEM: the port's CrossEntropyMethod on that simulator, m =
-     2, m_elite = 1, kmax = 1 (SEQ_CEM; its 27-column CSV, each sim's rows
-     stopping at its first collision), the same numbers;
+     2, m_elite = 1, kmax = 1 (SEQ_CEM), trajectories of SEQ_STEPS steps
+     (its 27-column CSV, each sim's rows stopping at its first
+     collision), the same numbers;
  24. simulate: `simulate.main` as a user runs it (envConfig.json as
      shipped, --camera nerf, 64 samples a ray; when A* finds no path
      between envConfig's start and goal in this net, the MC phase's path,
      said so): the seconds per step of the capture, the fit, the Hessian
-     and the replan, the estimate's distance from the truth a step.
+     and the replan, the estimate's distance from the truth a step;
+ 25. kernel K4 grouped: the in-scan Laplace fits' mode (one weight set a
+     group) against its plain version at 16 groups x 256 rows of the FF
+     sigma net 32-64-64-16 (seeded) and at a ragged 5 x 200; each group
+     bit-equal to the single mode on its own weights; 20 reruns
+     bit-identical; the weights' gradients the recompute's, bit for bit;
+     kernel (the batched pack and the launch apart too), plain, library
+     (a bf16 torch.bmm chain) and bound times;
+ 26. uncertain --ff: `uncertain -O --ff` as a user runs it, on the
+     main_nerf -O --ff checkpoint and a spheres directory of 2 training
+     views and an 800^2 test view, 64 samples a ray, envConfig's uq_method
+     the Laplace approximation, then the Gaussian: K4 in each view's
+     staged render and at least once an Adam step of the MAP fits on all
+     640,000 points, no plain call; the fit's -log posterior and its
+     gradient through K4 against the plain chain (TOL_LAPLACE); trace
+     and rmv, finite in every view, the heat map; seconds by part
+     (render, fits, LM, the inverse);
+ 27. validate --ff MC laplace: phase 19's setup with envConfig's Laplace
+     (the engine's knobs: 100 Adam steps, 256 points, 3 perturbations, 20
+     LM steps): the grouped K4 launched, no plain call; the start's
+     in-scan Laplace of 16 sims through the kernel and the plain chain:
+     the -log posterior and its gradient at the drawn theta (TOL_LAPLACE),
+     the LM from one MAP theta on both routes (lmbda and the stops equal,
+     x and g within TOL_LAPLACE_LM), trace and rmv printed; at least
+     LAPLACE_FINITE of the in-scan fits and of the rewards finite, and
+     every fit that is not explained (`laplace_finite_checks`);
+     rollouts/s; seconds in the observations, fits and LM;
+ 28. Laplace without a kernel: the sequential MC with the Laplace UQ (1
+     sim, SEQ_STEPS steps, phase 20's net, envConfig as shipped but the
+     uq_method, --camera nerf, 64 samples; seconds per sim-step by part;
+     at least LAPLACE_FINITE of its rmv finite), and validate --closed_loop
+     --closed_loop_uq laplace (4 sims, CL_STEPS steps; the fits' and
+     rewards' finite shares and their explanation as in 27); no K4.
+Phase 22's population is cut to 1 sim (SEQ_SIMS), the sequential phases
+(22, 23, 28) to each sim's first SEQ_STEPS steps and the closed-loop ones
+(20, 28) to CL_STEPS, to make room for 25-28 within the time limit on a
+slower host.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
@@ -213,6 +254,7 @@ Every failed check raises and ends the run with a non-zero exit; without a
 CUDA device the script fails before printing anything.
 """
 
+import contextlib
 import csv
 import json
 import os
@@ -598,6 +640,10 @@ SEQUENTIAL_REFUSALS = (
     ("--tcnn (sequential)", ["--tcnn"], "NeRFNetworkTCNN"))
 # the validate CLI's restart loop: a phase fails after this many restarts
 MAX_RESTARTS = 5
+# the closed-loop phases (20, 28) fly each sim's first CL_STEPS steps of
+# the plan (all 11 before): the depth cut that keeps the smoke inside its
+# time limit on a slower host (the population stays)
+CL_STEPS = 4
 BLENDER_TO_NERF = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
 
@@ -641,9 +687,9 @@ class Places:
             setattr(cls, attr, orig)
 
 
-def _workdir(data_dir, stress, sims):
+def _workdir(data_dir, stress, sims, **env_extra):
     env = json.loads((ROOT / "envConfig.json").read_text())
-    env.update(n_simulations=sims, stress_test=stress)
+    env.update(n_simulations=sims, stress_test=stress, **env_extra)
     Path("envConfig.json").write_text(json.dumps(env))
     return [data_dir, "--workspace", "ws", "--bound", "1", "--scale", "1",
             "--seed", "0", "--batched_rollouts", "--num_steps",
@@ -684,9 +730,33 @@ def write_net_sdf(torch, argv, ckpt):
     return sdf, time.perf_counter() - t0
 
 
-def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
-    """One validate CLI run on the card (see VALIDATE_RUNS); returns its
-    numbers."""
+@contextlib.contextmanager
+def closed_loop_horizon(horizon):
+    """The closed-loop engine cut to the plan's first `horizon` steps (the
+    smoke's depth cut of the closed-loop phases)."""
+    from nerfsafetyvalidation_tpu_torch.validation.closed_loop import (
+        ClosedLoopBatchedEngine)
+    real = ClosedLoopBatchedEngine.__init__
+
+    def init(self, *, steps, **kw):
+        real(self, steps=min(int(steps), horizon), **kw)
+    ClosedLoopBatchedEngine.__init__ = init
+    try:
+        yield
+    finally:
+        ClosedLoopBatchedEngine.__init__ = real
+
+
+def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi,
+                   **env_extra):
+    """One validate CLI run on the card (see VALIDATE_RUNS; env_extra:
+    envConfig.json's keys changed, e.g. uq_method); returns its numbers.
+    With the Laplace UQ (envConfig's, or --closed_loop_uq laplace) the
+    fits' parts are timed, their grouped K4 launches counted, and every
+    in-scan fit recorded: at least LAPLACE_FINITE of the fits and of the
+    rewards must be finite, and every fit that is not must be explained
+    (`laplace_finite_checks`: a fit from an overflowing random start is
+    NaN, in the JAX package too, ROADMAP Queue 3)."""
     import random
     from nerfsafetyvalidation_tpu_torch.nav.planner import (
         Planner, planner_cost_terms)
@@ -701,8 +771,17 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
     old, work = os.getcwd(), tempfile.mkdtemp()
     os.chdir(work)
     places = None
+    laplace = env_extra.get("uq_method") == LAPLACE or (
+        "--closed_loop" in extra and "laplace" in extra)
+    real_uq, uq_calls = FullBatchedRolloutEngine._laplace_uq, []
+
+    def record_uq(eng_, X, y, theta0, perts):
+        trace, rmv = real_uq(eng_, X, y, theta0, perts)
+        uq_calls.append((eng_, X, y, theta0, perts, trace, rmv))
+        return trace, rmv
     try:
-        argv = _workdir(data_dir, stress, sims) + extra
+        FullBatchedRolloutEngine._laplace_uq = record_uq
+        argv = _workdir(data_dir, stress, sims, **env_extra) + extra
         sdf, t_sdf = write_net_sdf(torch, argv, ckpt)
         sdf_occupied = float((sdf == 0).mean())
         sync = torch.cuda.synchronize
@@ -734,6 +813,10 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
             ("astar", Planner, "a_star_init"),
             ("learn_init", Planner, "learn_init"),
             ("observations", FullBatchedRolloutEngine, "_render_stats"),
+            ("observations", FullBatchedRolloutEngine, "_render_laplace"),
+            ("laplace map", FullBatchedRolloutEngine, "_laplace_map"),
+            ("laplace lm", FullBatchedRolloutEngine, "_laplace_lm"),
+            ("laplace", FullBatchedRolloutEngine, "_laplace_uq"),
             ("run", FullBatchedRolloutEngine, "monte_carlo"),
             ("run", FullBatchedRolloutEngine, "cem"),
             ("run", ClosedLoopBatchedEngine, "monte_carlo"),
@@ -745,20 +828,26 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
                    "astar": (None, astar_said)})
         random.seed(0)
         fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
-        plain0 = fused_mlp.PLAIN_CALLS
+        fused_mlp.LAUNCHES_GROUPED = 0
+        plain0 = fused_mlp.PLAIN_CALLS + fused_mlp.PLAIN_CALLS_GROUPED
         t0 = time.perf_counter()
-        res = V.main(argv, device="cuda")
+        with closed_loop_horizon(CL_STEPS) if "--closed_loop" in extra \
+                else contextlib.nullcontext():
+            res = V.main(argv, device="cuda")
         sync()
         t_all = time.perf_counter() - t0
         launches = fused_mlp.LAUNCHES
-        plain = fused_mlp.PLAIN_CALLS - plain0
+        grouped = fused_mlp.LAUNCHES_GROUPED
+        plain = fused_mlp.PLAIN_CALLS + fused_mlp.PLAIN_CALLS_GROUPED \
+            - plain0
         places.restore()
+        FullBatchedRolloutEngine._laplace_uq = real_uq
         V.generate_path = real_generate
 
         sim = places.last["reset"]
         planner = sim.traj
-        T = int(planner.get_actions().shape[0])
         eng = places.last["run"]
+        T = int(eng.steps)
         csvs = {f.name: list(csv.reader(open(f, newline="")))
                 for f in Path("results").glob("collisionValues*.csv")}
         check(len(csvs) == 1 and all(csvs.values()),
@@ -773,7 +862,28 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
             k4={k: places.k4[k] for k in ("astar", "learn_init",
                                           "observations")},
             k4_all=launches, plain_calls=plain, run_s=places.s["run"],
-            csv=csv_name, csv_rows=len(rows))
+            csv=csv_name, csv_rows=len(rows), k4_grouped=grouped)
+        if laplace:
+            stats.update(
+                laplace_s={k: places.s[k] for k in ("observations",
+                                                    "laplace map",
+                                                    "laplace lm",
+                                                    "laplace")},
+                finite={k: float(np.isfinite(res[k]).mean())
+                        for k in ("sigma_d", "reward", "trace")
+                        if k in res},
+                fits=laplace_finite_checks(torch, uq_calls,
+                                           f"validate {extra}"))
+            print(f"validate {' '.join(extra)} with the Laplace UQ: "
+                  f"seconds in the observations, the MAP fits, the LM and "
+                  f"the whole UQ {stats['laplace_s']}; grouped K4 "
+                  f"launches {grouped}; finite shares {stats['finite']}; "
+                  f"in-scan fits {stats['fits']}; {smi}", flush=True)
+            check(stats["fits"]["fits"] > 0
+                  and stats["fits"]["fits_finite"] >= LAPLACE_FINITE
+                  and stats["finite"]["reward"] >= LAPLACE_FINITE,
+                  f"validate {extra}: fewer than {LAPLACE_FINITE} of the "
+                  f"in-scan Laplace fits or of the rewards are finite")
         ff = "--ff" in extra
         print(f"validate {' '.join(extra)} ({stress}, {sims} sims, "
               f"{VALIDATE_STEPS} samples a ray): {stats['restarts']} "
@@ -788,6 +898,8 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
         check(plain == 0, f"validate {extra}: K4's plain version was called")
         check(all(stats["k4"].values()) if ff else launches == 0,
               f"validate {extra}: K4 launches {stats['k4']} (all {launches})")
+        check((grouped > 0) == (ff and laplace), f"validate {extra}: "
+              f"grouped K4 launches {grouped}")
         check(costs["last"] < costs["first"], f"validate {extra}: "
               f"learn_init did not lower the cost {costs}")
         if isinstance(eng, ClosedLoopBatchedEngine):
@@ -800,8 +912,8 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
                 ms_per_step={k: 1e3 * places.s[k] / T for k in (
                     "target", "estimate", "replan", "observations", "uq")},
                 est_pos_err_m=err, collision_rate=res["collision_rate"],
-                sigma_d=[float(res["sigma_d"].min()),
-                         float(res["sigma_d"].max())])
+                sigma_d=[float(np.nanmin(res["sigma_d"])),
+                         float(np.nanmax(res["sigma_d"]))])
             print(f"validate --closed_loop: {stats['run_s']:.2f} s for "
                   f"{sims} sims x {T} steps: {stats['s_per_sim_step']:.4f} "
                   f"s per sim-step; per population step (ms) "
@@ -809,8 +921,8 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
                   f"; estimated position off the true one by {err:.5f} m "
                   f"on average; collision rate {res['collision_rate']}; "
                   f"sigma_d {stats['sigma_d']}; CSV {len(rows)} rows; {smi}")
-            check(np.isfinite(est).all() and np.isfinite(
-                res["reward"]).all(), "validate --closed_loop: an estimate "
+            check(np.isfinite(est).all() and (laplace or np.isfinite(
+                res["reward"]).all()), "validate --closed_loop: an estimate "
                 "or a reward is not finite")
             return stats
         n_roll = sims if stress == "Monte Carlo" else max(sims, 10) * 5
@@ -818,11 +930,18 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
         stats.update(rollouts_per_s=n_roll / stats["run_s"])
         if stress == "Monte Carlo":
             check(all(len(r) == 23 for r in rows), "validate MC CSV columns")
-            check(bool(np.isfinite(res["reward"]).all()
-                       and np.isfinite(sig).all() and (sig >= 0).all()),
+            # with the Laplace UQ a NaN reward (a fit from an overflowing
+            # start) scales the sim's later disturbances: its likelihoods
+            # and rewards stay NaN, and so do its fits unless it collided
+            # (frozen state); the finite shares are held above
+            ok = np.isfinite(sig)
+            check(bool(laplace or (ok.all()
+                                   and np.isfinite(res["reward"]).all()))
+                  and bool((sig[ok] >= 0).all()),
                   "validate MC: sigma_d or the reward is not finite")
             stats.update(collision_rate=float(res["collided"].any(1).mean()),
-                         sigma_d=[float(sig.min()), float(sig.max())])
+                         sigma_d=[float(np.nanmin(sig)),
+                                  float(np.nanmax(sig))])
             print(f"validate --ff MC: {n_roll} rollouts in "
                   f"{stats['run_s']:.3f} s, {stats['rollouts_per_s']:.3f} "
                   f"rollouts/s; collision rate {stats['collision_rate']}; "
@@ -843,10 +962,13 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi):
         # plan, and the start's observation
         stats.update(validate_k4_checks(torch, sim, planner, eng,
                                         planner_cost_terms))
+        if laplace and ff:
+            stats.update(laplace_k4_checks(torch, eng, smi))
         return stats
     finally:
         if places is not None:
             places.restore()
+        FullBatchedRolloutEngine._laplace_uq = real_uq
         os.chdir(old)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -986,9 +1108,13 @@ def validate_refusal(V, data_dir, extra, msg, batched=True):
 # same simulator, and the simulate entry point, on VALIDATE_UNFUSED's net
 # (the CLI's default float32 NeRFNetwork: no kernel on this path in either
 # package) with --camera nerf. Cut: the population (SEQ_SIMS sims; CEM
-# m = 2, m_elite = 1, kmax = 1) and the samples a ray (VALIDATE_STEPS).
-SEQ_SIMS = 2
+# m = 2, m_elite = 1, kmax = 1), the samples a ray (VALIDATE_STEPS) and the
+# depth: each sim's first SEQ_STEPS steps of the planned flight (the Monte
+# Carlo test's horizon, the CEM's trajectories; 6 and 9 before PR 17), which
+# keeps the smoke inside its time limit on a slower host.
+SEQ_SIMS = 1
 SEQ_CEM = dict(m=2, m_elite=1, kmax=1)
+SEQ_STEPS = 2
 # measurement_fn at the last fit's optimum, its value and its gradient in
 # the state, on the card and on the CPU from the same inputs (the net's
 # weights copied to the CPU). float32 on both, other summation orders
@@ -1117,6 +1243,19 @@ def _seq_times(places, n_steps):
     return per
 
 
+@contextlib.contextmanager
+def mc_horizon(V, steps):
+    """validate's sequential MonteCarlo cut to each sim's first `steps`
+    steps (the smoke's depth cut of the sequential phases)."""
+    real = V.MonteCarlo
+    V.MonteCarlo = lambda sim, n, s, *a, **k: real(sim, n, min(s, steps),
+                                                   *a, **k)
+    try:
+        yield
+    finally:
+        V.MonteCarlo = real
+
+
 def sequential_phase(torch, V, data_dir, ckpt, smi):
     """(a) validate's default sequential Monte Carlo and (b) the port's
     CrossEntropyMethod on the same simulator, in one temporary working
@@ -1155,7 +1294,7 @@ def sequential_phase(torch, V, data_dir, ckpt, smi):
         places.hooks["estimate"] = (None, watch.after_estimate)
         random.seed(0)
         fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
-        with Phase("sequential MC"):
+        with Phase("sequential MC"), mc_horizon(V, SEQ_STEPS):
             t0 = time.perf_counter()
             V.main(argv, device="cuda")
             torch.cuda.synchronize()
@@ -1164,8 +1303,8 @@ def sequential_phase(torch, V, data_dir, ckpt, smi):
                 f"results/collisionValuesBlenderMC_n{SEQ_SIMS}.csv",
                 newline="")))
             n_steps = len(watch.err)
-            steps = json.loads(Path("results/coordinates.json")
-                               .read_text())["steps"]
+            steps = min(SEQ_STEPS, json.loads(Path(
+                "results/coordinates.json").read_text())["steps"])
             sim = places.last["reset"]
             check("fit" in places.last, "sequential MC: the estimator never "
                   "fitted (no interest points in any observation)")
@@ -1357,6 +1496,554 @@ def simulate_phase(torch, data_dir, ckpt, fallback_path, smi):
             watch.restore()
         os.chdir(old)
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- the Bayesian-Laplace UQ (phases 25-28) --------------------------------
+LAPLACE = "Bayesian Laplace Approximation"
+GAUSSIAN = "Gaussian Approximation"
+# kernel K4's grouped mode (the in-scan Laplace fits: one sigma net a sim)
+# at the batched engine's shape (16 sims x the fits' 256 points) on the FF
+# sigma net, and at a ragged one
+K4G_SHAPES = ((16, 256), (5, 200))
+FF_SIGMA = [32, 64, 64, 16]
+# The fits' -log posterior through K4 against the plain chain at the same
+# theta and points, relative, and its gradient in theta, of its largest
+# component. Stated before the first run on the card: the loss sums
+# 640,000 (uncertain) or 256 (validate) squared residuals of sigma =
+# exp(s0), s0 off by TOL_K4's sigma-net mean (1e-6 of max(|s0|, 1)) and now
+# and then by a bf16 step: bound 1e-4; the gradient: K4's bf16 gradient
+# bound, 1e-2 of the largest (tests/test_torch_k4_grad.py).
+TOL_LAPLACE = dict(loss=1e-4, grad=1e-2)
+# The start's in-scan LM (20 steps) from the same MAP theta through the
+# kernel and through the plain chain, lmbda and the stops held equal: the
+# iterate x and g's worst entry relative to their largest, g's norm
+# relative. Stated before the first run: K4's bf16 gradient bound (1e-2 of
+# the largest) for x and g's norm; g's worst entry 5e-2, as an LM step
+# that overshoots magnifies rounding (tests/test_torch_laplace_engine.py
+# measured 0.12 between two implementations on the CPU).
+TOL_LAPLACE_LM = dict(x=1e-2, g_norm=1e-2, g=5e-2)
+# the least finite share of the in-scan fits (trace and rmv) and of the
+# rewards in phases 27-28 (the last chip run: 99.4% and 97.2%), and of the
+# sequential MC's rmv; every view of `uncertain` must be finite
+LAPLACE_FINITE = 0.9
+# the phases' sims: validate --ff MC (phase 19's 16), the closed loop's 4,
+# the sequential MC's 1 (64 samples a ray everywhere, VALIDATE_STEPS)
+LAPLACE_SIMS = dict(mc=16, closed_loop=4, sequential=1)
+# uncertain's samples a ray (the smoke's 64, VALIDATE_STEPS' count)
+UNCERTAIN_STEPS = 64
+# the sequential Laplace phase's restarts of validate's loop at most (a NaN
+# state would restart it for ever, see laplace_sequential_phase)
+LAPLACE_RESTARTS = 2
+
+
+class PhaseStop(Exception):
+    """Ends a phase's CLI run from inside it (not a ValueError or an
+    AssertionError, which validate's restart loop catches)."""
+
+
+def k4_grouped_phase(torch, fused_mlp, smi):
+    """Phase 25: the grouped kernel against its plain version (the
+    vmapped chain as batched products) at K4G_SHAPES, weights and x from a
+    seeded generator; each group against the single mode's kernel on its
+    own weights (bit for bit); 20 reruns bit-identical; the gradients in
+    the weights the recompute's, bit for bit; kernel, plain, library (one
+    bf16 torch.bmm chain) and bound times at the first shape."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rec = {}
+    for G, N in K4G_SHAPES:
+        x = torch.randn((G, N, FF_SIGMA[0]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ws = [torch.randn((G, a, b), generator=gen, device=dev) / a ** 0.5
+              for a, b in zip(FF_SIGMA, FF_SIGMA[1:])]
+
+        def k4g(x=x, ws=ws):
+            return (fused_mlp.fused_mlp_grouped(x, ws),)
+
+        def plain(x=x, ws=ws):
+            return (fused_mlp.fused_mlp_grouped_plain(x, ws),)
+        n0 = fused_mlp.LAUNCHES_GROUPED
+        got, = k4g()
+        torch.cuda.synchronize()
+        check(fused_mlp.LAUNCHES_GROUPED == n0 + 1,
+              "the grouped K4 did not launch once")
+        want, = plain()
+        check(got.shape == (G, N, FF_SIGMA[-1])
+              and bool(torch.isfinite(got).all()),
+              f"K4 grouped output is not finite [{G}, {N}, 16]")
+        rel = (got - want).abs() / want.abs().clamp(min=1.0)
+        single = torch.stack([fused_mlp.fused_mlp(x[g].contiguous(),
+                                                  [w[g] for w in ws])
+                              for g in range(G)])
+        same = reruns_equal(torch, k4g, (got,))
+        err = float((got - want).abs().max())
+        print(f"K4 grouped G {G} x N {N}, {FF_SIGMA}: vs plain max rel "
+              f"{float(rel.max()):.3e} mean {float(rel.mean()):.3e} (max "
+              f"abs {err:.3e}); each group bit-equal to the single mode: "
+              f"{bool(torch.equal(single, got))}; {same} of {RERUNS} reruns "
+              f"bit-identical")
+        t_max, t_mean = TOL_K4["sigma"]
+        check(float(rel.max()) <= t_max and float(rel.mean()) <= t_mean,
+              f"K4 grouped disagrees with its plain version (tolerance "
+              f"max {t_max}, mean {t_mean})")
+        check(torch.equal(single, got), "K4 grouped differs from the "
+              "single mode on a group's own weights")
+        check(same == RERUNS, "K4 grouped gives other values on a rerun")
+        rec[(G, N)] = dict(x=x, ws=ws, k4g=k4g, plain=plain, err=err)
+
+    G, N = K4G_SHAPES[0]
+    r = rec[(G, N)]
+    c = torch.randn((G, N, FF_SIGMA[-1]), generator=gen, device=dev)
+    lk = [w.clone().requires_grad_(True) for w in r["ws"]]
+    lr = [w.clone().requires_grad_(True) for w in r["ws"]]
+    g_k = torch.autograd.grad(
+        (fused_mlp.fused_mlp_grouped(r["x"], lk) * c).sum(), lk)
+    g_r = torch.autograd.grad(
+        (fused_mlp.fused_mlp_reference(r["x"], lr) * c).sum(), lr)
+    same_grad = all(torch.equal(a, b) for a, b in zip(g_k, g_r))
+    print(f"K4 grouped gradients in the weights: the recompute's bit for "
+          f"bit: {same_grad}")
+    check(same_grad, "K4 grouped's weight gradients are not the "
+          "recompute's")
+    wb = [w.to(torch.bfloat16) for w in r["ws"]]
+
+    def library():
+        h = r["x"]
+        for i, w in enumerate(wb):
+            h = torch.bmm(h, w)
+            if i != len(wb) - 1:
+                h = torch.relu(h)
+        return h
+    macs = sum(a * b for a, b in zip(FF_SIGMA, FF_SIGMA[1:]))
+    image = 2 * sum(((a + 15) // 16 * 16) * ((b + 15) // 16 * 16)
+                    for a, b in zip(FF_SIGMA, FF_SIGMA[1:]))
+    bound, by = bound_ms(2.0 * G * N * macs,
+                         G * N * (FF_SIGMA[0] * 2 + FF_SIGMA[-1] * 4)
+                         + G * image)
+    ms = cuda_ms(torch, r["k4g"], 50)
+    plain_ms = cuda_ms(torch, r["plain"], 20)
+    lib_ms = cuda_ms(torch, library, 50)
+    # the call's two parts: the batched pack of the 16 images, and the
+    # launch on an image packed once (the wrapper's pack swapped out)
+    pack_ms = cuda_ms(torch, lambda: fused_mlp._pack_grouped(r["ws"]), 50)
+    packed = fused_mlp._pack_grouped(r["ws"])
+    real_pack = fused_mlp._pack_grouped
+    fused_mlp._pack_grouped = lambda ws: packed
+    try:
+        launch_ms = cuda_ms(torch, r["k4g"], 50)
+    finally:
+        fused_mlp._pack_grouped = real_pack
+    print(f"K4 grouped at G {G} x N {N} ({2 * macs} FLOP a row, {image} "
+          f"bytes an image): kernel_ms {ms:.5f} (the call: the batched "
+          f"pack {pack_ms:.5f}, the launch on a packed image "
+          f"{launch_ms:.5f}), plain_ms {plain_ms:.5f}, library_ms "
+          f"{lib_ms:.5f} (bf16 torch.bmm chain), bound_ms {bound:.6f} "
+          f"({by}); {smi}")
+    return dict(err=max(v["err"] for v in rec.values()), ms=ms,
+                plain_ms=plain_ms, lib_ms=lib_ms, bound=bound, by=by,
+                pack_ms=pack_ms, launch_ms=launch_ms)
+
+
+@contextlib.contextmanager
+def plain_k4(fused_mlp):
+    """K4's single and grouped modes swapped for their plain versions
+    where the nets call them (models/network.py's names), to compare the
+    kernel's results with the plain chain's on the same tensors."""
+    from nerfsafetyvalidation_tpu_torch.models import network as N
+    saved = N.fused_mlp, N.fused_mlp_grouped
+    N.fused_mlp = fused_mlp.fused_mlp_plain
+    N.fused_mlp_grouped = fused_mlp.fused_mlp_grouped_plain
+    try:
+        yield
+    finally:
+        N.fused_mlp, N.fused_mlp_grouped = saved
+
+
+def _nlp_and_grad(torch, bl, theta, plain):
+    """The fit's -log posterior at theta on its points (their encoding) and
+    its gradient, the sigma net through K4 or its plain version."""
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.uq.bayesian_laplace import (
+        nlp_and_grad)
+    with plain_k4(fused_mlp) if plain else contextlib.nullcontext():
+        loss, g = nlp_and_grad(bl.net, theta, bl._h, bl.y, bl.prior_mean,
+                               bl.prior_std)
+    return float(loss), g
+
+
+def uncertain_phase(torch, data_dir, ckpt, method, smi):
+    """Phase 26: `uncertain -O --ff` as a user runs it, in a temporary
+    working directory (envConfig.json with `method`, the checkpoint of the
+    main_nerf -O --ff run), on a spheres directory of 2 training views and
+    an 800^2 test view (the rays' size), UNCERTAIN_STEPS samples a ray:
+    each view's staged render and, with the Laplace UQ, its MAP fits on
+    all 640,000 points, LM and inverse; K4 launched in the render and at
+    least once an Adam step, its plain versions never; the fit's -log
+    posterior and gradient through K4 against the plain chain; trace,
+    rmv, the heat map; seconds by part. Returns its numbers."""
+    from nerfsafetyvalidation_tpu_torch import uncertain as U
+    from nerfsafetyvalidation_tpu_torch.models import renderer as R
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.uq import hessian as TH
+    from nerfsafetyvalidation_tpu_torch.uq.bayesian_laplace import (
+        BayesianLaplace)
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    places = None
+    try:
+        env = json.loads((ROOT / "envConfig.json").read_text())
+        env["uq_method"] = method
+        Path("envConfig.json").write_text(json.dumps(env))
+        os.makedirs("ws/checkpoints")
+        shutil.copy(ckpt, "ws/checkpoints/ngp_ep0001.ckpt")
+        argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale",
+                "1", "--seed", "0", "-O", "--ff", "--num_steps",
+                str(UNCERTAIN_STEPS)]
+        fits = []
+        places = Places(torch.cuda.synchronize, fused_mlp, [
+            ("render", R, "render"), ("fits", BayesianLaplace, "map_fit"),
+            ("lm", TH, "levenberg_marquardt"),
+            ("fit", BayesianLaplace, "fit")],
+            hooks={"fit": (None, fits.append)})
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        plain0 = fused_mlp.PLAIN_CALLS + fused_mlp.PLAIN_CALLS_GROUPED
+        t0 = time.perf_counter()
+        res = U.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        plain = fused_mlp.PLAIN_CALLS + fused_mlp.PLAIN_CALLS_GROUPED - plain0
+        launches, f32 = fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_F32
+        places.restore()
+        views = len(os.listdir(os.path.join(data_dir, "train")))
+        key = "trace" if method == LAPLACE else "optimized_mu_d"
+        vals = np.asarray(res[key if method == LAPLACE
+                              else "optimized_sigma_d"], dtype=np.float64)
+        stats = dict(method=method, views=views, wall_s=t_all,
+                     render_s=places.s["render"] / views,
+                     launches=launches,
+                     launches_render=places.k4["render"],
+                     heatmap=os.path.exists(
+                         "results/uncertainty_heatmap.png"))
+        check(plain == 0 and f32 == 0, f"uncertain ({method}): plain "
+              f"versions called {plain} times, K4 f32 launched {f32}")
+        check(places.k4["render"] >= 2 * views, f"uncertain ({method}): "
+              f"K4 launched {places.k4['render']} times in the renders")
+        if method == LAPLACE:
+            steps = sum(bl.fit_steps * bl.num_perturbations for bl in fits)
+            rmv = np.asarray(res["rmv"], dtype=np.float64)
+            stats.update(
+                fits_s=places.s["fits"] / views, lm_s=places.s["lm"] / views,
+                inverse_etc_s=(places.s["fit"] - places.s["fits"]
+                               - places.s["lm"]) / views,
+                adam_steps=steps, launches_fits=places.k4["fits"],
+                launches_lm=places.k4["lm"], trace=res["trace"],
+                rmv=res["rmv"],
+                finite=float(np.isfinite(vals).mean()),
+                n_theta=int(fits[-1].theta.shape[0]))
+            check(len(fits) == views and places.k4["fits"] >= steps,
+                  f"uncertain: K4 launched {places.k4['fits']} times in "
+                  f"{steps} Adam steps of {len(fits)} fits")
+            check(stats["heatmap"], "uncertain: the heat map was not written")
+            check(stats["finite"] == 1.0 and bool(np.isfinite(rmv).all()),
+                  f"uncertain: a view's trace or rmv is not finite "
+                  f"(trace {res['trace']}, rmv {res['rmv']})")
+            # K4 against the plain chain on the last fit's points: at its
+            # posterior mean where finite, and at the net's own weights
+            bl = fits[-1]
+            cmp = {}
+            for where, theta in (("posterior mean", bl.posterior_mean),
+                                 ("the net's", bl.net.get_sigma_net_flat())):
+                if not bool(torch.isfinite(theta).all()):
+                    continue
+                n0 = fused_mlp.LAUNCHES
+                lk, gk = _nlp_and_grad(torch, bl, theta, False)
+                check(fused_mlp.LAUNCHES == n0 + 1, "the nlp check did not "
+                      "launch K4")
+                lp, gp = _nlp_and_grad(torch, bl, theta, True)
+                cmp[where] = dict(
+                    loss=lk, loss_plain=lp,
+                    loss_rel=abs(lk - lp) / max(abs(lp), 1e-30),
+                    grad_rel=float((gk - gp).abs().max()
+                                   / gp.abs().max().clamp(min=1e-30)))
+            stats["k4_vs_plain"] = cmp
+            for where, c in cmp.items():
+                print(f"uncertain: -log posterior at {where} theta through "
+                      f"K4 {c['loss']:.8g} vs plain {c['loss_plain']:.8g} "
+                      f"(rel {c['loss_rel']:.3e}), gradient max "
+                      f"{c['grad_rel']:.3e} of its largest (bounds "
+                      f"{TOL_LAPLACE})", flush=True)
+                check(c["loss_rel"] <= TOL_LAPLACE["loss"]
+                      and c["grad_rel"] <= TOL_LAPLACE["grad"],
+                      f"uncertain: the fit through K4 disagrees with the "
+                      f"plain chain at {where} theta")
+        else:
+            stats.update(mu_d=res["optimized_mu_d"],
+                         sigma_d=res["optimized_sigma_d"])
+        print(f"uncertain -O --ff ({method}): " + json.dumps(stats)
+              + f"; {smi}", flush=True)
+        return stats
+    finally:
+        if places is not None:
+            places.restore()
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def laplace_k4_checks(torch, eng, smi):
+    """The start's in-scan Laplace UQ of LAPLACE_SIMS['mc'] sims (the same
+    observation, each its own draws from a generator seeded 0) through
+    the grouped kernel and through the plain chain (`plain_k4`): the -log
+    posterior and its gradient at the draws' theta (TOL_LAPLACE); the MAP
+    thetas' gap (printed: Adam's normalised steps part where a bf16
+    rounding flips); the LM from the plain route's MAP theta on both
+    routes, at least LAPLACE_FINITE of the sims finite, lmbda and the
+    stops equal, x and g within TOL_LAPLACE_LM; trace and rmv printed
+    (they read g only through g's share of (g g^T + 1e-2 I)^-1, which
+    hardly moves with g)."""
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.uq.bayesian_laplace import (
+        nlp_and_grad)
+    m = LAPLACE_SIMS["mc"]
+    states = eng.start_state.expand(m, 12)
+    with torch.no_grad():
+        X, y = eng._render_laplace(states)
+    theta0, perts = eng._laplace_draws(
+        torch.Generator(device=eng.device).manual_seed(0), m)
+    h = eng.net.encode_pos(X)
+    out = {}
+    for plain in (True, False):
+        n0 = fused_mlp.LAUNCHES_GROUPED
+        with plain_k4(fused_mlp) if plain else contextlib.nullcontext():
+            loss, g0 = nlp_and_grad(eng.net, theta0, h, y, 0.0,
+                                    eng.laplace_prior_std)
+            theta = eng._laplace_map(X, y, theta0, perts)
+            lm = eng._laplace_lm(out[True]["theta"] if not plain else theta,
+                                 X, y)
+            trace, rmv = eng._laplace_uq(X, y, theta0, perts)
+        torch.cuda.synchronize()
+        check((fused_mlp.LAUNCHES_GROUPED > n0) != plain,
+              "the grouped K4 ran on the plain route or not on the "
+              "kernel's")
+        out[plain] = dict(loss=loss, g0=g0, theta=theta, lm=lm,
+                          trace=trace, rmv=rmv)
+    k, p = out[False], out[True]
+    ok = torch.isfinite(p["loss"]) & torch.isfinite(k["loss"])
+    loss_rel = float(((k["loss"] - p["loss"]).abs() / p["loss"].abs())[ok]
+                     .max()) if bool(ok.any()) else 0.0
+    grad_rel = float(((k["g0"] - p["g0"]).abs().amax(dim=1)
+                      / p["g0"].abs().amax(dim=1))[ok].max()) \
+        if bool(ok.any()) else 0.0
+    (xk, gk, lk, dk), (xp, gp, lp, dp) = k["lm"], p["lm"]
+
+    def finite(*ts):
+        return torch.stack([torch.isfinite(t).flatten(1).all(1)
+                            for t in ts]).all(0)
+    fin = finite(xp, gp)
+    same_fin = bool(torch.equal(fin, finite(xk, gk)))
+    same_steps = bool(torch.equal(dk, dp)) and bool(torch.allclose(
+        lk, lp, rtol=1e-6, atol=0.0))
+
+    def worst(a, b):
+        return float(((a - b).abs().amax(dim=1)
+                      / b.abs().amax(dim=1).clamp(min=1e-30))[fin].max()) \
+            if bool(fin.any()) else 0.0
+    lm_rel = dict(x=worst(xk, xp), g=worst(gk, gp),
+                  g_norm=float((gk.norm(dim=1) / gp.norm(dim=1) - 1)
+                               .abs()[fin].max()) if bool(fin.any()) else 0.0)
+    gap = (k["theta"] - p["theta"]).abs()
+    rec = dict(start_finite_loss=int(ok.sum()), start_loss_rel=loss_rel,
+               start_grad_rel=grad_rel, map_gap_max=float(
+                   gap.nan_to_num().max()),
+               map_within_1e4=float((gap <= 1e-4).float().mean()),
+               lm_finite=int(fin.sum()), lm_same_steps=same_steps,
+               lm_rel=lm_rel, g_norm=gp.norm(dim=1).tolist(),
+               trace=k["trace"].tolist(), rmv=k["rmv"].tolist(),
+               trace_plain=p["trace"].tolist(), rmv_plain=p["rmv"].tolist())
+    print(f"validate --ff MC, the start's in-scan Laplace of {m} sims, "
+          f"grouped K4 vs plain: -log posterior at theta0 max rel "
+          f"{loss_rel:.3e}, gradient {grad_rel:.3e} of its largest "
+          f"({rec['start_finite_loss']} of {m} finite; bounds "
+          f"{TOL_LAPLACE}); MAP theta gap max {rec['map_gap_max']:.3e}, "
+          f"{rec['map_within_1e4']:.4f} within 1e-4; LM from the plain "
+          f"MAP theta: {rec['lm_finite']} of {m} finite (same sims: "
+          f"{same_fin}), lmbda and stops equal: {same_steps}, x / g / "
+          f"|g| rel { {a: f'{b:.3e}' for a, b in lm_rel.items()} } (bounds "
+          f"{TOL_LAPLACE_LM}), |g| {rec['g_norm']}; trace {rec['trace']} "
+          f"(plain {rec['trace_plain']}), rmv {rec['rmv']} (plain "
+          f"{rec['rmv_plain']}); {smi}", flush=True)
+    check(loss_rel <= TOL_LAPLACE["loss"] and grad_rel <= TOL_LAPLACE["grad"],
+          "validate --ff MC: the fits' loss through the grouped K4 "
+          "disagrees with the plain chain")
+    check(rec["lm_finite"] >= LAPLACE_FINITE * m and same_fin
+          and same_steps and all(lm_rel[a] <= b
+                                 for a, b in TOL_LAPLACE_LM.items()),
+          "validate --ff MC: the in-scan LM through the grouped K4 "
+          "disagrees with the plain chain")
+    return {"laplace_k4": rec}
+
+
+def laplace_finite_checks(torch, calls, what):
+    """The in-scan Laplace UQ calls of one run, `calls` = [(engine, X, y,
+    theta0, perts, trace, rmv)]: every fit whose trace or rmv is not finite
+    must be explained, by an overflowing start (the -log posterior at the
+    drawn theta0 not finite on X or on one of its moved copies, ROADMAP
+    Queue 3) or by points or densities that were not finite already (a
+    sim whose earlier NaN reward scaled its disturbances), the latter only
+    after an overflowing start. Returns the fits' finite share and the
+    counts."""
+    n_fits = n_fin = n_over = n_nan_in = 0
+    for eng, X, y, theta0, perts, trace, rmv in calls:
+        bad_in = ~(torch.isfinite(X).flatten(1).all(1)
+                   & torch.isfinite(y).all(1))
+        over = torch.zeros_like(bad_in)
+        with torch.no_grad():
+            for Xc in [X] + [X + perts[:, c] * eng.laplace_scale
+                             for c in range(perts.shape[1])]:
+                f = eng._laplace_nlp(theta0, eng.net.encode_pos(Xc), y)
+                over |= ~torch.isfinite(f)
+        over &= ~bad_in
+        nf = ~(torch.isfinite(trace) & torch.isfinite(rmv))
+        unexplained = int((nf & ~over & ~bad_in).sum())
+        check(unexplained == 0, f"{what}: {unexplained} in-scan Laplace "
+              "fits are not finite from a finite start that did not "
+              "overflow")
+        check(not bool(bad_in.any()) or n_over > 0, f"{what}: a sim's "
+              "points are not finite before any fit overflowed")
+        n_fits += int(nf.numel())
+        n_fin += int((~nf).sum())
+        n_over += int(over.sum())
+        n_nan_in += int(bad_in.sum())
+    return dict(fits=n_fits, fits_finite=n_fin / max(n_fits, 1),
+                overflowed_starts=n_over, nan_inputs=n_nan_in)
+
+
+def laplace_sequential_phase(torch, V, data_dir, ckpt, smi):
+    """Phase 28a: validate's sequential Monte Carlo with the Laplace UQ,
+    envConfig as shipped but the uq_method and LAPLACE_SIMS['sequential']
+    sims, --camera nerf, the first SEQ_STEPS steps of the flight (6
+    before), on VALIDATE_UNFUSED's net (no kernel): seconds
+    per sim-step by part (the UQ's render, its MAP fits on every pixel's
+    point, LM, the rest of the fit: the inverse), the CSV's rmv and reward
+    (at least LAPLACE_FINITE of the rmv finite). Returns its numbers."""
+    import random
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.uq import hessian as TH
+    from nerfsafetyvalidation_tpu_torch.uq.bayesian_laplace import (
+        BayesianLaplace)
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    places = lp = None
+    real_generate = V.generate_path
+    try:
+        env = json.loads((ROOT / "envConfig.json").read_text())
+        env.update(n_simulations=LAPLACE_SIMS["sequential"],
+                   uq_method=LAPLACE)
+        Path("envConfig.json").write_text(json.dumps(env))
+        argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale",
+                "1", "--seed", "0", "--num_steps", str(VALIDATE_STEPS),
+                "--camera", "nerf"]
+        write_net_sdf(torch, argv, ckpt)
+        draws = []
+
+        def generate(*ranges):
+            # a restart on a NaN state (int(nan) in the SDF check is a
+            # ValueError, which the restart loop takes for a missing path)
+            # would repeat: the phase stops after LAPLACE_RESTARTS
+            draws.append(ranges)
+            if len(draws) > 1 + LAPLACE_RESTARTS:
+                raise PhaseStop(f"{len(draws) - 1} restarts")
+            return real_generate(*ranges)
+        V.generate_path = generate
+        places = sequential_places(torch, fused_mlp)
+        lp = Places(torch.cuda.synchronize, fused_mlp, [
+            ("fits", BayesianLaplace, "map_fit"),
+            ("lm", TH, "levenberg_marquardt"),
+            ("fit", BayesianLaplace, "fit")])
+        random.seed(0)
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        fused_mlp.LAUNCHES_GROUPED = 0
+        t0 = time.perf_counter()
+        stopped = None
+        try:
+            with mc_horizon(V, SEQ_STEPS):
+                V.main(argv, device="cuda")
+        except PhaseStop as e:
+            stopped = str(e)
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        k4 = (fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32
+              + fused_mlp.LAUNCHES_GROUPED)
+        path = (f"results/collisionValuesBlenderMC_n"
+                f"{LAPLACE_SIMS['sequential']}.csv")
+        rows = list(csv.reader(open(path, newline=""))) \
+            if os.path.exists(path) else []
+        n = max(len(rows), 1)
+        check(all(len(r) == 24 for r in rows),
+              "sequential MC (Laplace): the CSV's rows are not of 24 columns")
+        check(stopped is None or lp.s["fit"] > 0, "sequential MC (Laplace):"
+              f" stopped ({stopped}) before a Laplace fit ran")
+        per = {k: places.s[k] / n for k in ("camera", "observation",
+                                            "uq render", "fit", "hessian",
+                                            "replan", "step")}
+        per.update(uq_fits=lp.s["fits"] / n, uq_lm=lp.s["lm"] / n,
+                   uq_inverse_etc=(lp.s["fit"] - lp.s["fits"]
+                                   - lp.s["lm"]) / n)
+        rmv = np.asarray([float(r[21]) for r in rows])
+        reward = np.asarray([float(r[20]) for r in rows])
+        stats = dict(wall_s=t_all, sim_steps=len(rows), s_per_sim_step=per,
+                     rmv=rmv.tolist(), reward=reward.tolist(),
+                     finite=float(np.isfinite(rmv).mean()) if rows else 0.0,
+                     k4=k4, restarts=len(draws) - 1, stopped=stopped)
+        print(f"sequential MC with the Laplace UQ ({len(draws) - 1} "
+              f"restarts, stopped: {stopped}): {len(rows)} sim-steps in "
+              f"{t_all:.2f} s; seconds per sim-step "
+              f"{ {k: round(v, 4) for k, v in per.items()} }; rmv "
+              f"{stats['rmv']}; reward (the previous step's) "
+              f"{stats['reward']}; K4 launches {k4}; {smi}", flush=True)
+        check(k4 == 0, "sequential MC (Laplace) launched K4 on the CLI's "
+              "unfused float32 net")
+        check(stats["finite"] >= LAPLACE_FINITE, f"sequential MC (Laplace): "
+              f"fewer than {LAPLACE_FINITE} of the rmv values are finite")
+        return stats
+    finally:
+        for p in (places, lp):
+            if p is not None:
+                p.restore()
+        V.generate_path = real_generate
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def laplace_phases(torch, fused_mlp, V, root, ckpt_ff, ckpt_unfused,
+                   val_dir, smi):
+    """Phases 25-28 (the Bayesian-Laplace UQ); returns their numbers, the
+    grouped kernel's for the kernels line."""
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (
+        generate_dataset, write_dataset)
+    st = {}
+    with Phase("kernel K4 grouped"):
+        st["k4_grouped"] = k4_grouped_phase(torch, fused_mlp, smi)
+    unc_dir = str(Path(root) / "uncertain")
+    write_dataset(unc_dir, generate_dataset(
+        n_train=2, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES),
+        split_dirs=True)
+    for method, name in ((LAPLACE, "laplace"), (GAUSSIAN, "gaussian")):
+        with Phase(f"uncertain --ff {name}"):
+            st[f"uncertain {name}"] = uncertain_phase(torch, unc_dir,
+                                                      ckpt_ff, method, smi)
+    with Phase("validate --ff MC laplace"):
+        st["validate --ff MC laplace"] = validate_phase(
+            torch, V, val_dir, ["--ff"], "Monte Carlo", LAPLACE_SIMS["mc"],
+            ckpt_ff, smi, uq_method=LAPLACE)
+    with Phase("sequential MC laplace"):
+        st["sequential MC laplace"] = laplace_sequential_phase(
+            torch, V, val_dir, ckpt_unfused, smi)
+    with Phase("validate --closed_loop laplace"):
+        st["validate --closed_loop laplace"] = validate_phase(
+            torch, V, val_dir, ["--closed_loop", "--closed_loop_uq",
+                                "laplace"], "Monte Carlo",
+            LAPLACE_SIMS["closed_loop"], ckpt_unfused, smi)
+    return st
 
 
 def main():
@@ -3178,6 +3865,12 @@ def main():
         seq_stats["simulate"] = simulate_phase(
             torch, val_dir, ckpts["unfused"], seq_stats["MC"]["path"], smi)
     print("sequential: " + json.dumps(seq_stats))
+
+    # ---- the Bayesian-Laplace UQ: K4 grouped, uncertain, validate -------
+    laplace = laplace_phases(torch, fused_mlp, validate_cli, data_root.name,
+                             ckpts["ff"], ckpts["unfused"], val_dir, smi)
+    print("laplace: " + json.dumps(laplace))
+    k4g = laplace["k4_grouped"]
     data_root.cleanup()
 
     print(f"total {time.perf_counter() - t_start:.2f} s")
@@ -3221,7 +3914,19 @@ def main():
          "launches_main_nerf_ff": main_nerf_stats["--ff"]["launches"],
          "launches_bench": bench_launches["K4"],
          "launches_rollouts": rollout_launches["K4"],
-         "launches_validate": k4_validate},
+         "launches_validate": k4_validate,
+         "launches_uncertain": {
+             k: laplace[f"uncertain {k}"]["launches"]
+             for k in ("laplace", "gaussian")},
+         "launches_validate_laplace":
+             laplace["validate --ff MC laplace"]["k4_all"]},
+        {"name": "fused_mlp_grouped", "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
+         "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
+         "launches": laplace["validate --ff MC laplace"]["k4_grouped"],
+         "max_abs_err": k4g["err"], "ms": k4g["ms"],
+         "plain_ms": k4g["plain_ms"], "bound_ms": k4g["bound"],
+         "bound_by": k4g["by"], "library_ms": k4g["lib_ms"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fold_build.cu",
@@ -3245,7 +3950,7 @@ def main():
         for name, line, key, rec in (("pallas_vmem_gather", 147, "K6", k6),
                                      ("pallas_dma_gather", 190, "K7", k7))
     ]}
-    check(len(kernel_line["kernels"]) == 8 and all(
+    check(len(kernel_line["kernels"]) == 9 and all(
               k["launches"] > 0 for k in kernel_line["kernels"])
           and kernel_line["kernels"][3]["launches_f32"] > 0
           and all(kernel_line["kernels"][i]["launches_rollouts"] > 0
@@ -3337,10 +4042,56 @@ def sequential_only():
         print("sequential: " + json.dumps(st))
 
 
+def laplace_only():
+    """`python3 chip_smoke.py --laplace`: the Bayesian-Laplace phases alone
+    (25-28) on freshly trained `main_nerf -O --ff` and VALIDATE_UNFUSED
+    nets, printing their numbers and the grouped kernel's. Not part of the
+    smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch import validate as validate_cli
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (
+        generate_dataset, write_dataset)
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        train_dir = str(Path(root) / "spheres")
+        val_dir = str(Path(root) / f"spheres{VALIDATE_RES}")
+        write_dataset(train_dir, F.train_splits())
+        write_dataset(val_dir, generate_dataset(
+            n_train=1, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES))
+        with Phase("build"):
+            fused_mlp.build()
+        ckpts = {}
+        for name, flags in (("ff", MAIN_NERF_RUNS[0][1]),
+                            ("unfused", VALIDATE_UNFUSED)):
+            with Phase(f"main_nerf {' '.join(flags)}"):
+                ws = str(Path(root) / f"ws_{name}")
+                main_nerf.main([train_dir, "--workspace", ws, "--bound",
+                                "1", "--scale", "1", "--seed", "0", *flags],
+                               device="cuda")
+            ckpts[name] = sorted(Path(ws, "checkpoints").glob(
+                "ngp_ep*.ckpt"))[-1]
+        st = laplace_phases(torch, fused_mlp, validate_cli, root,
+                            ckpts["ff"], ckpts["unfused"], val_dir, smi)
+        print("laplace: " + json.dumps(st))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--closed-loop-intrinsics"]:
         closed_loop_intrinsics()
     elif sys.argv[1:] == ["--sequential"]:
         sequential_only()
+    elif sys.argv[1:] == ["--laplace"]:
+        laplace_only()
     else:
         main()

@@ -123,7 +123,10 @@ def renderer_state_from(fields, device="cuda") -> RendererState:
 
 def params_from_jax(tree, device="cuda"):
     """A params pytree of the JAX package (nested dicts and lists of numpy
-    or array-like leaves) as float32 tensors on `device`, same nesting."""
+    or array-like leaves) as float32 tensors on `device`, same nesting. A
+    leaf may be a flat sigma-net vector of the JAX nets'
+    `get_sigma_net_flat`: the port's `set_sigma_net_flat` takes it as it
+    is (the same layout, bit for bit, both ways)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -64,6 +64,20 @@
 //     columns (widths up to 64, the hash-grid nets: few enough registers
 //     for two blocks an SM) or for 128.
 //
+//   * grouped mode (fused_mlp_forward_grouped): G independent problems in
+//     one launch, each its own x [N, D_0], weight image and output (the TPU
+//     kernel under jax.vmap, whose batching rule adds a leading grid axis
+//     over the weight sets). The grid is (row-tile blocks, G); block
+//     (b, g) offsets x, the image and out by group g and runs the same
+//     body over that group's N rows, so each block loads its own group's
+//     image. The in-scan Laplace fits of the batched rollouts launch it:
+//     one weight set per sim, G = the sims, N = the points of a fit. The
+//     weights change at every step of a fit, so the G images are built on
+//     every call, by a second small kernel (pack_grouped_kernel) that reads
+//     each layer through its strides (the fits pass views of their flat
+//     parameter vectors) and writes the bf16 B images of all groups in one
+//     launch.
+//
 // The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
 //
 // The same function in float32 (the TPU kernel run on f32 operands, the
@@ -223,6 +237,11 @@ fused_mlp_kernel(const bf16* __restrict__ x,
                  int n_layers, uint32_t steps, Plan plan,
                  float* __restrict__ out, int64_t n) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // group blockIdx.y of a grouped launch (0 otherwise): its rows, its
+  // weight image and its output
+  x += blockIdx.y * n * d0;
+  image += (int64_t)blockIdx.y * plan.weights;
+  out += blockIdx.y * n * d_out;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   uint64_t* wbar = empty + kMaxStages;
@@ -338,7 +357,8 @@ fused_mlp_kernel(const bf16* __restrict__ x,
 template <int KA>
 cudaError_t launch(const bf16* x, const unsigned char* image,
                    const Widths& dims, const Plan& plan, float* out,
-                   int64_t n, cudaStream_t stream, int* per_sm_out) {
+                   int64_t n, int groups, cudaStream_t stream,
+                   int* per_sm_out) {
   uint32_t steps = 0;
   for (int l = 0; l < dims.n_layers; ++l) {
     steps |= (uint32_t)(pad16(dims.w[l + 1]) / 16) << (4 * l);
@@ -365,10 +385,13 @@ cudaError_t launch(const bf16* x, const unsigned char* image,
     *per_sm_out = per_sm;
     return cudaSuccess;
   }
+  // the resident blocks shared out over the groups, at least one a group
   const int64_t tiles = (n + kTileRows - 1) / kTileRows;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
-  fused_mlp_kernel<KA><<<blocks, kThreads, plan.smem, stream>>>(
+  const int64_t share = (resident + groups - 1) / groups;
+  const dim3 grid((unsigned)(tiles < share ? tiles : share),
+                  (unsigned)groups);
+  fused_mlp_kernel<KA><<<grid, kThreads, plan.smem, stream>>>(
       x, image, dims.w[0], dims.w[dims.n_layers], dims.n_layers, steps, plan,
       out, n);
   return cudaGetLastError();
@@ -396,16 +419,20 @@ inline bool widths_of(const int* widths, int n_layers, Widths* dims) {
   return true;
 }
 
-// the launch for these widths (per_sm_out: only the blocks per SM, no
-// launch)
+// the launch for these widths over `groups` problems of n rows each
+// (per_sm_out: only the blocks per SM, no launch). A group's x must start on
+// a 16-byte boundary like the first's: n * D_0 a multiple of 8 when
+// groups > 1.
 cudaError_t run(const void* x, const void* image, const int* widths,
-                int n_layers, void* out, int64_t n, void* stream,
+                int n_layers, void* out, int64_t n, int groups, void* stream,
                 int* per_sm_out, Plan* plan_out) {
   Widths dims;
   if (!widths_of(widths, n_layers, &dims)) return cudaErrorInvalidValue;
   const Plan plan = plan_of(dims);
   if (plan.stages < 1) return cudaErrorInvalidValue;
   if (plan_out != nullptr) *plan_out = plan;
+  if (groups < 1 || groups > 65535) return cudaErrorInvalidValue;
+  if (groups > 1 && (n * dims.w[0]) % 8 != 0) return cudaErrorInvalidValue;
   if (per_sm_out == nullptr && n <= 0) return cudaSuccess;
   if ((n + kTileRows - 1) / kTileRows > 0x7fffffff) {
     return cudaErrorInvalidValue;
@@ -415,8 +442,8 @@ cudaError_t run(const void* x, const void* image, const int* widths,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return a_steps(dims) == 4
-             ? launch<4>(xb, im, dims, plan, o, n, st, per_sm_out)
-             : launch<8>(xb, im, dims, plan, o, n, st, per_sm_out);
+             ? launch<4>(xb, im, dims, plan, o, n, groups, st, per_sm_out)
+             : launch<8>(xb, im, dims, plan, o, n, groups, st, per_sm_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -714,6 +741,43 @@ cudaError_t run_f32(const void* x, const void* image, const int* widths,
              : launch_f32<128>(xf, im, dims, plan, o, n, st, per_sm_out);
 }
 
+// The grouped mode's images: layer l of group g, w_l[g] [D_l, D_l+1] f32
+// read through strides, zero-padded to [pad16(D_l), pad16(D_l+1)] and laid
+// out as wgmma's B image (the k-steps of 16, then the column groups of 8,
+// then the two 8-deep halves, then 8 columns x 8 depths; points_mlp.py
+// wgmma_b), rounded to bf16 (nearest even, as torch's cast), the layers
+// one after another: one thread an image element.
+struct PackArgs {
+  int n_layers;
+  const float* w[kMaxLayers];
+  int64_t stride[kMaxLayers][3];       // group, row (D_l), column (D_l+1)
+  int d_in[kMaxLayers], d_out[kMaxLayers];
+  int64_t offset[kMaxLayers + 1];      // image elements before layer l
+};
+
+__global__ void pack_grouped_kernel(PackArgs a, bf16* __restrict__ image) {
+  const int64_t g = blockIdx.y;
+  const int64_t total = a.offset[a.n_layers];
+  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < total;
+       p += (int64_t)gridDim.x * blockDim.x) {
+    int l = 0;
+    while (p >= a.offset[l + 1]) ++l;
+    const int64_t q = p - a.offset[l];
+    const int64_t groups8 = pad16(a.d_out[l]) / 8;
+    const int k8 = (int)(q & 7), n8 = (int)((q >> 3) & 7);
+    const int kh = (int)((q >> 6) & 1);
+    const int64_t r = q >> 7;
+    const int k = (int)(r / groups8) * 16 + kh * 8 + k8;
+    const int n = (int)(r % groups8) * 8 + n8;
+    float v = 0.0f;
+    if (k < a.d_in[l] && n < a.d_out[l]) {
+      v = a.w[l][g * a.stride[l][0] + k * a.stride[l][1] +
+                 n * a.stride[l][2]];
+    }
+    image[g * total + p] = __float2bfloat16(v);
+  }
+}
+
 }  // namespace
 
 // x [n, widths[0]] bf16, contiguous, 16-byte aligned; image the layers
@@ -724,8 +788,53 @@ cudaError_t run_f32(const void* x, const void* image, const int* widths,
 extern "C" int fused_mlp_forward(const void* x, const void* image,
                                  const int* widths, int n_layers, void* out,
                                  int64_t n, void* stream) {
-  return (int)run(x, image, widths, n_layers, out, n, stream, nullptr,
+  return (int)run(x, image, widths, n_layers, out, n, 1, stream, nullptr,
                   nullptr);
+}
+
+// K4 grouped: `groups` problems in one launch. x [groups, n, widths[0]] bf16,
+// contiguous, 16-byte aligned, n * widths[0] a multiple of 8; image the
+// groups' weight images (each as fused_mlp_forward's), one after another;
+// out [groups, n, widths[n_layers]] f32.
+extern "C" int fused_mlp_forward_grouped(const void* x, const void* image,
+                                         const int* widths, int n_layers,
+                                         void* out, int64_t n, int groups,
+                                         void* stream) {
+  return (int)run(x, image, widths, n_layers, out, n, groups, stream,
+                  nullptr, nullptr);
+}
+
+// The grouped mode's images, [groups, image elements] bf16: w the n_layers
+// f32 weight sets (device pointers), layer l's element [g, k, n] at
+// w[l] + g strides[3 l] + k strides[3 l + 1] + n strides[3 l + 2];
+// widths D_0 .. D_L.
+extern "C" int fused_mlp_pack_grouped(const void* const* w,
+                                      const int64_t* strides,
+                                      const int* widths, int n_layers,
+                                      int groups, void* image, void* stream) {
+  Widths dims;
+  if (!widths_of(widths, n_layers, &dims) || groups < 1 || groups > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  PackArgs a{};
+  a.n_layers = n_layers;
+  a.offset[0] = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    a.w[l] = static_cast<const float*>(w[l]);
+    for (int j = 0; j < 3; ++j) a.stride[l][j] = strides[3 * l + j];
+    a.d_in[l] = dims.w[l];
+    a.d_out[l] = dims.w[l + 1];
+    a.offset[l + 1] = a.offset[l] + (int64_t)pad16(dims.w[l]) *
+                                        pad16(dims.w[l + 1]);
+  }
+  const int threads = 256;
+  const int64_t per_group = (a.offset[n_layers] + threads - 1) / threads;
+  const dim3 grid((unsigned)(per_group < 64 ? per_group : 64),
+                  (unsigned)groups);
+  pack_grouped_kernel<<<grid, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<bf16*>(image));
+  return (int)cudaGetLastError();
 }
 
 // The launch this build makes for these widths: {tile rows, stages, stage
@@ -736,7 +845,7 @@ extern "C" int fused_mlp_plan(const int* widths, int n_layers, int* out) {
   int per_sm = 0;
   Plan plan{};
   const cudaError_t err = run(nullptr, nullptr, widths, n_layers, nullptr, 0,
-                              nullptr, &per_sm, &plan);
+                              1, nullptr, &per_sm, &plan);
   out[0] = kTileRows;
   out[1] = plan.stages;
   out[2] = plan.stage;

@@ -340,17 +340,23 @@ def generate_dataset(n_train=48, n_val=4, n_test=8, H=200, W=200,
     return splits
 
 
-def write_dataset(path, splits):
+def write_dataset(path, splits, split_dirs: bool = False):
     """Write `generate_dataset`'s splits as a blender-format directory, in
     the JAX package's layout (synthetic.py:333-355): `{split}_{k:03d}.png`
     (RGBA, 8 bits) and transforms_{split}.json {'camera_angle_x', 'frames':
-    [{'file_path': './{split}_{k:03d}', 'transform_matrix'}]}. Returns
-    path."""
+    [{'file_path': './{split}_{k:03d}', 'transform_matrix'}]}. With
+    `split_dirs` each split's images go to the directory {split}/ (the
+    NeRF-synthetic layout, './{split}/{split}_{k:03d}', which the
+    `uncertain` entry lists). Returns path."""
     os.makedirs(path, exist_ok=True)
     for split, data in splits.items():
         frames = []
+        if split_dirs:
+            os.makedirs(os.path.join(path, split), exist_ok=True)
         for k, (img, pose) in enumerate(zip(data["images"], data["poses"])):
             name = f"{split}_{k:03d}"
+            if split_dirs:
+                name = f"{split}/{name}"
             # the stored values are uint8 / 255: back to the bytes exactly
             write_png(os.path.join(path, name + ".png"),
                       np.round(np.asarray(img) * 255.0).astype(np.uint8))

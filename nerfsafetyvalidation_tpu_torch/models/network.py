@@ -19,6 +19,18 @@ Weights are [in, out], so a layer is `x @ W`.
   without it they are plain matmul chains whose last layer stays f32
   (the JAX package leaves that route to XLA).
 
+The sigma-net flatpack (the JAX package's `get_sigma_net_flat` /
+`set_sigma_net_flat`, which the Bayesian-Laplace UQ fits): the sigma net's
+weights as one flat vector theta in the JAX layout (each [in, out] weight
+transposed to [out, in], flattened, one after another), so a vector
+carries across the packages bit for bit. `set_sigma_net_flat(theta)`
+returns the weights as views of theta (theta [..., n] gives [..., in, out]
+each, a leading axis one sigma net per group) and leaves the net's own
+unchanged, as the JAX version returns a new pytree; `sigma_of_encoding`
+runs the density's sigma through them, so autograd reaches theta (through
+K4's Function on a fused grid net, the grouped kernel for a leading
+axis).
+
 Training: `init(generator)` draws fresh weights as the JAX `init` does
 (the table uniform in +-1e-4, each [in, out] weight uniform in
 +-1/sqrt(in)), from a torch.Generator, so the draws differ from JAX's.
@@ -38,7 +50,8 @@ from ..ops.activation import trunc_exp
 from ..ops.freq_encoding import freq_encode, freq_output_dim
 from ..ops.hash_encoding import HashGridSpec, hash_grid_encode, hash_grid_init
 from ..ops.hopper._nvcc import weights_key
-from ..ops.hopper.fused_mlp import (fused_mlp, fused_mlp_plain,
+from ..ops.hopper.fused_mlp import (fused_mlp, fused_mlp_grouped,
+                                    fused_mlp_grouped_plain, fused_mlp_plain,
                                     fused_mlp_reference)
 from ..ops.hopper.points_mlp import (fused_points_sigma_color,
                                      fused_points_sigma_color_plain)
@@ -205,9 +218,16 @@ class NeRFNetwork(nn.Module):
 
     def _chain(self, weights, h, plain):
         """A grid net's MLP: through K4 with cfg.fused (its plain version
-        with `plain`), else the plain matmul chain."""
+        with `plain`), else the plain matmul chain. Weights [G, in, out]
+        (one set per group) take h [G, ..., D]: the grouped K4."""
         if not (self.cfg.fused and self.grid_spec is not None):
             return fused_mlp_reference(h, list(weights), self.compute_dtype)
+        if weights[0].ndim == 3:
+            G = h.shape[0]
+            fn = fused_mlp_grouped_plain if plain else fused_mlp_grouped
+            out = fn(h.reshape(G, -1, h.shape[-1]), list(weights),
+                     self.compute_dtype)
+            return out.reshape(h.shape[:-1] + (out.shape[-1],))
         prefix = h.shape[:-1]
         fn = fused_mlp_plain if plain else fused_mlp
         out = fn(h.reshape(-1, h.shape[-1]).contiguous(), list(weights),
@@ -218,6 +238,37 @@ class NeRFNetwork(nn.Module):
         """x: [..., 3] -> {'sigma': [...], 'geo_feat': [..., 15]}."""
         h = self._chain(self.sigma_net, self.encode_pos(x), plain)
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
+
+    # ------------------------------------------------ the sigma-net flatpack
+    def get_sigma_net_flat(self):
+        """The sigma net's weights as one flat float32 vector (detached) in
+        the JAX layout: each [in, out] weight as [out, in], flattened, one
+        after another (models/network.py:308-311)."""
+        return torch.cat([w.detach().t().reshape(-1) for w in self.sigma_net])
+
+    def set_sigma_net_flat(self, theta):
+        """The sigma net's weights made of theta [..., n] (the JAX layout):
+        [..., in, out] views of it, differentiable in theta; the net's own
+        weights stay as they are (network.py:313-317 returns a new
+        pytree)."""
+        ws, start = [], 0
+        lead = theta.shape[:-1]
+        for w in self.sigma_net:
+            i, o = w.shape
+            ws.append(theta[..., start:start + i * o].reshape(
+                lead + (o, i)).transpose(-1, -2))
+            start += i * o
+        if start != theta.shape[-1]:
+            raise ValueError(f"theta has {theta.shape[-1]} entries, the "
+                             f"sigma net {start}")
+        return ws
+
+    def sigma_of_encoding(self, h, sigma_ws):
+        """`density`'s sigma [...] of the position encoding h [..., D]
+        through the sigma net `sigma_ws` (`set_sigma_net_flat`'s; with a
+        leading group axis, h is [G, ..., D]). The Laplace fits encode
+        their points once and call this at every step."""
+        return trunc_exp(self._chain(sigma_ws, h, False)[..., 0])
 
     def color(self, d, geo_feat, mask=None, plain: bool = False):
         """d: [..., 3], geo_feat [..., 15] -> rgb [..., 3]. The color net

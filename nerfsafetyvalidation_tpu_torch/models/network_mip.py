@@ -186,6 +186,16 @@ class NeRFNetworkMip(nn.Module):
                                 self.compute_dtype)
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
+    def get_sigma_net_flat(self):
+        """The Bayesian-Laplace UQ's sigma-net flatpack is not ported for
+        the mip-fold teacher: raises."""
+        raise NotImplementedError(
+            "the mip-fold teacher has no sigma-net flatpack; the "
+            "Bayesian-Laplace UQ fits a NeRFNetwork or NeRFNetworkFF")
+
+    def set_sigma_net_flat(self, theta):
+        return self.get_sigma_net_flat()
+
     def color(self, d, geo_feat, mask=None):
         """rgb [..., 3], 0 where `mask` ([...] bool) is false."""
         d_enc = self.encode_dir(d)

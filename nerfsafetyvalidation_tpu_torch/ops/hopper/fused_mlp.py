@@ -27,6 +27,20 @@ row-major, one after another (`_f32_shapes`, `_pack_f32`); a block keeps
 them in shared memory where they fit beside its 128-row activation tile,
 else loads one layer at a time (`_plan_f32`).
 
+Grouped mode, `fused_mlp_grouped`: G independent MLPs in one launch, x
+[G, N, D_0] with one weight set [G, in, out] per group, what the JAX
+package's kernel computes under `jax.vmap` over the weights (its batching
+rule adds a leading grid axis). The in-scan Laplace fits of the batched
+rollouts (validation/batched.py `_laplace_uq`) run one sigma net per sim
+through it. bf16 only; the G images are built on every call, since the
+weights change at every step of a fit: on the card by one launch of the
+library's pack kernel (`_pack_grouped`), which reads each layer through
+its strides (the fits' weights are views of their flat vectors) and
+writes each group's image as `_pack` does. Its plain version is
+`fused_mlp_grouped_plain` (the batched products of
+`fused_mlp_reference`), and its backward the same recompute as the single
+mode's.
+
 Gradients (both dtypes, and on the CPU too): `fused_mlp` is an autograd
 Function whose forward launches the kernel (the plain version on a CPU
 tensor) and whose backward is the vector-Jacobian product of
@@ -61,11 +75,14 @@ BARRIER_BYTES = 128
 F32_ROWS = 128        # rows of a tile in the f32 kernel
 
 # launches of the CUDA kernels since the last reset (never the plain
-# path): the bf16 kernel, and the f32 one; and the calls of the plain
-# version
+# path): the bf16 kernel, the f32 one, and the grouped mode; and the calls
+# of the plain versions (single, grouped)
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+LAUNCHES_GROUPED = 0
 PLAIN_CALLS = 0
+PLAIN_CALLS_GROUPED = 0
+MAX_GROUPS = 65535    # the grid's y extent
 # nvcc's report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -96,6 +113,14 @@ def _library():
                                        ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)]
         lib.fused_mlp_plan.restype = ctypes.c_int
+        lib.fused_mlp_forward_grouped.argtypes = fn.argtypes[:6] + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.fused_mlp_forward_grouped.restype = ctypes.c_int
+        lib.fused_mlp_pack_grouped.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.fused_mlp_pack_grouped.restype = ctypes.c_int
         lib.fused_mlp_forward_f32.argtypes = fn.argtypes
         lib.fused_mlp_forward_f32.restype = ctypes.c_int
         lib.fused_mlp_plan_f32.argtypes = lib.fused_mlp_plan.argtypes
@@ -123,6 +148,17 @@ def fused_mlp_plain(x, weights, compute_dtype=torch.bfloat16):
     each. Returns [N, D_L] f32."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
+    return fused_mlp_reference(x, weights, compute_dtype).to(
+        compute_dtype).float()
+
+
+def fused_mlp_grouped_plain(x, weights, compute_dtype=torch.bfloat16):
+    """The grouped kernel's function in plain PyTorch: the JAX package's
+    `_xla_mlp` under vmap, as batched products (`fused_mlp_reference` on
+    x [G, N, D_0] and weights [G, in, out]), every layer rounded to
+    `compute_dtype`. Returns [G, N, D_L] f32."""
+    global PLAIN_CALLS_GROUPED
+    PLAIN_CALLS_GROUPED += 1
     return fused_mlp_reference(x, weights, compute_dtype).to(
         compute_dtype).float()
 
@@ -273,6 +309,92 @@ def _pack(weights):
         p[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
         parts.append(wgmma_b(p))
     return widths, torch.cat(parts).contiguous()
+
+
+def _pack_grouped(weights):
+    """(widths, [G, bytes / 2] bf16): `_pack`'s image of every group's
+    weights (each [G, in, out], on the card), by one launch of the pack
+    kernel."""
+    G = weights[0].shape[0]
+    if any(w.ndim != 3 or w.shape[0] != G for w in weights):
+        raise ValueError(f"grouped weights {[tuple(w.shape) for w in weights]}"
+                         " are not [G, in, out] with one G")
+    widths = _widths([w[0] for w in weights])
+    if any(w.device.type != "cuda" for w in weights):
+        raise ValueError("the grouped pack kernel takes CUDA tensors")
+    ws = [w.float() for w in weights]
+    total = sum(_pad16(a) * _pad16(b) for a, b in zip(widths, widths[1:]))
+    image = torch.empty((G, total), dtype=torch.bfloat16,
+                        device=ws[0].device)
+    ptrs = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
+    strides = (ctypes.c_int64 * (3 * len(ws)))(
+        *[s for w in ws for s in w.stride()])
+    dims = (ctypes.c_int * len(widths))(*widths)
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = _library().fused_mlp_pack_grouped(ptrs, strides, dims,
+                                                len(ws), G,
+                                                image.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp grouped pack failed: cudaError {err}")
+    return widths, image
+
+
+def fused_mlp_grouped(x, weights, compute_dtype=torch.bfloat16):
+    """G bias-free ReLU MLPs: x [G, N, D_0], weights [G, in, out] each (one
+    set per group); returns [G, N, D_L] f32, every layer rounded to
+    `compute_dtype`; differentiable in x and the weights (the backward is
+    `fused_mlp_reference`'s VJP on the batched products).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    grouped kernel (bf16 only; G <= MAX_GROUPS, N * D_0 a multiple of 8)
+    or raises."""
+    if x.device.type == "cpu":
+        def launch(x_, ws):
+            return fused_mlp_grouped_plain(x_, ws, compute_dtype)
+    elif x.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA or CPU tensors, not {x.device}")
+    else:
+        if compute_dtype != torch.bfloat16:
+            raise ValueError("the grouped K4 kernel computes in bfloat16")
+        if any(w.device != x.device for w in weights):
+            raise ValueError("x and the weights must be on one device")
+
+        def launch(x_, ws):
+            return _launch_grouped(x_, ws)
+    return _K4.apply(launch, compute_dtype, x, *weights)
+
+
+def _launch_grouped(x, weights):
+    """One launch of the grouped kernel on CUDA tensors."""
+    global LAUNCHES_GROUPED
+    widths, packed = _pack_grouped(list(weights))
+    if x.ndim != 3 or x.shape[0] != packed.shape[0] \
+            or x.shape[2] != widths[0]:
+        raise ValueError(f"x must be [{packed.shape[0]}, N, {widths[0]}], "
+                         f"got {tuple(x.shape)}")
+    G, n = x.shape[:2]
+    if G > MAX_GROUPS or (n * widths[0]) % 8:
+        raise ValueError(f"the grouped K4 takes at most {MAX_GROUPS} groups "
+                         "whose rows hold a multiple of 8 values, got "
+                         f"{tuple(x.shape)}")
+    x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+    out = torch.empty((G, n, widths[-1]), dtype=torch.float32,
+                      device=x.device)
+    if n and G:
+        dims = (ctypes.c_int * len(widths))(*widths)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _library().fused_mlp_forward_grouped(
+                x.data_ptr(), packed.data_ptr(), dims, len(weights),
+                out.data_ptr(), n, G, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_mlp grouped launch failed: cudaError "
+                               f"{err}")
+        LAUNCHES_GROUPED += 1
+    return out
 
 
 def fused_mlp(x, weights, compute_dtype=torch.bfloat16):

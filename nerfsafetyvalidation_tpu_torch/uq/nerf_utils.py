@@ -18,17 +18,18 @@ def load_camera_params(image_name, dataset_path):
 
 def create_heatmap(mu_d_opt, sigma_d_opt,
                    out_path="results/uncertainty_heatmap.png"):
+    """The 5 x 5 histogram of the (mu_d, sigma_d) pairs (or (trace, rmv)),
+    numpy's histogram2d as the JAX package's, written as a PNG through the
+    port's own codec (data/png.py): the card's machine has no matplotlib.
+    The counts scaled to 0-255, mu_d along x, sigma_d up (the JAX figure's
+    origin="lower"), each bin 64 x 64 pixels; the JAX figure's axes and
+    colour bar are not drawn."""
     import numpy as np
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..data.png import write_png
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    hist, xedges, yedges = np.histogram2d(mu_d_opt, sigma_d_opt, bins=5)
-    plt.imshow(hist, interpolation="nearest", origin="lower",
-               extent=[xedges[0], xedges[-1], yedges[0], yedges[-1]],
-               aspect="auto")
-    plt.colorbar(label="Count")
-    plt.xlabel("mu_d_opt")
-    plt.ylabel("sigma_d_opt")
-    plt.savefig(out_path)
-    plt.close()
+    hist = np.histogram2d(mu_d_opt, sigma_d_opt, bins=5)[0]
+    # imshow(hist) draws hist[i, j] at row i, column j; origin lower
+    # puts row 0 at the bottom
+    img = np.round(255.0 * hist / max(hist.max(), 1.0)).astype(np.uint8)
+    img = np.repeat(np.repeat(img[::-1], 64, axis=0), 64, axis=1)
+    write_png(out_path, np.stack([img] * 3, axis=-1))

@@ -16,8 +16,9 @@ restart loop draws a new path and a new seed (validate.py:313-341).
 
 Without `--batched_rollouts` (the default): the sequential stress tests,
 each simulation reset and stepped one MPC step at a time
-(NerfSimulator.step: the observation, the online Gaussian UQ, the
-estimator, the replan, the SDF check). Monte Carlo appends to
+(NerfSimulator.step: the observation, the online UQ of envConfig's
+`uq_method`, Gaussian or Bayesian Laplace, the estimator, the replan, the
+SDF check). Monte Carlo appends to
 results/collisionValuesBlenderMC_n<N>.csv; the cross-entropy method (10
 sims, 5 elite, 5 iterations) to results/collisionValuesCEM_m10melite5k5.csv.
 When `blender` is on PATH and envConfig names a blend file, Blender
@@ -25,17 +26,19 @@ draws the trajectories at the end.
 
 `--batched_rollouts`: the planner's actions roll out open-loop through
 FullBatchedRolloutEngine (the `uniform` observation at
-`--batched_obs_res`^2 with `--num_steps` samples a ray, the Gaussian UQ,
-the reward, the SDF check): Monte Carlo writes
+`--batched_obs_res`^2 with `--num_steps` samples a ray, the UQ: Gaussian,
+or with envConfig's Laplace the engine's in-scan Laplace fits, the
+reward, the SDF check): Monte Carlo writes
 results/collisionValuesBatchedMC_n<N>.csv, the cross-entropy method
 results/collisionValuesBatchedCEM_m<M>melite5k5.csv. With
 `--closed_loop`: ClosedLoopBatchedEngine (the estimator and the replan
-every step, the Gaussian UQ reward unless `--closed_loop_uq none`), writing
+every step, the UQ reward unless `--closed_loop_uq none`: `auto` follows
+envConfig's uq_method), writing
 results/collisionValuesClosedLoop{MC_n<N>,CEM_m<M>melite5k5}.csv.
 
 Refused, with a message and a non-zero exit, before anything is loaded:
 `-r` replay and BlenderSimulator (ROADMAP Queue 1 item 6), `--fast_render`
-(item 5), the Bayesian-Laplace UQ (item 4), `--tcnn` (item 9), and three
+(item 5), `--tcnn` (item 9), a uq_method other than the two, and three
 combinations on which the JAX CLI restarts forever: `--ff` on the
 sequential path and `--closed_loop --ff` (the estimator's jax.hessian
 through the fused kernel raises ValueError, which the restart loop takes
@@ -77,6 +80,8 @@ from .validation.utils.paths import generate_path, load_coords, save_coords
 # population (sim_group sims at a time, their pixels' rays)
 OBS_SAMPLES = 2 ** 23
 CLOSED_LOOP_SAMPLES = 2 ** 22
+GAUSSIAN = "Gaussian Approximation"
+LAPLACE = "Bayesian Laplace Approximation"
 
 
 def refusal(opt, env):
@@ -104,12 +109,7 @@ def refusal(opt, env):
                 "--fast_render's occupancy state; without it the JAX CLI "
                 "falls back to 'scout', whose engine raises ValueError, and "
                 "the restart loop retries forever")
-    if env.uq_method == "Bayesian Laplace Approximation" or (
-            opt.batched_rollouts and opt.closed_loop
-            and opt.closed_loop_uq == "laplace"):
-        return ("the Bayesian-Laplace UQ (get_sigma_net_flat and the MAP "
-                "fit) is not ported yet (ROADMAP Queue 1 item 4)")
-    if env.uq_method != "Gaussian Approximation":
+    if env.uq_method not in (GAUSSIAN, LAPLACE):
         return f"Unrecognized uncertainty quantification method " \
                f"{env.uq_method!r}"
     if opt.ff and not opt.batched_rollouts:
@@ -145,14 +145,16 @@ def _engine_args(simulator, noise_mean, noise_std, device):
                 device=device)
 
 
-def _uq_engine(simulator, actions, noise_mean, noise_std, opt, device):
+def _uq_engine(simulator, actions, noise_mean, noise_std, opt, device,
+               uq_method="gaussian"):
     """The open-loop engine over the simulator's net: the `uniform`
-    observation at batched_obs_res^2, num_steps samples a ray."""
+    observation at batched_obs_res^2, num_steps samples a ray, the UQ
+    `uq_method` ("gaussian" or "laplace") at the JAX CLI's knobs."""
     res = int(opt.batched_obs_res)
     return FullBatchedRolloutEngine(
         actions, net=simulator.net, obs_res=res,
         render_steps=int(opt.num_steps), base_res=simulator.res_x,
-        uq_method="gaussian", obs_render="uniform",
+        uq_method=uq_method, obs_render="uniform",
         obs_group=_group(res * res * int(opt.num_steps), OBS_SAMPLES),
         **_engine_args(simulator, noise_mean, noise_std, device))
 
@@ -162,6 +164,12 @@ def validate_batched(simulator, stresstest, noise_mean, noise_std,
     """The population modes (validate.py:47-151): one reset (A* and
     learn_init), then the planner's actions through the open-loop engine,
     or the closed-loop engine with --closed_loop."""
+    uq_method = "gaussian"
+    if simulator.uq_method == LAPLACE:
+        uq_method = "laplace"
+        print("[INFO] batched rollouts with in-scan Bayesian-Laplace UQ "
+              "(subsampled MAP fits; sequential mode runs the full-set "
+              "fits)")
     simulator.reset()
     actions = simulator.traj.get_actions().detach()
     if opt.closed_loop:
@@ -185,7 +193,8 @@ def validate_batched(simulator, stresstest, noise_mean, noise_std,
                     int(res["first_collision_step"][i])]
                    for i in range(n_simulations)])
         return res
-    eng = _uq_engine(simulator, actions, noise_mean, noise_std, opt, device)
+    eng = _uq_engine(simulator, actions, noise_mean, noise_std, opt, device,
+                     uq_method)
     if stresstest == "Cross Entropy Method":
         m = max(n_simulations, 10)
         res = eng.cem(gen, m=m, m_elite=5, kmax=5,
@@ -207,7 +216,8 @@ def validate_closed_loop(simulator, stresstest, noise_mean, noise_std,
     """The closed-loop population mode (validate.py:154-262): the fixed
     interest grid of closed_loop_obs_res^2 pixels over the observation,
     the estimator and replan settings of envConfig, and unless
-    --closed_loop_uq none the composed open-loop engine's UQ reward."""
+    --closed_loop_uq none the composed open-loop engine's UQ reward (auto:
+    Laplace where envConfig's uq_method is, else Gaussian)."""
     fc = dict(simulator.filter_cfg)
     traj = simulator.traj
     H, W = simulator.res_y, simulator.res_x
@@ -219,11 +229,14 @@ def validate_closed_loop(simulator, stresstest, noise_mean, noise_std,
     rr, cc = np.meshgrid(rows, cols, indexing="ij")
     coords = np.stack([rr.reshape(-1), cc.reshape(-1)], axis=-1)
 
+    uq_flag = opt.closed_loop_uq
+    if uq_flag == "auto":
+        uq_flag = "laplace" if simulator.uq_method == LAPLACE else "gaussian"
     uq_engine = None
-    if opt.closed_loop_uq != "none":
+    if uq_flag != "none":
         uq_engine = _uq_engine(simulator, actions, noise_mean, noise_std,
-                               opt, device)
-        print("[INFO] closed-loop steps compute the gaussian "
+                               opt, device, uq_flag)
+        print(f"[INFO] closed-loop steps compute the {uq_flag} "
               "uncertainty-masked reward (complete NerfSimulator.step)")
     pc = simulator.planner_cfg
     eng = ClosedLoopBatchedEngine(

@@ -7,10 +7,25 @@ dynamics under the planner's actions plus a disturbance, the SDF lookup
 (a collision below one cell, the state frozen after the first), and the
 disturbance's per-step Gaussian log-likelihood with the reference's pdf
 clip. `FullBatchedRolloutEngine` adds, per sim and step, the NeRF
-observation render at `obs_res`^2, the Gaussian-approximation UQ (a
-fixed-iteration Adam on its two parameters), the safety-masked reward that
+observation render at `obs_res`^2, the UQ (the Gaussian approximation, a
+fixed-iteration Adam on its two parameters; or the Bayesian Laplace
+approximation, `uq_method="laplace"`), the safety-masked reward that
 scales the next step's disturbance (Monte Carlo) and the 4-point
 interpolated SDF check.
+
+The in-scan Laplace (`_laplace_uq`, the JAX version's :467-574): per sim
+and step, `laplace_points` of the observation's points rays_o + rays_d
+(stride-subsampled) against its aggregated density, MAP fits of the
+sim's own sigma-net vector from a random normal start on
+`laplace_perturbations` moved copies of the points (Adam over
+exponential_decay(lr, 100, 0.1)), the best kept, then a fixed number of
+Levenberg-Marquardt steps with `where` logic on the rank-one g g^T
+(Sherman-Morrison, no dense solve), and the posterior's trace and root
+mean variance from the diagonal of (g g^T + 1e-2 I)^-1. The JAX version
+vmaps it over the sims, which runs its fused MLP kernel with one weight
+set per sim; here the whole population's fits are one batch, [m, points]
+and [m, n_theta], through the nets' `sigma_of_encoding`, on a fused grid
+net (`--ff`) the grouped K4 (one launch a forward).
 
 The JAX package maps `scan(step)` over the population with `vmap`. Here the
 steps are a Python loop over tensors of the whole population ([m, 12]
@@ -25,14 +40,15 @@ card; the renderers' `plain_field` switch is never set here.
 Random draws: threefry cannot be reproduced in torch. `monte_carlo` and
 `cem` draw standard normals from a `torch.Generator` on the engine's
 device, or take them from the caller (`z`), as the tests hand in the JAX
-package's own.
+package's own. The Laplace fits' draws (per step: theta's init [m, n] and
+the perturbations [m, P, points, 3]) come from a generator seeded 0 at
+each run (the JAX version keys each run's from PRNGKey(0)), or from the
+caller (`laplace_draws`).
 Every tensor lives on the engine's `device` ("cuda" unless the caller
 passes another). The proposal updates and the CSVs are numpy on the host,
 as in the JAX package.
 
-Not ported yet: the in-scan Bayesian-Laplace UQ (`uq_method="laplace"`,
-which needs the nets' flat sigma-net vectors) and sharding over a device
-mesh (`mesh`); both raise."""
+Not ported yet: sharding over a device mesh (`mesh`) raises."""
 
 import csv
 import math
@@ -47,6 +63,8 @@ from ..models import renderer as R
 from ..nav.agent import drone_dynamics
 from ..nav.math_utils import (as_f32 as _f32, nerf_matrix_to_ngp,
                                rot_matrix_to_vec, rot_x, vec_to_rot_matrix)
+from ..uq.bayesian_laplace import map_fit, negative_log_posterior, \
+    nlp_and_grad
 from ..utils.adam import Adam
 from .stresstests.cross_entropy import _weighted_mean_cov
 
@@ -353,7 +371,11 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
                  uq_iters=100, uq_lr=1e-2, penalty_strength=36.0, mesh=None,
                  renderer_state=None, grid_max_samples=16, obs_group=1,
                  uq_method="gaussian", obs_render="uniform",
-                 obs_prepass_factor=8, obs_dt_gamma=1.0 / 64, device="cuda"):
+                 obs_prepass_factor=8, obs_dt_gamma=1.0 / 64,
+                 laplace_fit_steps=100, laplace_points=256,
+                 laplace_perturbations=3, laplace_scale=0.3,
+                 laplace_lm_iters=20, laplace_prior_std=1.0,
+                 laplace_lr=1e-2, device="cuda"):
         """The core engine's arguments, and: net, the port's field (it
         holds its weights: the JAX version's `params` has no counterpart);
         obs_res, the observation's side; base_intrinsics (fx, fy, cx, cy)
@@ -367,17 +389,17 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         obs_render: "uniform" (`run`, or `run_grid` with a renderer_state:
         per-sample rgbs and sigmas), "fast" (`render_frame_fast` with the
         UQ moments), "guided" (`render_frame_guided`, march prepass),
-        "scout" (`render_frame_guided`, scout prepass)."""
+        "scout" (`render_frame_guided`, scout prepass).
+        uq_method: "gaussian", or "laplace" (the laplace_* knobs, the JAX
+        version's defaults; the net must have the sigma-net flatpack, which
+        the mip-fold teacher has not: it raises)."""
         _no_mesh(mesh)
         if net is None:
             raise ValueError("FullBatchedRolloutEngine renders through a "
                              "net; the core engine is BatchedRolloutEngine")
         if uq_method == "laplace":
-            raise NotImplementedError(
-                "the in-scan Bayesian-Laplace UQ needs the nets' "
-                "get_sigma_net_flat / set_sigma_net_flat and a MAP fit, "
-                "which wait for slice E (UQ) of the port")
-        if uq_method != "gaussian":
+            net.get_sigma_net_flat()
+        elif uq_method != "gaussian":
             raise ValueError(f"unknown in-scan uq_method {uq_method!r}")
         if obs_render not in ("uniform", "fast", "guided", "scout"):
             raise ValueError(f"unknown obs_render {obs_render!r}")
@@ -403,6 +425,13 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         self.obs_render = obs_render
         self.obs_prepass_factor = int(obs_prepass_factor)
         self.obs_dt_gamma = float(obs_dt_gamma)
+        self.laplace_fit_steps = int(laplace_fit_steps)
+        self.laplace_points = int(laplace_points)
+        self.laplace_perturbations = int(laplace_perturbations)
+        self.laplace_scale = float(laplace_scale)
+        self.laplace_lm_iters = int(laplace_lm_iters)
+        self.laplace_prior_std = float(laplace_prior_std)
+        self.laplace_lr = float(laplace_lr)
 
     # ------------------------------------------------------------- obs render
     def _pose_from_state(self, states):
@@ -480,7 +509,119 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
                                          group.shape[0]))
         return torch.cat(stats)
 
+    def _render_laplace(self, states):
+        """The Laplace fits' data of every sim's observation, states [m, 12]
+        -> (X [m, P, 3], y [m, P]): P = laplace_points of the points rays_o
+        + rays_d, every (n / P)-th ray, and their aggregated densities."""
+        poses = self._pose_from_state(states)
+        call = self._obs_call()
+        G = self.obs_group if self.obs_render == "uniform" else 1
+        n = self.obs_res ** 2
+        P = self.laplace_points
+        idx = (torch.arange(P, device=self.device) * n) // max(P, 1)
+        Xs, ys = [], []
+        for g0 in range(0, poses.shape[0], G):
+            o, d = self._obs_rays(poses[g0:g0 + G])
+            agg = call(o, d)["aggregated_density"].reshape(-1, n)
+            Xs.append((o + d).reshape(-1, n, 3)[:, idx])
+            ys.append(agg[:, idx])
+        return torch.cat(Xs), torch.cat(ys)
+
     # ------------------------------------------------------------------- UQ
+    def _laplace_draws(self, generator, m):
+        """(theta's inits [m, n], the perturbations' standard normals [m,
+        laplace_perturbations, laplace_points, 3]) of one step."""
+        n = self.net.get_sigma_net_flat().shape[0]
+        theta0 = torch.randn((m, n), generator=generator, device=self.device)
+        perts = torch.randn((m, self.laplace_perturbations,
+                             self.laplace_points, 3), generator=generator,
+                            device=self.device)
+        return theta0, perts
+
+    def _laplace_nlp(self, theta, h, y):
+        """Each sim's -log posterior [m] at theta [m, n] on its points,
+        encoded as h [m, P, D], against y [m, P] (prior N(0, std^2))."""
+        return negative_log_posterior(self.net, theta, h, y, 0.0,
+                                      self.laplace_prior_std)
+
+    @torch.no_grad()
+    def _laplace_map(self, X, y, theta0, perts):
+        """The MAP fits of every sim: X [m, P, 3], y [m, P], theta0 [m, n],
+        perts [m, laplace_perturbations, P, 3] standard normals -> the best
+        theta [m, n] over the moved copies of X (per copy the sequential
+        fit's `map_fit`, all sims at once; the first copy wins ties)."""
+        losses, thetas = [], []
+        for p in range(self.laplace_perturbations):
+            h = self.net.encode_pos(X + perts[:, p] * self.laplace_scale)
+            loss, theta = map_fit(self.net, theta0, h, y, 0.0,
+                                  self.laplace_prior_std, self.laplace_lr,
+                                  self.laplace_fit_steps)
+            losses.append(loss)
+            thetas.append(theta)
+        best = torch.argmin(torch.stack(losses), dim=0)
+        return torch.stack(thetas)[best, torch.arange(X.shape[0],
+                                                      device=X.device)]
+
+    @torch.no_grad()
+    def _laplace_lm(self, x, X, y):
+        """laplace_lm_iters Levenberg-Marquardt steps from x [m, n] with
+        `where` logic: dx solves (g g^T + lmbda I) dx = -g, that is dx =
+        -g / (lmbda + |g|^2) (Sherman-Morrison on the rank one); x moves
+        by dx in any case; lmbda falls tenfold where f(x + dx) < f(x0),
+        else rises; a sim whose dx is below 1e-12 everywhere stops.
+        Returns each sim's last x [m, n], g [m, n] (g at the step where it
+        stopped), lmbda [m] and whether it stopped [m]."""
+        h = self.net.encode_pos(X)
+        prior_std = self.laplace_prior_std
+        f_x0 = self._laplace_nlp(x, h, y)
+        lmbda = torch.full_like(f_x0, 0.01)
+        g_last = torch.zeros_like(x)
+        done = torch.zeros_like(f_x0, dtype=torch.bool)
+        for _ in range(self.laplace_lm_iters):
+            g = nlp_and_grad(self.net, x, h, y, 0.0, prior_std)[1]
+            g_last = torch.where(done[:, None], g_last, g)
+            dx = -g / (lmbda + torch.sum(g ** 2, dim=-1))[:, None]
+            converged = torch.all(torch.abs(dx) < 1e-12, dim=-1)
+            x_new = x + dx
+            improved = self._laplace_nlp(x_new, h, y) < f_x0
+            lmbda_new = torch.where(improved, lmbda / 10.0, lmbda * 10.0)
+            keep = done | converged
+            x = torch.where(keep[:, None], x, x_new)
+            lmbda = torch.where(keep, lmbda, lmbda_new)
+            done = keep
+        return x, g_last, lmbda, done
+
+    def _laplace_uq(self, X, y, theta0, perts):
+        """The in-scan Laplace UQ of every sim (the JAX version's
+        `_laplace_uq`, vmapped over the sims there): the MAP fits, the LM
+        steps, and of cov = (g g^T + eps I)^-1, eps = 1e-2, the diagonal
+        1/eps - g_i^2 / (eps (eps + |g|^2)) (all >= 0) -> (trace [m] =
+        sum(diag) / n, rmv [m] = sqrt(mean(diag)) / n)."""
+        g = self._laplace_lm(self._laplace_map(X, y, theta0, perts), X,
+                             y)[1]
+        eps = 1e-2
+        s = torch.sum(g ** 2, dim=-1)
+        diag = 1.0 / eps - g ** 2 / (eps * (eps + s))[:, None]
+        n = g.shape[-1]
+        return (torch.sum(diag, dim=-1) / n,
+                torch.sqrt(torch.mean(diag, dim=-1)) / n)
+
+    def _uq_reward(self, states, loglik, generator=None, draws=None):
+        """The UQ of every sim's observation at states [m, 12] and the
+        reward: (sigma_d [m], reward [m], None) with the Gaussian UQ;
+        (rmv [m], reward [m], trace [m]) with the Laplace one, its draws
+        `draws` (theta0, perts) or from `generator`."""
+        if self.uq_method == "laplace":
+            X, y = self._render_laplace(states)
+            if draws is None:
+                draws = self._laplace_draws(generator, states.shape[0])
+            trace, rmv = self._laplace_uq(X, y, *(_f32(d, self.device)
+                                                  for d in draws))
+            return rmv, self._reward_laplace(loglik, rmv, trace), trace
+        _, sigma_d = self._gaussian_uq_moments(
+            *self._render_stats(states).unbind(dim=-1))
+        return sigma_d, self._reward(loglik, sigma_d), None
+
     def _gaussian_uq(self, rgbs, sigmas, image):
         """The Gaussian-approximation UQ of one observation (or of a batch,
         leading dimensions): rgbs [..., n, K, 3], sigmas [..., n, K], image
@@ -519,14 +660,25 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         ps = self.penalty_strength
         return torch.clamp(likelihood - ps * sigma_d_opt, -ps * 2, ps)
 
+    def _reward_laplace(self, likelihood, rmv, trace):
+        """The Laplace branch's reward (NerfSimulator.py:170-181): the
+        penalty is rmv * trace * laplace_perturbations."""
+        ps = self.penalty_strength
+        pen = ps * rmv * trace * self.laplace_perturbations
+        return torch.clamp(likelihood - pen, -ps * 2, ps)
+
     # ---------------------------------------------------------------- rollout
-    def _run_body(self, z, q_mean, q_chol, adapt_gain: float):
+    def _run_body(self, z, q_mean, q_chol, adapt_gain: float,
+                  laplace_draws=None):
         """z/q_mean: [m, T, 12]; q_chol: [T, 12, 12]. Per step: the
         disturbance q_mean + scale (z @ L^T), scale = 1 + adapt_gain 0.01
         reward_prev (the reference MC's reward-adapted std; 0 for CEM), the
         dynamics (frozen once collided), the observations and their UQ, the
-        likelihood, the reward, the SDF check."""
+        likelihood, the reward, the SDF check. The Laplace UQ's draws:
+        laplace_draws[t] = (theta0, perts), or a generator seeded 0."""
         m = z.shape[0]
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        traces = []
         states = self.start_state.expand(m, 12)
         done = torch.zeros((m,), dtype=torch.bool, device=self.device)
         reward_prev = torch.zeros((m,), device=self.device)
@@ -536,10 +688,11 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
             noise = q_mean[:, t] + scale[:, None] * (z[:, t] @ q_chol[t].T)
             nxt = self._dynamics(states, self.actions[t]) + noise
             nxt = torch.where(done[:, None], states, nxt)
-            _, sigma_d = self._gaussian_uq_moments(
-                *self._render_stats(nxt).unbind(dim=-1))
             loglik = self._log_likelihood(noise)
-            reward = self._reward(loglik, sigma_d)
+            sigma_d, reward, trace = self._uq_reward(
+                nxt, loglik, gen,
+                None if laplace_draws is None else laplace_draws[t])
+            traces.append(trace)
             hit, sdf_val, pos = self._sdf_check_interp(states, nxt, t)
             collided_now = hit & ~done
             outs.append((noise, pos, sdf_val, collided_now, loglik,
@@ -547,7 +700,9 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
             states, done, reward_prev = nxt, done | collided_now, reward
         (noises, positions, sdf_vals, collided, logliks, rewards_prev,
          sigmas, rewards) = (torch.stack(o, dim=1) for o in zip(*outs))
-        return {
+        extra = {} if traces[0] is None else {
+            "trace": torch.stack(traces, dim=1)}   # [m, T] (Laplace)
+        return {**extra,
             "noises": noises,                  # [m, T, 12] (std-adapted)
             "positions": positions,            # [m, T, 3]
             "sdf_vals": sdf_vals,              # [m, T]
@@ -555,21 +710,23 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
             "ever_collided": done,             # [m]
             "log_likelihoods": logliks,        # [m, T]
             "reward_prev": rewards_prev,       # [m, T] (CSV semantics)
-            "sigma_d": sigmas,                 # [m, T]
+            "sigma_d": sigmas,                 # [m, T] (rmv: Laplace)
             "reward": rewards,                 # [m, T]
             "risk": torch.amin(sdf_vals, dim=1),
         }
 
     @torch.no_grad()
     def run(self, z, q_mean=None, q_std=None, q_chol=None,
-            adapt_std: bool = True):
+            adapt_std: bool = True, laplace_draws=None):
         """z: [n, T, 12] standard normals. The proposal: means q_mean
         [T, 12] (default the MC mean) and either a diagonal q_std [T, 12]
         (default the MC std) or full-covariance Cholesky factors q_chol
         [T, 12, 12]. adapt_std scales each step's disturbance by the
         previous reward (the reference MC); CEM samples its proposal
-        verbatim (False). Returns the dict of `_run_body`, tensors on the
-        engine's device."""
+        verbatim (False). laplace_draws: the Laplace UQ's draws
+        (see `_run_body`). Returns the dict of `_run_body`, tensors on the
+        engine's device (with the Laplace UQ, 'sigma_d' is the rmv and
+        'trace' the trace)."""
         dev = self.device
 
         def steps12(x, default):
@@ -582,13 +739,17 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
             q_chol = torch.diag_embed(steps12(q_std, self.noise_std))
         q_chol = _f32(q_chol, dev)
         qm = q_mean[None].expand((z.shape[0],) + q_mean.shape)
-        return self._run_body(z, qm, q_chol, 1.0 if adapt_std else 0.0)
+        return self._run_body(z, qm, q_chol, 1.0 if adapt_std else 0.0,
+                              laplace_draws)
 
     # ---------------------------------------------------------- stress tests
-    def monte_carlo(self, generator, n_sims: int, z=None):
+    def monte_carlo(self, generator, n_sims: int, z=None,
+                    laplace_draws=None):
         """Full-fidelity batched MC sweep; numpy outputs (the CSV is
-        `write_mc_csv`'s). z: optional [n_sims, T, 12] standard normals."""
-        out = self.run(self._normals(generator, n_sims, z))
+        `write_mc_csv`'s). z: optional [n_sims, T, 12] standard normals;
+        laplace_draws: see `_run_body`."""
+        out = self.run(self._normals(generator, n_sims, z),
+                       laplace_draws=laplace_draws)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def write_mc_csv(self, out, path):

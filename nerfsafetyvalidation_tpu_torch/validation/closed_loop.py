@@ -17,7 +17,8 @@ stepped together. Per sim and step:
      steps on the planner's cost from a fresh optimizer;
   6. the 4-point interpolated SDF check, which freezes a collided sim;
   7. with a `uq_engine` (a FullBatchedRolloutEngine), the observation's
-     Gaussian UQ and the safety-masked reward.
+     UQ (the engine's: Gaussian, or Laplace, its fits' draws from a
+     generator seeded 0 at each run) and the safety-masked reward.
 
 The JAX package maps a scan of this step over the population with `vmap`
 and differentiates with `jax.grad`, `jax.jacfwd` and `jax.hessian`. Here the
@@ -224,8 +225,9 @@ class ClosedLoopBatchedEngine(BatchedRolloutEngine):
         return params
 
     # ------------------------------------------------------------------- run
-    def _run_group(self, noises):
-        """One group of sims: noises [m, T, 12] -> the outputs' dict."""
+    def _run_group(self, noises, uq_generator=None):
+        """One group of sims: noises [m, T, 12] -> the outputs' dict;
+        uq_generator: the Laplace UQ's draws."""
         m = noises.shape[0]
         true = self.start_state.expand(m, 12)
         xt = true
@@ -264,9 +266,8 @@ class ClosedLoopBatchedEngine(BatchedRolloutEngine):
                 ia_new = keep(ia_new, ia)
                 loglik = self._log_likelihood(noise)
                 if uq is not None:
-                    _, sigma_d = uq._gaussian_uq_moments(
-                        *uq._render_stats(true_next).unbind(dim=-1))
-                    reward = uq._reward(loglik, sigma_d)
+                    sigma_d, reward, _ = uq._uq_reward(true_next, loglik,
+                                                       uq_generator)
                 else:
                     sigma_d = reward = torch.zeros((m,), device=self.device)
             outs.append((true_next, xt_new, action, pos, sdf_val,
@@ -294,7 +295,9 @@ class ClosedLoopBatchedEngine(BatchedRolloutEngine):
         noises = as_f32(noises, self.device)
         n = noises.shape[0]
         g = n if self.sim_group is None else max(1, self.sim_group)
-        chunks = [self._run_group(noises[i:i + g]) for i in range(0, n, g)]
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        chunks = [self._run_group(noises[i:i + g], gen)
+                  for i in range(0, n, g)]
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
     # ---------------------------------------------------------- stress tests

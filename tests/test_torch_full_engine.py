@@ -353,17 +353,24 @@ def test_obs_group_equals_single(nets):
 
 @pytest.mark.parametrize("what", ["laplace", "mesh", "no_state", "no_net"])
 def test_engine_refuses(what, nets):
+    """laplace: the Laplace UQ on a net without the sigma-net flatpack
+    (the mip-fold teacher)."""
     kw = dict(_engine_kw(), net=nets[2], device="cpu")
     err = NotImplementedError
     if what == "laplace":
         kw["uq_method"] = "laplace"
+        kw["net"] = make_network(TConfig(
+            encoding="mipfold", bound=1.0, num_levels=5, level_dim=2,
+            base_resolution=4, fold_max_scale=16, log2_hashmap_size=10,
+            grid_size=16, grid_ray=True), None, device="cpu", trainable=True,
+            generator=torch.Generator().manual_seed(1))
     elif what == "mesh":
         kw["mesh"] = object()
     elif what == "no_state":
         kw["obs_render"], err = "fast", ValueError
     else:
         kw["net"], err = None, ValueError
-    match = {"laplace": "slice E", "mesh": "slice G",
+    match = {"laplace": "flatpack", "mesh": "slice G",
              "no_state": "renderer_state", "no_net": "net"}[what]
     with pytest.raises(err, match=match):
         TB.FullBatchedRolloutEngine(**kw)

@@ -160,10 +160,7 @@ def test_offline_uncertainty_matches_jax(frames, tmp_path, monkeypatch,
 
 
 def test_uncertainty_refusals():
-    """The Laplace UQ raises naming its ROADMAP item; an unknown method
-    raises ValueError, as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TO.uncertainty("Bayesian Laplace Approximation", rendered_output={})
+    """An unknown method raises ValueError, as in the JAX package."""
     with pytest.raises(ValueError):
         TO.uncertainty("Nope", rendered_output={})
     with pytest.raises(ValueError):

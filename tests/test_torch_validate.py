@@ -25,7 +25,7 @@ import csv
 import json
 import os
 import random
-from dataclasses import asdict
+from dataclasses import asdict, replace
 from pathlib import Path
 
 import jax
@@ -243,11 +243,6 @@ REFUSALS = {
     "replay": (["--r"], {}, "replay", True),
     "blender": ([], {"simulator": "BlenderSimulator"}, "BlenderSimulator",
                 True),
-    "laplace": ([], {"uq_method": "Bayesian Laplace Approximation"},
-                "Queue 1 item 4", True),
-    "laplace_sequential": ([], {"uq_method":
-                                "Bayesian Laplace Approximation"},
-                           "Queue 1 item 4", False),
     "tcnn": (["--tcnn"], {}, "NeRFNetworkTCNN", False),
 }
 
@@ -266,6 +261,21 @@ def test_refusals_exit_before_loading(name, tmp_path, monkeypatch):
         V.main(argv + flags, device="cpu")
     assert msg in str(e.value)
     assert os.listdir(".") == ["envConfig.json"]
+
+
+@pytest.mark.parametrize("flags", [["--batched_rollouts"], [],
+                                   ["--batched_rollouts", "--closed_loop"]],
+                         ids=["batched", "sequential", "closed_loop"])
+def test_laplace_gets_past_refusal(flags):
+    """With envConfig's uq_method the Bayesian Laplace approximation, the
+    batched, sequential and closed-loop command lines are not refused;
+    an unknown uq_method still is."""
+    opt = V.apply_O_flag(V.build_parser("validate").parse_args(
+        ["data", *flags]), "validate")
+    env = V.EnvConfig.load(str(ROOT / "envConfig.json"))
+    assert V.refusal(opt, replace(env, uq_method=V.LAPLACE)) is None
+    assert "Unrecognized uncertainty" in V.refusal(
+        opt, replace(env, uq_method="Nope"))
 
 
 def test_jax_cli_loop_triggers():
