@@ -5,8 +5,8 @@ CUDA card.
     python3 chip_smoke.py
 
 (`--closed-loop-intrinsics` runs only the probe of that name, below;
-`--sequential` phases 22-24 alone, `--laplace` phases 25-28 alone, each
-on freshly trained nets.)
+`--sequential` phases 22-24 alone, `--laplace` phases 25-28 alone,
+`--fast-render` phases 29-32 alone, each on freshly trained nets.)
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
@@ -178,8 +178,8 @@ Phases, each printing its elapsed seconds:
      mean distance between the estimated and the true position, finite
      estimates and rewards, no K4 launch;
  21. the refusals: --closed_loop --ff, --batched_obs_render guided
-     without --fast_render, and --fast_render, and on the sequential path
-     --ff and --tcnn, each exit with their message within seconds, before
+     without --fast_render, and --r --ff, and on the sequential path --ff
+     and --tcnn, each exit with their message within seconds, before
      anything loads;
  22. sequential MC: the port's validate CLI without --batched_rollouts,
      as a user runs it, envConfig.json as shipped (NerfSimulator, Monte
@@ -237,11 +237,40 @@ Phases, each printing its elapsed seconds:
      uq_method, --camera nerf, 64 samples; seconds per sim-step by part;
      at least LAPLACE_FINITE of its rmv finite), and validate --closed_loop
      --closed_loop_uq laplace (4 sims, CL_STEPS steps; the fits' and
-     rewards' finite shares and their explanation as in 27); no K4.
+     rewards' finite shares and their explanation as in 27); no K4;
+ 29. cell layout: the cell table (ops/hash_encoding.py build_cell_table)
+     of phase 20's net (float32) and of phase 19's (--ff, bf16) built on
+     the card and on the CPU, bit-equal; the cell encode of 131,072
+     seeded points on the card against the CPU's, and against the corner
+     encode on the dense levels (TOL_CELL); the table's MB, the build's
+     ms, the cell and corner encodes' device ms;
+ 30. validate --ff --fast_render MC: phase 19's setup (16 sims, the plan's
+     steps) with --fast_render, in a directory holding phase 19's pose
+     cache (reset skips learn_init), with the default observation
+     (uniform, through run_grid over the occupancy grid) and with
+     --batched_obs_render scout: K4 launched in the observations, the
+     refresh and A*, its plain version never; rollouts/s, the collision
+     rate, sigma_d's range, the CSV's rows, the grid's occupied share and
+     the start's observation (its UQ inputs, its share of pixels that are
+     not background), and the same observation from the test view's pose,
+     which must shade some pixels;
+ 31. sequential MC --fast_render: phase 22's run (1 sim, FR_SEQ_STEPS
+     step, phase 20's float32 net, its pose cache) with --fast_render: seconds
+     per sim-step by part, render_fn's (render_grid_staged on the net's
+     cell view) seconds a frame and rays/s, no K4 launch; the test view's
+     PSNR through the fast frame beside the staged frame's; 4 chunks of
+     that frame on the card and on the CPU (TOL_GRID_CPU);
+ 32. validate --r --camera nerf: phase 22's Monte Carlo CSV and phase
+     23's cross-entropy CSV (--iter 1: from its second simulation on)
+     replayed on a BlenderSimulator (the replay
+     CSV's rows, the eight counts, counts.pkl, both confusion PNGs
+     decoded and their counts); envConfig's BlenderSimulator through
+     --batched_rollouts (the core engine, its 4-column CSV).
 Phase 22's population is cut to 1 sim (SEQ_SIMS), the sequential phases
-(22, 23, 28) to each sim's first SEQ_STEPS steps and the closed-loop ones
-(20, 28) to CL_STEPS, to make room for 25-28 within the time limit on a
-slower host.
+(22, 23, 28) to each sim's first SEQ_STEPS steps, phase 31 to
+FR_SEQ_STEPS, the closed-loop ones (20, 28) to CL_STEPS and phase 32's
+cross-entropy replay to its second simulation, to make room for 25-32
+within the time limit on a slower host.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
@@ -628,12 +657,12 @@ VALIDATE_UNFUSED = ["--cuda_ray", "--iters", "192"]
 # length is 278 px, cx 100).
 VALIDATE_RES = 800
 # command lines the port refuses (each a SystemExit before anything loads;
-# the first two loop forever in the JAX CLI)
+# the first two loop forever in the JAX CLI, the third ends in a traceback)
 VALIDATE_REFUSALS = (
     ("--closed_loop --ff", ["--closed_loop", "--ff"], "--closed_loop --ff"),
     ("--batched_obs_render guided", ["--batched_obs_render", "guided"],
      "restart loop"),
-    ("--fast_render", ["--fast_render"], "to_cell"))
+    ("--r --ff", ["--r", "--ff"], "--r --ff"))
 # and on the sequential path (without --batched_rollouts)
 SEQUENTIAL_REFUSALS = (
     ("--ff (sequential)", ["--ff"], "--ff on the sequential path"),
@@ -748,9 +777,11 @@ def closed_loop_horizon(horizon):
 
 
 def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi,
-                   **env_extra):
+                   keep=None, **env_extra):
     """One validate CLI run on the card (see VALIDATE_RUNS; env_extra:
     envConfig.json's keys changed, e.g. uq_method); returns its numbers.
+    With `keep`, the working directory is copied there after the run
+    (the --fast_render phase reuses its pose cache).
     With the Laplace UQ (envConfig's, or --closed_loop_uq laplace) the
     fits' parts are timed, their grouped K4 launches counted, and every
     in-scan fit recorded: at least LAPLACE_FINITE of the fits and of the
@@ -836,6 +867,8 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi,
             res = V.main(argv, device="cuda")
         sync()
         t_all = time.perf_counter() - t0
+        if keep is not None:
+            shutil.copytree(work, keep)
         launches = fused_mlp.LAUNCHES
         grouped = fused_mlp.LAUNCHES_GROUPED
         plain = fused_mlp.PLAIN_CALLS + fused_mlp.PLAIN_CALLS_GROUPED \
@@ -1256,11 +1289,13 @@ def mc_horizon(V, steps):
         V.MonteCarlo = real
 
 
-def sequential_phase(torch, V, data_dir, ckpt, smi):
+def sequential_phase(torch, V, data_dir, ckpt, smi, keep=None):
     """(a) validate's default sequential Monte Carlo and (b) the port's
     CrossEntropyMethod on the same simulator, in one temporary working
     directory (envConfig.json with n_simulations SEQ_SIMS, the SDF of the
-    net, its checkpoint). Returns their numbers."""
+    net, its checkpoint). With `keep`, the working directory (its CSVs,
+    path and pose cache) is copied there at the end, for the
+    --fast_render and replay phases. Returns their numbers."""
     import random
     from nerfsafetyvalidation_tpu_torch.nav import estimator as E
     from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
@@ -1394,6 +1429,8 @@ def sequential_phase(torch, V, data_dir, ckpt, smi):
                   and np.isfinite(res[5]), "sequential CEM: the proposal "
                   "or the best value is not finite")
             check(stats["CEM"]["k4"] == 0, "sequential CEM launched K4")
+        if keep is not None:
+            shutil.copytree(work, keep)
         return stats
     finally:
         if places is not None:
@@ -2043,6 +2080,565 @@ def laplace_phases(torch, fused_mlp, V, root, ckpt_ff, ckpt_unfused,
             torch, V, val_dir, ["--closed_loop", "--closed_loop_uq",
                                 "laplace"], "Monte Carlo",
             LAPLACE_SIMS["closed_loop"], ckpt_unfused, smi)
+    return st
+
+
+# ---- validate --fast_render and --r (phases 29-32) ------------------------
+# the cell encode's points (phase 29): one ENCODE_CHUNK
+CELL_POINTS = 131072
+# The cell table built on the card against the CPU's build: the same
+# integer hashes, the same numpy cell draws, and each row's winner picked
+# by a scatter-max, so the same bits (checked exactly). The cell encode on
+# the card against the CPU's, and the cell encode against the corner
+# encode on the dense levels (the same eight features and weights): each
+# sums eight products in an order of its own, a float32 step of the
+# features (|f| <= ~1e-4 .. 1 on a trained table) each; bound 1e-6
+# absolute. With the bf16 table the f32 sum is rounded to bf16 once: a
+# last-bit difference of the sum can move it one bf16 step; bound 2^-8 of
+# max(|f|, 2^-10).
+TOL_CELL = {"torch.float32": 1e-6, "torch.bfloat16": 2 ** -8}
+# phase 30: --ff --fast_render --batched_rollouts MC on phase 19's net,
+# the default observation (uniform, through run_grid) and scout
+FAST_RENDER_RUNS = (("uniform", []),
+                    ("scout", ["--batched_obs_render", "scout"]))
+FAST_RENDER_SIMS = 16
+# phase 31: chunks of pose 0's render_grid_staged frame on the card and
+# on the CPU from the same net, cell table and occupancy state: the march
+# is IEEE additions, products, quotients and floors (the same samples on
+# both), the field's float32 products are summed in other orders (cuBLAS
+# and the CPU's: ~1e-6 relative), exp may differ in its last bit. Stated
+# before the first run: TOL_STAGED["K4 f32"]'s bounds (image max 1e-4 and
+# mean 1e-6, rgbs 1e-4, sigmas 1e-4 of max(|sigma|, 1)).
+FAST_RENDER_CHUNKS = (76, 80)
+TOL_GRID_CPU = TOL_STAGED["K4 f32"]
+# phase 31 flies its sim's first FR_SEQ_STEPS steps: each renders two
+# render_grid_staged frames of 12-17 s at 800^2 on an H100 (PERF.md
+# section 5), so the depth is cut to keep phases 29-32 within their
+# 150-s budget
+FR_SEQ_STEPS = 1
+# phase 32 replays the cross-entropy CSV from its simulation REPLAY_CEM_ITER
+# on (--iter: the replay appends to the replay CSV and keeps the others'
+# rows), the same depth cut
+REPLAY_CEM_ITER = 1
+
+
+def cell_layout_phase(torch, data_dir, runs, smi):
+    """Phase 29: the cell table of each CLI net (runs: name -> (flags,
+    checkpoint)) built on the card and on the CPU (bit-equal), the cell
+    encode of CELL_POINTS seeded points (a tenth outside the box) on the
+    card against the CPU's (TOL_CELL), and against the corner encode on
+    the dense levels (TOL_CELL); the table's MB, the build's ms, and the
+    cell and corner encodes' device ms. Returns their numbers."""
+    from nerfsafetyvalidation_tpu_torch.ops import hash_encoding as H
+    out = {}
+    for name, (flags, ckpt) in runs.items():
+        old, work = os.getcwd(), tempfile.mkdtemp()
+        os.chdir(work)
+        try:
+            net, _ = load_cli_net(torch, [data_dir, "--bound", "1",
+                                          "--scale", "1", *flags], ckpt)
+        finally:
+            os.chdir(old)
+            shutil.rmtree(work, ignore_errors=True)
+        spec, bound, dt = net.grid_spec, net.cfg.bound, net.compute_dtype
+        tol = TOL_CELL[str(dt)]
+        with torch.no_grad():
+            table_c = net.table
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cell = H.build_cell_table(table_c, spec)
+            torch.cuda.synchronize()
+            build_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            cell_cpu = H.build_cell_table(table_c.cpu(), spec)
+            build_cpu_s = time.perf_counter() - t0
+            ibits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            same = torch.equal(cell.cpu().view(ibits), cell_cpu.view(ibits))
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            x = (torch.rand((CELL_POINTS, 3), generator=gen, device="cuda")
+                 * 2.0 - 1.0) * bound
+            x[: CELL_POINTS // 10] *= 1.2
+            enc = H.hash_grid_encode_cell(cell, x, spec, bound=bound)
+            enc_cpu = H.hash_grid_encode_cell(cell_cpu, x.cpu(), spec,
+                                              bound=bound)
+            corner = H.hash_grid_encode(table_c, x, spec, bound=bound)
+            dense = [c for lvl in range(spec.num_levels)
+                     if not spec.use_hash[lvl]
+                     for c in range(lvl * spec.level_dim,
+                                    (lvl + 1) * spec.level_dim)]
+
+            def err(got, want):
+                got, want = got.float().cpu(), want.float().cpu()
+                scale = 1.0 if dt == torch.float32 \
+                    else want.abs().clamp(min=2 ** -10)
+                return float(((got - want).abs() / scale).max())
+            e_cpu = err(enc, enc_cpu)
+            e_dense = err(enc[:, dense], corner[:, dense]) if dense \
+                else float("nan")
+            zero_oob = bool((enc[(x.abs() > bound).any(-1)] == 0).all())
+            cell_ms = cuda_ms(torch, lambda: H.hash_grid_encode_cell(
+                cell, x, spec, bound=bound), 10)
+            corner_ms = cuda_ms(torch, lambda: H.hash_grid_encode(
+                table_c, x, spec, bound=bound), 10)
+        mb = cell.numel() * cell.element_size() / 1e6
+        rec = dict(rows=int(cell.shape[0]), width=int(cell.shape[1]),
+                   dtype=str(dt), mb=mb, build_ms=build_ms,
+                   build_cpu_s=build_cpu_s, bit_equal=same,
+                   err_card_cpu=e_cpu, err_dense_vs_corner=e_dense,
+                   dense_levels=len(dense) // spec.level_dim,
+                   cell_ms=cell_ms, corner_ms=corner_ms)
+        out[name] = rec
+        print(f"cell layout, {name} ({type(net).__name__}, {dt}): table "
+              f"[{rec['rows']}, {rec['width']}] {mb:.1f} MB, built in "
+              f"{build_ms:.2f} ms on the card ({build_cpu_s:.2f} s on the "
+              f"CPU), bit-equal {same}; encode of {CELL_POINTS} points card "
+              f"vs CPU max {e_cpu:.3e}, cell vs corner on the "
+              f"{rec['dense_levels']} dense levels max {e_dense:.3e} "
+              f"(bound {tol}); cell encode {cell_ms:.4f} ms, corner "
+              f"{corner_ms:.4f} ms; {smi}", flush=True)
+        check(same, f"cell layout, {name}: the card's table differs from "
+              "the CPU's")
+        check(e_cpu <= tol and e_dense <= tol and zero_oob and dense,
+              f"cell layout, {name}: the cell encode is off (or the net "
+              "has no dense level)")
+        del net, cell, cell_cpu
+    return out
+
+
+def _fresh_workdir(src=None, env_extra=None):
+    """A temporary working directory (made current) with envConfig.json
+    (env_extra's keys changed); from `src` (a phase's kept directory) the
+    SDF and the planner's pose cache, so that reset skips learn_init.
+    Returns (the old directory, the new one)."""
+    old, work = os.getcwd(), tempfile.mkdtemp()
+    os.chdir(work)
+    env = json.loads((ROOT / "envConfig.json").read_text())
+    env.update(env_extra or {})
+    Path("envConfig.json").write_text(json.dumps(env))
+    if src is not None:
+        for d in ("paths", "cached"):
+            if Path(src, d).exists():
+                shutil.copytree(Path(src, d), d)
+        os.makedirs("validation/utils", exist_ok=True)
+        shutil.copy(Path(src, "validation/utils/sdf.npy"),
+                    "validation/utils/sdf.npy")
+    return old, work
+
+
+def fast_render_batched_phase(torch, V, data_dir, ckpt, src, smi):
+    """Phase 30: `validate --ff --fast_render --batched_rollouts` Monte
+    Carlo (FAST_RENDER_SIMS sims, the plan's steps) on phase 19's net, in
+    a working directory with phase 19's pose cache (`src`), once a
+    FAST_RENDER_RUNS observation: K4 launched in the observations, the
+    refresh and A*, its plain version never; rollouts/s, the collision
+    rate, sigma_d's range, the CSV's rows. Returns their numbers."""
+    import random
+    from nerfsafetyvalidation_tpu_torch.models import renderer as R
+    from nerfsafetyvalidation_tpu_torch.models.network import NeRFNetwork
+    from nerfsafetyvalidation_tpu_torch.nav.planner import Planner
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    from nerfsafetyvalidation_tpu_torch.validation.batched import (
+        FullBatchedRolloutEngine)
+    old, work = _fresh_workdir(src, dict(n_simulations=FAST_RENDER_SIMS,
+                                         stress_test="Monte Carlo"))
+    out, places = {}, None
+    real_generate = V.generate_path
+    try:
+        draws = []
+
+        def generate(*ranges):
+            draws.append(ranges)
+            check(len(draws) <= 1 + MAX_RESTARTS, "validate --fast_render: "
+                  f"more than {MAX_RESTARTS} 'Path not found' restarts")
+            return real_generate(*ranges)
+        V.generate_path = generate
+        argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale",
+                "1", "--seed", "0", "--batched_rollouts", "--num_steps",
+                str(VALIDATE_STEPS), "--ff", "--fast_render"]
+        if src is None:
+            write_net_sdf(torch, argv, ckpt)
+        else:
+            load_cli_net(torch, argv, ckpt)
+        from nerfsafetyvalidation_tpu_torch.data.provider import NeRFDataset
+        test_pose = NeRFDataset(V.apply_O_flag(V.build_parser(
+            "validate").parse_args(argv), "validate"), type="test",
+            device="cuda").poses[0]
+        for name, extra in FAST_RENDER_RUNS:
+            for f in Path("results").glob("*.csv") if Path(
+                    "results").exists() else []:
+                f.unlink()
+            places = Places(torch.cuda.synchronize, fused_mlp, [
+                ("astar", Planner, "a_star_init"),
+                ("learn_init", Planner, "learn_init"),
+                ("refresh", R, "update_extra_state"),
+                ("to_cell", NeRFNetwork, "to_cell"),
+                ("observations", FullBatchedRolloutEngine, "_render_stats"),
+                ("run", FullBatchedRolloutEngine, "monte_carlo")])
+            random.seed(0)
+            draws.clear()
+            fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+            plain0 = fused_mlp.PLAIN_CALLS
+            t0 = time.perf_counter()
+            res = V.main(argv + extra, device="cuda")
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+            places.restore()
+            k4_all, k4_f32 = fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_F32
+            plain = fused_mlp.PLAIN_CALLS - plain0
+            eng = places.last["run"]
+            rows = list(csv.reader(open(
+                f"results/collisionValuesBatchedMC_n{FAST_RENDER_SIMS}.csv",
+                newline="")))
+            sig = res["sigma_d"]
+            # the occupancy grid, and the start's observation: the UQ's
+            # inputs and the share of pixels that are not background
+            rs = eng.renderer_state
+            occupied = float(popcount(torch, rs.density_bitfield)) / (
+                8 * rs.density_bitfield.numel())
+            def not_background(poses):
+                obs = eng._obs_call()(*eng._obs_rays(poses))
+                return obs, float((obs["image"].reshape(-1, 3).amin(-1)
+                                   < 0.99).float().mean())
+            with torch.inference_mode():
+                obs, hit = not_background(eng._pose_from_state(
+                    eng.start_state[None]))
+                start_stats = eng._obs_stats(obs)[0].tolist()
+                # the same observation from the test view's pose, which
+                # looks at the scene
+                _, hit_view = not_background(torch.as_tensor(
+                    test_pose, device="cuda")[None])
+            st = dict(wall_s=t_all, restarts=len(draws) - 1,
+                      run_s=places.s["run"],
+                      rollouts_per_s=FAST_RENDER_SIMS / places.s["run"],
+                      steps=int(eng.steps), obs_render=eng.obs_render,
+                      state=eng.renderer_state is not None,
+                      k4={k: places.k4[k] for k in (
+                          "astar", "learn_init", "refresh", "observations")},
+                      k4_all=k4_all, k4_f32=k4_f32, plain_calls=plain,
+                      seconds={k: places.s[k] for k in (
+                          "astar", "learn_init", "refresh", "to_cell",
+                          "observations")},
+                      collision_rate=float(res["collided"].any(1).mean()),
+                      sigma_d=[float(np.nanmin(sig)), float(np.nanmax(sig))],
+                      csv_rows=len(rows), grid_occupied=occupied,
+                      mean_density=float(rs.mean_density),
+                      start_obs_stats=start_stats, start_obs_hit=hit,
+                      test_view_obs_hit=hit_view)
+            out[name] = st
+            print(f"validate --ff --fast_render {name} MC ({FAST_RENDER_SIMS}"
+                  f" sims x {st['steps']} steps): {st['rollouts_per_s']:.3f}"
+                  f" rollouts/s ({st['run_s']:.3f} s), wall {t_all:.2f} s, "
+                  f"{st['restarts']} restarts; "
+                  f"seconds {({k: round(v, 3) for k, v in st['seconds'].items()})}"
+                  f"; K4 launches {st['k4']} (all {st['k4_all']}, f32 "
+                  f"{st['k4_f32']}), plain calls {st['plain_calls']}; "
+                  f"collision rate {st['collision_rate']}; sigma_d "
+                  f"{st['sigma_d']}; CSV {len(rows)} rows; the grid "
+                  f"{occupied:.4f} occupied (mean density "
+                  f"{st['mean_density']:.4g}); the start's observation: "
+                  f"{hit:.4f} of its pixels not background, UQ inputs "
+                  f"[S_c2d2, S_cd, mean image, mean and std of sigma] "
+                  f"{start_stats}; from the test view's pose {hit_view:.4f}"
+                  f" of its pixels not background; {smi}", flush=True)
+            check(st["obs_render"] == name and st["state"],
+                  f"--fast_render {name}: the engine has no occupancy state")
+            check(st["plain_calls"] == 0 and st["k4_f32"] == 0,
+                  f"--fast_render {name}: K4's plain version or f32 kernel "
+                  "ran")
+            check(st["k4"]["observations"] > 0 and st["k4"]["refresh"] > 0
+                  and st["k4"]["astar"] > 0,
+                  f"--fast_render {name}: K4 launches {st['k4']}")
+            check(rows and all(len(r) == 23 for r in rows)
+                  and bool(np.isfinite(sig).all() and (sig >= 0).all())
+                  and bool(np.isfinite(res["reward"]).all()),
+                  f"--fast_render {name}: the CSV, sigma_d or the reward")
+            check(hit_view > 0.0, f"--fast_render {name}: the observation "
+                  "from the test view's pose shades nothing")
+        return out
+    finally:
+        if places is not None:
+            places.restore()
+        V.generate_path = real_generate
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def fast_render_sequential_phase(torch, V, data_dir, ckpt, src, keep, smi):
+    """Phase 31: validate's sequential Monte Carlo with --fast_render
+    (envConfig as shipped, SEQ_SIMS sim, its first FR_SEQ_STEPS steps, --camera
+    nerf, 64 samples a ray for the camera's staged frame) on phase 20's
+    float32 net, with phase 22's pose cache (`src`, when given): seconds
+    per sim-step by part, render_fn's frame seconds and rays/s, no K4
+    launch; then the fast frame of the test view's pose against the
+    staged frame's PSNR on that view, and FAST_RENDER_CHUNKS of it through
+    render_grid_staged on the card and on the CPU (TOL_GRID_CPU). The
+    working directory is copied to `keep` for the replay. Returns the
+    numbers."""
+    import copy
+    import random
+    from nerfsafetyvalidation_tpu_torch.data.provider import NeRFDataset
+    from nerfsafetyvalidation_tpu_torch.data.rays import get_rays
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.models import renderer as R
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    old, work = _fresh_workdir(src, dict(n_simulations=SEQ_SIMS))
+    places, real_grid = None, R.render_grid_staged
+    try:
+        argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale",
+                "1", "--seed", "0", "--num_steps", str(VALIDATE_STEPS),
+                "--camera", "nerf", "--fast_render"]
+        if src is None:
+            write_net_sdf(torch, argv, ckpt)
+        else:
+            load_cli_net(torch, argv, ckpt)
+        seen = {}
+
+        def grid(net, state, rays_o, rays_d, **kw):
+            seen.update(net=net, state=state, kw=kw)
+            return real_grid(net, state, rays_o, rays_d, **kw)
+        R.render_grid_staged = grid
+        places = sequential_places(torch, fused_mlp)
+        random.seed(0)
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        t0 = time.perf_counter()
+        with mc_horizon(V, FR_SEQ_STEPS):
+            V.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        R.render_grid_staged = real_grid
+        places.restore()
+        k4 = fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32
+        rows = list(csv.reader(open(
+            f"results/collisionValuesBlenderMC_n{SEQ_SIMS}.csv", newline="")))
+        n = len(rows)
+        per = _seq_times(places, n)
+        view, state, kw = seen["net"], seen["state"], seen["kw"]
+        net = places.last["reset"].net
+        opt = V.apply_O_flag(V.build_parser("validate").parse_args(argv),
+                             "validate")
+        ds = NeRFDataset(opt, type="test", device="cuda")
+        H, W = ds.H, ds.W
+        gt = ds.images[0].numpy().astype(np.float64)
+        if gt.shape[-1] == 4:
+            gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+        rays = get_rays(ds.poses[:1], ds.intrinsics, H, W, device="cuda")
+
+        def psnr(img):
+            pred = img.reshape(H, W, 3).cpu().numpy().astype(np.float64)
+            return float(-10.0 * np.log10(max(np.mean((pred - gt) ** 2),
+                                              1e-10)))
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fast = R.render_grid_staged(view, state, rays["rays_o"],
+                                        rays["rays_d"], **kw)
+            torch.cuda.synchronize()
+            t_fast = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            staged = R.render(net, rays["rays_o"], rays["rays_d"],
+                              staged=True, bg_color=1.0,
+                              num_steps=VALIDATE_STEPS,
+                              max_ray_batch=opt.max_ray_batch)
+            torch.cuda.synchronize()
+            t_staged = time.perf_counter() - t0
+            # chunks of the frame on the card and on the CPU
+            mrb = kw["max_ray_batch"]
+            a, b = (c * mrb for c in FAST_RENDER_CHUNKS)
+            ro, rd = rays["rays_o"][:, a:b], rays["rays_d"][:, a:b]
+            card = R.render_grid_staged(view, state, ro, rd, **kw)
+            net_cpu = make_network(net.cfg, {
+                k: ([w.cpu() for w in v] if isinstance(v, list) else
+                    {kk: vv.cpu() for kk, vv in v.items()})
+                for k, v in net.params_tree().items()}, device="cpu")
+            view_cpu = copy.copy(net_cpu)
+            view_cpu.cell_table = view.cell_table.cpu()
+            state_cpu = R.RendererState(
+                density_bitfield=state.density_bitfield.cpu(),
+                skip_grid=state.skip_grid.cpu())
+            t0 = time.perf_counter()
+            cpu = R.render_grid_staged(view_cpu, state_cpu, ro.cpu(),
+                                       rd.cpu(), **kw)
+            t_cpu = time.perf_counter() - t0
+        img = (card["image"].cpu() - cpu["image"]).abs()
+        rgbs = float((card["rgbs"].cpu() - cpu["rgbs"]).abs().max())
+        sig = float(((card["sigmas"].cpu() - cpu["sigmas"]).abs()
+                     / cpu["sigmas"].abs().clamp(min=1.0)).max())
+        hits = int((cpu["sigmas"] > 0).sum())
+        st = dict(wall_s=t_all, sim_steps=n, s_per_sim_step=per,
+                  frame_s=per["observation"],
+                  rays_per_s=H * W / per["observation"],
+                  k4=k4, csv_rows=n, render_kw=kw,
+                  psnr_fast=psnr(fast["image"]),
+                  psnr_staged=psnr(staged["image"]), fast_s=t_fast,
+                  staged_s=t_staged, chunks=list(FAST_RENDER_CHUNKS),
+                  chunk_img_max=float(img.max()),
+                  chunk_img_mean=float(img.mean()), chunk_rgbs=rgbs,
+                  chunk_sigma=sig, chunk_samples=hits, chunk_cpu_s=t_cpu)
+        print(f"sequential MC --fast_render: {n} sim-steps in {t_all:.2f} "
+              f"s; seconds per sim-step "
+              f"{ {k: round(v, 4) for k, v in per.items()} }; render_fn "
+              f"(render_grid_staged {kw}) {st['frame_s']:.3f} s a frame, "
+              f"{st['rays_per_s']:.0f} rays/s; K4 launches {k4}; the test "
+              f"view's pose: PSNR {st['psnr_fast']:.3f} dB fast "
+              f"({t_fast:.3f} s) vs {st['psnr_staged']:.3f} dB staged at "
+              f"{VALIDATE_STEPS} samples ({t_staged:.3f} s); chunks "
+              f"{FAST_RENDER_CHUNKS[0]}-{FAST_RENDER_CHUNKS[1] - 1} card vs "
+              f"CPU ({hits} shaded samples in the last; CPU {t_cpu:.2f} s): "
+              f"image max {st['chunk_img_max']:.3e} mean "
+              f"{st['chunk_img_mean']:.3e}, rgbs {rgbs:.3e}, sigmas {sig:.3e}"
+              f" (bounds {TOL_GRID_CPU}); {smi}", flush=True)
+        check(n > 0 and all(len(r) == 24 for r in rows)
+              and all(np.isfinite(float(v)) for r in rows for v in r[2:22]),
+              "sequential MC --fast_render: the CSV")
+        check(k4 == 0, "sequential MC --fast_render launched K4 on the "
+              "CLI's unfused float32 net")
+        check(view.cell_table is not None and net.cell_table is None,
+              "sequential MC --fast_render: render_fn is not on the cell "
+              "view, or the net holds the cell table")
+        tol = TOL_GRID_CPU
+        check(st["chunk_img_max"] <= tol["image"][0]
+              and st["chunk_img_mean"] <= tol["image"][1]
+              and rgbs <= tol["rgbs"] and sig <= tol["sigma"] and hits > 0,
+              "sequential MC --fast_render: the card's chunks differ from "
+              "the CPU's")
+        if keep is not None:
+            shutil.copytree(work, keep)
+        return st
+    finally:
+        R.render_grid_staged = real_grid
+        if places is not None:
+            places.restore()
+        os.chdir(old)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def replay_phase(torch, V, data_dir, ckpt, src, smi):
+    """Phase 32: `validate --r --camera nerf` on the sequential Monte Carlo
+    CSV of `src` (a kept working directory: its path, SDF, pose cache and
+    CSVs), and on its cross-entropy CSV where it has one (from simulation
+    REPLAY_CEM_ITER on); then envConfig's
+    BlenderSimulator through `--batched_rollouts` (the core engine).
+    Prints the replay CSV's rows, the eight counts, counts.pkl, both
+    confusion PNGs decoded (and their JSON counts). Returns the numbers."""
+    import pickle
+    import random
+    from nerfsafetyvalidation_tpu_torch.data.png import read_png
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    out = {}
+    argv = [data_dir, "--workspace", "ws", "--bound", "1", "--scale", "1",
+            "--seed", "0", "--num_steps", str(VALIDATE_STEPS), "--camera",
+            "nerf"]
+    csvs = {"Monte Carlo": f"collisionValuesBlenderMC_n{SEQ_SIMS}.csv",
+            "Cross Entropy Method":
+                "collisionValuesCEM_m{m}melite{m_elite}k{kmax}.csv".format(
+                    **SEQ_CEM)}
+    for stress, name in csvs.items():
+        if not Path(src, "results", name).exists():
+            print(f"replay: {src} has no {name}; the {stress} replay is "
+                  "left out", flush=True)
+            continue
+        with Phase(f"replay {stress}"):
+            old, work = _fresh_workdir(src, dict(stress_test=stress,
+                                                 n_simulations=SEQ_SIMS))
+            try:
+                load_cli_net(torch, argv, ckpt)
+                os.makedirs("results")
+                for f in ("coordinates.json", name):
+                    shutil.copy(Path(src, "results", f), "results")
+                logged = list(csv.reader(open(f"results/{name}",
+                                              newline="")))
+                extra = []
+                if stress != "Monte Carlo":
+                    extra = ["--iter", str(REPLAY_CEM_ITER)]
+                    logged = [r for r in logged
+                              if int(r[1]) >= REPLAY_CEM_ITER]
+                fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+                t0 = time.perf_counter()
+                counts = V.main(argv + ["--r"] + extra, device="cuda")
+                torch.cuda.synchronize()
+                t_all = time.perf_counter() - t0
+                rows = list(csv.reader(open(
+                    "results/replays/collisionValuesReplay.csv",
+                    newline="")))
+                pkl = [int(c) for c in pickle.load(open("counts.pkl", "rb"))]
+                pngs = {k: read_png(f"results/confusion_matrix_{k}.png")
+                        for k in ("step", "traj")}
+                conf = {k: json.loads(Path(
+                    f"results/confusion_matrix_{k}.json").read_text())[
+                        "matrix"] for k in ("step", "traj")}
+                st = dict(wall_s=t_all, logged_rows=len(logged),
+                          replay_rows=len(rows), counts=[int(c) for c in
+                                                         counts],
+                          counts_pkl=pkl, matrices=conf,
+                          png_shapes={k: list(v.shape)
+                                      for k, v in pngs.items()},
+                          k4=fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32)
+                out[stress] = st
+                print(f"validate {' '.join(['--r'] + extra)} ({stress}, "
+                      f"{len(logged)} logged rows to replay): "
+                      f"{len(rows)} replayed rows in {t_all:.2f} s; counts "
+                      f"(tp, tn, fp, fn per step, then per trajectory) "
+                      f"{st['counts']}; counts.pkl {pkl}; confusion matrices "
+                      f"[[tn, fn], [fp, tp]] {conf}; PNGs "
+                      f"{st['png_shapes']}; K4 launches {st['k4']}; {smi}",
+                      flush=True)
+                check(st["counts"] == pkl and rows
+                      and all(len(r) == 22 for r in rows)
+                      and sum(st["counts"][:4]) == len(logged)
+                      and all(v.shape == (256, 256, 3) for v in pngs.values())
+                      and st["k4"] == 0, f"validate --r ({stress})")
+            finally:
+                os.chdir(old)
+                shutil.rmtree(work, ignore_errors=True)
+    with Phase("validate BlenderSimulator --batched_rollouts"):
+        old, work = _fresh_workdir(src, dict(simulator="BlenderSimulator",
+                                             n_simulations=FAST_RENDER_SIMS))
+        try:
+            load_cli_net(torch, argv, ckpt)
+            random.seed(0)
+            t0 = time.perf_counter()
+            res = V.main(argv + ["--batched_rollouts"], device="cuda")
+            t_all = time.perf_counter() - t0
+            rows = list(csv.reader(open(
+                f"results/collisionValuesBatchedMC_n{FAST_RENDER_SIMS}.csv",
+                newline="")))
+            st = dict(wall_s=t_all, csv_rows=len(rows),
+                      collision_rate=float(np.mean(res["ever_collided"])))
+            out["BlenderSimulator batched"] = st
+            print(f"validate BlenderSimulator --batched_rollouts (the core "
+                  f"engine, {FAST_RENDER_SIMS} sims): {t_all:.2f} s, CSV "
+                  f"{len(rows)} rows, collision rate {st['collision_rate']};"
+                  f" {smi}", flush=True)
+            check(len(rows) == FAST_RENDER_SIMS
+                  and all(len(r) == 4 for r in rows)
+                  and bool(np.isfinite(res["risk"]).all()),
+                  "validate BlenderSimulator --batched_rollouts")
+        finally:
+            os.chdir(old)
+            shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def fast_render_phases(torch, V, ckpt_ff, ckpt_unfused, val_dir,
+                       keep_ff, keep_seq, root, smi):
+    """Phases 29-32; keep_ff / keep_seq: phase 19's and phase 22's kept
+    working directories (their pose caches; phase 22's CSVs for the
+    replay), or None (then the phases plan afresh and the replay reads
+    phase 31's CSV). Returns their numbers."""
+    st = {}
+    with Phase("cell layout"):
+        st["cell layout"] = cell_layout_phase(torch, val_dir, {
+            "default (phase 20's)": ([], ckpt_unfused),
+            "--ff (phase 19's)": (["--ff"], ckpt_ff)}, smi)
+    with Phase("validate --ff --fast_render MC"):
+        st["validate --ff --fast_render MC"] = fast_render_batched_phase(
+            torch, V, val_dir, ckpt_ff, keep_ff, smi)
+    keep31 = str(Path(root) / "kept_fast_render_sequential")
+    with Phase("sequential MC --fast_render"):
+        st["sequential MC --fast_render"] = fast_render_sequential_phase(
+            torch, V, val_dir, ckpt_unfused, keep_seq, keep31, smi)
+    st["replay"] = replay_phase(torch, V, val_dir, ckpt_unfused,
+                                keep_seq or keep31, smi)
     return st
 
 
@@ -3842,11 +4438,13 @@ def main():
                                    unfused_astar_occupied=unfused_occ,
                                    unfused_train_s=t_unfused)}
     k4_validate = {"astar": 0, "learn_init": 0, "observations": 0}
+    keep_ff = str(Path(data_root.name) / "kept_validate_ff_mc")
+    keep_seq = str(Path(data_root.name) / "kept_sequential")
     for name, extra, stress, sims, ckpt in VALIDATE_RUNS:
         with Phase(f"validate {name}"):
             validate_stats[name] = validate_phase(
                 torch, validate_cli, val_dir, extra, stress, sims,
-                ckpts[ckpt], smi)
+                ckpts[ckpt], smi, keep=keep_ff if name == "--ff MC" else None)
             for place, n in validate_stats[name]["k4"].items():
                 k4_validate[place] += n
     for name, extra, msg in VALIDATE_REFUSALS:
@@ -3860,7 +4458,7 @@ def main():
 
     # ---- the sequential path: validate's default command, CEM, simulate -
     seq_stats = sequential_phase(torch, validate_cli, val_dir,
-                                 ckpts["unfused"], smi)
+                                 ckpts["unfused"], smi, keep=keep_seq)
     with Phase("simulate"):
         seq_stats["simulate"] = simulate_phase(
             torch, val_dir, ckpts["unfused"], seq_stats["MC"]["path"], smi)
@@ -3871,6 +4469,12 @@ def main():
                              ckpts["ff"], ckpts["unfused"], val_dir, smi)
     print("laplace: " + json.dumps(laplace))
     k4g = laplace["k4_grouped"]
+
+    # ---- validate --fast_render and --r ----------------------------------
+    fast = fast_render_phases(torch, validate_cli, ckpts["ff"],
+                              ckpts["unfused"], val_dir, keep_ff, keep_seq,
+                              data_root.name, smi)
+    print("fast_render: " + json.dumps(fast))
     data_root.cleanup()
 
     print(f"total {time.perf_counter() - t_start:.2f} s")
@@ -3919,7 +4523,10 @@ def main():
              k: laplace[f"uncertain {k}"]["launches"]
              for k in ("laplace", "gaussian")},
          "launches_validate_laplace":
-             laplace["validate --ff MC laplace"]["k4_all"]},
+             laplace["validate --ff MC laplace"]["k4_all"],
+         "launches_validate_fast_render": {
+             k: v["k4"] for k, v in
+             fast["validate --ff --fast_render MC"].items()}},
         {"name": "fused_mlp_grouped", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
@@ -4086,6 +4693,56 @@ def laplace_only():
         print("laplace: " + json.dumps(st))
 
 
+def fast_render_only():
+    """`python3 chip_smoke.py --fast-render`: phases 29-32 alone on freshly
+    trained `main_nerf -O --ff` and VALIDATE_UNFUSED nets (without phase
+    19's and 22's directories: the --fast_render phases plan afresh, and
+    the replay reads phase 31's Monte Carlo CSV), printing their numbers.
+    Not part of the smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch import validate as validate_cli
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (
+        generate_dataset, write_dataset)
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        train_dir = str(Path(root) / "spheres")
+        val_dir = str(Path(root) / f"spheres{VALIDATE_RES}")
+        write_dataset(train_dir, F.train_splits())
+        write_dataset(val_dir, generate_dataset(
+            n_train=1, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES))
+        with Phase("build"):
+            fused_mlp.build()
+        ckpts = {}
+        for name, flags in (("ff", MAIN_NERF_RUNS[0][1]),
+                            ("unfused", VALIDATE_UNFUSED)):
+            with Phase(f"main_nerf {' '.join(flags)}"):
+                ws = str(Path(root) / f"ws_{name}")
+                main_nerf.main([train_dir, "--workspace", ws, "--bound",
+                                "1", "--scale", "1", "--seed", "0", *flags],
+                               device="cuda")
+            ckpts[name] = sorted(Path(ws, "checkpoints").glob(
+                "ngp_ep*.ckpt"))[-1]
+        t0 = time.perf_counter()
+        st = fast_render_phases(torch, validate_cli, ckpts["ff"],
+                                ckpts["unfused"], val_dir, None, None, root,
+                                smi)
+        print("fast_render: " + json.dumps(st))
+        print(f"phases 29-32 {time.perf_counter() - t0:.2f} s; total "
+              f"{time.perf_counter() - t_start:.2f} s; {smi}", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--closed-loop-intrinsics"]:
         closed_loop_intrinsics()
@@ -4093,5 +4750,7 @@ if __name__ == "__main__":
         sequential_only()
     elif sys.argv[1:] == ["--laplace"]:
         laplace_only()
+    elif sys.argv[1:] == ["--fast-render"]:
+        fast_render_only()
     else:
         main()

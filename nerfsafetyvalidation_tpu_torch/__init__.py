@@ -31,5 +31,8 @@ observation rendered through the frames above and their kernels),
 measured by `bench_rollouts`; and the validate CLI's population modes
 (`validate`: the planner of `nav.planner` over A* in `csrc/astar.cpp`,
 `validation.simulators.NerfSimulator.reset`, the open-loop engines on the
-planned actions and the closed-loop engine of `validation.closed_loop`).
+planned actions and the closed-loop engine of `validation.closed_loop`);
+and validate's sequential path, its UQ methods, `--fast_render` (the
+cell-layout encode and `models.renderer.render_grid_staged`) and `--r`
+(`validation.replay` on `validation.simulators.BlenderSimulator`).
 """

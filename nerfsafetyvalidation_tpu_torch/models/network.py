@@ -41,6 +41,8 @@ copy is kept for calls without autograd, made again after the table
 changes.
 """
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -48,7 +50,9 @@ from torch import nn
 from ..config import NetworkConfig
 from ..ops.activation import trunc_exp
 from ..ops.freq_encoding import freq_encode, freq_output_dim
-from ..ops.hash_encoding import HashGridSpec, hash_grid_encode, hash_grid_init
+from ..ops.hash_encoding import (HashGridSpec, build_cell_table,
+                                 hash_grid_encode, hash_grid_encode_cell,
+                                 hash_grid_init)
 from ..ops.hopper._nvcc import weights_key
 from ..ops.hopper.fused_mlp import (fused_mlp, fused_mlp_grouped,
                                     fused_mlp_grouped_plain, fused_mlp_plain,
@@ -206,9 +210,38 @@ class NeRFNetwork(nn.Module):
                 self._table = (key, emb.to(self.compute_dtype))
         return self._table[1]
 
+    # the cell-layout table of a `to_cell` view; None on the net itself
+    cell_table = None
+
+    def to_cell(self):
+        """A render-only view of the net whose position encoder reads the
+        cell layout (ops/hash_encoding.build_cell_table, one row a sample
+        and level), built from the table cast to the compute dtype (the
+        JAX `to_cell`, network.py:166-178). The view shares this net's MLP
+        weights; the net itself keeps the corner layout. The JAX `to_cell`
+        returns new params that only the observation render reads, while
+        the planner's density, the estimator's render and the engines keep
+        the corner params; the two layouts differ on hashed levels, so the
+        cell table must not reach those, and the port returns a view
+        rather than changing the net. (The mip-fold net's `to_folded`
+        changes the net instead: every caller of that net reads the folded
+        layout.) A frequency-encoded net has no table: it is returned as
+        it is."""
+        if self.grid_spec is None:
+            return self
+        view = copy.copy(self)
+        with torch.no_grad():
+            view.cell_table = build_cell_table(self.table.detach(),
+                                               self.grid_spec)
+        return view
+
     def encode_pos(self, x):
         if self.grid_spec is None:
             return freq_encode(x, self.cfg.multires)
+        if self.cell_table is not None:
+            return hash_grid_encode_cell(self.cell_table, x, self.grid_spec,
+                                         bound=self.cfg.bound,
+                                         max_level=self.cfg.max_level)
         return hash_grid_encode(self.table, x, self.grid_spec,
                                 bound=self.cfg.bound,
                                 max_level=self.cfg.max_level)

@@ -1,6 +1,7 @@
 """Frame renderers of the port (nerfsafetyvalidation_tpu/models/
 renderer.py): the marched frame `render_frame_fast`, the depth-guided frame
-`render_frame_guided`, the marched training render `run_grid`, the
+`render_frame_guided`, the marched training render `run_grid` and its staged
+loop `render_grid_staged` (validate's `--fast_render` observation), the
 uniform-sampling render `run` with its staged loop `render` and
 `render_tiles` (how the reference's entry points observe a trained NeRF),
 and the occupancy state: `RendererState.create`, `mark_untrained_grid` and
@@ -221,6 +222,55 @@ def run_grid(net, state: RendererState, rays_o, rays_d,
             "sigmas": sigmas.reshape(-1, 1),
             "aggregated_density": res["aggregated_density"],
             "depth_abs": res["depth_abs"]}
+
+
+def render_grid_staged(net, state: RendererState, rays_o, rays_d,
+                       max_ray_batch: int = 4096, max_samples: int = 32,
+                       max_steps: int = 512, dt_gamma: float = 0.0,
+                       bg_color=None):
+    """The staged occupancy-marched frame (renderer.py:393-445), the
+    observation render of validate's `--fast_render`: chunks of
+    max_ray_batch rays, the last one padded with the JAX package's filler
+    rays (`_pad_rays`), each through `run_grid` with a sample budget of
+    12 * max_ray_batch (the budget is per chunk, so the chunking is
+    part of the result). rays_o/d: [B, N, 3]. 'image', 'depth' and
+    'aggregated_density' cover every ray; 'rgbs' and 'sigmas' are the last
+    chunk's, padding included (the reference's contract, which the UQ
+    reads)."""
+    bg = 1.0 if bg_color is None else bg_color
+    return _staged(
+        lambda ro, rd: run_grid(net, state, ro, rd, max_samples=max_samples,
+                                max_steps=max_steps, dt_gamma=dt_gamma,
+                                bg_color=bg,
+                                sample_budget=max_ray_batch * 12),
+        rays_o, rays_d, max_ray_batch)
+
+
+def _staged(render_chunk, rays_o, rays_d, max_ray_batch):
+    """The staged loop of `render` and `render_grid_staged`: rays_o/d
+    [B, N, 3] in chunks of max_ray_batch rays, the last one padded
+    (`_pad_rays`), each through render_chunk(rays_o, rays_d); 'image',
+    'depth' and 'aggregated_density' of every ray, written into tensors
+    on the rays' device (nothing waits on the device per chunk), and the
+    last chunk's 'rgbs' and 'sigmas'."""
+    B, N = rays_o.shape[:2]
+    dev = rays_o.device
+    depth = torch.empty((B, N), device=dev)
+    image = torch.empty((B, N, 3), device=dev)
+    aggregated = torch.empty((B, N), device=dev)
+    last = None
+    for b in range(B):
+        for head in range(0, N, max_ray_batch):
+            tail = min(head + max_ray_batch, N)
+            ro, rd = _pad_rays(rays_o[b, head:tail], rays_d[b, head:tail],
+                               max_ray_batch)
+            last = render_chunk(ro, rd)
+            n = tail - head
+            depth[b, head:tail] = last["depth"][:n]
+            image[b, head:tail] = last["image"][:n]
+            aggregated[b, head:tail] = last["aggregated_density"][:n]
+    return {"depth": depth, "image": image, "rgbs": last["rgbs"],
+            "sigmas": last["sigmas"], "aggregated_density": aggregated}
 
 
 def _pad_rays(rays_o, rays_d, n):
@@ -724,22 +774,8 @@ def render(net, rays_o, rays_d, staged: bool = False,
             "sigmas": res["sigmas"],
             "aggregated_density": res["aggregated_density"].reshape(B, N),
         }
-    depth = torch.empty((B, N), device=dev)
-    image = torch.empty((B, N, 3), device=dev)
-    aggregated = torch.empty((B, N), device=dev)
-    last = None
-    for b in range(B):
-        for head in range(0, N, max_ray_batch):
-            tail = min(head + max_ray_batch, N)
-            ro, rd = _pad_rays(rays_o[b, head:tail], rays_d[b, head:tail],
-                               max_ray_batch)
-            last = run(net, ro, rd, **kw)
-            n = tail - head
-            depth[b, head:tail] = last["depth"][:n]
-            image[b, head:tail] = last["image"][:n]
-            aggregated[b, head:tail] = last["aggregated_density"][:n]
-    return {"depth": depth, "image": image, "rgbs": last["rgbs"],
-            "sigmas": last["sigmas"], "aggregated_density": aggregated}
+    return _staged(lambda ro, rd: run(net, ro, rd, **kw), rays_o, rays_d,
+                   max_ray_batch)
 
 
 def render_tiles(net, rays_o, rays_d, tile: int = 8192, num_steps: int = 512,

@@ -23,8 +23,17 @@ are one gather, whose backward sums each row's duplicates in a fixed order
 (`index_put_` with accumulate), so two runs give the same gradient bit for
 bit. `hash_grid_init` draws a fresh table.
 
-The aligned spec (`aligned=True`) and the cell and folded layouts of the
-JAX package are not ported.
+The cell layout (`build_cell_table`, `hash_grid_encode_cell`): a table of
+one row a grid cell holding its 2^D corner features side by side, so that
+a sample reads one row a level. Dense levels convert exactly; hashed levels
+hash the cell's coordinate into 2^log2_hashmap_size rows, each filled from
+one of its cells (the last of the cells sampled into it), so they alias
+whole corner tuples where the corner layout aliases single corners. The
+validate CLI's `--fast_render` observations read it
+(`NeRFNetwork.to_cell`).
+
+The aligned spec (`aligned=True`) and the folded layout of the JAX package
+are not ported.
 """
 
 from dataclasses import dataclass, field
@@ -191,16 +200,24 @@ def _level_constants(spec: HashGridSpec, n_active: int, device: str):
         bits=t(_corner_bits(spec.input_dim).astype(np.int64)))
 
 
+def _rows(grid, use_hash, strides, sizes, offsets):
+    """Table rows of integer grid coordinates [..., D]: the uint32 prime-XOR
+    hash where `use_hash`, else the uint32 dense index sum(grid * strides),
+    modulo the level size, plus the level offset (the level constants
+    broadcast against grid's leading axes)."""
+    grid = grid.to(torch.int64)
+    dense = (grid * strides).sum(dim=-1) & _MASK32
+    index = torch.where(use_hash, _prime_hash(grid), dense)
+    return index % sizes + offsets
+
+
 def _level_rows(spec: HashGridSpec, corner_grid):
     """Table row (level offset included) of each corner. corner_grid:
     [N, La, 2^D, D] integer grid coordinates of the first La levels ->
-    [N, La, 2^D] int64. The uint32 prime-XOR hash on hashed levels, the
-    dense index on the others, modulo the level size."""
+    [N, La, 2^D] int64."""
     c = _level_constants(spec, corner_grid.shape[1], str(corner_grid.device))
-    grid = corner_grid.to(torch.int64)
-    dense = (grid * c["strides"]).sum(dim=-1) & _MASK32
-    index = torch.where(c["use_hash"], _prime_hash(grid), dense)
-    return index % c["sizes"] + c["offsets"]
+    return _rows(corner_grid, c["use_hash"], c["strides"], c["sizes"],
+                 c["offsets"])
 
 
 def _n_active(spec: HashGridSpec, max_level):
@@ -258,4 +275,145 @@ def hash_grid_encode(embeddings, x, spec: HashGridSpec, bound: float = 1.0,
         # under autograd the writes record their slices' backward
         out[i:i + ENCODE_CHUNK] = _encode_corner_chunk(
             embeddings, x[i:i + ENCODE_CHUNK], spec, bound, n_active)
+    return out.reshape(prefix + (spec.output_dim,))
+
+
+# --------------------------------------------------------- the cell layout
+def cell_sizes(spec: HashGridSpec):
+    """Per-level cell-table (sizes, offsets, strides): dense levels hold
+    res^D cells (strides 1, res, res^2, ...), hashed levels the same
+    2^log2_hashmap_size rows as the corner layout's budget."""
+    sizes, offsets, strides = [], [], []
+    off = 0
+    for lvl in range(spec.num_levels):
+        res = spec.resolutions[lvl]
+        if spec.use_hash[lvl]:
+            size = 2 ** spec.log2_hashmap_size
+            lvl_strides = (0,) * spec.input_dim
+        else:
+            size = res ** spec.input_dim
+            lvl_strides = tuple(res ** d for d in range(spec.input_dim))
+        sizes.append(size)
+        offsets.append(off)
+        strides.append(lvl_strides)
+        off += size
+    offsets.append(off)
+    return sizes, offsets, strides
+
+
+@lru_cache(maxsize=32)
+def _cell_constants(spec: HashGridSpec, n_active: int, device: str):
+    """`_level_constants` of the cell layout: use_hash, sizes, offsets
+    [La] and strides [La, D] int64 of the first n_active levels."""
+    sizes, offsets, strides = cell_sizes(spec)
+    la = slice(0, n_active)
+
+    def t(v, dtype=torch.int64):
+        with torch.inference_mode(False):
+            return torch.tensor(v, dtype=dtype, device=device)
+
+    return dict(use_hash=t(spec.use_hash[la], torch.bool),
+                sizes=t(sizes[la]), offsets=t(offsets[la]),
+                strides=t(strides[la]))
+
+
+def _cell_rows(spec: HashGridSpec, cell_grid, lvl=None):
+    """Cell-table row (level offset included) of each cell. cell_grid:
+    [N, La, D] integer cell coordinates of the first La levels -> [N, La]
+    int64; with `lvl`, [..., D] of that level alone -> [...]."""
+    if lvl is None:
+        c = _cell_constants(spec, cell_grid.shape[-2], str(cell_grid.device))
+        return _rows(cell_grid, c["use_hash"], c["strides"], c["sizes"],
+                     c["offsets"])
+    c = _cell_constants(spec, lvl + 1, str(cell_grid.device))
+    return _rows(cell_grid, c["use_hash"][lvl], c["strides"][lvl],
+                 c["sizes"][lvl], c["offsets"][lvl])
+
+
+def _level_cells(spec: HashGridSpec, lvl: int, size: int) -> np.ndarray:
+    """The cells [M, 3] uint32 whose corners fill level lvl's rows, in the
+    JAX package's order: every cell (x slowest), or on a hashed level with
+    more than 4 * size cells, 4 * size cells drawn by numpy from
+    default_rng(lvl) (they fill ~98% of the rows)."""
+    res = spec.resolutions[lvl]
+    if spec.use_hash[lvl] and res ** 3 > size * 4:
+        return np.random.default_rng(lvl).integers(0, res, (size * 4, 3),
+                                                   dtype=np.uint32)
+    g = np.arange(res, dtype=np.uint32)
+    cx, cy, cz = np.meshgrid(g, g, g, indexing="ij")
+    return np.stack([cx.ravel(), cy.ravel(), cz.ravel()], -1)
+
+
+def build_cell_table(embeddings, spec: HashGridSpec):
+    """The cell-layout table [total cells, 2^D * C] of a corner-layout table
+    embeddings [offsets[-1], C], in its dtype and on its device (the JAX
+    package's build_cell_table). A row holds its cell's 2^D corner
+    features (corner-major, x fastest), read from the corner layout. Where
+    several cells land in one row, the last of them in the order of
+    `_level_cells` fills it, as the JAX scatter keeps the last of
+    duplicate indices on the CPU: the winner is each row's largest sample
+    position (a scatter-max), so that every build on every device gives
+    the same bits. A row no cell lands in stays zero."""
+    if spec.input_dim != 3:
+        raise NotImplementedError("the port encodes 3-D positions only")
+    sizes, offsets, _ = cell_sizes(spec)
+    dev = embeddings.device
+    bits = torch.as_tensor(_corner_bits(3).astype(np.int64), device=dev)
+    C = embeddings.shape[1]
+    table = torch.zeros((offsets[-1], 8 * C), dtype=embeddings.dtype,
+                        device=dev)
+    for lvl in range(spec.num_levels):
+        cells = torch.as_tensor(
+            _level_cells(spec, lvl, sizes[lvl]).astype(np.int64), device=dev)
+        rows = _cell_rows(spec, cells, lvl) - offsets[lvl]
+        order = torch.arange(cells.shape[0], dtype=torch.int64, device=dev)
+        last = torch.full((sizes[lvl],), -1, dtype=torch.int64, device=dev)
+        last.scatter_reduce_(0, rows, order, reduce="amax")
+        filled = torch.nonzero(last >= 0)[:, 0]
+        corners = cells[last[filled]][:, None, :] + bits      # [R, 8, 3]
+        c = _level_constants(spec, lvl + 1, str(dev))
+        corner_rows = _rows(corners, c["use_hash"][lvl], c["strides"][lvl],
+                            c["sizes"][lvl], c["offsets"][lvl])
+        table[offsets[lvl] + filled] = embeddings[corner_rows].reshape(
+            -1, 8 * C)
+    return table
+
+
+def _encode_cell_chunk(cell_table, x, spec: HashGridSpec, bound: float,
+                       n_active: int):
+    c = _level_constants(spec, n_active, str(x.device))
+    u = (x.float() + bound) / (2.0 * bound)
+    oob = ((u < 0.0) | (u > 1.0)).any(dim=-1)
+    pos = u[:, None, :] * c["scales"][None, :, None]        # [N, La, D]
+    if not spec.align_corners:
+        pos = pos + 0.5
+    pos_floor = torch.floor(pos)
+    frac = pos - pos_floor
+    rows = _cell_rows(spec, pos_floor.to(torch.int64))       # [N, La]
+    feats = cell_table[rows].reshape(-1, 2 ** spec.input_dim,
+                                     spec.level_dim)
+    out = _blend(_blend_weights(frac.reshape(-1, spec.input_dim)), feats)
+    out = _pad_masked_levels(out.reshape(x.shape[0], n_active,
+                                         spec.level_dim), n_active, spec)
+    return torch.where(oob[:, None], torch.zeros_like(out), out)
+
+
+def hash_grid_encode_cell(cell_table, x, spec: HashGridSpec,
+                          bound: float = 1.0, max_level=None):
+    """`hash_grid_encode` through the cell layout (`build_cell_table`): one
+    row a sample and level, blended trilinearly as the corner encode
+    blends. Equal to the corner encode on dense levels; on hashed levels
+    it differs only in what collides. Levels >= max_level encode to zero
+    and are not gathered. x [..., D] -> [..., L * C] in the table's
+    dtype."""
+    if spec.input_dim != 3:
+        raise NotImplementedError("the port encodes 3-D positions only")
+    prefix = x.shape[:-1]
+    x = x.reshape(-1, spec.input_dim)
+    n_active = _n_active(spec, max_level)
+    out = torch.empty((x.shape[0], spec.output_dim), dtype=cell_table.dtype,
+                      device=cell_table.device)
+    for i in range(0, x.shape[0], ENCODE_CHUNK):
+        out[i:i + ENCODE_CHUNK] = _encode_cell_chunk(
+            cell_table, x[i:i + ENCODE_CHUNK], spec, bound, n_active)
     return out.reshape(prefix + (spec.output_dim,))

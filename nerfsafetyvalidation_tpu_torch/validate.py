@@ -25,21 +25,38 @@ When `blender` is on PATH and envConfig names a blend file, Blender
 draws the trajectories at the end.
 
 `--batched_rollouts`: the planner's actions roll out open-loop through
-FullBatchedRolloutEngine (the `uniform` observation at
-`--batched_obs_res`^2 with `--num_steps` samples a ray, the UQ: Gaussian,
-or with envConfig's Laplace the engine's in-scan Laplace fits, the
-reward, the SDF check): Monte Carlo writes
+FullBatchedRolloutEngine (the `--batched_obs_render` observation at
+`--batched_obs_res`^2: `uniform` with `--num_steps` samples a ray, or
+with `--fast_render` through `run_grid`; `fast`, `guided`, `scout`; the
+UQ: Gaussian, or with envConfig's Laplace the engine's in-scan Laplace
+fits, the reward, the SDF check): Monte Carlo writes
 results/collisionValuesBatchedMC_n<N>.csv, the cross-entropy method
 results/collisionValuesBatchedCEM_m<M>melite5k5.csv. With
 `--closed_loop`: ClosedLoopBatchedEngine (the estimator and the replan
 every step, the UQ reward unless `--closed_loop_uq none`: `auto` follows
 envConfig's uq_method), writing
-results/collisionValuesClosedLoop{MC_n<N>,CEM_m<M>melite5k5}.csv.
+results/collisionValuesClosedLoop{MC_n<N>,CEM_m<M>melite5k5}.csv. With
+envConfig's BlenderSimulator (no net): the dynamics and SDF core engine.
+
+`--fast_render`: the occupancy grid is refreshed once from the net (a
+torch.Generator seeded --seed draws its jitter), and the observation
+render (`render_fn`) marches it, `render_grid_staged` over the net's
+cell-layout view (`to_cell`); the planner, the estimator, the NeRF camera
+and the engines keep the corner layout, and the engines' marched
+observations read the grid.
+
+`--r`: the stress test's CSV under results/ is replayed on a
+BlenderSimulator (validation/replay.py) on the saved path
+(results/coordinates.json), from `--iter` (and for the cross-entropy
+method `--k`) on; the step and trajectory confusion matrices go to
+results/confusion_matrix_{step,traj}.{png,json}, the tallies to
+counts.pkl.
 
 Refused, with a message and a non-zero exit, before anything is loaded:
-`-r` replay and BlenderSimulator (ROADMAP Queue 1 item 6), `--fast_render`
-(item 5), `--tcnn` (item 9), a uq_method other than the two, and three
-combinations on which the JAX CLI restarts forever: `--ff` on the
+`--tcnn` (ROADMAP Queue 1 item 9), a uq_method other than the two, `--r
+--ff` (the JAX replay's estimator raises ValueError from jax.hessian
+through the fused kernel, with no loop around it: a traceback), and
+three combinations on which the JAX CLI restarts forever: `--ff` on the
 sequential path and `--closed_loop --ff` (the estimator's jax.hessian
 through the fused kernel raises ValueError, which the restart loop takes
 for a missing path), and `--batched_obs_render fast|guided|scout` without
@@ -71,7 +88,8 @@ from .utils.seeding import seed_everything
 from .validation.batched import BatchedRolloutEngine, FullBatchedRolloutEngine
 from .validation.closed_loop import ClosedLoopBatchedEngine
 from .validation.distributions import SeedableMultivariateNormal
-from .validation.simulators import NerfSimulator
+from .validation.replay import replay_CEM, replay_MC
+from .validation.simulators import BlenderSimulator, NerfSimulator
 from .validation.stresstests import CrossEntropyMethod, MonteCarlo
 from .validation.utils.paths import generate_path, load_coords, save_coords
 
@@ -86,13 +104,7 @@ LAPLACE = "Bayesian Laplace Approximation"
 
 def refusal(opt, env):
     """Why the port does not run this command line, or None."""
-    if getattr(opt, "r", False):
-        return ("-r replays through the BlenderSimulator and "
-                "validation/replay.py, which are not ported yet (ROADMAP "
-                "Queue 1 item 6)")
-    if env.simulator == "BlenderSimulator":
-        return "BlenderSimulator is not ported yet (ROADMAP Queue 1 item 6)"
-    if env.simulator != "NerfSimulator":
+    if env.simulator not in ("NerfSimulator", "BlenderSimulator"):
         return f"Unrecognized simulator {env.simulator}"
     if env.stress_test not in ("Monte Carlo", "Cross Entropy Method"):
         return f"Unrecognized stress test {env.stress_test}"
@@ -100,16 +112,19 @@ def refusal(opt, env):
         return ("--tcnn builds the JAX package's NeRFNetworkTCNN "
                 "(models/network_tcnn.py), which is not ported yet (ROADMAP "
                 "Queue 1 item 9)")
-    if opt.fast_render:
-        return ("--fast_render needs NeRFNetwork.to_cell and "
-                "render_grid_staged, which are not ported yet (ROADMAP "
-                "Queue 1 item 5)")
-    if opt.batched_rollouts and opt.batched_obs_render != "uniform":
+    if opt.r and opt.ff:
+        return ("--r --ff: the replay's estimator takes the Hessian through "
+                "the fused MLP, where jax.hessian raises ValueError in the "
+                "JAX CLI, which has no loop around the replay and exits with "
+                "a traceback; replay without --ff")
+    if opt.batched_rollouts and opt.batched_obs_render != "uniform" \
+            and not (opt.fast_render or opt.r):
         return (f"--batched_obs_render {opt.batched_obs_render} needs "
                 "--fast_render's occupancy state; without it the JAX CLI "
                 "falls back to 'scout', whose engine raises ValueError, and "
                 "the restart loop retries forever")
-    if env.uq_method not in (GAUSSIAN, LAPLACE):
+    if env.simulator == "NerfSimulator" \
+            and env.uq_method not in (GAUSSIAN, LAPLACE):
         return f"Unrecognized uncertainty quantification method " \
                f"{env.uq_method!r}"
     if opt.ff and not opt.batched_rollouts:
@@ -147,14 +162,17 @@ def _engine_args(simulator, noise_mean, noise_std, device):
 
 def _uq_engine(simulator, actions, noise_mean, noise_std, opt, device,
                uq_method="gaussian"):
-    """The open-loop engine over the simulator's net: the `uniform`
-    observation at batched_obs_res^2, num_steps samples a ray, the UQ
-    `uq_method` ("gaussian" or "laplace") at the JAX CLI's knobs."""
+    """The open-loop engine over the simulator's net: the
+    --batched_obs_render observation at batched_obs_res^2 (`uniform`:
+    num_steps samples a ray, or through `run_grid` with --fast_render's
+    occupancy state), the UQ `uq_method` ("gaussian" or "laplace") at the
+    JAX CLI's knobs (validate.py:114-135)."""
     res = int(opt.batched_obs_res)
     return FullBatchedRolloutEngine(
         actions, net=simulator.net, obs_res=res,
         render_steps=int(opt.num_steps), base_res=simulator.res_x,
-        uq_method=uq_method, obs_render="uniform",
+        uq_method=uq_method, obs_render=opt.batched_obs_render,
+        renderer_state=simulator.renderer_state,
         obs_group=_group(res * res * int(opt.num_steps), OBS_SAMPLES),
         **_engine_args(simulator, noise_mean, noise_std, device))
 
@@ -165,7 +183,7 @@ def validate_batched(simulator, stresstest, noise_mean, noise_std,
     learn_init), then the planner's actions through the open-loop engine,
     or the closed-loop engine with --closed_loop."""
     uq_method = "gaussian"
-    if simulator.uq_method == LAPLACE:
+    if getattr(simulator, "uq_method", None) == LAPLACE:
         uq_method = "laplace"
         print("[INFO] batched rollouts with in-scan Bayesian-Laplace UQ "
               "(subsampled MAP fits; sequential mode runs the full-set "
@@ -173,14 +191,14 @@ def validate_batched(simulator, stresstest, noise_mean, noise_std,
     simulator.reset()
     actions = simulator.traj.get_actions().detach()
     if opt.closed_loop:
-        if simulator.net is None:
+        if getattr(simulator, "net", None) is None:
             raise SystemExit("--closed_loop needs the NeRF simulator (the "
                              "estimator's measurement renders the NeRF)")
         return validate_closed_loop(simulator, stresstest, noise_mean,
                                     noise_std, n_simulations, actions, opt,
                                     device)
     gen = torch.Generator(device=device).manual_seed(opt.seed)
-    if simulator.net is None:
+    if getattr(simulator, "net", None) is None:
         # no NeRF to render: the dynamics, SDF and likelihood core engine
         print("[WARN] batched rollouts without a NeRF observation model: "
               "running the dynamics+SDF core only")
@@ -312,7 +330,8 @@ def validate(simulator, stresstest, noise_mean, noise_std, n_simulations,
 
 
 def main(argv=None, device="cuda"):
-    """Returns the stress test's result (see `validate`)."""
+    """Returns the stress test's result (see `validate`), or with --r the
+    replay's eight counts (see validation/replay.py)."""
     opt = apply_O_flag(build_parser("validate").parse_args(argv), "validate")
     env = EnvConfig.load("envConfig.json")
     why = refusal(opt, env)
@@ -320,7 +339,7 @@ def main(argv=None, device="cuda"):
         raise SystemExit(f"validate: {why}")
     p = env.planner_cfg
     ranges = (p["x_range"], p["y_range"], p["z_range"])
-    if opt.iter != 0 or opt.k != 0:
+    if opt.r or opt.iter != 0 or opt.k != 0:
         start_pos, end_pos, steps = load_coords()
     else:
         start_pos, end_pos, steps = generate_path(*ranges)
@@ -381,11 +400,32 @@ def main(argv=None, device="cuda"):
         return net.density(x.reshape(-1, 3) @ rot)["sigma"].reshape(
             x.shape[:-1])
 
-    def render_fn(rays_o, rays_d):
-        return R.render(net, rays_o, rays_d, staged=True, bg_color=1.0,
-                        num_steps=opt.num_steps,
-                        upsample_steps=opt.upsample_steps,
-                        max_ray_batch=opt.max_ray_batch)
+    state = None
+    if opt.fast_render:
+        # the occupancy-marched observation: the grid refreshed once from
+        # the net, and a render-only cell-layout view of it
+        # (validate.py:397-425)
+        print("[INFO] building density grid + cell tables for fast render")
+        cfg = net.cfg
+        with torch.no_grad():
+            state = R.update_extra_state(
+                net, R.RendererState.create(cfg.cascade, cfg.grid_size,
+                                            device=device),
+                generator=torch.Generator(device=dev).manual_seed(opt.seed),
+                grid_size=cfg.grid_size)
+            render_net = net.to_cell()
+
+        def render_fn(rays_o, rays_d):
+            return R.render_grid_staged(
+                render_net, state, rays_o, rays_d,
+                max_ray_batch=opt.max_ray_batch, max_steps=opt.max_steps,
+                dt_gamma=opt.dt_gamma, bg_color=1.0)
+    else:
+        def render_fn(rays_o, rays_d):
+            return R.render(net, rays_o, rays_d, staged=True, bg_color=1.0,
+                            num_steps=opt.num_steps,
+                            upsample_steps=opt.upsample_steps,
+                            max_ray_batch=opt.max_ray_batch)
 
     def render_batch_fn(rays_o, rays_d):
         return R.render(net, rays_o, rays_d, staged=False, bg_color=1.0,
@@ -401,20 +441,47 @@ def main(argv=None, device="cuda"):
         camera = CannedCamera(res_x=camera_cfg["res_x"],
                               res_y=camera_cfg["res_y"])
     elif opt.camera == "nerf":
+        # the staged frame, with or without --fast_render
+        # (validate.py:443-451)
         def render_from_pose(pose):
             rays = get_rays_fn(np.asarray(pose, np.float32)[None])
             with torch.no_grad():
-                return render_fn(rays["rays_o"], rays["rays_d"])["image"]
+                return R.render(net, rays["rays_o"], rays["rays_d"],
+                                staged=True, bg_color=1.0,
+                                num_steps=opt.num_steps,
+                                max_ray_batch=opt.max_ray_batch)["image"]
         camera = NerfCamera(render_from_pose, res_x=camera_cfg["res_x"],
                             res_y=camera_cfg["res_y"])
 
-    simulator = NerfSimulator(start_state, end_state, agent_cfg, planner_cfg,
-                              camera_cfg, filter_cfg, get_rays_fn, render_fn,
-                              blender_cfg, density_fn, env.uq_method, net,
-                              opt.seed, camera=camera,
-                              render_batch_fn=render_batch_fn, device=device)
+    sim_args = (start_state, end_state, agent_cfg, planner_cfg, camera_cfg,
+                filter_cfg, get_rays_fn, render_fn, blender_cfg, density_fn)
+    if env.simulator == "NerfSimulator":
+        simulator = NerfSimulator(*sim_args, env.uq_method, net, opt.seed,
+                                  camera=camera,
+                                  render_batch_fn=render_batch_fn,
+                                  device=device)
+    else:
+        simulator = BlenderSimulator(*sim_args, opt.seed, camera=camera,
+                                     render_batch_fn=render_batch_fn,
+                                     device=device)
+    # the engines' marched observations read --fast_render's grid
+    simulator.renderer_state = state
     simulator.dataset_intrinsics = tuple(
         float(v) for v in np.asarray(dataset.intrinsics).reshape(-1)[:4])
+
+    if opt.r:
+        # the replay on the ground-truth simulator (validate.py:478-495)
+        replay = replay_MC if env.stress_test == "Monte Carlo" \
+            else replay_CEM
+        args = (start_state, end_state, noise_mean, noise_std, agent_cfg,
+                planner_cfg, camera_cfg, filter_cfg, get_rays_fn, render_fn,
+                blender_cfg, density_fn, agent_cfg["blend_file"],
+                opt.workspace, opt.seed, opt.iter)
+        if replay is replay_CEM:
+            args += (opt.k,)
+        res = replay(*args, camera=camera, device=device)
+        print("End of validation".center(20, "."))
+        return res
 
     # the restart loop (validate.py:313-341): A* found no path (ValueError)
     # or the start or goal is occupied (AssertionError)

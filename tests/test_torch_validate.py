@@ -238,11 +238,8 @@ REFUSALS = {
                        True),
     "guided_no_fast_render": (["--batched_obs_render", "guided"], {},
                               "restart loop", True),
-    "fast_render": (["--fast_render"], {}, "to_cell", True),
     "sequential": (["--ff"], {}, "--ff on the sequential path", False),
-    "replay": (["--r"], {}, "replay", True),
-    "blender": ([], {"simulator": "BlenderSimulator"}, "BlenderSimulator",
-                True),
+    "replay_ff": (["--r", "--ff"], {}, "--r --ff", True),
     "tcnn": (["--tcnn"], {}, "NeRFNetworkTCNN", False),
 }
 
