@@ -66,10 +66,12 @@ Phases, each printing its elapsed seconds:
      chain (the route BENCH_r05 ran), as a check;
  10c. kernel K4 f32: the same shaded tile through the float32 net (a
      fused float32 NeRFNetwork built directly; the CLI's --ff builds
-     NeRFNetworkFF, bf16): the f32 kernel against its plain version at
-     rtol 5e-4 / atol 1e-5, with kernel, plain, library (the f32
-     torch.matmul chain, TF32 off) and bound times, warm and cold, and 20
-     reruns bit-identical to the first;
+     NeRFNetworkFF, bf16): the f32 kernel (3xTF32 wgmma) against its
+     plain version at rtol 5e-4 / atol 1e-5, with kernel, plain, library
+     (the f32 torch.matmul chain, TF32 off) and bound times (the f32
+     CUDA cores' and the 3xTF32 route's), warm and cold, and 20 reruns
+     bit-identical to the first; then at K4_F32_ODD's chains (widths to
+     128, the weights resident and a layer at a time);
  10d. staged, staged_bf16: pose 0 at 800x800 through the staged render at
      the CLI's defaults (157 chunks of 4,096 rays x 512 samples), through
      K4's f32 kernel and its bf16 one: s/frame, rays/s, PSNR beside
@@ -208,11 +210,13 @@ Phases, each printing its elapsed seconds:
      and the replan, the estimate's distance from the truth a step;
  25. kernel K4 grouped: the in-scan Laplace fits' mode (one weight set a
      group) against its plain version at 16 groups x 256 rows of the FF
-     sigma net 32-64-64-16 (seeded) and at a ragged 5 x 200; each group
+     sigma net 32-64-64-16 (seeded), at a ragged 5 x 200, and at 3 x 40
+     of a narrow 24-48-8 net with contiguous weights; each group
      bit-equal to the single mode on its own weights; 20 reruns
      bit-identical; the weights' gradients the recompute's, bit for bit;
-     kernel (the batched pack and the launch apart too), plain, library
-     (a bf16 torch.bmm chain) and bound times;
+     one CUDA kernel a call (the profiler's count: each block packs its
+     group's image, no pack kernel); kernel, plain, library (a bf16
+     torch.bmm chain) and bound times;
  26. uncertain --ff: `uncertain -O --ff` as a user runs it, on the
      main_nerf -O --ff checkpoint and a spheres directory of 2 training
      views and an 800^2 test view, 64 samples a ray, envConfig's uq_method
@@ -390,9 +394,21 @@ TOL_K4_COLLISION = 2.5e-2
 PLANTED_K4_LOG_SIGMA = 0.03
 # K4 in f32 against its plain version (rtol, atol): the JAX package's own
 # tolerance of its f32 kernel against the f32 chain (tests/
-# test_fused_mlp.py:263-269). FFMA in order against cuBLAS's f32 products
-# (TF32 off): a few float32 steps of each layer's sums, ~1e-6 relative.
+# test_fused_mlp.py:263-269). Three tf32 products a term (each ~2^-22 of
+# it) summed in f32 against cuBLAS's f32 products (TF32 off) in another
+# order: a few float32 steps of each layer's sums, ~1e-6 relative.
 TOL_K4_F32 = (5e-4, 1e-5)
+# K4 f32 also at other row counts and chains, seeded, against its plain
+# version at TOL_K4_F32: (widths, rows): the hash-grid nets' builds at
+# ragged row counts; the run-time dispatch's narrow build (widths up to
+# 64: [5] * 9, [1, 3], [33, 100, 7] padded to 128, ...) and its wide one
+# (up to 128) with the weights resident, and with them loaded a layer at a
+# time ([128] * 9); a last layer on the tensor cores that is 1 wide
+K4_F32_ODD = (([32, 64, 16], 1), ([32, 64, 16], 129),
+              ([31, 64, 64, 3], 127), ([31, 64, 64, 3], 262149),
+              ([5] * 9, 1001), ([1, 3], 1000), ([33, 100, 7], 999),
+              ([31, 128, 3], 777), ([64, 128, 128, 128, 16], 513),
+              ([128, 1], 256), ([128] * 9, 300))
 # A staged chunk through the kernel against the same chunk through the
 # plain field: image (max, mean) abs, the last chunk's rgbs max abs and
 # sigmas max |diff| / max(|sigma|, 1). f32: the two sum in other orders,
@@ -435,6 +451,7 @@ TOL_ROUTE_GRAD, TOL_ROUTE_FRAC = 2e-2, 3e-3
 # outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # cycles a second of torch.cuda._sleep's spin (about the H100's SM clock)
 SLEEP_HZ = 1.98e9
@@ -1540,9 +1557,12 @@ LAPLACE = "Bayesian Laplace Approximation"
 GAUSSIAN = "Gaussian Approximation"
 # kernel K4's grouped mode (the in-scan Laplace fits: one sigma net a sim)
 # at the batched engine's shape (16 sims x the fits' 256 points) on the FF
-# sigma net, and at a ragged one
-K4G_SHAPES = ((16, 256), (5, 200))
+# sigma net, at a ragged one, and on a narrow net of odd widths: (G, N,
+# widths, weights as strided views of flat vectors as the fits pass them,
+# or contiguous [G, in, out])
 FF_SIGMA = [32, 64, 64, 16]
+K4G_SHAPES = ((16, 256, FF_SIGMA, "views"), (5, 200, FF_SIGMA, "views"),
+              (3, 40, [24, 48, 8], "contiguous"))
 # The fits' -log posterior through K4 against the plain chain at the same
 # theta and points, relative, and its gradient in theta, of its largest
 # component. Stated before the first run on the card: the loss sums
@@ -1582,17 +1602,28 @@ def k4_grouped_phase(torch, fused_mlp, smi):
     """Phase 25: the grouped kernel against its plain version (the
     vmapped chain as batched products) at K4G_SHAPES, weights and x from a
     seeded generator; each group against the single mode's kernel on its
-    own weights (bit for bit); 20 reruns bit-identical; the gradients in
-    the weights the recompute's, bit for bit; kernel, plain, library (one
-    bf16 torch.bmm chain) and bound times at the first shape."""
+    own weights (bit for bit); 20 reruns bit-identical; one CUDA kernel a
+    call (the profiler's count); at the first shape the gradients in the
+    weights the recompute's, bit for bit, and kernel, plain, library (one
+    bf16 torch.bmm chain) and bound times."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
-    for G, N in K4G_SHAPES:
-        x = torch.randn((G, N, FF_SIGMA[0]), generator=gen,
+    for G, N, widths, kind in K4G_SHAPES:
+        x = torch.randn((G, N, widths[0]), generator=gen,
                         device=dev).to(torch.bfloat16)
-        ws = [torch.randn((G, a, b), generator=gen, device=dev) / a ** 0.5
-              for a, b in zip(FF_SIGMA, FF_SIGMA[1:])]
+        # as the fits pass them: [G, in, out] views of one flat [G, n]
+        # vector, each layer [out, in] in it (set_sigma_net_flat)
+        theta = torch.cat([(torch.randn((G, b, a), generator=gen, device=dev)
+                            / a ** 0.5).reshape(G, -1)
+                           for a, b in zip(widths, widths[1:])], dim=1)
+        ws, start = [], 0
+        for a, b in zip(widths, widths[1:]):
+            ws.append(theta[:, start:start + a * b].reshape(G, b, a)
+                      .transpose(-1, -2))
+            start += a * b
+        if kind == "contiguous":
+            ws = [w.contiguous() for w in ws]
 
         def k4g(x=x, ws=ws):
             return (fused_mlp.fused_mlp_grouped(x, ws),)
@@ -1605,20 +1636,22 @@ def k4_grouped_phase(torch, fused_mlp, smi):
         check(fused_mlp.LAUNCHES_GROUPED == n0 + 1,
               "the grouped K4 did not launch once")
         want, = plain()
-        check(got.shape == (G, N, FF_SIGMA[-1])
+        check(got.shape == (G, N, widths[-1])
               and bool(torch.isfinite(got).all()),
-              f"K4 grouped output is not finite [{G}, {N}, 16]")
+              f"K4 grouped output is not finite [{G}, {N}, {widths[-1]}]")
         rel = (got - want).abs() / want.abs().clamp(min=1.0)
         single = torch.stack([fused_mlp.fused_mlp(x[g].contiguous(),
                                                   [w[g] for w in ws])
                               for g in range(G)])
         same = reruns_equal(torch, k4g, (got,))
         err = float((got - want).abs().max())
-        print(f"K4 grouped G {G} x N {N}, {FF_SIGMA}: vs plain max rel "
+        names = kernels_in(torch, k4g)
+        print(f"K4 grouped G {G} x N {N}, {widths}, {kind} weights: vs "
+              f"plain max rel "
               f"{float(rel.max()):.3e} mean {float(rel.mean()):.3e} (max "
               f"abs {err:.3e}); each group bit-equal to the single mode: "
               f"{bool(torch.equal(single, got))}; {same} of {RERUNS} reruns "
-              f"bit-identical")
+              f"bit-identical; CUDA kernels in one call: {names}")
         t_max, t_mean = TOL_K4["sigma"]
         check(float(rel.max()) <= t_max and float(rel.mean()) <= t_mean,
               f"K4 grouped disagrees with its plain version (tolerance "
@@ -1626,9 +1659,12 @@ def k4_grouped_phase(torch, fused_mlp, smi):
         check(torch.equal(single, got), "K4 grouped differs from the "
               "single mode on a group's own weights")
         check(same == RERUNS, "K4 grouped gives other values on a rerun")
+        # one call is one CUDA kernel: each block packs its group's image
+        check(len(names) == 1, f"K4 grouped ran {len(names)} CUDA kernels "
+              f"in one call, not one: {names}")
         rec[(G, N)] = dict(x=x, ws=ws, k4g=k4g, plain=plain, err=err)
 
-    G, N = K4G_SHAPES[0]
+    G, N = K4G_SHAPES[0][:2]
     r = rec[(G, N)]
     c = torch.randn((G, N, FF_SIGMA[-1]), generator=gen, device=dev)
     lk = [w.clone().requires_grad_(True) for w in r["ws"]]
@@ -1652,33 +1688,34 @@ def k4_grouped_phase(torch, fused_mlp, smi):
                 h = torch.relu(h)
         return h
     macs = sum(a * b for a, b in zip(FF_SIGMA, FF_SIGMA[1:]))
-    image = 2 * sum(((a + 15) // 16 * 16) * ((b + 15) // 16 * 16)
-                    for a, b in zip(FF_SIGMA, FF_SIGMA[1:]))
+    # the inputs as the call takes them: x in bf16, each group's f32
+    # weights (read once; the kernel rounds them in shared memory)
     bound, by = bound_ms(2.0 * G * N * macs,
                          G * N * (FF_SIGMA[0] * 2 + FF_SIGMA[-1] * 4)
-                         + G * image)
+                         + G * 4 * macs)
     ms = cuda_ms(torch, r["k4g"], 50)
     plain_ms = cuda_ms(torch, r["plain"], 20)
     lib_ms = cuda_ms(torch, library, 50)
-    # the call's two parts: the batched pack of the 16 images, and the
-    # launch on an image packed once (the wrapper's pack swapped out)
-    pack_ms = cuda_ms(torch, lambda: fused_mlp._pack_grouped(r["ws"]), 50)
-    packed = fused_mlp._pack_grouped(r["ws"])
-    real_pack = fused_mlp._pack_grouped
-    fused_mlp._pack_grouped = lambda ws: packed
-    try:
-        launch_ms = cuda_ms(torch, r["k4g"], 50)
-    finally:
-        fused_mlp._pack_grouped = real_pack
-    print(f"K4 grouped at G {G} x N {N} ({2 * macs} FLOP a row, {image} "
-          f"bytes an image): kernel_ms {ms:.5f} (the call: the batched "
-          f"pack {pack_ms:.5f}, the launch on a packed image "
-          f"{launch_ms:.5f}), plain_ms {plain_ms:.5f}, library_ms "
-          f"{lib_ms:.5f} (bf16 torch.bmm chain), bound_ms {bound:.6f} "
-          f"({by}); {smi}")
+    print(f"K4 grouped at G {G} x N {N} ({2 * macs} FLOP a row, "
+          f"{4 * macs} bytes of f32 weights a group): kernel_ms {ms:.5f} "
+          f"(one launch a call, blocks packing their own images), plain_ms "
+          f"{plain_ms:.5f}, library_ms {lib_ms:.5f} (bf16 torch.bmm chain), "
+          f"bound_ms {bound:.6f} ({by}); {smi}")
     return dict(err=max(v["err"] for v in rec.values()), ms=ms,
-                plain_ms=plain_ms, lib_ms=lib_ms, bound=bound, by=by,
-                pack_ms=pack_ms, launch_ms=launch_ms)
+                plain_ms=plain_ms, lib_ms=lib_ms, bound=bound, by=by)
+
+
+def kernels_in(torch, fn):
+    """The names of the CUDA kernels that one call of fn() runs, by the
+    profiler (CUPTI)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 @contextlib.contextmanager
@@ -3583,7 +3620,13 @@ def main():
         check(same == RERUNS, "K4 f32 gives other values on a rerun of the "
               "same rows")
         macs4 = sum(w.shape[0] * w.shape[1] for w in sn + cn)
+        # the route that runs, 3xTF32: three tf32 products a multiply-add
         k4_bound32, k4_by32 = bound_ms(
+            3 * 2.0 * rows * macs4,
+            rows * 4 * (32 + 16 + 31 + 3)
+            + 4 * sum(w.numel() for w in sn + cn), PEAK_TF32_FLOPS)
+        # the earlier FFMA route's (f32 on the CUDA cores), for comparison
+        k4_bound32_ffma, k4_by32_ffma = bound_ms(
             2.0 * rows * macs4,
             rows * 4 * (32 + 16 + 31 + 3)
             + 4 * sum(w.numel() for w in sn + cn), PEAK_F32_FLOPS)
@@ -3599,21 +3642,52 @@ def main():
         k4_cold32, copies32 = cold_ms(torch, k4_f32_copy, k4_in32, 10)
         for what, net in (("sigma", sn), ("color", cn)):
             widths = [net[0].shape[0]] + [w.shape[1] for w in net]
-            tile_rows, resident, pitch, smem4, per_sm, widest = \
+            tile_rows, resident, stages, smem4, per_sm, widest = \
                 fused_mlp.launch_plan(widths, f32)
             held = "resident" if resident else "a layer at a time"
             print(f"K4 f32 launch, {what} net {widths}: {tile_rows} rows a "
-                  f"tile, weights {held}, activation rows of {pitch} "
-                  f"floats, {smem4} bytes of shared memory a block, "
-                  f"{per_sm} blocks per SM, "
-                  f"the build for outputs up to {widest}")
+                  f"tile, tf32 hi/lo weight images {held}, {stages} stages "
+                  f"of x, {smem4} bytes of shared memory a block, "
+                  f"{per_sm} blocks per SM, the build for widths up to "
+                  f"{widest}")
         print(f"K4 f32 pair at {rows} rows ({macs4} MAC/row): kernel_ms "
               f"{k4_ms32:.4f} (warm), cold {k4_cold32:.4f} ({copies32} "
               f"copies of {k4_in32 / 1e6:.1f} MB of inputs in turn), "
               f"plain_ms {k4_plain_ms32:.4f}, library_ms {k4_lib_ms32:.4f} "
               f"(f32 torch.matmul, TF32 "
               f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
-              f"{k4_bound32:.4f} ({k4_by32}, 67 TFLOP/s f32); {smi}")
+              f"{k4_bound32:.4f} ({k4_by32}, three tf32 products at 495 "
+              f"TFLOP/s), the FFMA route's bound_ms {k4_bound32_ffma:.4f} "
+              f"({k4_by32_ffma}, 67 TFLOP/s f32); {smi}")
+        gen = torch.Generator(device=dev).manual_seed(19)
+        for widths, n_odd in K4_F32_ODD:
+            # one row more, so that x[1:] starts off a 16-byte boundary
+            # where D_0 is not a multiple of 4 (the wrapper copies such
+            # an x)
+            x_o = torch.randn((n_odd + 1, widths[0]), generator=gen,
+                              device=dev)[1:]
+            w_o = [torch.randn((a, b), generator=gen, device=dev) / a ** 0.5
+                   for a, b in zip(widths, widths[1:])]
+            g_o = fused_mlp.fused_mlp(x_o, w_o, f32)
+            p_o = fused_mlp.fused_mlp_plain(x_o, w_o, f32)
+            # the wrapper's mirror of the plan (tile rows, weights resident,
+            # stages, bytes) against the built kernel's
+            plan = fused_mlp.launch_plan(widths, f32)
+            mirror = fused_mlp._plan_f32(widths)
+            mirror = (fused_mlp._f32_tile_rows(widths),
+                      int(mirror["resident"]), mirror["stages"],
+                      mirror["total"])
+            print(f"K4 f32 at {widths} ({n_odd} rows, weights "
+                  f"{'resident' if plan[1] else 'a layer at a time'}, the "
+                  f"build for widths up to {plan[5]}): max abs "
+                  f"{float((g_o - p_o).abs().max()):.3e} against the plain "
+                  f"version; plan {tuple(plan[:4])}, the wrapper's "
+                  f"{mirror}")
+            check(bool(torch.allclose(g_o, p_o, rtol=TOL_K4_F32[0],
+                                      atol=TOL_K4_F32[1])),
+                  f"K4 f32 disagrees with the plain version at {widths}")
+            check(tuple(plan[:4]) == mirror, f"the wrapper's f32 plan of "
+                  f"{widths} is not the kernel's")
         del enc, cin, got, want, got_l, xyz, dirs, s_plain
         torch.cuda.empty_cache()
 
@@ -4513,6 +4587,8 @@ def main():
          "max_abs_err_f32": k4_err32, "ms_f32": k4_ms32,
          "ms_cold_f32": k4_cold32, "plain_ms_f32": k4_plain_ms32,
          "bound_ms_f32": k4_bound32, "bound_by_f32": k4_by32,
+         "bound_ms_f32_ffma": k4_bound32_ffma,
+         "bound_by_f32_ffma": k4_by32_ffma,
          "library_ms_f32": k4_lib_ms32,
          "launches_main_nerf_O_ff": main_nerf_stats["-O --ff"]["launches"],
          "launches_main_nerf_ff": main_nerf_stats["--ff"]["launches"],

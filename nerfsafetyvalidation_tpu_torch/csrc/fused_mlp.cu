@@ -65,24 +65,30 @@
 //     for two blocks an SM) or for 128.
 //
 //   * grouped mode (fused_mlp_forward_grouped): G independent problems in
-//     one launch, each its own x [N, D_0], weight image and output (the TPU
+//     one launch, each its own x [N, D_0], weights and output (the TPU
 //     kernel under jax.vmap, whose batching rule adds a leading grid axis
 //     over the weight sets). The grid is (row-tile blocks, G); block
-//     (b, g) offsets x, the image and out by group g and runs the same
-//     body over that group's N rows, so each block loads its own group's
-//     image. The in-scan Laplace fits of the batched rollouts launch it:
-//     one weight set per sim, G = the sims, N = the points of a fit. The
-//     weights change at every step of a fit, so the G images are built on
-//     every call, by a second small kernel (pack_grouped_kernel) that reads
-//     each layer through its strides (the fits pass views of their flat
-//     parameter vectors) and writes the bf16 B images of all groups in one
-//     launch.
+//     (b, g) offsets x and out by group g and runs the same body over that
+//     group's N rows. The in-scan Laplace fits of the batched rollouts
+//     launch it: one weight set per sim, G = the sims, N = the points of a
+//     fit (16 x 256). The weights change at every step of a fit (views of
+//     the fits' flat parameter vectors), so no image can be cached, and at
+//     these sizes a launch is mostly fixed cost: there is no image in
+//     device memory. Each block reads its group's f32 layers through their
+//     strides, every load in flight at once, and rounds them to bf16
+//     (nearest even, as torch's cast) into the B image in its own shared
+//     memory, while the producer's bulk copy of x is in flight
+//     (pack_group); one launch a call, nothing allocated but the output.
+//     The kernel is built apart for each mode (fused_mlp_kernel's Weights):
+//     the single mode's build has neither the pack nor the grouped launch's
+//     wait. The image's values and the body are the single mode's, so each
+//     group's output is the single mode's on its own weights, bit for bit.
 //
 // The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
 //
 // The same function in float32 (the TPU kernel run on f32 operands, the
 // JAX package's default compute dtype) is a second kernel further down,
-// fused_mlp_f32_kernel: FFMA on the CUDA cores, no rounding between layers.
+// fused_mlp_tf32_kernel: the same skeleton on 3xTF32 wgmma products.
 //
 // Interface: a plain C launcher, bound from Python with ctypes. It launches
 // on the caller's stream, does not synchronise and allocates nothing, and
@@ -93,6 +99,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -113,6 +120,13 @@ static_assert((2 * kMaxStages + 1) * 8 <= kBarBytes, "barriers");
 struct Widths {
   int n_layers;
   int w[kMaxLayers + 1];  // D_0 .. D_L
+};
+
+// The grouped mode's weights: layer l of group g, element [k, n] at
+// w[l] + g stride[l][0] + k stride[l][1] + n stride[l][2] (f32).
+struct GroupWeights {
+  const float* w[kMaxLayers];
+  int64_t stride[kMaxLayers][3];
 };
 
 __host__ __device__ inline int pad16(int v) { return (v + 15) & ~15; }
@@ -143,6 +157,75 @@ inline Plan plan_of(const Widths& d) {
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   p.smem = p.stages ? kBarBytes + p.weights + p.stages * p.stage : 0;
   return p;
+}
+
+// the consumer warpgroups alone (the producer warp never joins)
+template <int CONSUMERS = kConsumers>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(128 * CONSUMERS) : "memory");
+}
+
+// The grouped mode's image of group g, built by the consumer threads in
+// shared memory at img: each layer zero-padded to [pad16(D_l),
+// pad16(D_l+1)] and laid out as wgmma's B image (the k-steps of 16, then
+// the column groups of 8, then the two 8-deep halves, then 8 columns x 8
+// depths; points_mlp.py wgmma_b), rounded to bf16, the layers one after
+// another. A thread takes runs of 4 image elements (one column, 4 depths)
+// in turn, neighbouring threads the two halves of a core-matrix row: in the
+// f32 views of the fits' flat vectors (set_sigma_net_flat: [in, out] as the
+// transpose of [out, in]) one 16-byte load each, a warp's loads 16 whole
+// 32-byte sectors; other strides take 4 loads a run. Layer by layer (its
+// strides and widths read once), kPackBatch runs a thread with every load
+// in flight before the first store; the column group of a run by a
+// multiply-high in place of a division. The index arithmetic, not the
+// loads, had been most of the pack's time.
+constexpr int kPackBatch = 4;
+
+__device__ __forceinline__ void pack_group(const GroupWeights& gw,
+                                           const Widths& d, int64_t g,
+                                           unsigned char* img) {
+  constexpr int kStep = 128 * kConsumers;
+  int base = 0;                          // image elements before layer l
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int d_in = d.w[l], d_out = d.w[l + 1];
+    const int groups8 = pad16(d_out) / 8;
+    // r / groups8 == __umulhi(r, inv) for the r < 2^16 of an image
+    const uint32_t inv = 0xffffffffu / groups8 + 1;
+    const int runs = pad16(d_in) * pad16(d_out) / 4;
+    const float* w = gw.w[l] + g * gw.stride[l][0];
+    const int64_t sk = gw.stride[l][1], sn = gw.stride[l][2];
+    for (int h0 = threadIdx.x; h0 < runs; h0 += kPackBatch * kStep) {
+      float4 v[kPackBatch];
+#pragma unroll
+      for (int b = 0; b < kPackBatch; ++b) {
+        const int q = 4 * (h0 + b * kStep);
+        v[b] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const uint32_t r = (uint32_t)q >> 7;
+        const int rg = (int)__umulhi(r, inv);
+        const int k = rg * 16 + ((q >> 6) & 1) * 8 + (q & 7);
+        const int col = ((int)r - rg * groups8) * 8 + ((q >> 3) & 7);
+        if (q >= 4 * runs || col >= d_out) continue;
+        const float* src = w + k * sk + col * sn;
+        if (sk == 1 && k + 3 < d_in &&
+            (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+          v[b] = *reinterpret_cast<const float4*>(src);
+        } else {
+          if (k < d_in) v[b].x = src[0];
+          if (k + 1 < d_in) v[b].y = src[sk];
+          if (k + 2 < d_in) v[b].z = src[2 * sk];
+          if (k + 3 < d_in) v[b].w = src[3 * sk];
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kPackBatch; ++b) {
+        const int q = 4 * (h0 + b * kStep);
+        if (q >= 4 * runs) continue;
+        *reinterpret_cast<uint2*>(img + 2 * (base + q)) = make_uint2(
+            pack_bf16(v[b].x, v[b].y), pack_bf16(v[b].z, v[b].w));
+      }
+    }
+    base += pad16(d_in) * pad16(d_out);
+  }
 }
 
 // One layer: acc = a[0 .. KIN) @ W (B image at shared address w, N
@@ -229,18 +312,25 @@ __device__ __forceinline__ void layer_nk(uint32_t (&a)[KA][4], int nsteps,
 // KA: k-steps of A a thread holds, the widest padded width / 16 (4 for
 // widths up to 64, 8 up to 128: the narrower build needs about half the
 // registers, so two blocks fit an SM). steps: nibble l is layer l's output
-// k-steps, pad16(D_l+1) / 16.
-template <int KA>
+// k-steps, pad16(D_l+1) / 16. Weights: the packed image in device memory
+// (const unsigned char*), or the grouped mode's f32 views (GroupWeights),
+// from which each block packs group blockIdx.y's image; the single mode's
+// build has neither the pack nor the grouped launch's wait.
+template <int KA, typename Weights>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_kernel(const bf16* __restrict__ x,
-                 const unsigned char* __restrict__ image, int d0, int d_out,
-                 int n_layers, uint32_t steps, Plan plan,
-                 float* __restrict__ out, int64_t n) {
+                 const __grid_constant__ Weights weights,
+                 const __grid_constant__ Widths d,
+                 uint32_t steps, Plan plan, float* __restrict__ out,
+                 int64_t n) {
+  constexpr bool kGrouped = std::is_same<Weights, GroupWeights>::value;
   extern __shared__ __align__(128) unsigned char smem[];
-  // group blockIdx.y of a grouped launch (0 otherwise): its rows, its
-  // weight image and its output
+  const int d0 = d.w[0];
+  const int d_out = d.w[d.n_layers];
+  const int n_layers = d.n_layers;
+  // group blockIdx.y of a grouped launch (0 otherwise): its rows and its
+  // output
   x += blockIdx.y * n * d0;
-  image += (int64_t)blockIdx.y * plan.weights;
   out += blockIdx.y * n * d_out;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -262,14 +352,22 @@ fused_mlp_kernel(const bf16* __restrict__ x,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (kGrouped) {
+    // the grouped launch may begin while the kernel before it in the
+    // stream still runs: nothing below touches device memory before that
+    // kernel's writes are visible
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+  }
 
   if (warp == 4 * kConsumers) {
-    // producer: the weights once, then every tile of x in order, the k-th
-    // use of a stage after its (k-1)-th use was released by every consumer
-    // warp
+    // producer: the weights once (not in the grouped mode), then every tile
+    // of x in order, the k-th use of a stage after its (k-1)-th use was
+    // released by every consumer warp
     if (lane == 0) {
-      mbar_arrive_expect_tx(wbar, (uint32_t)plan.weights);
-      bulk_copy_g2s(wts, image, (uint32_t)plan.weights, wbar);
+      if constexpr (!kGrouped) {
+        mbar_arrive_expect_tx(wbar, (uint32_t)plan.weights);
+        bulk_copy_g2s(wts, weights, (uint32_t)plan.weights, wbar);
+      }
       const uint16_t* x16 = reinterpret_cast<const uint16_t*>(x);
       int stage = 0;
       uint32_t phase = 0;
@@ -307,7 +405,15 @@ fused_mlp_kernel(const bf16* __restrict__ x,
   const int wrow = (warp >> 2) * kWgRows + (warp & 3) * 16;
   const int rloc[2] = {wrow + g, wrow + g + 8};
   const int ks0 = pad16(d0) / 16;
-  mbar_wait(wbar, 0);
+  if constexpr (kGrouped) {
+    // this group's image, then fenced for the tensor cores' reads (the
+    // async proxy) and shared by every consumer
+    pack_group(weights, d, blockIdx.y, smem + kBarBytes);
+    fence_proxy_async();
+    consumers_sync();
+  } else {
+    mbar_wait(wbar, 0);
+  }
   int stage = 0;
   uint32_t phase = 0;
 
@@ -354,32 +460,42 @@ fused_mlp_kernel(const bf16* __restrict__ x,
   }
 }
 
-template <int KA>
-cudaError_t launch(const bf16* x, const unsigned char* image,
-                   const Widths& dims, const Plan& plan, float* out,
-                   int64_t n, int groups, cudaStream_t stream,
-                   int* per_sm_out) {
+// blocks an SM and SMs of the card for a kernel at this shared memory (0
+// blocks: it does not fit)
+template <typename Kernel>
+cudaError_t residency(Kernel kernel, int threads, int smem, int* sms,
+                      int* per_sm) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        threads, smem);
+  }
+  return err;
+}
+
+template <int KA, typename Weights>
+cudaError_t launch(const bf16* x, const Weights& weights, const Widths& dims,
+                   const Plan& plan, float* out, int64_t n, int groups,
+                   cudaStream_t stream, int* per_sm_out) {
   uint32_t steps = 0;
   for (int l = 0; l < dims.n_layers; ++l) {
     steps |= (uint32_t)(pad16(dims.w[l + 1]) / 16) << (4 * l);
   }
-  int device = 0;
+  const auto kernel = fused_mlp_kernel<KA, Weights>;
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_mlp_kernel<KA>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               plan.smem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_mlp_kernel<KA>, kThreads, plan.smem);
-  }
+  const cudaError_t err =
+      residency(kernel, kThreads, plan.smem, &sms, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm_out != nullptr) {
     *per_sm_out = per_sm;
@@ -391,9 +507,28 @@ cudaError_t launch(const bf16* x, const unsigned char* image,
   const int64_t share = (resident + groups - 1) / groups;
   const dim3 grid((unsigned)(tiles < share ? tiles : share),
                   (unsigned)groups);
-  fused_mlp_kernel<KA><<<grid, kThreads, plan.smem, stream>>>(
-      x, image, dims.w[0], dims.w[dims.n_layers], dims.n_layers, steps, plan,
-      out, n);
+  if constexpr (std::is_same<Weights, GroupWeights>::value) {
+    // the grouped mode: a few microseconds of work, so its launch may begin
+    // while the kernel before it in the stream still runs (programmatic
+    // stream serialisation); the kernel waits for that one
+    // (griddepcontrol) before it touches device memory
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = plan.smem;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    const cudaError_t launched = cudaLaunchKernelEx(
+        &config, kernel, x, weights, dims, steps, plan, out, n);
+    if (launched != cudaSuccess) return launched;
+  } else {
+    kernel<<<grid, kThreads, plan.smem, stream>>>(x, weights, dims, steps,
+                                                  plan, out, n);
+  }
   return cudaGetLastError();
 }
 
@@ -422,8 +557,9 @@ inline bool widths_of(const int* widths, int n_layers, Widths* dims) {
 // the launch for these widths over `groups` problems of n rows each
 // (per_sm_out: only the blocks per SM, no launch). A group's x must start on
 // a 16-byte boundary like the first's: n * D_0 a multiple of 8 when
-// groups > 1.
-cudaError_t run(const void* x, const void* image, const int* widths,
+// groups > 1. weights: the packed image, or the grouped mode's f32 views.
+template <typename Weights>
+cudaError_t run(const void* x, const Weights& weights, const int* widths,
                 int n_layers, void* out, int64_t n, int groups, void* stream,
                 int* per_sm_out, Plan* plan_out) {
   Widths dims;
@@ -438,287 +574,575 @@ cudaError_t run(const void* x, const void* image, const int* widths,
     return cudaErrorInvalidValue;
   }
   const bf16* xb = static_cast<const bf16*>(x);
-  const unsigned char* im = static_cast<const unsigned char*>(image);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return a_steps(dims) == 4
-             ? launch<4>(xb, im, dims, plan, o, n, groups, st, per_sm_out)
-             : launch<8>(xb, im, dims, plan, o, n, groups, st, per_sm_out);
+             ? launch<4>(xb, weights, dims, plan, o, n, groups, st,
+                         per_sm_out)
+             : launch<8>(xb, weights, dims, plan, o, n, groups, st,
+                         per_sm_out);
 }
 
 // ---------------------------------------------------------------------------
 // K4 in float32: the TPU kernel's function with x_ref.dtype == float32 (f32
-// operands, f32 sums, every layer kept in f32, no rounding between layers).
-// No tensor cores: a TF32 product keeps 10 bits of mantissa, and the JAX
-// package holds its f32 kernel to rtol 5e-4 of the f32 chain. Plain FFMA on
-// the CUDA cores, register-tiled (as K2's f32 kernel, csrc/points_mlp.cu).
+// operands, f32 sums, every layer kept in f32, no rounding between layers),
+// on the tensor cores as 3xTF32, and a narrow last layer on the CUDA cores.
+//
+// One TF32 product keeps 10 bits of each operand's mantissa, and the JAX
+// package holds its f32 kernel to rtol 5e-4 of the f32 chain. So every
+// operand is split in two tf32 values, a = a_hi + a_lo with a_hi = tf32(a)
+// and a_lo = tf32(a - a_hi) (cvt.rna), and each product is summed in f32 as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi: about 21 bits of it (the a_lo b_lo term
+// left out is 2^-22 of it, below an f32 sum's own rounding of a few terms).
 //
 // What bounds it on this card: operations. The hash-grid pair is 9,344
-// multiply-adds a row against 328 bytes (x in and out, f32), 57 FLOP per
-// byte, above the H100's f32 balance point of 20 FLOP per byte (67 TFLOP/s
-// over 3.35 TB/s): at a tile's 2,097,152 rows 39.2 GFLOP, 0.585 ms.
+// multiply-adds a row against 328 bytes (x in and out, f32); three tf32
+// products of each at 495 TFLOP/s make 0.238 ms for a tile's 2,097,152 rows,
+// against 0.205 ms for its 688 MB at 3.35 TB/s. Beside the products a
+// warpgroup splits its activations, waits for each layer's products and
+// loads its rows, so more warpgroups a block (three, not two) and
+// straight-line code for the two nets on the path keep the tensor cores
+// fed.
 //
-// Design:
-//   * blocks of 256 threads walk over tiles of 128 rows (persistent, as
-//     many blocks as the card holds at once); a tile of x is one contiguous
-//     run of 128 * D_0 floats, loaded element by element (the color net's
-//     124-byte rows are not 16-byte aligned) into an activation tile in
-//     shared memory whose rows are the widest padded width + 4 floats (rows
-//     r and r + 1 start 4 banks apart), zero past D_0;
-//   * the weights are packed by the wrapper as each layer zero-padded to
-//     [K_l, N_l] f32 row-major, one after another: N_l is D_l+1 rounded up
-//     to a power of two of at least 16, K_0 = pad16(D_0), K_l = N_l-1.
-//     Where they fit beside the activation tile (the hash-grid nets: 12 KB
-//     and 28 KB) a block loads them once and keeps them; otherwise (up to
-//     8 x 128 x 128 floats) it loads one layer at a time, before it runs it;
-//   * a layer of N columns: N / 4 column groups of 4 adjacent columns times
-//     1024 / N row groups; thread (rg, cg) sums rows rg + (1024 / N) i
-//     (i < N / 8) and columns 4 cg .. 4 cg + 3 over K, four inputs a step:
-//     the weights' 4 x 4 block as four float4 loads, then per row one
-//     float4 of activations and 16 FFMA. The rows a warp reads start on
-//     distinct banks or share an address, so no load conflicts. One
-//     instantiation per N in {16, 32, 64, 128}; two builds by the widest
-//     (up to 64: two blocks an SM; or 128);
-//   * the sums overwrite the tile in place after a barrier, through a ReLU;
-//     the last layer's go to device memory, masked at the ragged edges.
+// Design (the bf16 kernel's skeleton above: persistent blocks, a producer
+// warp, consumer warpgroups of 64 rows, x through a ring of bulk copies,
+// the ragged tail past the last 16-byte boundary by hand):
+//   * every width is rounded up to a power of two of at least 8 (wgmma's
+//     tf32 N and k-step);
+//   * the wrapper splits every weight once per set into its hi and lo tf32
+//     values and packs each layer, zero-padded to [K_l, N_l], as two B
+//     images, hi then lo, in the bf16 images' K-major layout with 4-byte
+//     elements (8 x 4 core matrices, the same descriptor), the layers one
+//     after another. A block loads them all once with one bulk copy where
+//     they fit beside the ring (the hash-grid nets: 24 KB and 49 KB);
+//     otherwise the consumers copy each layer in before they run it;
+//   * the activations stay in registers from layer to layer, in f32. The
+//     accumulator of columns [8 s, 8 s + 8) holds, in each thread, columns
+//     8 s + 2 t4 and 8 s + 2 t4 + 1 of its two rows; tf32's A fragment wants
+//     columns t4 and t4 + 4 of the k-step. So the images hold each k-step's
+//     8 rows in the order 0, 2, 4, 6, 1, 3, 5, 7 (ops/hopper/fused_mlp.py
+//     K_ORDER): A column t4 is then column 2 t4 and A column t4 + 4 column
+//     2 t4 + 1, and a thread's accumulator is its next A with no shuffle and
+//     no trip through shared memory. The first layer reads x from the stage
+//     in the same order (8-byte loads where D_0 is even);
+//   * a layer splits the thread's activations into hi and lo (cvt.rna),
+//     then, for every k-step, issues three wgmma m64nNk8 into one
+//     accumulator, up to kF32KSteps k-steps a group and wait; relu of the
+//     sums is the next layer's input;
+//   * a last layer at most kFmaOut wide (the color net's 3) would take 3 K
+//     / 8 tensor-core instructions, each padded to 8 outputs, for a few
+//     FFMA a thread: it runs as f32 FFMA on the CUDA cores instead, from
+//     the exact f32 weights ([K, 4] row-major, one 16-byte load an input).
+//     Each thread sums its 2 K / 8 columns of its two rows, a butterfly over
+//     the quad (the four threads that hold a row) completes the sums, and
+//     thread 0 of the quad writes the row. (The sigma net's 16-wide output
+//     stays on the tensor cores: as FFMA its 16 weights an input cost more
+//     shared-memory loads than the instructions they saved, and ran
+//     slower.) A wider last layer's sums go to device memory from the
+//     accumulator. Both masked at the ragged edges;
+//   * two builds by the widest padded width: kF32Consumers warpgroups a
+//     block with activations for 64 columns (the hash-grid nets), or one
+//     warpgroup with activations for 128 (twice the registers a thread).
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 128;       // rows of a tile
-constexpr int kF32Threads = 256;
+constexpr int kMaxStagesF32 = 4;
+constexpr int kFmaOut = 4;
+// consumer warpgroups of a block in the narrow build (the wrapper reads
+// this line: ops/hopper/fused_mlp.py F32_CONSUMERS), and k-steps of one
+// wgmma group there
+constexpr int kF32Consumers = 3;
+constexpr int kF32KSteps = 4;
 
-struct PlanF32 {
-  int pitch;     // floats of an activation row
-  int act;       // bytes of the activation tile
-  int weights;   // bytes of the weight region
-  int resident;  // 1: every layer stays; 0: one layer at a time
-  int smem;      // bytes of shared memory a block
-};
+// consumer warpgroups of the build whose activations hold KA k-steps
+__host__ __device__ constexpr int f32_consumers(int ka) {
+  return ka > 8 ? 1 : kF32Consumers;
+}
 
-// a layer's output width in the f32 image: a power of two, 16 at least
-__host__ __device__ inline int npad(int v) {
-  int p = 16;
+// a width in the f32 images: a power of two, 8 at least
+__host__ __device__ inline int p2pad(int v) {
+  int p = 8;
   while (p < v) p *= 2;
   return p;
 }
 
-// [K_l, N_l] of layer l in the f32 image
-__host__ __device__ inline int f32_k(const Widths& d, int l) {
-  return l == 0 ? pad16(d.w[0]) : npad(d.w[l]);
+// a width in the images of any other chain: 64 or 128, so that its build
+// has few layer shapes to instantiate
+__host__ __device__ inline int wide_pad(int v) { return v <= 64 ? 64 : 128; }
+
+// a last layer on the CUDA cores
+__host__ __device__ inline bool fma_layer(const Widths& d, int l) {
+  return l == d.n_layers - 1 && d.w[l + 1] <= kFmaOut;
 }
 
+// The hash-grid field's two nets, whose kernels are built for their exact
+// layer shapes: the sigma net [<= 32, 33..64, 9..16] and the color net
+// [<= 32, 33..64, 33..64, <= 4] (padded: 32 -> 64 -> 16, and 32 -> 64 -> 64
+// -> FFMA); any other chain takes the build that picks each layer's
+// instantiation at run time (kAnyNet), its widths padded to 64 or 128.
+// Built for one net, the kernel's code is a few straight-line layers:
+// measured faster than the run-time dispatch.
+constexpr int kAnyNet = 0, kSigmaNet = 1, kColorNet = 2;
+
+__host__ __device__ inline int fixed_net(const Widths& d) {
+  if (p2pad(d.w[0]) != 32 || p2pad(d.w[1]) != 64) return kAnyNet;
+  if (d.n_layers == 2 && p2pad(d.w[2]) == 16) return kSigmaNet;
+  if (d.n_layers == 3 && p2pad(d.w[2]) == 64 && d.w[3] <= kFmaOut) {
+    return kColorNet;
+  }
+  return kAnyNet;
+}
+
+// bytes of layer l in the f32 image of any chain but the fixed nets: hi
+// and lo [K_l, N_l], or the FFMA layer's [K_l, kFmaOut], each width 64 or
+// 128
+__host__ __device__ inline int any_layer_bytes(const Widths& d, int l) {
+  const int k = wide_pad(d.w[l]);
+  return fma_layer(d, l) ? 4 * k * kFmaOut
+                         : 2 * 4 * k * wide_pad(d.w[l + 1]);
+}
+
+// the fixed nets' layers in their images: [32, 64] and [64, 64] pairs
+constexpr int kFixedIn = 2 * 4 * 32 * 64;
+constexpr int kFixedHidden = 2 * 4 * 64 * 64;
+
+// bytes of layer l in the f32 image (the fixed nets': their own powers of
+// two, 32 -> 64 -> 16 and 32 -> 64 -> 64 -> FFMA [64, kFmaOut])
+inline int layer_bytes(const Widths& d, int l) {
+  if (fixed_net(d) == kAnyNet) return any_layer_bytes(d, l);
+  return fma_layer(d, l) ? 4 * 64 * kFmaOut
+                         : 2 * 4 * p2pad(d.w[l]) * p2pad(d.w[l + 1]);
+}
+
+// k-steps of 8 columns the widest padded width needs: 8 (up to 64) or 16
+inline int tf32_steps(const Widths& d) {
+  int widest = 0;
+  for (int l = 0; l <= d.n_layers; ++l) {
+    widest = d.w[l] > widest ? d.w[l] : widest;
+  }
+  return widest <= 64 ? 8 : 16;
+}
+
+// The f32 kernel's shared memory: barriers, the weights (every layer where
+// they fit beside one stage, else room for the largest layer), then as
+// many stages of one tile of x (64 rows a consumer warpgroup) as fit, at
+// most kMaxStagesF32, a power of two.
+struct PlanF32 {
+  int weights, resident, stage, stages, smem;
+};
+
 inline PlanF32 plan_f32(const Widths& d) {
-  int widest = pad16(d.w[0]);
   int all = 0;
   int largest = 0;
   for (int l = 0; l < d.n_layers; ++l) {
-    const int n = npad(d.w[l + 1]);
-    const int e = f32_k(d, l) * n;
-    widest = n > widest ? n : widest;
+    const int e = layer_bytes(d, l);
     all += e;
     largest = e > largest ? e : largest;
   }
   PlanF32 p;
-  p.pitch = widest + 4;
-  p.act = kF32Rows * p.pitch * 4;
-  p.resident = p.act + 4 * all <= kMaxSmem ? 1 : 0;
-  p.weights = 4 * (p.resident ? all : largest);
-  p.smem = p.act + p.weights;
+  p.stage = kWgRows * f32_consumers(tf32_steps(d)) * d.w[0] * 4;
+  const int room = kMaxSmem - kBarBytes;
+  p.resident = all + p.stage <= room ? 1 : 0;
+  p.weights = p.resident ? all : largest;
+  const int left = room - p.weights;
+  p.stages = left < p.stage ? 0 : left / p.stage;
+  if (p.stages > kMaxStagesF32) p.stages = kMaxStagesF32;
+  if (p.stages == 3) p.stages = 2;       // a power of two (the consumers)
+  p.smem = p.stages ? kBarBytes + p.weights + p.stages * p.stage : 0;
   return p;
 }
 
-// `count` floats (a multiple of 4, 16-byte aligned both sides) into shared
-// memory by the whole block
-__device__ __forceinline__ void f32_copy(float* dst, const float* src,
-                                         int count) {
-  for (int i = 4 * threadIdx.x; i < count; i += 4 * kF32Threads) {
-    *reinterpret_cast<float4*>(dst + i) =
-        *reinterpret_cast<const float4*>(src + i);
-  }
+// The first of a thread's two rows (the second 8 further) in tile t of
+// `rows` rows, made where a layer writes its output: held across the
+// layers, the rows took registers the layers need (the wide build runs
+// near the limit)
+__device__ __forceinline__ int64_t first_row(int t, int rows) {
+  const int tid = threadIdx.x;
+  return (int64_t)t * rows + (tid >> 7) * kWgRows + ((tid >> 5) & 3) * 16 +
+         ((tid & 31) >> 2);
 }
 
-__device__ __forceinline__ void fma4(float (&acc)[4], float a,
-                                     const float4& w) {
-  acc[0] = fmaf(a, w.x, acc[0]);
-  acc[1] = fmaf(a, w.y, acc[1]);
-  acc[2] = fmaf(a, w.z, acc[2]);
-  acc[3] = fmaf(a, w.w, acc[3]);
-}
-
-// One layer of the tile, N output columns (w row-major [kin, N]): the sums
-// of thread (rg, cg) over k < kin; then relu of them over the tile, or, for
-// the last layer, the sums to out.
-template <int N>
-__device__ __forceinline__ void f32_layer(float* act, int pitch,
-                                          const float* w, int kin, bool last,
-                                          float* __restrict__ out,
-                                          int64_t row0, int rows, int d_out) {
-  constexpr int CG = N / 4;                  // column groups of 4
-  constexpr int RG = kF32Threads / CG;       // row groups
-  constexpr int TM = kF32Rows / RG;          // rows a thread sums
-  const int rg = threadIdx.x / CG;
-  const int cg = threadIdx.x - rg * CG;
-  float acc[TM][4];
+// One layer on 3xTF32 products: acc = v[0 .. KIN k-steps) @ W, the hi image
+// at shared address w and the lo image right after it, N columns; then
+// either relu(acc) as the next layer's v or, for the last layer, acc
+// written to out at columns < d_out of the thread's rows. v[4 s + q] is
+// register q of k-step s's A fragment: rows g, g + 8, g, g + 8 and columns
+// 8 s + 2 t4, 8 s + 2 t4, 8 s + 2 t4 + 1, 8 s + 2 t4 + 1 of the layer's
+// input.
+template <int KIN, int N, int KA>
+__device__ __forceinline__ void tf32_layer(float (&v)[4 * KA], uint32_t w,
+                                           bool last,
+                                           float* __restrict__ out,
+                                           int t, int rows, int64_t n, int d_out,
+                                           int t4) {
+  static_assert(KIN <= KA && N / 8 <= KA, "v holds too few k-steps");
+  // k-steps of a wgmma group: fewer in the wide build (one warpgroup, whose
+  // activations and accumulator take twice the registers)
+  constexpr int KCAP = KA > 8 ? 2 : kF32KSteps;
+  constexpr int KC = KIN < KCAP ? KIN : KCAP;
+  const uint32_t lo_w = w + KIN * slab_bytes(N);
+  float acc[N / 2];
+  zero(acc);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int c0 = 0; c0 < KIN; c0 += KC) {
+    uint32_t hi[KC][4], lo[KC][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int s = 0; s < KC; ++s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float a = v[4 * (c0 + s) + q];
+        hi[s][q] = tf32_rna(a);
+        lo[s][q] = tf32_rna(a - __uint_as_float(hi[s][q]));
+      }
+    }
+    // this group's images; in the wide build made at the group, so that
+    // the layer's descriptors are not all made ahead and held (ptxas
+    // spilled)
+    uint32_t wc = w + c0 * slab_bytes(N);
+    if constexpr (KA > 8) asm volatile("" : "+r"(wc));
+    const uint32_t lc = wc + (lo_w - w);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < KC; ++s) {
+      const uint32_t off = s * slab_bytes(N);
+      wgmma_tf32(acc, lo[s], b_desc(wc + off), c0 + s > 0);
+      wgmma_tf32(acc, hi[s], b_desc(lc + off), 1);
+      wgmma_tf32(acc, hi[s], b_desc(wc + off), 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(acc);
   }
-  const float* wc = w + 4 * cg;
-  const float* ar = act + rg * pitch;
-#pragma unroll 2
-  for (int k = 0; k < kin; k += 4) {
-    const float4 w0 = *reinterpret_cast<const float4*>(wc + (k + 0) * N);
-    const float4 w1 = *reinterpret_cast<const float4*>(wc + (k + 1) * N);
-    const float4 w2 = *reinterpret_cast<const float4*>(wc + (k + 2) * N);
-    const float4 w3 = *reinterpret_cast<const float4*>(wc + (k + 3) * N);
+  if (!last) {
+    // accumulator 4 s + 2 h + c: row g + 8 h, column 8 s + 2 t4 + c
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(ar + RG * i * pitch + k);
-      fma4(acc[i], a.x, w0);
-      fma4(acc[i], a.y, w1);
-      fma4(acc[i], a.z, w2);
-      fma4(acc[i], a.w, w3);
+    for (int s = 0; s < N / 8; ++s) {
+      v[4 * s + 0] = fmaxf(acc[4 * s + 0], 0.0f);
+      v[4 * s + 1] = fmaxf(acc[4 * s + 2], 0.0f);
+      v[4 * s + 2] = fmaxf(acc[4 * s + 1], 0.0f);
+      v[4 * s + 3] = fmaxf(acc[4 * s + 3], 0.0f);
+    }
+    return;
+  }
+  const int64_t r0 = first_row(t, rows);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r0 + 8 * h >= n || col >= d_out) continue;
+      const float v0 = acc[4 * j + 2 * h];
+      const float v1 = acc[4 * j + 2 * h + 1];
+      float* dst = out + (r0 + 8 * h) * d_out + col;
+      if ((d_out & 1) == 0) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (col + 1 < d_out) dst[1] = v1;
+      }
     }
   }
-  if (last) {
+}
+
+// tf32_layer<kin, N> for a run-time kin in {KIN, 2 KIN, ..., KA}
+template <int KIN, int N, int KA>
+__device__ __forceinline__ void tf32_layer_k(float (&v)[4 * KA], int kin,
+                                             uint32_t w, bool last,
+                                             float* out,
+                                             int t, int rows, int64_t n, int d_out,
+                                             int t4) {
+  if constexpr (KIN < KA) {
+    if (kin > KIN) {
+      tf32_layer_k<2 * KIN, N, KA>(v, kin, w, last, out, t, rows, n, d_out,
+                                   t4);
+      return;
+    }
+  }
+  tf32_layer<KIN, N, KA>(v, w, last, out, t, rows, n, d_out, t4);
+}
+
+// tf32_layer<kin, 8 nsteps> for run-time kin and nsteps in {NS, ..., KA}
+template <int NS, int KA>
+__device__ __forceinline__ void tf32_layer_nk(float (&v)[4 * KA], int nsteps,
+                                              int kin, uint32_t w, bool last,
+                                              float* out,
+                                              int t, int rows, int64_t n, int d_out,
+                                              int t4) {
+  if constexpr (NS < KA) {
+    if (nsteps > NS) {
+      tf32_layer_nk<2 * NS, KA>(v, nsteps, kin, w, last, out, t, rows, n,
+                                d_out, t4);
+      return;
+    }
+  }
+  tf32_layer_k<8, 8 * NS, KA>(v, kin, w, last, out, t, rows, n, d_out, t4);
+}
+
+// The last layer on the CUDA cores, at most kFmaOut (4) outputs: out[r, n] =
+// sum_k v[r, k] wf[k, n] in f32, wf [8 KIN, 4] row-major in shared memory.
+// Thread t4 of a quad holds columns 8 s + 2 t4 and 8 s + 2 t4 + 1 of rows
+// g and g + 8 (v's order, see tf32_layer): its partial sums over them, then
+// over the quad (lanes xor 1, 2); thread 0 of the quad writes both rows.
+// The quad's four 16-byte loads of an input step are rows 2 t4 apart: 32
+// bytes, on distinct banks.
+template <int KIN, int KA>
+__device__ __forceinline__ void fma_last(const float (&v)[4 * KA],
+                                         const float* wf,
+                                         float* __restrict__ out,
+                                         int t, int rows, int64_t n, int d_out,
+                                         int t4) {
+  static_assert(KIN <= KA && kFmaOut == 4, "fma_last");
+  float p[2][4] = {};
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = rg + RG * i;
-      if (r >= rows) continue;
-      float* dst = out + (row0 + r) * d_out;
+  for (int s = 0; s < KIN; ++s) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (4 * cg + j < d_out) dst[4 * cg + j] = acc[i][j];
+    for (int c = 0; c < 2; ++c) {
+      const float4 w4 = *reinterpret_cast<const float4*>(
+          wf + 4 * (8 * s + 2 * t4 + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a = v[4 * s + 2 * c + h];
+        p[h][0] = fmaf(a, w4.x, p[h][0]);
+        p[h][1] = fmaf(a, w4.y, p[h][1]);
+        p[h][2] = fmaf(a, w4.z, p[h][2]);
+        p[h][3] = fmaf(a, w4.w, p[h][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      p[h][n] += __shfl_xor_sync(0xffffffffu, p[h][n], 1);
+      p[h][n] += __shfl_xor_sync(0xffffffffu, p[h][n], 2);
+    }
+  }
+  if (t4 != 0) return;
+  const int64_t r0 = first_row(t, rows);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r0 + 8 * h >= n) continue;
+    float* dst = out + (r0 + 8 * h) * d_out;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      if (n < d_out) dst[n] = p[h][n];
+    }
+  }
+}
+
+// fma_last<kin> for a run-time kin in {KIN, 2 KIN, ..., KA}
+template <int KIN, int KA>
+__device__ __forceinline__ void fma_last_k(const float (&v)[4 * KA], int kin,
+                                           const float* wf, float* out,
+                                           int t, int rows, int64_t n, int d_out,
+                                           int t4) {
+  if constexpr (KIN < KA) {
+    if (kin > KIN) {
+      fma_last_k<2 * KIN, KA>(v, kin, wf, out, t, rows, n, d_out, t4);
+      return;
+    }
+  }
+  fma_last<KIN, KA>(v, wf, out, t, rows, n, d_out, t4);
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
+// into shared memory by the consumer threads
+template <int C>
+__device__ __forceinline__ void consumers_copy(unsigned char* dst,
+                                               const unsigned char* src,
+                                               int bytes) {
+  for (int i = 16 * threadIdx.x; i < bytes; i += 16 * 128 * C) {
+    *reinterpret_cast<uint4*>(dst + i) =
+        *reinterpret_cast<const uint4*>(src + i);
+  }
+}
+
+// KA: k-steps of 8 columns a thread's activations hold, the widest padded
+// width / 8 (8 for widths up to 64, 16 up to 128); f32_consumers(KA)
+// consumer warpgroups and a producer warp. FIXED: the layers' shapes,
+// known at compile time (kSigmaNet, kColorNet: fixed_net), or chosen per
+// layer at run time over every instantiation (kAnyNet).
+template <int KA, int FIXED>
+__global__ void __launch_bounds__(128 * f32_consumers(KA) + 32, 1)
+fused_mlp_tf32_kernel(const float* __restrict__ x,
+                      const unsigned char* __restrict__ image,
+                      const __grid_constant__ Widths d,
+                      const __grid_constant__ PlanF32 plan,
+                      float* __restrict__ out, int64_t n) {
+  constexpr int C = f32_consumers(KA);
+  constexpr int kRows = kWgRows * C;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int d0 = d.w[0];
+  const int d_out = d.w[d.n_layers];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* wbar = empty + kMaxStages;
+  unsigned char* wts_p = smem + kBarBytes;
+  unsigned char* ring_p = smem + kBarBytes + plan.weights;
+  const uint32_t wts = smem_addr(wts_p);
+  const int stages = plan.stages;
+  const int ntiles = (int)((n + kRows - 1) / kRows);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * C) {
+    // producer: the resident weights once, then every tile of x in order
+    if (lane == 0) {
+      if (plan.resident) {
+        mbar_arrive_expect_tx(wbar, (uint32_t)plan.weights);
+        bulk_copy_g2s(wts, image, (uint32_t)plan.weights, wbar);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int64_t row0 = (int64_t)t * kRows;
+        const int rows = (int)min((int64_t)kRows, n - row0);
+        const int bytes = rows * d0 * 4;
+        const int bulk = bytes & ~15;
+        unsigned char* dst = ring_p + stage * plan.stage;
+        mbar_wait(&empty[stage], phase ^ 1);
+        for (int e = bulk / 4; e < bytes / 4; ++e) {
+          reinterpret_cast<float*>(dst)[e] = x[row0 * d0 + e];
+        }
+        mbar_arrive_expect_tx(&full[stage], (uint32_t)bulk);
+        if (bulk > 0) {
+          bulk_copy_g2s(smem_addr(dst), x + row0 * d0, (uint32_t)bulk,
+                        &full[stage]);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
     return;
   }
-  __syncthreads();                  // every read of the layer's input is done
+
+  if (plan.resident) mbar_wait(wbar, 0);
+
+  // the tile index (32 bits: run_f32 caps the tiles) is all a thread holds
+  // from tile to tile: the ring's stage and phase (stages is a power of
+  // two) come from it, and the rows and the offsets made of them are made
+  // at each tile (in the wide build, held across the layers, they took
+  // registers the layers need: ptxas spilled)
+  const int shift = stages == 4 ? 2 : stages == 2 ? 1 : 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int it = (t - (int)blockIdx.x) / (int)gridDim.x;
+    const int stage = it & (stages - 1);
+    const uint32_t phase = (uint32_t)(it >> shift) & 1u;
+    int tid = threadIdx.x;
+    if constexpr (KA > 8) asm volatile("" : "+r"(tid));
+    const int g = (tid & 31) >> 2;
+    const int t4 = tid & 3;
+    const int wrow = (tid >> 7) * kWgRows + ((tid >> 5) & 3) * 16;
+    const int rloc[2] = {wrow + g, wrow + g + 8};
+    const int ks0 = FIXED != kAnyNet ? 4 : wide_pad(d0) / 8;
+    const bool pairs = (d0 & 1) == 0;
+    const int64_t row[2] = {(int64_t)t * kRows + rloc[0],
+                            (int64_t)t * kRows + rloc[1]};
+    const bool ok[2] = {row[0] < n, row[1] < n};
+
+    // layer 1's input from the stage in A order (see tf32_layer), zero past
+    // D_0 and past n; then the stage is free
+    float v[4 * KA];
+    mbar_wait(&full[stage], phase);
+    const float* tile =
+        reinterpret_cast<const float*>(ring_p + stage * plan.stage);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    *reinterpret_cast<float4*>(act + (rg + RG * i) * pitch + 4 * cg) =
-        make_float4(fmaxf(acc[i][0], 0.0f), fmaxf(acc[i][1], 0.0f),
-                    fmaxf(acc[i][2], 0.0f), fmaxf(acc[i][3], 0.0f));
-  }
-  __syncthreads();
-}
-
-// f32_layer<n> for a run-time n in {N, 2 N, ..., NMAX}
-template <int N, int NMAX>
-__device__ __forceinline__ void f32_layer_n(int n, float* act, int pitch,
-                                            const float* w, int kin,
-                                            bool last, float* out,
-                                            int64_t row0, int rows,
-                                            int d_out) {
-  if constexpr (N < NMAX) {
-    if (n > N) {
-      f32_layer_n<2 * N, NMAX>(n, act, pitch, w, kin, last, out, row0, rows,
-                               d_out);
-      return;
-    }
-  }
-  f32_layer<N>(act, pitch, w, kin, last, out, row0, rows, d_out);
-}
-
-// NMAX: the widest output width this build takes (64 or 128)
-template <int NMAX>
-__global__ void __launch_bounds__(kF32Threads, NMAX <= 64 ? 2 : 1)
-fused_mlp_f32_kernel(const float* __restrict__ x,
-                     const float* __restrict__ image, Widths d, PlanF32 plan,
-                     float* __restrict__ out, int64_t n) {
-  extern __shared__ __align__(16) float smem_f32[];
-  float* act = smem_f32;
-  float* wts = smem_f32 + plan.act / 4;
-  const int d0 = d.w[0];
-  const int k0 = pad16(d0);
-  const int pad_cols = k0 - d0;
-  const int d_out = d.w[d.n_layers];
-  const int pitch = plan.pitch;
-  const int64_t ntiles = (n + kF32Rows - 1) / kF32Rows;
-
-  if (plan.resident) f32_copy(wts, image, plan.weights / 4);
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t row0 = t * kF32Rows;
-    const int rows = (int)min((int64_t)kF32Rows, n - row0);
-    __syncthreads();                // the previous tile's reads are done
-    const float* src = x + row0 * d0;
-    for (int i = threadIdx.x; i < rows * d0; i += kF32Threads) {
-      const int r = i / d0;
-      act[r * pitch + (i - r * d0)] = src[i];
-    }
-    for (int i = rows * d0 + threadIdx.x; i < kF32Rows * d0;
-         i += kF32Threads) {
-      const int r = i / d0;
-      act[r * pitch + (i - r * d0)] = 0.0f;
-    }
-    for (int i = threadIdx.x; i < kF32Rows * pad_cols; i += kF32Threads) {
-      const int r = i / pad_cols;
-      act[r * pitch + d0 + (i - r * pad_cols)] = 0.0f;
-    }
-    if (!plan.resident) f32_copy(wts, image, k0 * npad(d.w[1]));
-    __syncthreads();
-
-    int kin = k0;
-    int64_t off = 0;
-    for (int l = 0; l < d.n_layers; ++l) {
-      const int nout = npad(d.w[l + 1]);
-      if (!plan.resident && l > 0) {
-        // the layer before is done with the region (its barriers)
-        f32_copy(wts, image + off, kin * nout);
-        __syncthreads();
+    for (int s = 0; s < KA; ++s) {
+      if (s >= ks0) break;
+      const int c = 8 * s + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* src = tile + rloc[h] * d0 + c;
+        float v0 = 0.0f, v1 = 0.0f;
+        if (ok[h] && pairs && c < d0) {
+          const float2 p = *reinterpret_cast<const float2*>(src);
+          v0 = p.x;
+          v1 = p.y;
+        } else if (ok[h]) {
+          if (c < d0) v0 = src[0];
+          if (c + 1 < d0) v1 = src[1];
+        }
+        v[4 * s + h] = v0;
+        v[4 * s + 2 + h] = v1;
       }
-      f32_layer_n<16, NMAX>(nout, act, pitch,
-                            plan.resident ? wts + off : wts, kin,
-                            l == d.n_layers - 1, out, row0, rows, d_out);
-      off += (int64_t)kin * nout;
-      kin = nout;
+    }
+    fence_proxy_async();     // these reads before the stage's next bulk copy
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+
+    if constexpr (FIXED == kSigmaNet) {
+      tf32_layer<4, 64, KA>(v, wts, false, out, t, kRows, n, d_out, t4);
+      tf32_layer<8, 16, KA>(v, wts + kFixedIn, true, out, t, kRows, n, d_out,
+                            t4);
+    } else if constexpr (FIXED == kColorNet) {
+      tf32_layer<4, 64, KA>(v, wts, false, out, t, kRows, n, d_out, t4);
+      tf32_layer<8, 64, KA>(v, wts + kFixedIn, false, out, t, kRows, n, d_out,
+                            t4);
+      fma_last<8, KA>(v, reinterpret_cast<const float*>(
+                             wts_p + kFixedIn + kFixedHidden),
+                      out, t, kRows, n, d_out, t4);
+    } else {
+      int off = 0;
+      int kin = ks0;
+      for (int l = 0; l < d.n_layers; ++l) {
+        if (!plan.resident) {
+          // every consumer is done with the layer before (its wgmma
+          // wait); then this layer, fenced for the tensor cores' reads
+          consumers_sync<C>();
+          consumers_copy<C>(wts_p, image + off, any_layer_bytes(d, l));
+          fence_proxy_async();
+          consumers_sync<C>();
+        }
+        const int at = plan.resident ? off : 0;
+        if (fma_layer(d, l)) {
+          fma_last_k<8, KA>(v, kin,
+                            reinterpret_cast<const float*>(wts_p + at), out,
+                            t, kRows, n, d_out, t4);
+        } else {
+          const int ns = wide_pad(d.w[l + 1]) / 8;
+          tf32_layer_nk<8, KA>(v, ns, kin, wts + at, l == d.n_layers - 1,
+                               out, t, kRows, n, d_out, t4);
+          kin = ns;
+        }
+        off += any_layer_bytes(d, l);
+      }
     }
   }
 }
 
-template <int NMAX>
-cudaError_t launch_f32(const float* x, const float* image, const Widths& d,
-                       const PlanF32& plan, float* out, int64_t n,
-                       cudaStream_t stream, int* per_sm_out) {
-  int device = 0;
+template <int KA, int FIXED>
+cudaError_t launch_f32(const float* x, const unsigned char* image,
+                       const Widths& d, const PlanF32& plan, float* out,
+                       int64_t n, cudaStream_t stream, int* per_sm_out) {
+  constexpr int kRows = kWgRows * f32_consumers(KA);
+  constexpr int kThreadsF32 = 128 * f32_consumers(KA) + 32;
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_mlp_f32_kernel<NMAX>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               plan.smem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_mlp_f32_kernel<NMAX>, kF32Threads, plan.smem);
-  }
+  const cudaError_t err = residency(fused_mlp_tf32_kernel<KA, FIXED>,
+                                    kThreadsF32, plan.smem, &sms, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm_out != nullptr) {
     *per_sm_out = per_sm;
     return cudaSuccess;
   }
-  const int64_t tiles = (n + kF32Rows - 1) / kF32Rows;
+  const int64_t tiles = (n + kRows - 1) / kRows;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
-  fused_mlp_f32_kernel<NMAX><<<blocks, kF32Threads, plan.smem, stream>>>(
-      x, image, d, plan, out, n);
+  fused_mlp_tf32_kernel<KA, FIXED>
+      <<<blocks, kThreadsF32, plan.smem, stream>>>(x, image, d, plan, out, n);
   return cudaGetLastError();
-}
-
-// the widest output width in the f32 image: 64 or less picks the narrow
-// build
-inline int widest_out(const Widths& d) {
-  int widest = 0;
-  for (int l = 1; l <= d.n_layers; ++l) {
-    widest = npad(d.w[l]) > widest ? npad(d.w[l]) : widest;
-  }
-  return widest;
 }
 
 cudaError_t run_f32(const void* x, const void* image, const int* widths,
@@ -727,54 +1151,27 @@ cudaError_t run_f32(const void* x, const void* image, const int* widths,
   Widths dims;
   if (!widths_of(widths, n_layers, &dims)) return cudaErrorInvalidValue;
   const PlanF32 plan = plan_f32(dims);
+  if (plan.stages < 1) return cudaErrorInvalidValue;
   if (plan_out != nullptr) *plan_out = plan;
   if (per_sm_out == nullptr && n <= 0) return cudaSuccess;
-  if ((n + kF32Rows - 1) / kF32Rows > 0x7fffffff) {
-    return cudaErrorInvalidValue;
-  }
+  if (n / kWgRows >= 0x7fffffff) return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
-  const float* im = static_cast<const float*>(image);
+  const unsigned char* im = static_cast<const unsigned char*>(image);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return widest_out(dims) <= 64
-             ? launch_f32<64>(xf, im, dims, plan, o, n, st, per_sm_out)
-             : launch_f32<128>(xf, im, dims, plan, o, n, st, per_sm_out);
-}
-
-// The grouped mode's images: layer l of group g, w_l[g] [D_l, D_l+1] f32
-// read through strides, zero-padded to [pad16(D_l), pad16(D_l+1)] and laid
-// out as wgmma's B image (the k-steps of 16, then the column groups of 8,
-// then the two 8-deep halves, then 8 columns x 8 depths; points_mlp.py
-// wgmma_b), rounded to bf16 (nearest even, as torch's cast), the layers
-// one after another: one thread an image element.
-struct PackArgs {
-  int n_layers;
-  const float* w[kMaxLayers];
-  int64_t stride[kMaxLayers][3];       // group, row (D_l), column (D_l+1)
-  int d_in[kMaxLayers], d_out[kMaxLayers];
-  int64_t offset[kMaxLayers + 1];      // image elements before layer l
-};
-
-__global__ void pack_grouped_kernel(PackArgs a, bf16* __restrict__ image) {
-  const int64_t g = blockIdx.y;
-  const int64_t total = a.offset[a.n_layers];
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < total;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    int l = 0;
-    while (p >= a.offset[l + 1]) ++l;
-    const int64_t q = p - a.offset[l];
-    const int64_t groups8 = pad16(a.d_out[l]) / 8;
-    const int k8 = (int)(q & 7), n8 = (int)((q >> 3) & 7);
-    const int kh = (int)((q >> 6) & 1);
-    const int64_t r = q >> 7;
-    const int k = (int)(r / groups8) * 16 + kh * 8 + k8;
-    const int n = (int)(r % groups8) * 8 + n8;
-    float v = 0.0f;
-    if (k < a.d_in[l] && n < a.d_out[l]) {
-      v = a.w[l][g * a.stride[l][0] + k * a.stride[l][1] +
-                 n * a.stride[l][2]];
-    }
-    image[g * total + p] = __float2bfloat16(v);
+  switch (fixed_net(dims)) {
+    case kSigmaNet:
+      return launch_f32<8, kSigmaNet>(xf, im, dims, plan, o, n, st,
+                                      per_sm_out);
+    case kColorNet:
+      return launch_f32<8, kColorNet>(xf, im, dims, plan, o, n, st,
+                                      per_sm_out);
+    default:
+      return tf32_steps(dims) == 8
+                 ? launch_f32<8, kAnyNet>(xf, im, dims, plan, o, n, st,
+                                          per_sm_out)
+                 : launch_f32<16, kAnyNet>(xf, im, dims, plan, o, n, st,
+                                           per_sm_out);
   }
 }
 
@@ -788,53 +1185,32 @@ __global__ void pack_grouped_kernel(PackArgs a, bf16* __restrict__ image) {
 extern "C" int fused_mlp_forward(const void* x, const void* image,
                                  const int* widths, int n_layers, void* out,
                                  int64_t n, void* stream) {
-  return (int)run(x, image, widths, n_layers, out, n, 1, stream, nullptr,
-                  nullptr);
+  if (image == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(x, static_cast<const unsigned char*>(image), widths,
+                  n_layers, out, n, 1, stream, nullptr, nullptr);
 }
 
-// K4 grouped: `groups` problems in one launch. x [groups, n, widths[0]] bf16,
-// contiguous, 16-byte aligned, n * widths[0] a multiple of 8; image the
-// groups' weight images (each as fused_mlp_forward's), one after another;
-// out [groups, n, widths[n_layers]] f32.
-extern "C" int fused_mlp_forward_grouped(const void* x, const void* image,
+// K4 grouped: `groups` problems in one launch. x [groups, n, widths[0]]
+// bf16, contiguous, 16-byte aligned, n * widths[0] a multiple of 8; w the
+// n_layers f32 weight sets (device pointers), layer l's element [g, k, n]
+// at w[l] + g strides[3 l] + k strides[3 l + 1] + n strides[3 l + 2]; out
+// [groups, n, widths[n_layers]] f32.
+extern "C" int fused_mlp_forward_grouped(const void* x,
+                                         const void* const* w,
+                                         const int64_t* strides,
                                          const int* widths, int n_layers,
                                          void* out, int64_t n, int groups,
                                          void* stream) {
-  return (int)run(x, image, widths, n_layers, out, n, groups, stream,
-                  nullptr, nullptr);
-}
-
-// The grouped mode's images, [groups, image elements] bf16: w the n_layers
-// f32 weight sets (device pointers), layer l's element [g, k, n] at
-// w[l] + g strides[3 l] + k strides[3 l + 1] + n strides[3 l + 2];
-// widths D_0 .. D_L.
-extern "C" int fused_mlp_pack_grouped(const void* const* w,
-                                      const int64_t* strides,
-                                      const int* widths, int n_layers,
-                                      int groups, void* image, void* stream) {
-  Widths dims;
-  if (!widths_of(widths, n_layers, &dims) || groups < 1 || groups > 65535) {
+  if (n_layers < 1 || n_layers > kMaxLayers) {
     return (int)cudaErrorInvalidValue;
   }
-  PackArgs a{};
-  a.n_layers = n_layers;
-  a.offset[0] = 0;
+  GroupWeights gw{};
   for (int l = 0; l < n_layers; ++l) {
-    a.w[l] = static_cast<const float*>(w[l]);
-    for (int j = 0; j < 3; ++j) a.stride[l][j] = strides[3 * l + j];
-    a.d_in[l] = dims.w[l];
-    a.d_out[l] = dims.w[l + 1];
-    a.offset[l + 1] = a.offset[l] + (int64_t)pad16(dims.w[l]) *
-                                        pad16(dims.w[l + 1]);
+    gw.w[l] = static_cast<const float*>(w[l]);
+    for (int j = 0; j < 3; ++j) gw.stride[l][j] = strides[3 * l + j];
   }
-  const int threads = 256;
-  const int64_t per_group = (a.offset[n_layers] + threads - 1) / threads;
-  const dim3 grid((unsigned)(per_group < 64 ? per_group : 64),
-                  (unsigned)groups);
-  pack_grouped_kernel<<<grid, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<bf16*>(image));
-  return (int)cudaGetLastError();
+  return (int)run(x, gw, widths, n_layers, out, n, groups, stream, nullptr,
+                  nullptr);
 }
 
 // The launch this build makes for these widths: {tile rows, stages, stage
@@ -844,8 +1220,9 @@ extern "C" int fused_mlp_pack_grouped(const void* const* w,
 extern "C" int fused_mlp_plan(const int* widths, int n_layers, int* out) {
   int per_sm = 0;
   Plan plan{};
-  const cudaError_t err = run(nullptr, nullptr, widths, n_layers, nullptr, 0,
-                              1, nullptr, &per_sm, &plan);
+  const cudaError_t err =
+      run(nullptr, static_cast<const unsigned char*>(nullptr), widths,
+          n_layers, nullptr, 0, 1, nullptr, &per_sm, &plan);
   out[0] = kTileRows;
   out[1] = plan.stages;
   out[2] = plan.stage;
@@ -858,9 +1235,11 @@ extern "C" int fused_mlp_plan(const int* widths, int n_layers, int* out) {
   return (int)err;
 }
 
-// K4 in float32. x [n, widths[0]] f32, contiguous; image the layers
-// [K_l, N_l] f32 row-major (see plan_f32), zero padded, one after the
-// other, 16-byte aligned; out [n, widths[n_layers]] f32.
+// K4 in float32. x [n, widths[0]] f32, contiguous, 16-byte aligned; image
+// every layer's pair of tf32 B images (hi, lo; [K_l, N_l] each), a last
+// layer at most kFmaOut wide as [K_l, 4] f32 (layer_bytes, and
+// ops/hopper/fused_mlp.py), one after the other, 16-byte aligned; out
+// [n, widths[n_layers]] f32.
 extern "C" int fused_mlp_forward_f32(const void* x, const void* image,
                                      const int* widths, int n_layers,
                                      void* out, int64_t n, void* stream) {
@@ -868,9 +1247,9 @@ extern "C" int fused_mlp_forward_f32(const void* x, const void* image,
                       nullptr);
 }
 
-// The f32 launch for these widths: {tile rows, 1 if the weights stay in
-// shared memory, activation row floats, shared memory bytes of a block,
-// blocks per SM, the build's widest output (64 or 128)}.
+// The f32 launch for these widths: {tile rows (64 a consumer warpgroup),
+// 1 if the weights stay in shared memory, stages, shared memory bytes of a
+// block, blocks per SM, the build's widest padded width (64 or 128)}.
 extern "C" int fused_mlp_plan_f32(const int* widths, int n_layers,
                                   int* out) {
   int per_sm = 0;
@@ -879,11 +1258,11 @@ extern "C" int fused_mlp_plan_f32(const int* widths, int n_layers,
                                   nullptr, 0, nullptr, &per_sm, &plan);
   Widths dims;
   const bool ok = widths_of(widths, n_layers, &dims);
-  out[0] = kF32Rows;
+  out[0] = ok ? kWgRows * f32_consumers(tf32_steps(dims)) : 0;
   out[1] = plan.resident;
-  out[2] = plan.pitch;
+  out[2] = plan.stages;
   out[3] = plan.smem;
   out[4] = per_sm;
-  out[5] = ok ? (widest_out(dims) <= 64 ? 64 : 128) : 0;
+  out[5] = ok ? 8 * tf32_steps(dims) : 0;
   return (int)err;
 }

@@ -20,26 +20,33 @@ kernel loads it whole, and the rows of x stream through a ring of bulk
 copies (csrc/fused_mlp.cu, `_plan`).
 
 With compute_dtype float32 (the JAX package's default) a CUDA tensor
-launches the library's second kernel, `fused_mlp_f32_kernel`: f32 operands
-and sums, every layer kept in f32, on the CUDA cores (no TF32). Its weights
-are packed once per set as every layer zero-padded to [K_l, N_l] f32,
-row-major, one after another (`_f32_shapes`, `_pack_f32`); a block keeps
-them in shared memory where they fit beside its 128-row activation tile,
-else loads one layer at a time (`_plan_f32`).
+launches the library's second kernel, `fused_mlp_tf32_kernel`: f32 operands,
+every layer kept in f32, on the tensor cores as 3xTF32 (each operand split
+into two tf32 values, `tf32_split`; three products each, f32 sums), and a
+last layer at most FMA_OUT wide as f32 FFMA on the CUDA cores
+(`fused_mlp_tf32_emulated` is that arithmetic in plain PyTorch). Its
+weights are split and packed once per set (`_f32_layers`, `_pack_f32`):
+every tensor-core layer zero-padded to [K_l, N_l] (the hash-grid nets'
+widths rounded up to powers of two of at least 8, any other chain's to 64
+or 128) as a hi and a lo tf32 B image
+(`wgmma_b_tf32`, each k-step's rows in K_ORDER), the FFMA layer as its
+exact f32 weights [K_l, FMA_OUT], one layer after another; a block keeps
+them in shared memory where they fit beside its ring of x tiles, else
+loads one layer at a time (`_plan_f32`).
 
 Grouped mode, `fused_mlp_grouped`: G independent MLPs in one launch, x
 [G, N, D_0] with one weight set [G, in, out] per group, what the JAX
 package's kernel computes under `jax.vmap` over the weights (its batching
 rule adds a leading grid axis). The in-scan Laplace fits of the batched
 rollouts (validation/batched.py `_laplace_uq`) run one sigma net per sim
-through it. bf16 only; the G images are built on every call, since the
-weights change at every step of a fit: on the card by one launch of the
-library's pack kernel (`_pack_grouped`), which reads each layer through
-its strides (the fits' weights are views of their flat vectors) and
-writes each group's image as `_pack` does. Its plain version is
-`fused_mlp_grouped_plain` (the batched products of
-`fused_mlp_reference`), and its backward the same recompute as the single
-mode's.
+through it. bf16 only; the weights change at every step of a fit, so no
+image is cached or written to device memory: each block of the one launch
+reads its group's f32 layers through their strides (the fits' weights are
+views of their flat vectors) and rounds them into its own shared memory as
+`_pack` lays them out (`grouped_image_mirror` is that index map in
+Python). Its plain version is `fused_mlp_grouped_plain` (the batched
+products of `fused_mlp_reference`), and its backward the same recompute as
+the single mode's.
 
 Gradients (both dtypes, and on the CPU too): `fused_mlp` is an autograd
 Function whose forward launches the kernel (the plain version on a CPU
@@ -54,6 +61,7 @@ before the next launch.
 """
 
 import ctypes
+import re
 from pathlib import Path
 
 import torch
@@ -72,7 +80,17 @@ CONSUMERS = 2
 TILE_ROWS = 64 * CONSUMERS
 MAX_STAGES = 6
 BARRIER_BYTES = 128
-F32_ROWS = 128        # rows of a tile in the f32 kernel
+MAX_STAGES_F32 = 4    # the f32 kernel's ring
+# the f32 kernel: a last layer at most FMA_OUT wide runs as FFMA; consumer
+# warpgroups of 64 rows a block, in the build for widths up to 64 (the
+# build for 128 has one), as the source defines them
+FMA_OUT = 4
+F32_CONSUMERS = int(re.search(r"constexpr int kF32Consumers = (\d+);",
+                              SOURCE.read_text()).group(1))
+# the order of an 8-deep k-step's rows in the f32 images: A column t4 of
+# thread t4's tf32 fragment is column 2 t4 of its accumulator, A column
+# t4 + 4 column 2 t4 + 1 (csrc/fused_mlp.cu, tf32_layer)
+K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 # launches of the CUDA kernels since the last reset (never the plain
 # path): the bf16 kernel, the f32 one, and the grouped mode; and the calls
@@ -113,14 +131,12 @@ def _library():
                                        ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)]
         lib.fused_mlp_plan.restype = ctypes.c_int
-        lib.fused_mlp_forward_grouped.argtypes = fn.argtypes[:6] + [
-            ctypes.c_int, ctypes.c_void_p]
+        lib.fused_mlp_forward_grouped.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p]
         lib.fused_mlp_forward_grouped.restype = ctypes.c_int
-        lib.fused_mlp_pack_grouped.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.fused_mlp_pack_grouped.restype = ctypes.c_int
         lib.fused_mlp_forward_f32.argtypes = fn.argtypes
         lib.fused_mlp_forward_f32.restype = ctypes.c_int
         lib.fused_mlp_plan_f32.argtypes = lib.fused_mlp_plan.argtypes
@@ -208,42 +224,118 @@ def _plan(widths):
                 stages=stages, total=total)
 
 
-def _npad(v):
-    """A layer's output width in the f32 image: a power of two, >= 16."""
-    return max(16, 1 << (v - 1).bit_length())
+def _p2(v):
+    """A width in the f32 images: a power of two, >= 8."""
+    return max(8, 1 << (v - 1).bit_length())
 
 
-def _f32_shapes(widths):
-    """[K_l, N_l] of every layer in the f32 image (csrc/fused_mlp.cu):
-    N_l = _npad(D_l+1), the kernel's column split; K_0 = pad16(D_0), K_l =
-    N_l-1."""
-    ns = [_npad(v) for v in widths[1:]]
-    return list(zip([_pad16(widths[0])] + ns[:-1], ns))
+def _fixed_net(widths):
+    """Whether the f32 kernel has a build for these exact layer shapes
+    (csrc/fused_mlp.cu fixed_net): the hash-grid field's sigma net
+    [<= 32, 33..64, 9..16] and color net [<= 32, 33..64, 33..64, <=
+    FMA_OUT]."""
+    p = [_p2(v) for v in widths]
+    return p[:2] == [32, 64] and (
+        (len(p) == 3 and p[2] == 16)
+        or (len(p) == 4 and p[2] == 64 and widths[3] <= FMA_OUT))
+
+
+def _f32_layers(widths):
+    """Every layer of the f32 image (csrc/fused_mlp.cu layer_bytes):
+    ("tf32", K_l, N_l), its hi and lo images; or, for a last layer at most
+    FMA_OUT wide, ("fma", K_l, FMA_OUT), its f32 weights row-major. The
+    widths: each rounded up to a power of two of at least 8 (wgmma's tf32
+    k-step and N) for the nets with a build of their own (`_fixed_net`),
+    to 64 or 128 for any other chain."""
+    pad = _p2 if _fixed_net(widths) else (lambda v: 64 if v <= 64 else 128)
+    last = len(widths) - 2
+    return [("fma", pad(a), FMA_OUT) if l == last and b <= FMA_OUT
+            else ("tf32", pad(a), pad(b))
+            for l, (a, b) in enumerate(zip(widths, widths[1:]))]
+
+
+def _layer_bytes(kind, k, n):
+    return 4 * k * n * (2 if kind == "tf32" else 1)
+
+
+def _f32_tile_rows(widths):
+    """Rows of the f32 kernel's tile: 64 a consumer warpgroup, F32_CONSUMERS
+    of them in the build for widths up to 64, one in the build for 128."""
+    return 64 * (F32_CONSUMERS if max(widths) <= 64 else 1)
 
 
 def _plan_f32(widths):
     """A block's shared memory in the f32 kernel (csrc/fused_mlp.cu
-    plan_f32): the 128-row activation tile (rows of the widest padded width
-    + 4 floats), then every layer [K_l, N_l] f32 where they fit beside it
-    (resident), else room for the largest one; bytes of each part and in
-    all."""
-    shapes = _f32_shapes(widths)
-    pitch = max(max(n for _, n in shapes), _pad16(widths[0])) + 4
-    act = F32_ROWS * pitch * 4
-    sizes = [k * n for k, n in shapes]
-    resident = act + 4 * sum(sizes) <= MAX_SMEM
-    weights = 4 * (sum(sizes) if resident else max(sizes))
-    return dict(pitch=pitch, act=act, weights=weights, resident=resident,
-                total=act + weights)
+    plan_f32): the barriers, the weights (every layer where they fit beside
+    one stage: resident; else room for the largest layer), then as many
+    stages of a tile of x (f32) as fit, at most MAX_STAGES_F32, a power of
+    two; bytes of each part, the stage count (0 when not one stage fits)
+    and the bytes in all (0 then)."""
+    sizes = [_layer_bytes(*layer) for layer in _f32_layers(widths)]
+    stage = _f32_tile_rows(widths) * widths[0] * 4
+    room = MAX_SMEM - BARRIER_BYTES
+    resident = sum(sizes) + stage <= room
+    weights = sum(sizes) if resident else max(sizes)
+    left = room - weights
+    stages = 0 if left < stage else min(MAX_STAGES_F32, left // stage)
+    stages = 1 << (stages.bit_length() - 1) if stages else 0
+    total = BARRIER_BYTES + weights + stages * stage if stages else 0
+    return dict(barriers=BARRIER_BYTES, weights=weights, resident=resident,
+                stage=stage, stages=stages, total=total)
+
+
+def tf32_round(x):
+    """x (f32) rounded to tf32 as `cvt.rna.tf32.f32` rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero; the f32 bit
+    pattern with its 13 low bits zero. Finite inputs."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), so that hi + lo keeps
+    about 21 bits of x's 24."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def wgmma_b_tf32(w):
+    """w [K, N] f32 (K and N multiples of 8) as the f32 kernel's B image,
+    flat: for each 8-deep k-step, its rows taken in K_ORDER, the column
+    groups of 8 (256 bytes apart), each two 8 x 4 core matrices (depths 0-3
+    and 4-7, 128 bytes apart) of 8 columns x 4 depths, column n of the group
+    at 16 n bytes and depth k at 4 k bytes."""
+    k, n = w.shape
+    w = w.reshape(k // 8, 8, n)[:, list(K_ORDER)]
+    return w.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 1, 4, 2) \
+        .reshape(-1)
+
+
+def fused_mlp_tf32_emulated(x, weights, products=3):
+    """The f32 kernel's arithmetic in plain PyTorch: each tensor-core
+    layer's operands split into tf32 values (`tf32_split`) and summed in f32
+    as lo @ W_hi + hi @ W_lo + hi @ W_hi (products=3), or as a single tf32
+    product hi @ W_hi (products=1, what the kernel does not do); a last
+    layer at most FMA_OUT wide in f32 (the kernel's FFMA); ReLU between
+    layers, the last layer in f32. x [N, D_0]; weights [in, out] each."""
+    h = x.float()
+    for i, w in enumerate(weights):
+        if i == len(weights) - 1 and w.shape[1] <= FMA_OUT:
+            return h @ w.float()
+        (ah, al), (wh, wl) = tf32_split(h), tf32_split(w)
+        h = ah @ wh if products == 1 else al @ wh + ah @ wl + ah @ wh
+        if i != len(weights) - 1:
+            h = torch.relu(h)
+    return h
 
 
 def launch_plan(widths, compute_dtype=torch.bfloat16):
     """The built kernel's own plan on this card for these widths. bf16:
     (rows a tile, stages, stage bytes, shared-memory bytes of a block,
     blocks per SM, k-steps of A a thread holds: 4 up to 64 columns, else
-    8); f32: (rows a tile, 1 if the weights stay in shared memory, floats
-    of an activation row, shared-memory bytes of a block, blocks per SM,
-    the build's widest output: 64, or 128)."""
+    8); f32: (rows a tile, 1 if the weights stay in shared memory, stages,
+    shared-memory bytes of a block, blocks per SM, the build's widest
+    padded width: 64, or 128)."""
     dims = (ctypes.c_int * len(widths))(*widths)
     plan = (ctypes.c_int * 6)()
     lib = _library()
@@ -264,8 +356,7 @@ def _widths(weights, f32: bool = False):
            for i, w in enumerate(weights)):
         raise ValueError(f"weights {[tuple(w.shape) for w in weights]} do "
                          "not chain")
-    fits = _plan_f32(widths)["total"] <= MAX_SMEM if f32 \
-        else _plan(widths)["stages"] >= 1
+    fits = (_plan_f32 if f32 else _plan)(widths)["stages"] >= 1
     if not (1 <= len(weights) <= MAX_LAYERS
             and max(widths) <= MAX_WIDTH and fits):
         raise ValueError(f"K4 takes 1..{MAX_LAYERS} layers of widths up to "
@@ -283,8 +374,10 @@ def _prepare(weights):
 
 
 def _prepare_f32(weights):
-    """(widths, packed weights) of the f32 kernel: every layer zero-padded
-    to [K_l, N_l] f32 row-major (`_f32_shapes`), one after another in one
+    """(widths, packed weights) of the f32 kernel (`_f32_layers`): every
+    tensor-core layer zero-padded to [K_l, N_l], split into tf32 hi and lo,
+    each as `wgmma_b_tf32`'s image, hi then lo; an FFMA last layer
+    zero-padded to [K_l, FMA_OUT]; the layers one after another in one f32
     buffer, built once per set of weights."""
     return _prepared.get(list(weights), lambda: _pack_f32(weights),
                          tag="f32")
@@ -293,10 +386,13 @@ def _prepare_f32(weights):
 def _pack_f32(weights):
     widths = _widths(weights, f32=True)
     parts = []
-    for w, shape in zip(weights, _f32_shapes(widths)):
-        p = torch.zeros(shape, dtype=torch.float32, device=w.device)
+    for w, (kind, k, n) in zip(weights, _f32_layers(widths)):
+        p = torch.zeros((k, n), dtype=torch.float32, device=w.device)
         p[:w.shape[0], :w.shape[1]] = w
-        parts.append(p.reshape(-1))
+        if kind == "fma":
+            parts.append(p.reshape(-1))
+        else:
+            parts.extend(wgmma_b_tf32(half) for half in tf32_split(p))
     return widths, torch.cat(parts).contiguous()
 
 
@@ -311,33 +407,42 @@ def _pack(weights):
     return widths, torch.cat(parts).contiguous()
 
 
-def _pack_grouped(weights):
-    """(widths, [G, bytes / 2] bf16): `_pack`'s image of every group's
-    weights (each [G, in, out], on the card), by one launch of the pack
-    kernel."""
+def _grouped_widths(weights):
+    """[D_0, ..., D_L] of grouped weights, each [G, in, out] with one G;
+    raises for any other set, or one the kernel does not take."""
     G = weights[0].shape[0]
     if any(w.ndim != 3 or w.shape[0] != G for w in weights):
         raise ValueError(f"grouped weights {[tuple(w.shape) for w in weights]}"
                          " are not [G, in, out] with one G")
-    widths = _widths([w[0] for w in weights])
-    if any(w.device.type != "cuda" for w in weights):
-        raise ValueError("the grouped pack kernel takes CUDA tensors")
-    ws = [w.float() for w in weights]
-    total = sum(_pad16(a) * _pad16(b) for a, b in zip(widths, widths[1:]))
-    image = torch.empty((G, total), dtype=torch.bfloat16,
-                        device=ws[0].device)
-    ptrs = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
-    strides = (ctypes.c_int64 * (3 * len(ws)))(
-        *[s for w in ws for s in w.stride()])
-    dims = (ctypes.c_int * len(widths))(*widths)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = _library().fused_mlp_pack_grouped(ptrs, strides, dims,
-                                                len(ws), G,
-                                                image.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp grouped pack failed: cudaError {err}")
-    return widths, image
+    return _widths([w[0] for w in weights])
+
+
+def grouped_image_mirror(weights, g):
+    """Group g's bf16 image as a block of the grouped kernel builds it
+    (csrc/fused_mlp.cu pack_group), in Python: layer l's image element p
+    of the 16-byte row q = p - p % 8 is weight [k, n] read at its storage
+    offset + g stride[0] + k stride[1] + n stride[2], k = 16 (r // groups8)
+    + 8 ((q >> 6) & 1) + p % 8, n = 8 (r % groups8) + (q >> 3) % 8, r = q
+    >> 7, groups8 = pad16(D_l+1) / 8; zero past the weight's edges; rounded
+    to bf16. Equals `_pack`'s image of the group's weights."""
+    widths = _grouped_widths(weights)
+    parts = []
+    for w, d_in, d_out in zip(weights, widths, widths[1:]):
+        flat = torch.empty(0, dtype=w.dtype, device=w.device).set_(
+            w.untyped_storage())
+        p = torch.arange(_pad16(d_in) * _pad16(d_out), device=w.device)
+        q = p - p % 8
+        groups8 = _pad16(d_out) // 8
+        r = q >> 7
+        k = (r // groups8) * 16 + ((q >> 6) & 1) * 8 + p % 8
+        n = (r % groups8) * 8 + (q >> 3) % 8
+        inside = (k < d_in) & (n < d_out)
+        s0, s1, s2 = w.stride()
+        at = w.storage_offset() + g * s0 + k * s1 + n * s2
+        v = torch.where(inside, flat[torch.where(inside, at, 0)].float(),
+                        0.0)
+        parts.append(v.to(torch.bfloat16))
+    return torch.cat(parts)
 
 
 def fused_mlp_grouped(x, weights, compute_dtype=torch.bfloat16):
@@ -366,14 +471,16 @@ def fused_mlp_grouped(x, weights, compute_dtype=torch.bfloat16):
 
 
 def _launch_grouped(x, weights):
-    """One launch of the grouped kernel on CUDA tensors."""
+    """One launch of the grouped kernel on CUDA tensors: each block packs
+    its group's image from the f32 weights as they lie (other dtypes are
+    cast first)."""
     global LAUNCHES_GROUPED
-    widths, packed = _pack_grouped(list(weights))
-    if x.ndim != 3 or x.shape[0] != packed.shape[0] \
-            or x.shape[2] != widths[0]:
-        raise ValueError(f"x must be [{packed.shape[0]}, N, {widths[0]}], "
-                         f"got {tuple(x.shape)}")
-    G, n = x.shape[:2]
+    widths = _grouped_widths(weights)
+    G = weights[0].shape[0]
+    if x.ndim != 3 or x.shape[0] != G or x.shape[2] != widths[0]:
+        raise ValueError(f"x must be [{G}, N, {widths[0]}], got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[1]
     if G > MAX_GROUPS or (n * widths[0]) % 8:
         raise ValueError(f"the grouped K4 takes at most {MAX_GROUPS} groups "
                          "whose rows hold a multiple of 8 values, got "
@@ -381,15 +488,19 @@ def _launch_grouped(x, weights):
     x = x.to(torch.bfloat16).contiguous()
     if x.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary")
+    ws = [w if w.dtype == torch.float32 else w.float() for w in weights]
     out = torch.empty((G, n, widths[-1]), dtype=torch.float32,
                       device=x.device)
     if n and G:
+        ptrs = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
+        strides = (ctypes.c_int64 * (3 * len(ws)))(
+            *[s for w in ws for s in w.stride()])
         dims = (ctypes.c_int * len(widths))(*widths)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _library().fused_mlp_forward_grouped(
-                x.data_ptr(), packed.data_ptr(), dims, len(weights),
-                out.data_ptr(), n, G, stream)
+                x.data_ptr(), ptrs, strides, dims, len(ws), out.data_ptr(),
+                n, G, stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp grouped launch failed: cudaError "
                                f"{err}")
@@ -406,7 +517,8 @@ def fused_mlp(x, weights, compute_dtype=torch.bfloat16):
     the bf16 one, or with compute_dtype float32 the f32 one; either takes
     at most MAX_LAYERS layers of widths up to MAX_WIDTH. x is cast to the
     compute dtype and must then be contiguous (and, in bf16, start on a
-    16-byte boundary); anything else raises."""
+    16-byte boundary; an f32 x that does not is copied first, for the
+    kernel's bulk copies); anything else raises."""
     if x.device.type == "cpu":
         def launch(x_, ws):
             return fused_mlp_plain(x_, ws, compute_dtype)
@@ -434,9 +546,11 @@ def _launch(x, weights, compute_dtype):
         raise ValueError(f"x must be [N, {widths[0]}], got "
                          f"{tuple(x.shape)}")
     x = x.to(compute_dtype)
-    if not x.is_contiguous() or x.data_ptr() % (4 if f32 else 16):
+    if f32 and x.is_contiguous() and x.data_ptr() % 16:
+        x = x.clone()
+    if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and start on a 16-byte "
-                         "boundary (4 in float32)")
+                         "boundary (in bfloat16)")
     out = torch.empty((n, widths[-1]), dtype=torch.float32, device=x.device)
     if n:
         dims = (ctypes.c_int * len(widths))(*widths)

@@ -48,7 +48,7 @@ import torch
 from . import flagship as F
 
 KERNEL_NAMES = {"K1": "points_mlp", "K3": "sigma_color",
-                "K4": "fused_mlp_kernel", "K4 f32": "fused_mlp_f32_kernel",
+                "K4": "fused_mlp_kernel", "K4 f32": "fused_mlp_tf32_kernel",
                 "K5": "fold_fwd_kernel", "K5 backward": "fold_bwd_kernel"}
 
 

@@ -319,30 +319,81 @@ def test_f32_shapes_beyond_the_kernel_raise(shapes):
         K._prepare_f32([torch.zeros(s) for s in shapes])
 
 
+def _b_address_tf32(k, n, cols):
+    """Element offset of B[k, n] (k in A order) in one f32 image of `cols`
+    columns, as the kernel's descriptor states the layout (csrc/sm90.cuh
+    b_desc with 4-byte elements): 8-deep k-steps one after another,
+    8-column groups 256 bytes apart, the two 4-deep halves of a k-step 128
+    bytes apart, 8 x 4 core matrices of 16-byte rows (one column, 4
+    depths)."""
+    return ((k // 8) * 8 * cols + (n // 8) * 64 + ((k % 8) // 4) * 32
+            + (n % 8) * 4 + k % 4)
+
+
+def _read_back_f32(packed, widths):
+    """Every tensor-core layer's (hi, lo) images read out of the f32 buffer
+    through the descriptor's address function, each k-step's rows put back
+    from K_ORDER into the weights' order: (hi [K_l, N_l], lo [K_l, N_l]);
+    an FFMA layer's weights [K_l, FMA_OUT] as they lie."""
+    order = torch.tensor(K.K_ORDER)
+    layers, off = [], 0
+    for kind, rows, cols in K._f32_layers(widths):
+        if kind == "fma":
+            layers.append(packed[off:off + rows * cols].reshape(rows, cols))
+            off += rows * cols
+            continue
+        k, n = torch.meshgrid(torch.arange(rows), torch.arange(cols),
+                              indexing="ij")
+        pair = []
+        for _ in range(2):
+            img = packed[off + _b_address_tf32(k, n, cols)]
+            back = torch.empty_like(img)
+            # image row 8 s + i holds weight row 8 s + K_ORDER[i]
+            back[(k // 8 * 8 + order[k % 8])[:, 0]] = img
+            pair.append(back)
+            off += rows * cols
+        layers.append(tuple(pair))
+    assert off == packed.numel()
+    return layers
+
+
 def test_f32_image_of_the_ref_nets():
-    """Every layer zero-padded to [K_l, N_l] f32 row-major, one after the
-    other: the sigma net [32, 64] + [64, 16] (12 KB), the color net
-    [32, 64] + [64, 64] + [64, 16] (28 KB), both resident in a block
-    beside the 128 x 68-float activation tile."""
-    for name, want_shapes in (("sigma", [(32, 64), (64, 16)]),
-                              ("color", [(32, 64), (64, 64), (64, 16)])):
+    """Every tensor-core layer zero-padded to [K_l, N_l] (powers of two, 8
+    at least), split into tf32 hi and lo images, hi then lo; a last layer
+    at most FMA_OUT wide (the color net's 3) as its exact f32 weights
+    [64, 4] for the FFMA route; one layer after the other: the sigma net
+    [32, 64] x 2 + [64, 16] x 2 (24 KB), the color net [32, 64] x 2 +
+    [64, 64] x 2 + [64, 4] (49 KB), both resident in a block beside a ring
+    of four 192-row tiles of x. Read back through the descriptor's address
+    function, hi + lo gives every weight within 2^-21 of it, and zero
+    outside it."""
+    for name, want in (("sigma", [("tf32", 32, 64), ("tf32", 64, 16)]),
+                       ("color", [("tf32", 32, 64), ("tf32", 64, 64),
+                                  ("fma", 64, 4)])):
         _, ws = _chain(NETS[name], seed=4)
         ws_t = [torch.from_numpy(w) for w in ws]
         widths, packed = K._prepare_f32(ws_t)
-        assert widths == NETS[name]
-        assert K._f32_shapes(widths) == want_shapes
+        assert widths == NETS[name] and K._fixed_net(widths)
+        assert K._f32_layers(widths) == want
         assert packed.dtype == torch.float32 and packed.is_contiguous()
-        off = 0
-        for w, (k, n) in zip(ws_t, want_shapes):
-            layer = packed[off:off + k * n].reshape(k, n)
-            assert torch.equal(layer[:w.shape[0], :w.shape[1]], w)
-            assert not layer[w.shape[0]:].any()
-            assert not layer[:, w.shape[1]:].any()
-            off += k * n
-        assert off == packed.numel()
+        for w, got in zip(ws_t, _read_back_f32(packed, widths)):
+            a, b = w.shape
+            if not isinstance(got, tuple):           # the FFMA layer
+                assert torch.equal(got[:a, :b], w)
+                assert not got[a:].any() and not got[:, b:].any()
+                continue
+            hi, lo = got
+            assert torch.equal(hi, K.tf32_round(hi))
+            assert torch.equal(lo, K.tf32_round(lo))
+            rel = ((hi + lo)[:a, :b] - w).abs() / w.abs()
+            assert float(rel.max()) <= 2.0 ** -21
+            for img in (hi, lo):
+                assert not img[a:].any() and not img[:, b:].any()
         plan = K._plan_f32(widths)
-        assert plan["resident"] and plan["pitch"] == 68
-        assert plan["weights"] == 4 * off
+        assert plan["resident"] and plan["stages"] == K.MAX_STAGES_F32
+        assert plan["stage"] == 64 * K.F32_CONSUMERS * widths[0] * 4
+        assert plan["weights"] == 4 * packed.numel()
+        assert plan["weights"] == {"sigma": 24576, "color": 50176}[name]
         assert K._prepare_f32(ws_t)[1] is packed       # built once
         assert K._prepare(ws_t)[1] is not packed       # the bf16 image apart
 
@@ -350,45 +401,209 @@ def test_f32_image_of_the_ref_nets():
 @pytest.mark.parametrize("layers", range(1, K.MAX_LAYERS + 1))
 def test_f32_plan_takes_every_shape(layers):
     """The f32 kernel takes every chain the contract allows (1-8 layers,
-    widths 1-128): its weights stay in shared memory where they fit beside
-    the activation tile, else one layer at a time, and a block's shared
-    memory fits 232,448 bytes either way."""
+    widths 1-128): its weight images stay in shared memory where they fit
+    beside one stage, else one layer at a time; at least one stage of x
+    fits, copies stay 16-byte aligned, and a block's shared memory fits
+    232,448 bytes either way. A last layer at most FMA_OUT wide, and only
+    that, takes the FFMA route; widths are padded to 64 or 128 but in the
+    nets with builds of their own."""
     for d_in in (None, 1, 31, 128):
         for width in range(1, K.MAX_WIDTH + 1):
             widths = [d_in or width] + [width] * layers
             plan = K._plan_f32(widths)
-            assert plan["total"] <= K.MAX_SMEM
-            assert plan["pitch"] % 4 == 0 and plan["pitch"] % 32 in (4, 20)
-            shapes = K._f32_shapes(widths)
-            assert all(n in (16, 32, 64, 128) and k % 16 == 0
-                       for k, n in shapes)
-            sizes = [4 * k * n for k, n in shapes]
+            assert plan["stages"] in (1, 2, 4) and plan["stages"] <= \
+                K.MAX_STAGES_F32
+            assert 0 < plan["total"] <= K.MAX_SMEM
+            rows = 64 * (K.F32_CONSUMERS if max(widths) <= 64 else 1)
+            assert plan["stage"] == rows * widths[0] * 4
+            assert (plan["barriers"] + plan["weights"]) % 16 == 0
+            assert plan["stage"] % 16 == 0
+            shapes = K._f32_layers(widths)
+            kinds = [kind for kind, _, _ in shapes]
+            assert kinds == ["tf32"] * (layers - 1) + [
+                "fma" if width <= K.FMA_OUT else "tf32"]
+            sizes_in = (8, 16, 32, 64, 128) if K._fixed_net(widths) \
+                else (64, 128)
+            for (kind, k, n), a, b in zip(shapes, widths, widths[1:]):
+                assert k in sizes_in and k >= a
+                assert (n in sizes_in and n >= b
+                        if kind == "tf32" else n == K.FMA_OUT >= b)
+            sizes = [K._layer_bytes(*layer) for layer in shapes]
+            assert all(size % 16 == 0 for size in sizes)
             assert plan["weights"] == (sum(sizes) if plan["resident"]
                                        else max(sizes))
+            assert plan["resident"] == (sum(sizes) + plan["stage"]
+                                        <= K.MAX_SMEM - plan["barriers"])
             ws = [torch.zeros((a, b)) for a, b in zip(widths, widths[1:])]
             assert K._widths(ws, f32=True) == widths
 
 
-@pytest.mark.parametrize("n_cols", [16, 32, 64, 128])
+@pytest.mark.parametrize("n_cols", [8, 16, 32, 64, 128])
 def test_f32_layer_split_covers_every_output_once(n_cols):
-    """The f32 kernel's split of a layer (csrc/fused_mlp.cu f32_layer):
-    256 threads, N / 4 column groups of 4 adjacent columns, 1024 / N row
-    groups, thread (rg, cg) holding rows rg + (1024 / N) i: every output
-    of the 128-row tile once; the rows one warp reads start on distinct
-    banks or are the same row (pitch 68 or 132 floats: 4 banks apart)."""
-    cg_n = n_cols // 4
-    rg_n = 256 // cg_n
-    tm = 128 // rg_n
-    covered = np.zeros((128, n_cols), np.int64)
-    for t in range(256):
-        rg, cg = divmod(t, cg_n)
-        for i in range(tm):
-            covered[rg + rg_n * i, 4 * cg:4 * cg + 4] += 1
-    assert (covered == 1).all()
-    for pitch in (68, 132):
-        for warp in range(8):
-            rows = {t // cg_n for t in range(32 * warp, 32 * warp + 32)}
-            banks = [(r * pitch) % 32 for r in rows]
-            # each row's float4 covers 4 banks: no two rows overlap
-            spans = {b + j for b in banks for j in range(4)}
-            assert len(spans) == 4 * len(rows)
+    """The f32 kernel's register chain (csrc/fused_mlp.cu tf32_layer) for
+    a layer of n_cols inputs and n_cols outputs, a warpgroup's 64 rows:
+    thread (warp, g, t4)'s accumulator register 4 s + 2 h + c is row
+    16 warp + g + 8 h, column 8 s + 2 t4 + c, and every output is held
+    once; it becomes the next layer's A fragment (register q of k-step s:
+    rows g, g + 8, g, g + 8, A columns t4, t4, t4 + 4, t4 + 4) through
+    v[4 s + q] = acc[4 s + (0, 2, 1, 3)[q]], and A times the image's rows
+    in K_ORDER, read through the descriptor's address function, is the
+    product with the weights in their own order, exactly."""
+    gen = torch.Generator().manual_seed(n_cols)
+    h = torch.randn((64, n_cols), generator=gen, dtype=torch.float64)
+    w = torch.randn((n_cols, n_cols), generator=gen, dtype=torch.float64)
+    img = K.wgmma_b_tf32(w)
+    warp, g, t4, s, q = torch.meshgrid(
+        torch.arange(4), torch.arange(8), torch.arange(4),
+        torch.arange(n_cols // 8), torch.arange(4), indexing="ij")
+    # the accumulator: every output once
+    acc_row = 16 * warp + g + 8 * ((q >> 1) & 1)
+    acc_col = 8 * s + 2 * t4 + (q & 1)
+    held = torch.zeros((64, n_cols), dtype=torch.int64)
+    held.index_put_((acc_row.reshape(-1), acc_col.reshape(-1)),
+                    torch.ones(acc_row.numel(), dtype=torch.int64),
+                    accumulate=True)
+    assert (held == 1).all()
+    # v[4 s + q] = acc[4 s + (0, 2, 1, 3)[q]]: A register q's row and column
+    src = torch.tensor([0, 2, 1, 3])[q]
+    a_row = 16 * warp + g + 8 * (q & 1)
+    a_col = 8 * s + t4 + 4 * (q >> 1)               # A order
+    assert torch.equal(a_row, 16 * warp + g + 8 * ((src >> 1) & 1))
+    logical = 8 * s + 2 * t4 + (src & 1)            # the accumulator's
+    out = torch.zeros((64, n_cols), dtype=torch.float64)
+    for n in range(n_cols):
+        b = img[_b_address_tf32(a_col, torch.full_like(a_col, n), n_cols)]
+        out[:, n].index_add_(0, a_row.reshape(-1),
+                             (h[a_row, logical] * b).reshape(-1))
+    torch.testing.assert_close(out, h @ w, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kin", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d_out", [1, 3, 4])
+def test_f32_fma_layer_sums_every_input_once(d_out, kin):
+    """The FFMA last layer's split (csrc/fused_mlp.cu fma_last) over kin
+    inputs: thread t4 of a quad sums columns 8 s + 2 t4 (+ 1) of its rows
+    (its v registers), the butterfly over the quad (lanes xor 1, then 2)
+    adds the four partial sums, so every output is each input's term once
+    (the product, exactly in float64), and thread 0 writes it. The quad's
+    four 16-byte loads of a step (inputs 2 t4 apart in the [K, 4] weights)
+    fall on distinct groups of 4 banks."""
+    gen = torch.Generator().manual_seed(d_out * kin)
+    h = torch.randn((2, kin), generator=gen, dtype=torch.float64)
+    w = torch.zeros((kin, K.FMA_OUT), dtype=torch.float64)
+    w[:, :d_out] = torch.randn((kin, d_out), generator=gen,
+                               dtype=torch.float64)
+    part = torch.zeros((4, 2, K.FMA_OUT), dtype=torch.float64)
+    terms = torch.zeros((2, kin), dtype=torch.int64)
+    for t4 in range(4):
+        for s in range(kin // 8):
+            for c in range(2):
+                k = 8 * s + 2 * t4 + c
+                part[t4] += h[:, k:k + 1] * w[k]
+                terms[:, k] += 1
+    assert (terms == 1).all()
+    for lanes in (1, 2):                                 # the butterfly
+        part = part + part[[t ^ lanes for t in range(4)]]
+    assert all(torch.equal(part[t], part[0]) for t in range(4))
+    torch.testing.assert_close(part[0][:, :d_out], h @ w[:, :d_out],
+                               rtol=1e-12, atol=1e-12)
+    groups = {(2 * t4 * K.FMA_OUT) % 32 // 4 for t4 in range(4)}
+    assert len(groups) == 4
+
+
+def test_tf32_round_is_cvt_rna():
+    """tf32_round keeps 10 mantissa bits, rounding to nearest with ties
+    away from zero (cvt.rna): on both sides of a tie, on a tie of either
+    sign, and where rounding up carries into the exponent."""
+    bits = torch.tensor([0x3F800FFF, 0x3F801000, 0x3F801001, 0xBF801000,
+                         0x3FFFF000, 0x00000000, 0x80001000], dtype=torch.int64)
+    want = torch.tensor([0x3F800000, 0x3F802000, 0x3F802000, 0xBF802000,
+                         0x40000000, 0x00000000, 0x80002000], dtype=torch.int64)
+    x = bits.to(torch.int32).view(torch.float32)
+    got = K.tf32_round(x).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("net", sorted(NETS))
+def test_tf32_split_gives_back_every_weight(net):
+    """hi + lo gives back every weight of the net within 2^-21 of it,
+    relative; both are tf32 values (13 low bits zero) and lo is at most
+    half a tf32 step of hi."""
+    _, ws = _chain(NETS[net], seed=7)
+    for w in ws:
+        w = torch.from_numpy(w) * 1e3 ** torch.randn(w.shape).clamp(-2, 2)
+        hi, lo = K.tf32_split(w)
+        for part in (hi, lo):
+            assert not (part.view(torch.int32) & 0x1FFF).any()
+        assert float(((hi + lo - w).abs() / w.abs()).max()) <= 2.0 ** -21
+        assert bool((lo.abs() <= hi.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("net", sorted(NETS))
+def test_tf32_emulation_matches_xla_chain(net):
+    """The f32 kernel's arithmetic (three tf32 products a term, f32 sums)
+    against the JAX package's f32 chain `_xla_mlp(..., float32)` at the
+    tolerance the JAX package holds its f32 kernel to (tests/
+    test_fused_mlp.py: rtol 5e-4, atol 1e-5)."""
+    x, ws = _chain(NETS[net], rows=300, seed=11)
+    want = np.asarray(J._xla_mlp(jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                                 jnp.float32))
+    got = K.fused_mlp_tf32_emulated(torch.from_numpy(x),
+                                    [torch.from_numpy(w) for w in ws])
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("net", sorted(NETS))
+def test_three_tf32_products_beat_one_by_100x(net):
+    """Why the kernel takes three tf32 products a term: against the chain
+    in float64, their largest error on these rows is at least 100x smaller
+    than a single tf32 product's (10 mantissa bits an operand)."""
+    x, ws = _chain(NETS[net], rows=300, seed=12)
+    h = x.astype(np.float64)
+    for i, w in enumerate(ws):
+        h = h @ w.astype(np.float64)
+        if i != len(ws) - 1:
+            h = np.maximum(h, 0.0)
+    xt, wt = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    err3 = np.abs(K.fused_mlp_tf32_emulated(xt, wt).numpy() - h).max()
+    err1 = np.abs(K.fused_mlp_tf32_emulated(xt, wt, products=1).numpy()
+                  - h).max()
+    assert err3 * 100 <= err1, (err3, err1)
+
+
+# ------------------------------------------------------- K4 grouped's images
+GROUPED_NETS = {"ff_sigma": [32, 64, 64, 16], "ragged": [24, 48, 8],
+                "color": [31, 64, 64, 3]}
+
+
+@pytest.mark.parametrize("G", [1, 3, 16])
+@pytest.mark.parametrize("net", sorted(GROUPED_NETS))
+def test_grouped_index_map_gives_each_groups_image(net, G):
+    """The grouped kernel's in-block index map (csrc/fused_mlp.cu
+    pack_group, mirrored by `grouped_image_mirror`) over the strided views
+    that `set_sigma_net_flat` makes of G sims' flat vectors: each group's
+    image equals `wgmma_b` of that group's contiguous bf16 weights, bit for
+    bit, zero padding included."""
+    from nerfsafetyvalidation_tpu_torch.models.network import NeRFNetwork
+    widths = GROUPED_NETS[net]
+    layers = [torch.empty((a, b)) for a, b in zip(widths, widths[1:])]
+    n = sum(a * b for a, b in zip(widths, widths[1:]))
+    theta = torch.from_numpy(np.random.default_rng(G).normal(
+        0, 1, (G, n)).astype(np.float32))
+    views = NeRFNetwork.set_sigma_net_flat(
+        type("Net", (), {"sigma_net": layers})(), theta)
+    assert [tuple(v.shape) for v in views] == [(G, a, b) for a, b in
+                                               zip(widths, widths[1:])]
+    assert not any(v.is_contiguous() for v in views)
+    assert K._grouped_widths(views) == widths
+    for g in range(G):
+        want = torch.cat([
+            wgmma_b(torch.nn.functional.pad(
+                v[g].to(torch.bfloat16),
+                (0, K._pad16(v.shape[2]) - v.shape[2],
+                 0, K._pad16(v.shape[1]) - v.shape[1])))
+            for v in views])
+        got = K.grouped_image_mirror(views, g)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(got, K._pack([v[g].contiguous()
+                                         for v in views])[1])

@@ -106,7 +106,7 @@ def test_grouped_rejects_unlinked_weights():
     bad = [torch.from_numpy(w) for w in ws]
     bad[1] = bad[1][:2]
     with pytest.raises(ValueError, match="one G"):
-        K4._pack_grouped(bad)
+        K4._grouped_widths(bad)
 
 
 # --------------------------------------------------------------- the engine
