@@ -6,7 +6,8 @@ CUDA card.
 
 (`--closed-loop-intrinsics` runs only the probe of that name, below;
 `--sequential` phases 22-24 alone, `--laplace` phases 25-28 alone,
-`--fast-render` phases 29-32 alone, each on freshly trained nets.)
+`--fast-render` phases 29-32 alone, each on freshly trained nets;
+`--distill` phase 33 alone.)
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
@@ -269,7 +270,20 @@ Phases, each printing its elapsed seconds:
      replayed on a BlenderSimulator (the replay
      CSV's rows, the eight counts, counts.pkl, both confusion PNGs
      decoded and their counts); envConfig's BlenderSimulator through
-     --batched_rollouts (the core engine, its 4-column CSV).
+     --batched_rollouts (the core engine, its 4-column CSV);
+ 33. distill: bench.py's cold student path (models/bake.py through
+     flagship.py) on the phase-3 teacher, served through K3: the 160x6
+     student at full width and batch, DISTILL_STEPS distill steps of
+     32,768 points and FT_STEPS fine-tune steps of 8,192 rays x 16
+     window samples from a generator seeded DISTILL_SEED: both losses
+     finite and falling (the mean of each phase's last LOSS_WINDOW steps
+     under its first LOSS_WINDOW steps'), K3 launched in every step of
+     both phases, the student's pkl (assets.save_student) reloaded
+     bit-equal, the served student through K1 on 131,072 rows against the
+     trained unfused chain (TOL_K1), pose 0 at 800x800 in baked_h160_ak8
+     through K1 (its PSNR printed, no bar: a cut schedule), s/step and
+     the share of the teacher's rows whose s0 K3 clipped at +-15.
+     `--distill` runs it alone.
 Phase 22's population is cut to 1 sim (SEQ_SIMS), the sequential phases
 (22, 23, 28) to each sim's first SEQ_STEPS steps, phase 31 to
 FR_SEQ_STEPS, the closed-loop ones (20, 28) to CL_STEPS and phase 32's
@@ -279,7 +293,8 @@ Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
 the training, each main_nerf run, K2's path, the probe, the bench, each
-rollout phase and each validate run, and read just after. The
+rollout phase, each validate run and the distillation (K3 before it,
+K1 before its frame), and read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -472,6 +487,16 @@ K7_SHAPES = [(2 ** 19, 64, 2 ** 18, (4, 16, 32)),
              (2 ** 15, 256, 2 ** 17, (16,)), (2 ** 15, 512, 2 ** 17, (16,))]
 NSLOTS = (4, 16, 32)
 RAGGED_M = 2 ** 18 - 1000   # not a multiple of the 2048-row tile
+# The distillation phase (models/bake.py through flagship.py): the
+# headline's 160x6 student at full width and batch (32,768 points a
+# distill step, 8,192 rays x K = 16 a fine-tune step) with bench.py's
+# 24,000 + 12,000-step schedule cut to these steps (the cosine decays
+# over the cut schedule), from a generator seeded DISTILL_SEED; each
+# phase's mean loss over its last LOSS_WINDOW steps must lie under its
+# first LOSS_WINDOW steps'.
+DISTILL_STEPS, FT_STEPS, DISTILL_SEED = 200, 50, 0
+DISTILL_HIDDEN = 160
+LOSS_WINDOW = 20
 
 
 def check(ok, what):
@@ -4551,6 +4576,11 @@ def main():
     print("fast_render: " + json.dumps(fast))
     data_root.cleanup()
 
+    # ---- distillation (models/bake.py): the student through K3's teacher
+    with Phase("distill"):
+        dist = distill_phase(torch, teacher, state, smi)
+    print("distill: " + json.dumps(dist))
+
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
     kernel_line = {"kernels": [
@@ -4561,7 +4591,8 @@ def main():
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
          "shapes": k1_shapes, "launches_bench": bench_launches["K1"],
          "launches_bench_by_width": by_width,
-         "launches_rollouts": rollout_launches["K1"]},
+         "launches_rollouts": rollout_launches["K1"],
+         "launches_distill": dist["k1_launches"]},
         {"name": "fused_sigma_color_deep", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
          "replaces": f"{pallas}:302", "launches": k2_launches,
@@ -4576,7 +4607,9 @@ def main():
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms,
          "ms_cold": k3_cold, "shapes": k3_shapes,
          "launches_bench": bench_launches["K3"],
-         "launches_rollouts": rollout_launches["K3"]},
+         "launches_rollouts": rollout_launches["K3"],
+         "launches_distill": {p: dist[p]["k3_launches"]
+                              for p in ("distill", "finetune")}},
         {"name": "fused_mlp", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
@@ -4638,6 +4671,8 @@ def main():
           and kernel_line["kernels"][3]["launches_f32"] > 0
           and all(kernel_line["kernels"][i]["launches_rollouts"] > 0
                   for i in (0, 2, 3))
+          and kernel_line["kernels"][0]["launches_distill"] > 0
+          and all(kernel_line["kernels"][2]["launches_distill"].values())
           and all(k4_validate.values()),
           "a kernel of the slice's paths was never launched")
     print(json.dumps(kernel_line))
@@ -4645,6 +4680,177 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,
                                              "count": count}}))
+
+
+def distill_phase(torch, teacher, state, smi):
+    """The distillation phase (see the module docstring): the K3 launches
+    of each step, the losses, the pkl round trip, the served student
+    through K1 against the trained unfused chain, pose 0 in
+    baked_h160_ak8. Returns its numbers; `k3_launches` and
+    `k1_launches` are the counts of the path (the comparison's K1
+    launches are not among them)."""
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.assets import (load_student,
+                                                       params_from_jax,
+                                                       save_student)
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (camera_rays,
+                                                               trace_scene)
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.models.bake import (
+        _occupied_cells, distill, finetune_render, student_config)
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import (points_mlp,
+                                                           sigma_color)
+    from nerfsafetyvalidation_tpu_torch.train_flagship import ClipCount
+    dev = state.density_bitfield.device
+    hidden, K = DISTILL_HIDDEN, 16
+    counted = ClipCount(teacher)
+    scfg = student_config(teacher.cfg, multires=12, hidden_dim=hidden,
+                          num_layers=6)
+    gen = torch.Generator(device=dev).manual_seed(DISTILL_SEED)
+    rec = {"distill": ([], []), "finetune": ([], [])}
+    last = [0]
+
+    def hook(phase):
+        def on_step(i, loss):
+            losses, k3 = rec[phase]
+            losses.append(loss)
+            k3.append(sigma_color.LAUNCHES - last[0])
+            last[0] = sigma_color.LAUNCHES
+        return on_step
+    sigma_color.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    student, sparams, d_loss = distill(counted, state, steps=DISTILL_STEPS,
+                                       cfg=scfg, generator=gen,
+                                       on_step=hook("distill"))
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    pool_o, pool_d = F.ray_pool(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sparams, f_loss = finetune_render(student, sparams, counted, state,
+                                      pool_o, pool_d, steps=FT_STEPS, K=K,
+                                      generator=gen,
+                                      on_step=hook("finetune"))
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    k3_launches = sigma_color.LAUNCHES
+    clip = counted.counts()
+    out = {"s_per_step": {"distill": t_d / DISTILL_STEPS,
+                          "finetune": t_f / FT_STEPS},
+           "final_loss": {"distill": d_loss, "finetune": f_loss},
+           "k3_clipping": clip}
+    for phase, (losses, k3) in rec.items():
+        lv = torch.stack(losses).cpu().numpy()
+        first = float(lv[:LOSS_WINDOW].mean())
+        lastw = float(lv[-LOSS_WINDOW:].mean())
+        out[phase] = dict(steps=len(lv), loss_first=first, loss_last=lastw,
+                          k3_launches=sum(k3),
+                          k3_per_step_min=min(k3, default=0))
+        print(f"distill phase {phase}: {len(lv)} steps, loss mean of the "
+              f"first {LOSS_WINDOW} {first:.6f}, of the last "
+              f"{LOSS_WINDOW} {lastw:.6f}; K3 launches {sum(k3)} (at "
+              f"least {min(k3, default=0)} a step)")
+        check(bool(np.isfinite(lv).all()), f"the {phase} loss is not "
+              "finite")
+        check(lastw < first, f"the {phase} loss did not fall")
+        check(len(k3) == (DISTILL_STEPS if phase == "distill"
+                          else FT_STEPS) and min(k3) >= 1,
+              f"K3 did not launch in every {phase} step")
+    # the pkl round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "student.pkl"
+        save_student(path, sparams, (DISTILL_STEPS, FT_STEPS), K, hidden, 6)
+        back = params_from_jax(load_student(path), dev)
+    check(all(torch.equal(a, b) for k in ("sigma_net", "color_net")
+              for a, b in zip(back[k], sparams[k])),
+          "the student pkl does not reload bit-equal")
+    served = make_network(F.student_cfg(hidden), back, device=dev)
+    plain = make_network(scfg, back, device=dev)
+    with torch.inference_mode():
+        # the served student through K1 against the trained unfused chain,
+        # on K1_ROWS points drawn as the distillation draws them
+        g2 = torch.Generator(device=dev).manual_seed(DISTILL_SEED + 1)
+        cells = _occupied_cells(state, teacher.cfg.grid_size)
+        half = K1_ROWS // 2
+        ci = torch.randint(0, cells.shape[0], (half,), generator=g2,
+                           device=dev)
+        x = torch.cat([cells[ci] + (torch.rand((half, 3), generator=g2,
+                                               device=dev) * 3.0 - 1.5)
+                       / teacher.cfg.grid_size,
+                       torch.rand((K1_ROWS - half, 3), generator=g2,
+                                  device=dev) * 2.0 - 1.0]).clamp(-1, 1)
+        d = torch.randn((K1_ROWS, 3), generator=g2, device=dev)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        got = served(x, d)
+        want = plain(x, d)
+        n_hi = int((want[0] > E15).sum())
+        err = compare(torch, "K1, the distilled student, vs its trained "
+                      "unfused chain", got, want, TOL_K1)
+        # pose 0 at 800^2 in baked_h160_ak8, K1 counted
+        pose = F.holdout_poses()[0]
+        o_np, d_np = camera_rays(pose, F.intrinsics(F.RES), F.RES, F.RES)
+        rgb, alpha, _ = trace_scene(o_np, d_np, scene="spheres")
+        gt = rgb * alpha[..., None] + (1.0 - alpha[..., None])
+        o, dd = F.pose_rays(pose, dev, F.RES)
+        points_mlp.LAUNCHES_BY_WIDTH.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = F.render("baked_h160_ak8", {f"student_h{hidden}": served},
+                       state, o, dd, F.RES)["image"]
+        torch.cuda.synchronize()
+        t_frame = time.perf_counter() - t0
+        k1_launches = points_mlp.LAUNCHES_BY_WIDTH.get(hidden, 0)
+        check(img.shape == (F.RES * F.RES, 3)
+              and bool(torch.isfinite(img).all()),
+              "the distilled student's frame is not finite [N, 3]")
+        pred = img.cpu().numpy().reshape(gt.shape).astype(np.float64)
+        p = float(-10.0 * np.log10(max(np.mean((pred - gt) ** 2), 1e-10)))
+    check(k1_launches > 0, "K1 did not launch in the distilled student's "
+          "frame")
+    out.update(k3_launches=k3_launches, k1_launches=k1_launches,
+               k1_max_abs_err=err, k1_rows_s0_gt_15=n_hi, psnr_pose0=p,
+               frame_s=t_frame)
+    print(f"distill: {DISTILL_STEPS} distill steps of 32768 points "
+          f"{t_d / DISTILL_STEPS:.5f} s/step, {FT_STEPS} fine-tune steps of "
+          f"8192 rays x {K} {t_f / FT_STEPS:.5f} s/step; final losses "
+          f"{d_loss:.6f} / {f_loss:.6f}; K3 launches {k3_launches}; K3 rows "
+          f"{clip['rows']}, s0 >= 15 on {clip['s0_ge_15']} "
+          f"({clip['share_ge_15']:.3e}), s0 <= -15 on {clip['s0_le_-15']} "
+          f"({clip['share_le_-15']:.3e}); K1 vs the unfused chain max abs "
+          f"{err:.3e} ({n_hi} rows with s0 > 15); baked_h160_ak8 pose 0 at "
+          f"{F.RES}x{F.RES}: PSNR {p:.3f} dB (no bar: a cut schedule), "
+          f"{t_frame:.3f} s, K1 launches {k1_launches}; {smi}", flush=True)
+    return out
+
+
+def distill_only():
+    """`python3 chip_smoke.py --distill`: the distillation phase alone, on
+    the committed teacher refreshed 4x. Not part of the smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import (points_mlp,
+                                                           sigma_color)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    with Phase("build"):
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda m: m.build(), (points_mlp, sigma_color)))
+    with Phase("teacher"), torch.inference_mode():
+        teacher, stored = F.load_teacher_net(torch.device("cuda", 0))
+        state = F.refresh(teacher, stored)
+    with Phase("distill"):
+        st = distill_phase(torch, teacher, state, smi)
+    print("distill: " + json.dumps(st))
+    print(f"total {time.perf_counter() - t_start:.2f} s; {smi}", flush=True)
 
 
 def closed_loop_intrinsics():
@@ -4828,5 +5034,7 @@ if __name__ == "__main__":
         laplace_only()
     elif sys.argv[1:] == ["--fast-render"]:
         fast_render_only()
+    elif sys.argv[1:] == ["--distill"]:
+        distill_only()
     else:
         main()

@@ -10,7 +10,7 @@ stand-ins, and refuses every other class outside numpy. `load_checkpoint`
 decodes the bits to float32, as bench.py's `_upcast_asset` upcasts the
 stored bfloat16 before rendering.
 The student pkls (`bench_student*.pkl`) hold float32 numpy `[in, out]`
-weight lists.
+weight lists; `save_student` writes one as bench.py caches it.
 """
 
 import pickle
@@ -80,6 +80,25 @@ def load_student(path):
     numpy [in, out] arrays."""
     blob = _load(path)
     return blob["params"] if "params" in blob else blob
+
+
+def save_student(path, params, schedule, K, hidden, layers):
+    """Write a student's params pytree ({'sigma_net': [...], 'color_net':
+    [...]}, [in, out] tensors or arrays) as bench.py's `_get_student`
+    caches it (bench.py:345-350): {'params': the weights as float32 numpy
+    [in, out] arrays, 'schedule': (distill steps, fine-tune steps), 'K',
+    'hidden_dim', 'num_layers'}. `load_student` and the JAX package's
+    student nets read it back."""
+    def host(w):
+        if isinstance(w, torch.Tensor):
+            w = w.detach().to("cpu", torch.float32).numpy()
+        return np.array(w, dtype=np.float32)
+    blob = {"params": {k: [host(w) for w in params[k]]
+                       for k in ("sigma_net", "color_net")},
+            "schedule": tuple(int(s) for s in schedule), "K": int(K),
+            "hidden_dim": int(hidden), "num_layers": int(layers)}
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
 
 
 def load_renderer_state(path, device="cuda") -> RendererState:

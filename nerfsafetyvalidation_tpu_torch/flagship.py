@@ -23,7 +23,14 @@ seeded init and refreshes the trained occupancy 4x. `REF_TRAIN_CFG` and
 `REF_TRAIN_OPT` are bench.py's `_train_ref_backbone` (bench.py:354-426),
 the schedule `refbb.ckpt` was trained with; `train_ref` runs it, through
 kernel K4 (`fused`) or the plain chain (bench.py's own route), and
-refreshes the occupancy 4x with seeds 100-103."""
+refreshes the occupancy 4x with seeds 100-103.
+
+Distillation: `STUDENT_SCHEDULES` and `student_schedule` are bench.py's
+per-width (distill, fine-tune) step counts (bench.py:253-264),
+`ray_pool` the fine-tune's ray pool and `distill_student` the body of
+bench.py's `_get_student` (:267-351) without its cache: the student of a
+width distilled from a served teacher, then fine-tuned in pixel space.
+`assets.save_student` writes the pkl that bench.py caches."""
 
 import json
 from dataclasses import replace
@@ -39,7 +46,7 @@ from .data.provider import NeRFDataset
 from .data.rays import get_rays, nerf_matrix_to_ngp
 from .data.synthetic import generate_dataset, orbit_pose
 from .models import make_network
-from .models.bake import student_config
+from .models.bake import distill, finetune_render, student_config
 from .models.renderer import render as render_staged
 from .models.renderer import (render_frame_fast, render_frame_guided,
                               update_extra_state)
@@ -275,6 +282,73 @@ def serving_net(net):
     TEACHER_CFG (through K3), folded."""
     return make_network(TEACHER_CFG, net.params_tree(),
                         device=net.hash.device).to_folded()
+
+
+# bench.py:253-262: (distill steps, fine-tune steps) of each (hidden
+# width, layers) student, and of any other
+STUDENT_SCHEDULES = {(192, 6): (16000, 8000),
+                     (160, 6): (24000, 12000),
+                     (128, 6): (32000, 16000)}
+DEFAULT_SCHEDULE = (8000, 4000)
+# bench.py:326-339: the fine-tune's pool, 64 orbit poses at 128x128
+POOL_POSES, POOL_RES, POOL_SEED = 64, 128, 11
+
+
+def student_schedule(hidden: int, layers: int = 6):
+    """(distill steps, fine-tune steps) of the student of that shape
+    (bench.py `_student_schedule` without its environment override)."""
+    return STUDENT_SCHEDULES.get((hidden, layers), DEFAULT_SCHEDULE)
+
+
+def ray_pool(device):
+    """bench.py's fine-tune pool: the rays (rays_o, rays_d) [64 * 128^2,
+    3] of 64 orbit poses drawn from numpy's default_rng(11) (azimuth in
+    [0, 2 pi), elevation in [0.15, 1.2), radius in [2.2, 2.6)) at 128x128
+    and bench.py's field of view."""
+    rng = np.random.default_rng(POOL_SEED)
+    fx = 0.5 * POOL_RES / np.tan(0.5 * FOV_X)
+    intr = (fx, fx, POOL_RES / 2, POOL_RES / 2)
+    pool_o, pool_d = [], []
+    for _ in range(POOL_POSES):
+        pose = orbit_pose(rng.uniform(0, 2 * np.pi), rng.uniform(0.15, 1.2),
+                          rng.uniform(2.2, 2.6))
+        r = get_rays(nerf_matrix_to_ngp(pose, scale=1.0,
+                                        offset=(0.0, 0.0, 0.0))[None],
+                     intr, POOL_RES, POOL_RES, device=device)
+        pool_o.append(r["rays_o"].reshape(-1, 3))
+        pool_d.append(r["rays_d"].reshape(-1, 3))
+    return torch.cat(pool_o).contiguous(), torch.cat(pool_d).contiguous()
+
+
+def distill_student(teacher, state, hidden: int, layers: int = 6,
+                    K: int = 16, generator=None, schedule=None,
+                    on_step=None):
+    """bench.py's `_get_student` without its cache: the student of
+    `student_config(teacher.cfg, multires=12, hidden, layers)` distilled
+    from `teacher` over `state`'s occupancy, then fine-tuned on
+    `ray_pool` with K window samples, at `schedule` (distill steps,
+    fine-tune steps; default student_schedule(hidden, layers)), all draws
+    from `generator`. `on_step(phase, i, loss)` runs after each step of
+    each phase ("distill", "finetune"). Returns (the trained unfused
+    student, its params pytree, {phase: its final loss})."""
+    d_steps, f_steps = schedule or student_schedule(hidden, layers)
+    scfg = student_config(teacher.cfg, multires=12, hidden_dim=hidden,
+                          num_layers=layers)
+
+    def hook(phase):
+        if on_step is None:
+            return None
+        return lambda i, loss: on_step(phase, i, loss)
+    student, sparams, d_loss = distill(
+        teacher, state, steps=d_steps, cfg=scfg, generator=generator,
+        on_step=hook("distill"))
+    pool_o, pool_d = ray_pool(state.density_bitfield.device)
+    sparams, f_loss = finetune_render(
+        student, sparams, teacher, state, pool_o, pool_d, steps=f_steps,
+        K=K, generator=generator, on_step=hook("finetune"))
+    student = make_network(scfg, sparams,
+                           device=state.density_bitfield.device)
+    return student, sparams, {"distill": d_loss, "finetune": f_loss}
 
 
 def load_student_net(device, scene: str = "spheres", hidden: int = 160):

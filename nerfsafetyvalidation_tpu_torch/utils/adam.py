@@ -23,6 +23,29 @@ def exponential_decay(init_value, transition_steps, decay_rate):
     return schedule
 
 
+def cosine_decay_schedule(init_value, decay_steps, alpha=0.0):
+    """optax.cosine_decay_schedule(init_value, decay_steps, alpha) as a
+    function of the step count: init_value * ((1 - alpha) * 0.5 (1 +
+    cos(pi * min(count, steps) / steps)) + alpha) in float32, op by op as
+    optax computes it outside jit (the cosine rounded from float64; inside
+    a jitted update XLA folds the constants and takes its own float32
+    cosine, an ulp away at some counts). The distillation passes lr and
+    Adam applies the minus sign (optax's scale_by_schedule of -lr)."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive "
+                         f"decay_steps, got {decay_steps}")
+    f32 = np.float32
+    steps = f32(decay_steps)
+
+    def schedule(count):
+        c = np.minimum(f32(count), steps)
+        cos = f32(np.cos(np.float64(f32(np.pi) * c / steps)))
+        decayed = f32(1.0 - alpha) * (f32(0.5) * (f32(1.0) + cos)) \
+            + f32(alpha)
+        return float(f32(init_value) * decayed)
+    return schedule
+
+
 class Adam:
     """optax.adam(lr, b1, b2, eps) over a list of tensors, in optax's order
     of operations: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, the

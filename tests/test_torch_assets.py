@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "nerfsafetyvalidation_tpu_torch"
 CKPT = ROOT / "bench_assets" / "flagship.ckpt"
 STUDENT = ROOT / "bench_assets" / "bench_student_h160x6.pkl"
-FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "nerfsafetyvalidation_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "optax", "nerfsafetyvalidation_tpu"}
 
 _CHILD = r"""
 import hashlib, json, sys
