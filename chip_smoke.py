@@ -7,7 +7,7 @@ CUDA card.
 (`--closed-loop-intrinsics` runs only the probe of that name, below;
 `--sequential` phases 22-24 alone, `--laplace` phases 25-28 alone,
 `--fast-render` phases 29-32 alone, each on freshly trained nets;
-`--distill` phase 33 alone.)
+`--distill` phase 33 alone; `--cli-options` phase 11d alone.)
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
@@ -108,6 +108,22 @@ Phases, each printing its elapsed seconds:
      K4 f32 never, the losses finite, -O's last epoch mean under its first,
      the test frames written, and the last checkpoint reloaded into a
      fresh net equal to the trained one;
+ 11d. cli options: the training CLI's other command lines on that
+     directory at the CLI's default widths (CLI_RUNS): `-O --ff --encoding
+     tiledgrid --error_map --iters 96` (NeRFNetworkFF on a tiled grid; K4
+     bf16 at least twice a step and K4 f32 never, the losses finite and
+     the last 16 steps' mean under the first 16's, every view's error map
+     moved from its ones), then its `--test` in fast (with the 256^3 mesh:
+     K4 launched 8 times in the probe, one 2,097,152-row block held to
+     the plain chain at TOL_K4, the vertex and face counts, the probe's
+     and the iso-surface's seconds), guided and scout (K4 in every frame,
+     never its plain version, finite frames, each mode's PSNR beside the
+     staged evaluation's, no bar); `--tcnn -O --iters 96` (no K4 launch,
+     the losses falling, the checkpoint reloaded bit-equal) and its
+     `--test` (staged frames and the mesh, no K4); `--bg_radius 4 --iters
+     8` (the background net's 2-D table moved); `--ff --encoding None
+     --iters 8` (K4, the color net, in every step). `--cli-options` runs
+     it alone;
  12. kernels K6, K7: the row gathers at every shape of the gather probe's
      sections E and F and at a ragged M, bit-exact against table[idx] (K7
      for each nslot), with kernel, plain, library (index_select) and bound
@@ -181,9 +197,8 @@ Phases, each printing its elapsed seconds:
      mean distance between the estimated and the true position, finite
      estimates and rewards, no K4 launch;
  21. the refusals: --closed_loop --ff, --batched_obs_render guided
-     without --fast_render, and --r --ff, and on the sequential path --ff
-     and --tcnn, each exit with their message within seconds, before
-     anything loads;
+     without --fast_render, and --r --ff, and on the sequential path --ff,
+     each exit with their message within seconds, before anything loads;
  22. sequential MC: the port's validate CLI without --batched_rollouts,
      as a user runs it, envConfig.json as shipped (NerfSimulator, Monte
      Carlo, the Gaussian UQ, the 800^2 camera, the estimator's 1,024-pixel
@@ -219,8 +234,9 @@ Phases, each printing its elapsed seconds:
      group's image, no pack kernel); kernel, plain, library (a bf16
      torch.bmm chain) and bound times;
  26. uncertain --ff: `uncertain -O --ff` as a user runs it, on the
-     main_nerf -O --ff checkpoint and a spheres directory of 2 training
-     views and an 800^2 test view, 64 samples a ray, envConfig's uq_method
+     main_nerf -O --ff checkpoint and a spheres directory of
+     UNCERTAIN_VIEWS training views and an 800^2 test view, 64 samples a
+     ray, envConfig's uq_method
      the Laplace approximation, then the Gaussian: K4 in each view's
      staged render and at least once an Adam step of the MAP fits on all
      640,000 points, no plain call; the fit's -log posterior and its
@@ -286,13 +302,15 @@ Phases, each printing its elapsed seconds:
      `--distill` runs it alone.
 Phase 22's population is cut to 1 sim (SEQ_SIMS), the sequential phases
 (22, 23, 28) to each sim's first SEQ_STEPS steps, phase 31 to
-FR_SEQ_STEPS, the closed-loop ones (20, 28) to CL_STEPS and phase 32's
-cross-entropy replay to its second simulation, to make room for 25-32
-within the time limit on a slower host.
+FR_SEQ_STEPS, the closed-loop ones (20, 28) to CL_STEPS, phase 27 to
+LAPLACE_MC_STEPS, phase 26 to UNCERTAIN_VIEWS views and phase 32's
+cross-entropy replay to its second simulation, to make room for 25-33
+and 11d within the time limit on a slower host.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
-the training, each main_nerf run, K2's path, the probe, the bench, each
+the training, each main_nerf run (in 11d each test frame and mesh probe
+too), K2's path, the probe, the bench, each
 rollout phase, each validate run and the distillation (K3 before it,
 K1 before its frame), and read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
@@ -707,14 +725,18 @@ VALIDATE_REFUSALS = (
     ("--r --ff", ["--r", "--ff"], "--r --ff"))
 # and on the sequential path (without --batched_rollouts)
 SEQUENTIAL_REFUSALS = (
-    ("--ff (sequential)", ["--ff"], "--ff on the sequential path"),
-    ("--tcnn (sequential)", ["--tcnn"], "NeRFNetworkTCNN"))
+    ("--ff (sequential)", ["--ff"], "--ff on the sequential path"),)
 # the validate CLI's restart loop: a phase fails after this many restarts
 MAX_RESTARTS = 5
 # the closed-loop phases (20, 28) fly each sim's first CL_STEPS steps of
-# the plan (all 11 before): the depth cut that keeps the smoke inside its
-# time limit on a slower host (the population stays)
-CL_STEPS = 4
+# the plan's 11: the depth cut that keeps the smoke inside its time limit
+# on a slower host (the population stays); at least 2, so that a step
+# flies on the previous step's estimate and replan
+CL_STEPS = 2
+# phase 27's open-loop Monte Carlo with the in-scan Laplace flies each
+# sim's first LAPLACE_MC_STEPS of the plan's 11 actions, the same depth
+# cut (the population and the fits' knobs stay)
+LAPLACE_MC_STEPS = 6
 BLENDER_TO_NERF = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
 
@@ -799,6 +821,23 @@ def write_net_sdf(torch, argv, ckpt):
     t0 = time.perf_counter()
     sdf = build_sdf(density, out_path="validation/utils/sdf.npy")
     return sdf, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def open_loop_horizon(horizon):
+    """The open-loop engine cut to the plan's first `horizon` actions (the
+    smoke's depth cut of phase 27)."""
+    from nerfsafetyvalidation_tpu_torch.validation.batched import (
+        FullBatchedRolloutEngine)
+    real = FullBatchedRolloutEngine.__init__
+
+    def init(self, actions, *a, **kw):
+        real(self, actions[:horizon], *a, **kw)
+    FullBatchedRolloutEngine.__init__ = init
+    try:
+        yield
+    finally:
+        FullBatchedRolloutEngine.__init__ = real
 
 
 @contextlib.contextmanager
@@ -904,8 +943,13 @@ def validate_phase(torch, V, data_dir, extra, stress, sims, ckpt, smi,
         fused_mlp.LAUNCHES_GROUPED = 0
         plain0 = fused_mlp.PLAIN_CALLS + fused_mlp.PLAIN_CALLS_GROUPED
         t0 = time.perf_counter()
-        with closed_loop_horizon(CL_STEPS) if "--closed_loop" in extra \
-                else contextlib.nullcontext():
+        if "--closed_loop" in extra:
+            horizon = closed_loop_horizon(CL_STEPS)
+        elif env_extra.get("uq_method") == LAPLACE:
+            horizon = open_loop_horizon(LAPLACE_MC_STEPS)
+        else:
+            horizon = contextlib.nullcontext()
+        with horizon:
             res = V.main(argv, device="cuda")
         sync()
         t_all = time.perf_counter() - t0
@@ -1185,8 +1229,9 @@ def validate_refusal(V, data_dir, extra, msg, batched=True):
 # package) with --camera nerf. Cut: the population (SEQ_SIMS sims; CEM
 # m = 2, m_elite = 1, kmax = 1), the samples a ray (VALIDATE_STEPS) and the
 # depth: each sim's first SEQ_STEPS steps of the planned flight (the Monte
-# Carlo test's horizon, the CEM's trajectories; 6 and 9 before PR 17), which
-# keeps the smoke inside its time limit on a slower host.
+# Carlo test's horizon, the CEM's trajectories), which keeps the smoke
+# inside its time limit on a slower host; at least 2, so that a step flies
+# on the previous step's estimate and replan.
 SEQ_SIMS = 1
 SEQ_CEM = dict(m=2, m_elite=1, kmax=1)
 SEQ_STEPS = 2
@@ -1613,6 +1658,10 @@ LAPLACE_FINITE = 0.9
 LAPLACE_SIMS = dict(mc=16, closed_loop=4, sequential=1)
 # uncertain's samples a ray (the smoke's 64, VALIDATE_STEPS' count)
 UNCERTAIN_STEPS = 64
+# the views `uncertain` renders and fits, each a full 800^2 frame and the
+# MAP fits on its 640,000 points (the depth cut that keeps the smoke
+# inside its time limit on a slower host)
+UNCERTAIN_VIEWS = 1
 # the sequential Laplace phase's restarts of validate's loop at most (a NaN
 # state would restart it for ever, see laplace_sequential_phase)
 LAPLACE_RESTARTS = 2
@@ -1773,8 +1822,9 @@ def _nlp_and_grad(torch, bl, theta, plain):
 def uncertain_phase(torch, data_dir, ckpt, method, smi):
     """Phase 26: `uncertain -O --ff` as a user runs it, in a temporary
     working directory (envConfig.json with `method`, the checkpoint of the
-    main_nerf -O --ff run), on a spheres directory of 2 training views and
-    an 800^2 test view (the rays' size), UNCERTAIN_STEPS samples a ray:
+    main_nerf -O --ff run), on a spheres directory of UNCERTAIN_VIEWS
+    training views and an 800^2 test view (the rays' size),
+    UNCERTAIN_STEPS samples a ray:
     each view's staged render and, with the Laplace UQ, its MAP fits on
     all 640,000 points, LM and inverse; K4 launched in the render and at
     least once an Adam step, its plain versions never; the fit's -log
@@ -2124,8 +2174,8 @@ def laplace_phases(torch, fused_mlp, V, root, ckpt_ff, ckpt_unfused,
         st["k4_grouped"] = k4_grouped_phase(torch, fused_mlp, smi)
     unc_dir = str(Path(root) / "uncertain")
     write_dataset(unc_dir, generate_dataset(
-        n_train=2, n_val=1, n_test=1, H=VALIDATE_RES, W=VALIDATE_RES),
-        split_dirs=True)
+        n_train=UNCERTAIN_VIEWS, n_val=1, n_test=1, H=VALIDATE_RES,
+        W=VALIDATE_RES), split_dirs=True)
     for method, name in ((LAPLACE, "laplace"), (GAUSSIAN, "gaussian")):
         with Phase(f"uncertain --ff {name}"):
             st[f"uncertain {name}"] = uncertain_phase(torch, unc_dir,
@@ -4081,7 +4131,9 @@ def main():
             t_steps = sum(tr.epoch_times)
             trained = marks[-1][0]
             losses = tr.stats["loss"]
+            # PNG frames, or two mp4s where imageio has an mp4 backend
             frames = sorted(Path(ws_dir, "results").glob("*.png"))
+            videos = sorted(Path(ws_dir, "results").glob("*.mp4"))
             print(f"main_nerf {name}: {steps} steps in {len(losses)} "
                   f"epochs, {t_steps:.2f} s of epochs: "
                   f"{t_steps / steps:.5f} s/step; epochs "
@@ -4093,7 +4145,8 @@ def main():
                   f"all {after[key]}; {other} {after[other]}; epoch mean "
                   f"losses {[round(v, 6) for v in losses]}; test-split "
                   f"evaluate PSNR {tr.stats['results'][-1]:.3f} dB; "
-                  f"{len(frames)} frames written; peak device memory "
+                  f"{len(frames)} PNG frames and {len(videos)} mp4s "
+                  f"written; peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
             widths = [[ws[0].shape[0]] + [w.shape[1] for w in ws]
                       for ws in (tr.net.sigma_net, tr.net.color_net)]
@@ -4113,7 +4166,8 @@ def main():
                 check(losses[-1] < losses[0], f"main_nerf {name}: the last"
                       f" epoch's mean loss {losses[-1]} is not under the "
                       f"first's {losses[0]}")
-            check(len(frames) == 8 and np.isfinite(tr.stats["results"][-1]),
+            check((len(frames) == 8 or len(videos) == 2)
+                  and np.isfinite(tr.stats["results"][-1]),
                   f"main_nerf {name}: the test split's frames or PSNR")
             # the checkpoint the run left reloads into a fresh net
             net2 = make_network(tr.net.cfg, None, device=dev, opt=tr.opt,
@@ -4133,6 +4187,11 @@ def main():
                 launches=trained[key], key=key)
             del tr, tr2, net2
             torch.cuda.empty_cache()
+
+    with Phase("cli options"):
+        cli = cli_options_phase(torch, fused_mlp, main_nerf, data_dir,
+                                data_root.name, smi)
+    print("cli_options: " + json.dumps(cli))
 
     with Phase("kernels K6, K7"):
         gg = torch.Generator(device=dev).manual_seed(6)
@@ -4635,7 +4694,8 @@ def main():
              laplace["validate --ff MC laplace"]["k4_all"],
          "launches_validate_fast_render": {
              k: v["k4"] for k, v in
-             fast["validate --ff --fast_render MC"].items()}},
+             fast["validate --ff --fast_render MC"].items()},
+         "launches_cli_options": cli["k4"]},
         {"name": "fused_mlp_grouped", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
@@ -4673,7 +4733,9 @@ def main():
                   for i in (0, 2, 3))
           and kernel_line["kernels"][0]["launches_distill"] > 0
           and all(kernel_line["kernels"][2]["launches_distill"].values())
-          and all(k4_validate.values()),
+          and all(k4_validate.values())
+          and all(v > 0 for k, v in cli["k4"].items() if k != "tcnn")
+          and cli["k4"]["tcnn"] == 0,
           "a kernel of the slice's paths was never launched")
     print(json.dumps(kernel_line))
     print(smi)
@@ -4822,6 +4884,321 @@ def distill_phase(torch, teacher, state, smi):
           f"{F.RES}x{F.RES}: PSNR {p:.3f} dB (no bar: a cut schedule), "
           f"{t_frame:.3f} s, K1 launches {k1_launches}; {smi}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The training CLI's other command lines (phase 11d, `--cli-options` alone):
+# main_nerf on the phase-11c spheres directory at the CLI's default widths
+# but --bound 1 --scale 1 (the scene's box), each run's command line below.
+# The first trains the FF net on the tiled grid with the error map, then
+# `--test` renders the test split in fast (with the 256^3 mesh), guided
+# and scout; --tcnn trains the biased net, which never calls a kernel;
+# --bg_radius 4 (the cameras sit 2.4 from the centre, inside the sphere)
+# trains the background net through the staged uniform render; --ff
+# --encoding None runs the color net alone through K4.
+CLI_RUNS = {
+    "-O --ff --encoding tiledgrid --error_map":
+        ["-O", "--ff", "--encoding", "tiledgrid", "--error_map", "--iters",
+         "96"],
+    "--tcnn -O": ["--tcnn", "-O", "--iters", "96"],
+    "--bg_radius 4": ["--bg_radius", "4", "--iters", "8"],
+    "--ff --encoding None": ["--ff", "--encoding", "None", "--iters", "8"],
+}
+CLI_MODES = ("fast", "guided", "scout")
+MESH_RES, MESH_THRESHOLD, MESH_BLOCK = 256, 10, 128
+LOSS_STEPS = 16       # the first and last steps whose mean losses compare
+
+
+def cli_options_phase(torch, fused_mlp, main_nerf, data_dir, root, smi):
+    """Phase 11d (see the module docstring). Returns its numbers; its K4
+    launch counts under 'k4'."""
+    from nerfsafetyvalidation_tpu_torch.cli import apply_O_flag, build_parser
+    from nerfsafetyvalidation_tpu_torch.config import network_config_from_opt
+    from nerfsafetyvalidation_tpu_torch.data.provider import NeRFDataset
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
+    from nerfsafetyvalidation_tpu_torch.utils.seeding import seed_everything
+
+    def k4():
+        return (fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_F32,
+                fused_mlp.PLAIN_CALLS)
+
+    # K4's counts at each reset since the run began: a run's count is
+    # their sum and what the counters hold now
+    segments = []
+
+    def zero():
+        segments.append(k4())
+        fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
+        fused_mlp.PLAIN_CALLS = 0
+
+    def start_run():
+        zero()
+        segments.clear()
+
+    def run_total():
+        return tuple(map(sum, zip(k4(), *segments)))
+
+    def argv(name, *more):
+        return [data_dir, "--workspace", str(Path(root) / f"cli{name}"),
+                "--bound", "1", "--scale", "1", "--seed", "0",
+                *CLI_RUNS[name], *more]
+
+    # per frame: K4 launches, plain calls, seconds, PSNR; per mesh: stats
+    frames, meshes = [], []
+    render_view, save_mesh = Trainer._render_test_view, Trainer.save_mesh
+
+    def recorded_view(self, net, data, mode):
+        zero()
+        t0 = time.perf_counter()
+        out = render_view(self, net, data, mode)
+        torch.cuda.synchronize()
+        n, n32, plain = k4()
+        img = data["images"].reshape(-1, data["images"].shape[-1])
+        pred = out["image"].reshape(-1, 3)
+        gt = img[:, :3] * img[:, 3:] + (1 - img[:, 3:])
+        mse = float(torch.mean((pred - gt) ** 2))
+        frames.append(dict(mode=mode, k4=n, k4_f32=n32, plain=plain,
+                           s=time.perf_counter() - t0,
+                           psnr=-10.0 * np.log10(mse),
+                           finite=bool(torch.isfinite(pred).all())))
+        return out
+
+    def recorded_mesh(self, *a, **kw):
+        zero()
+        path, stats = save_mesh(self, *a, **kw)
+        n, n32, plain = k4()
+        meshes.append(dict(stats, k4=n, k4_f32=n32, plain=plain, path=path,
+                           written=os.path.getsize(path) > 0))
+        return path, stats
+
+    def train(name):
+        marks = []
+        start_run()
+        t0 = time.perf_counter()
+        tr = main_nerf.main(argv(name), device="cuda",
+                            on_epoch=lambda t: marks.append(run_total()))
+        torch.cuda.synchronize()
+        steps, losses = tr.global_step, np.asarray(tr.stats["step_loss"])
+        st = dict(steps=steps, s_per_step=sum(tr.epoch_times) / steps,
+                  s_all=time.perf_counter() - t0, k4_train=marks[-1][0],
+                  k4_f32=run_total()[1], net=type(tr.net).__name__,
+                  first=float(losses[:LOSS_STEPS].mean()),
+                  last=float(losses[-LOSS_STEPS:].mean()),
+                  finite=bool(np.isfinite(losses).all()),
+                  psnr_eval=tr.stats["results"][-1])
+        print(f"main_nerf {name}: {st['net']} ({tr.net.cfg.encoding}, "
+              f"{tr.net.cfg.compute_dtype}), {steps} steps, "
+              f"{st['s_per_step']:.5f} s/step, {st['s_all']:.2f} s in all; "
+              f"K4 {st['k4_train']} launches in training "
+              f"({st['k4_train'] / steps:.2f} a step), K4 f32 "
+              f"{st['k4_f32']}; mean loss of the first {LOSS_STEPS} steps "
+              f"{st['first']:.6f}, of the last {st['last']:.6f}; test-split "
+              f"evaluate PSNR {st['psnr_eval']:.3f} dB; {smi}", flush=True)
+        check(st["finite"], f"main_nerf {name}: a loss is not finite")
+        check(st["k4_f32"] == 0, f"main_nerf {name} launched K4 f32")
+        return tr, st
+
+    out = {}
+    Trainer._render_test_view, Trainer.save_mesh = recorded_view, \
+        recorded_mesh
+    try:
+        # ---- -O --ff --encoding tiledgrid --error_map, then --test ------
+        name = "-O --ff --encoding tiledgrid --error_map"
+        tr, st = train(name)
+        check(st["net"] == "NeRFNetworkFF"
+              and tr.net.grid_spec.gridtype == "tiled",
+              f"main_nerf {name} did not build the FF net on a tiled grid")
+        check(st["k4_train"] >= 2 * st["steps"], f"main_nerf {name} "
+              f"launched K4 {st['k4_train']} times in {st['steps']} steps")
+        check(st["last"] < st["first"], f"main_nerf {name}: the losses did "
+              "not fall")
+        emap = tr.error_map
+        moved = (emap != 1.0).sum(axis=1)
+        st["error_map"] = dict(views=int(emap.shape[0]),
+                               cells=int(emap.shape[1]),
+                               moved=int(moved.sum()),
+                               views_moved=int((moved > 0).sum()))
+        print(f"main_nerf {name}: error map {emap.shape}, "
+              f"{st['error_map']['moved']} cells moved from 1 in "
+              f"{st['error_map']['views_moved']} views, values "
+              f"{float(emap.min()):.3e} .. {float(emap.max()):.3e}")
+        check(st["error_map"]["views_moved"] == emap.shape[0]
+              and (emap[emap != 1.0] < 1.0).mean() > 0.5,
+              f"main_nerf {name}: the error map kept its ones where rays "
+              "were drawn")
+        del tr
+        frames.clear()
+        tr = main_nerf.main(argv(name, "--test", "--render_mode", "fast"),
+                            device="cuda")
+        st["psnr_staged"] = tr.stats["results"][-1]
+        loader = NeRFDataset(tr.opt, type="test",
+                             device="cuda").dataloader()
+        for mode in CLI_MODES[1:]:
+            tr.opt.render_mode = mode
+            tr.test(loader, write_video=True)
+        st["frames"] = {}
+        for mode in CLI_MODES:
+            fs = [f for f in frames if f["mode"] == mode]
+            st["frames"][mode] = dict(
+                n=len(fs), k4=[f["k4"] for f in fs],
+                s_per_frame=sum(f["s"] for f in fs) / max(len(fs), 1),
+                psnr=float(np.mean([f["psnr"] for f in fs])))
+            print(f"main_nerf {name} --test --render_mode {mode}: "
+                  f"{len(fs)} frames at 200x200, "
+                  f"{st['frames'][mode]['s_per_frame']:.4f} s/frame, K4 "
+                  f"launches a frame {st['frames'][mode]['k4']}, PSNR "
+                  f"{st['frames'][mode]['psnr']:.3f} dB (staged "
+                  f"{st['psnr_staged']:.3f} dB; no bar); {smi}")
+            check(len(fs) == 4 and all(f["k4"] > 0 and f["plain"] == 0
+                                       and f["k4_f32"] == 0
+                                       and f["finite"] for f in fs),
+                  f"--test --render_mode {mode}: a frame did not launch K4"
+                  " (or ran its plain version, or is not finite)")
+        check(len(meshes) == 1, "--test wrote no mesh")
+        mesh = st["mesh"] = meshes.pop()
+        print(f"main_nerf {name} --test mesh at {MESH_RES}^3: "
+              f"{mesh['vertices']} vertices, {mesh['faces']} faces; probe "
+              f"{mesh['probe_s']:.3f} s ({mesh['k4']} K4 launches), "
+              f"iso-surface {mesh['surface_s']:.3f} s, file "
+              f"{mesh['file_s']:.3f} s; {smi}")
+        check(mesh["written"] and mesh["faces"] > 0, "the mesh is empty")
+        check(mesh["k4"] == (MESH_RES // MESH_BLOCK) ** 3
+              and mesh["plain"] == 0 and mesh["k4_f32"] == 0,
+              f"the mesh probe launched K4 {mesh['k4']} times, not "
+              f"{(MESH_RES // MESH_BLOCK) ** 3}")
+        # one probe block (the first 128^3 points) through K4 and the plain
+        # chain: the sigma net's [N, 16] outputs
+        g = np.linspace(-1.0, 1.0, MESH_RES)[:MESH_BLOCK]
+        pts = torch.as_tensor(np.stack([a.reshape(-1) for a in np.meshgrid(
+            g, g, g, indexing="ij")], -1).astype(np.float32), device="cuda")
+        with torch.no_grad():
+            h = tr.net.encode_pos(pts)
+            ws = list(tr.net.sigma_net)
+            got = fused_mlp.fused_mlp(h, ws, tr.net.compute_dtype)
+            want = fused_mlp.fused_mlp_plain(h, ws, tr.net.compute_dtype)
+        rel = (got - want).abs() / want.abs().clamp(min=1.0)
+        st["block"] = dict(rows=int(pts.shape[0]),
+                           max_rel=float(rel.max()),
+                           mean_rel=float(rel.mean()),
+                           max_abs=float((got - want).abs().max()))
+        print(f"mesh probe block of {pts.shape[0]} rows, sigma net through "
+              f"K4 vs plain: max rel {st['block']['max_rel']:.3e} mean "
+              f"{st['block']['mean_rel']:.3e}")
+        t_max, t_mean = TOL_K4["sigma"]
+        check(st["block"]["max_rel"] <= t_max
+              and st["block"]["mean_rel"] <= t_mean,
+              "the mesh probe's K4 block disagrees with the plain chain")
+        out[name] = st
+        del tr, h, got, want, pts
+        torch.cuda.empty_cache()
+
+        # ---- --tcnn -O, then --test: no kernel ---------------------------
+        name = "--tcnn -O"
+        tr, st = train(name)
+        check(st["net"] == "NeRFNetworkTCNN", f"main_nerf {name} did not "
+              "build NeRFNetworkTCNN")
+        check(st["k4_train"] == 0, f"main_nerf {name} launched K4")
+        check(st["last"] < st["first"], f"main_nerf {name}: the losses did "
+              "not fall")
+        net2 = make_network(tr.net.cfg, None, device="cuda", opt=tr.opt,
+                            trainable=True)
+        tr2 = Trainer(tr.opt, net2, ema_decay=0.95,
+                      workspace=str(Path(root) / f"cli{name}"),
+                      use_checkpoint="latest", mute=True)
+        st["reloaded"] = all(torch.equal(a, b) for a, b in zip(
+            net2.param_list() + tr2.ema_params,
+            tr.net.param_list() + tr.ema_params, strict=True))
+        check(st["reloaded"], f"main_nerf {name}: the checkpoint does not "
+              "reload bit-equal")
+        del tr, tr2, net2
+        start_run()
+        tr = main_nerf.main(argv(name, "--test"), device="cuda")
+        st["k4_test"] = run_total()[0]
+        mesh = st["mesh"] = meshes.pop()
+        print(f"main_nerf {name}: checkpoint reloaded bit-equal "
+              f"{st['reloaded']}; --test K4 launches {st['k4_test']}; mesh "
+              f"{mesh['vertices']} vertices, {mesh['faces']} faces, probe "
+              f"{mesh['probe_s']:.3f} s, iso-surface {mesh['surface_s']:.3f}"
+              f" s, file {mesh['file_s']:.3f} s; {smi}")
+        check(st["k4_test"] == 0 and mesh["written"],
+              f"main_nerf {name} --test launched K4 or wrote no mesh")
+        out[name] = st
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- --bg_radius 4: the 2-D table trains --------------------------
+        name = "--bg_radius 4"
+        tr, st = train(name)
+        opt = apply_O_flag(build_parser("train").parse_args(argv(name)),
+                           "train")
+        init = make_network(network_config_from_opt(opt), None,
+                            device="cuda", opt=opt,
+                            generator=seed_everything(opt.seed, "cuda"))
+        diff = (tr.net.embeddings_bg.detach() - init.embeddings_bg).abs()
+        st["bg_rows_moved"] = int((diff.amax(dim=1) > 0).sum())
+        st["bg_max_move"] = float(diff.max())
+        print(f"main_nerf {name}: {st['bg_rows_moved']} of "
+              f"{diff.shape[0]} background-table rows moved (max "
+              f"{st['bg_max_move']:.3e})")
+        check(st["bg_rows_moved"] > 0, f"main_nerf {name}: the background "
+              "table did not move")
+        out[name] = st
+        del tr, init
+        torch.cuda.empty_cache()
+
+        # ---- --ff --encoding None: the color net through K4 -------------
+        name = "--ff --encoding None"
+        tr, st = train(name)
+        check(st["net"] == "NeRFNetworkFF" and tr.net.grid_spec is None,
+              f"main_nerf {name} did not build the FF net without a grid")
+        check(st["k4_train"] >= st["steps"], f"main_nerf {name} launched "
+              f"K4 {st['k4_train']} times in {st['steps']} steps")
+        out[name] = st
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        Trainer._render_test_view, Trainer.save_mesh = render_view, \
+            save_mesh
+    tiled = out["-O --ff --encoding tiledgrid --error_map"]
+    out["k4"] = {"O_ff_tiledgrid_train": tiled["k4_train"],
+                 **{f"test_{m}": sum(tiled["frames"][m]["k4"])
+                    for m in CLI_MODES},
+                 "mesh_probe": tiled["mesh"]["k4"],
+                 "tcnn": out["--tcnn -O"]["k4_train"]
+                 + out["--tcnn -O"]["k4_test"],
+                 "ff_none_train": out["--ff --encoding None"]["k4_train"]}
+    return out
+
+
+def cli_options_only():
+    """`python3 chip_smoke.py --cli-options`: phase 11d alone, on the
+    spheres directory, printing its numbers. Not part of the smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch import main_nerf
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import write_dataset
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import fused_mlp
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        data_dir = str(Path(root) / "spheres")
+        write_dataset(data_dir, F.train_splits())
+        with Phase("build"):
+            fused_mlp.build()
+        with Phase("cli options"):
+            st = cli_options_phase(torch, fused_mlp, main_nerf, data_dir,
+                                   root, smi)
+        print("cli_options: " + json.dumps(st))
+    print(f"total {time.perf_counter() - t_start:.2f} s; {smi}", flush=True)
 
 
 def distill_only():
@@ -5036,5 +5413,7 @@ if __name__ == "__main__":
         fast_render_only()
     elif sys.argv[1:] == ["--distill"]:
         distill_only()
+    elif sys.argv[1:] == ["--cli-options"]:
+        cli_options_only()
     else:
         main()

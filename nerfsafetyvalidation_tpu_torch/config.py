@@ -12,13 +12,15 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class NetworkConfig:
-    encoding: str = "hashgrid"          # 'hashgrid', 'frequency', 'mipfold'
+    encoding: str = "hashgrid"  # hashgrid|tiledgrid|frequency|None|mipfold
     encoding_dir: str = "sphere_harmonics"
     num_layers: int = 2
     hidden_dim: int = 64
     geo_feat_dim: int = 15
     num_layers_color: int = 3
     hidden_dim_color: int = 64
+    num_layers_bg: int = 2
+    hidden_dim_bg: int = 64
     bound: float = 1.0
     # position-encoder grid (mipfold: scales base * 2^l for l < num_levels,
     # dense up to fold_max_scale, hashed above it)
@@ -36,7 +38,7 @@ class NetworkConfig:
     density_scale: float = 1.0
     min_near: float = 0.2
     density_thresh: float = 0.01
-    bg_radius: float = -1.0             # > 0: background net (not ported)
+    bg_radius: float = -1.0             # > 0: the background net
     grid_ray: bool = False              # train through the occupancy march
     grid_size: int = 128
     compute_dtype: str = "float32"      # 'float32' | 'bfloat16'

@@ -2,25 +2,29 @@
 (nerfsafetyvalidation_tpu/data/provider.py: `NeRFDataset`,
 `fast_collate_math`, `_Loader`).
 
-`NeRFDataset` reads a split of a dataset directory, as the JAX package
-does (provider.py:62-210): 'blender' mode (transforms_{train,val,test}.json,
+`NeRFDataset` reads a split of a dataset directory, as the JAX package does
+(provider.py:62-210): 'blender' mode (transforms_{train,val,test}.json,
 'all' and 'trainval' merged) or 'colmap' mode (one transforms.json: the
 first frame is the validation split, the rest the training split, and the
-test split a camera path slerped between two frames drawn by numpy's
-global generator); the PNGs through `data/png.py`, which needs neither cv2
-nor PIL. An image whose size differs from the split's H x W would need
-cv2's resize, which is not ported: it raises. Or it reads a split of the
-in-memory dataset that `data.synthetic.generate_dataset` returns (the same
-values as the PNGs of its directory). Poses go through
-`nerf_matrix_to_ngp`; the intrinsics come from fl_x / fl_y or
-camera_angle_x / camera_angle_y. With preload the images live on the
-device, in bfloat16 under fp16, as in the JAX package; otherwise on the
-host, and a batch's images go to the device.
+test split a camera path slerped between two frames drawn by numpy's global
+generator); the PNGs through `data/png.py`, which needs neither cv2 nor PIL.
+An image whose size differs from the split's H x W is resized as the JAX
+package resizes it, with cv2's INTER_AREA on its uint8 pixels
+(`data/resize.py`, the port's own copy of that rule). Or it reads a split of
+the in-memory dataset that `data.synthetic.generate_dataset` returns (the
+same values as the PNGs of its directory). Poses go through
+`nerf_matrix_to_ngp`; the intrinsics come from fl_x / fl_y or camera_angle_x
+/ camera_angle_y. With preload the images live on the device, in bfloat16
+under fp16, as in the JAX package; otherwise on the host, and a batch's
+images go to the device.
 
 A training batch is one image: `num_rays` pixel indices drawn uniformly
 (with repeats) from a torch.Generator, or handed in, as the tests hand in
 JAX's draws; the epoch order is numpy's `default_rng(epoch)` shuffle, the
-JAX package's own.
+JAX package's own. With `--error_map` a training split keeps a map of
+ERROR_MAP_RES^2 float32 ones a view (provider.py:183-187), its batches
+draw their pixels by it (`rays.error_map_inds`) and carry 'index' and
+'inds_coarse' for the trainer's update of the map.
 """
 
 import glob
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from .png import read_png
-from .rays import nerf_matrix_to_ngp
+from .rays import ERROR_MAP_RES, error_map_inds, nerf_matrix_to_ngp
+from .resize import resize_area
 
 
 def fast_collate_math(poses_all, images_flat, idx, inds, *, H: int, W: int,
@@ -141,8 +146,6 @@ class NeRFDataset:
         self.training = type in ("train", "all", "trainval")
         self.num_rays = getattr(opt, "num_rays", 4096) if self.training \
             else -1
-        if self.training and getattr(opt, "error_map", False):
-            raise NotImplementedError("the error map is not ported")
         if getattr(opt, "rand_pose", -1) >= 0:
             raise NotImplementedError("random-pose batches are not ported")
         self.error_map = None
@@ -168,6 +171,9 @@ class NeRFDataset:
             self.images = torch.as_tensor(images)
         self.radius = float(np.linalg.norm(self.poses[:, :3, 3],
                                            axis=-1).mean())
+        if self.training and getattr(opt, "error_map", False):
+            self.error_map = np.ones((len(self.poses), ERROR_MAP_RES ** 2),
+                                     dtype=np.float32)
         self.intrinsics = _intrinsics(transform, self.H, self.W, downscale)
         self._poses_dev = torch.as_tensor(self.poses, device=device)
         self._images_flat = None if self.images is None else \
@@ -205,12 +211,14 @@ class NeRFDataset:
             if self.H is None or self.W is None:
                 self.H = image.shape[0] // downscale
                 self.W = image.shape[1] // downscale
-            if image.shape[:2] != (self.H, self.W):
-                raise NotImplementedError(
-                    f"{path} is {image.shape[1]}x{image.shape[0]}, the split"
-                    f" {self.W}x{self.H}: resizing is not ported")
             if image.ndim != 3:
                 raise ValueError(f"{path} is not an RGB or RGBA image")
+            if image.shape[:2] != (self.H, self.W):
+                if image.dtype != np.uint8:
+                    raise NotImplementedError(
+                        f"{path} is {image.dtype}; the port resizes uint8 "
+                        "images only")
+                image = resize_area(image, self.W, self.H)
             poses.append(self._ngp(f["transform_matrix"]))
             images.append(image.astype(np.float32) / 255.0)
         return poses, np.stack(images), transform
@@ -222,16 +230,23 @@ class NeRFDataset:
     def collate(self, index, generator=None, inds=None):
         """The batch of images `index` (a list): rays and pixels at `inds`
         ([N] int64), or, for the training split, at N = min(num_rays, H *
-        W) indices drawn from `generator`; for another split, every pixel
-        in raster order, with the images whole, [B, H, W, C], as the JAX
-        package's collate gives them for evaluation. Returns {'H', 'W',
-        'rays_o', 'rays_d', 'images' (where the split has them),
-        'inds'}."""
+        W) indices drawn from `generator` (by the error map where there is
+        one, `rays.error_map_inds`); for another split, every pixel in raster
+        order, with the images whole, [B, H, W, C], as the JAX package's
+        collate gives them for evaluation. Returns {'H', 'W', 'rays_o',
+        'rays_d', 'images' (where the split has them), 'inds'}, and with
+        the error map 'index' and 'inds_coarse' [B, N]."""
         H, W = self.H, self.W
         dev = self._poses_dev.device
         whole = inds is None and not self.training
+        coarse = None
         if whole:
             inds = torch.arange(H * W, device=dev)
+        elif inds is None and self.error_map is not None:
+            inds, coarse = error_map_inds(
+                torch.as_tensor(self.error_map[np.asarray(index)],
+                                device=dev), H, W,
+                min(self.num_rays, H * W), generator=generator)
         elif inds is None:
             n = min(self.num_rays, H * W)
             inds = torch.randint(0, H * W, (n,), generator=generator,
@@ -250,6 +265,9 @@ class NeRFDataset:
             H=H, W=W, intrinsics=tuple(float(v) for v in self.intrinsics))
         out = {"H": H, "W": W, "rays_o": rays_o, "rays_d": rays_d,
                "inds": inds}
+        if coarse is not None:
+            out["index"] = list(index)
+            out["inds_coarse"] = coarse
         if self.images is not None:
             out["images"] = imgs.reshape(B, H, W, -1) if whole else imgs
         return out

@@ -3,23 +3,24 @@
 from .network import NeRFNetwork
 from .network_ff import NeRFNetworkFF
 from .network_mip import NeRFNetworkMip
+from .network_tcnn import NeRFNetworkTCNN
 
 
 def make_network(cfg, params, device="cuda", opt=None, **kw):
     """Backbone dispatch, in the JAX package's order (models/__init__.py:
     10-23): the mip-fold teacher (which also takes `trainable` and
     `generator`, see NeRFNetworkMip); with the CLI's options `opt`,
-    `--tcnn` (not ported: raises) and `--ff` (`NeRFNetworkFF`); else
-    `NeRFNetwork` for the frequency and hash-grid fields."""
+    `--tcnn` (`NeRFNetworkTCNN`) and `--ff` (`NeRFNetworkFF`); else
+    `NeRFNetwork` for the frequency, hash-grid, tiled-grid and
+    unencoded fields."""
     if cfg.encoding == "mipfold":
         return NeRFNetworkMip(cfg, params, device=device, **kw)
     if opt is not None and getattr(opt, "tcnn", False):
-        raise NotImplementedError(
-            "--tcnn builds the JAX package's NeRFNetworkTCNN "
-            "(models/network_tcnn.py), which is not ported yet")
+        return NeRFNetworkTCNN(cfg, params, device=device, **kw)
     if opt is not None and getattr(opt, "ff", False):
         return NeRFNetworkFF(cfg, params, device=device, **kw)
     return NeRFNetwork(cfg, params, device=device, **kw)
 
 
-__all__ = ["NeRFNetwork", "NeRFNetworkFF", "NeRFNetworkMip", "make_network"]
+__all__ = ["NeRFNetwork", "NeRFNetworkFF", "NeRFNetworkMip",
+           "NeRFNetworkTCNN", "make_network"]

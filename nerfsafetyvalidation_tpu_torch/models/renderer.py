@@ -30,7 +30,7 @@ from ..ops.marching import (SQRT3, _mip_from_dt, _mip_from_pos,
                             compact_samples, composite_marched,
                             gather_compacted, march_rays, scatter_back)
 from ..ops.ray_ops import (morton3d, morton3d_invert, near_far_from_aabb,
-                           occupancy_to_skip_grid, packbits)
+                           occupancy_to_skip_grid, packbits, sph_from_ray)
 from ..ops.sample_pdf import linspace, sample_pdf
 
 
@@ -647,7 +647,9 @@ def run(net, rays_o, rays_d, num_steps: int = 128, upsample_steps: int = 128,
         training: bool = False, aabb=None, draws=None,
         plain_field: bool = False):
     """Uniform samples along each ray, optionally refined by hierarchical
-    upsampling, one dense field query, composited (renderer.py:85-195).
+    upsampling, one dense field query, composited (renderer.py:85-195)
+    over the background net where cfg.bg_radius > 0, else over bg_color
+    (white by default).
     rays_o/d: [N, 3]. Returns {'depth' [N], 'image' [N, 3], 'weights_sum'
     [N], 'rgbs' [N, T, 3], 'sigmas' [N * T, 1], 'aggregated_density'
     [N]}.
@@ -731,7 +733,13 @@ def run(net, rays_o, rays_d, num_steps: int = 128, upsample_steps: int = 128,
     ori_z = torch.clamp((z_vals - nears) / span, 0.0, 1.0)
     depth = (weights * ori_z).sum(dim=-1)
     image = (weights[..., None] * rgbs).sum(dim=-2)
-    bg = 1.0 if bg_color is None else bg_color
+    if cfg.bg_radius > 0:
+        # the background net, in place of any colour given
+        # (renderer.py:173-179)
+        bg = net.background(sph_from_ray(rays_o, rays_d, cfg.bg_radius),
+                            rays_d)
+    else:
+        bg = 1.0 if bg_color is None else bg_color
     image = image + (1.0 - weights_sum)[..., None] * bg
     return {
         "depth": depth,

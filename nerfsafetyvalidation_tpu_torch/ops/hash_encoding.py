@@ -12,11 +12,13 @@ The reference semantics, as the JAX package keeps them:
   * positions outside [0, 1] encode to zero; the output is level-major.
 
 Every sample reads 2^D rows of every level (the corner layout) and blends
-them trilinearly. The levels of a chunk of samples are encoded together,
-one gather for all of them. Hashes are computed in int64 and masked to 32
-bits, so they equal the JAX package's uint32 arithmetic. With a bfloat16
-table the blend rounds as JAX does (`_blend`, which the mip-fold encoder
-shares).
+them multilinearly: D = 3 for positions, D = 2 for the background net's
+sphere coordinates. A 'tiled' grid (`--encoding tiledgrid`) never hashes:
+each level wraps its dense index modulo its size. The levels of a chunk of
+samples are encoded together, one gather for all of them. Hashes are
+computed in int64 and masked to 32 bits, so they equal the JAX package's
+uint32 arithmetic. With a bfloat16 table the blend rounds as JAX does
+(`_blend`, which the mip-fold encoder shares).
 
 The encode is differentiable with respect to the table: the corner rows
 are one gather, whose backward sums each row's duplicates in a fixed order
@@ -69,18 +71,23 @@ def _prime_hash(grid):
 
 
 def _blend_weights(frac):
-    """[N, 3] fractions -> [N, 8] trilinear corner weights (x fastest)."""
-    bits = torch.as_tensor(_corner_bits(3).astype(bool), device=frac.device)
+    """[N, D] fractions -> [N, 2^D] multilinear corner weights (x
+    fastest), the product over the dimensions taken in order."""
+    D = frac.shape[-1]
+    bits = torch.as_tensor(_corner_bits(D).astype(bool), device=frac.device)
     f = frac[:, None, :]
     w = torch.where(bits[None], f, 1.0 - f)
-    return w[..., 0] * w[..., 1] * w[..., 2]
+    out = w[..., 0]
+    for d in range(1, D):
+        out = out * w[..., d]
+    return out
 
 
 def _blend(w, feats):
-    """sum_c w[:, c] * feats[:, c] over the 8 corners; [N, 8] f32 weights,
-    [N, 8, C] features. In bfloat16 each product rounds to bfloat16 and
-    the sum runs in float32, rounded once (XLA's bf16 multiply and
-    reduce_sum)."""
+    """sum_c w[:, c] * feats[:, c] over the 2^D corners; [N, 2^D] f32
+    weights, [N, 2^D, C] features. In bfloat16 each product rounds to
+    bfloat16 and the sum runs in float32, rounded once (XLA's bf16 multiply
+    and reduce_sum)."""
     if feats.dtype == torch.bfloat16:
         prod = (w.to(torch.bfloat16).float()[..., None]
                 * feats.float()).to(torch.bfloat16)
@@ -239,8 +246,6 @@ def _pad_masked_levels(out_lc, n_active: int, spec: HashGridSpec):
 
 def _encode_corner_chunk(embeddings, x, spec: HashGridSpec, bound: float,
                          n_active: int):
-    if spec.input_dim != 3:
-        raise NotImplementedError("the port encodes 3-D positions only")
     c = _level_constants(spec, n_active, str(x.device))
     u = (x.float() + bound) / (2.0 * bound)
     oob = ((u < 0.0) | (u > 1.0)).any(dim=-1)
@@ -331,17 +336,22 @@ def _cell_rows(spec: HashGridSpec, cell_grid, lvl=None):
 
 
 def _level_cells(spec: HashGridSpec, lvl: int, size: int) -> np.ndarray:
-    """The cells [M, 3] uint32 whose corners fill level lvl's rows, in the
+    """The cells [M, D] uint32 whose corners fill level lvl's rows, in the
     JAX package's order: every cell (x slowest), or on a hashed level with
     more than 4 * size cells, 4 * size cells drawn by numpy from
     default_rng(lvl) (they fill ~98% of the rows)."""
-    res = spec.resolutions[lvl]
-    if spec.use_hash[lvl] and res ** 3 > size * 4:
-        return np.random.default_rng(lvl).integers(0, res, (size * 4, 3),
+    res, D = spec.resolutions[lvl], spec.input_dim
+    if spec.use_hash[lvl] and res ** D > size * 4:
+        return np.random.default_rng(lvl).integers(0, res, (size * 4, D),
                                                    dtype=np.uint32)
     g = np.arange(res, dtype=np.uint32)
-    cx, cy, cz = np.meshgrid(g, g, g, indexing="ij")
-    return np.stack([cx.ravel(), cy.ravel(), cz.ravel()], -1)
+    grids = np.meshgrid(*([g] * D), indexing="ij")
+    return np.stack([c.ravel() for c in grids], -1)
+
+
+# rows a cell table may hold: the JAX package indexes it with int32
+# (`_cell_rows` casts its rows to int32)
+MAX_CELL_ROWS = 2 ** 31 - 1
 
 
 def build_cell_table(embeddings, spec: HashGridSpec):
@@ -353,14 +363,26 @@ def build_cell_table(embeddings, spec: HashGridSpec):
     `_level_cells` fills it, as the JAX scatter keeps the last of
     duplicate indices on the CPU: the winner is each row's largest sample
     position (a scatter-max), so that every build on every device gives
-    the same bits. A row no cell lands in stays zero."""
-    if spec.input_dim != 3:
-        raise NotImplementedError("the port encodes 3-D positions only")
+    the same bits. A row no cell lands in stays zero.
+
+    A tiled level never hashes, so its cell table holds all res^D cells:
+    a table past MAX_CELL_ROWS (a tiled grid at the CLI's widths, up to
+    2049^3 cells a level) is refused, for the reason the JAX build fails
+    there."""
     sizes, offsets, _ = cell_sizes(spec)
+    if offsets[-1] > MAX_CELL_ROWS:
+        raise ValueError(
+            f"the cell layout of this grid has {offsets[-1]} rows (a "
+            f"{spec.gridtype} level holds all res^{spec.input_dim} cells, up "
+            f"to {max(spec.resolutions)}^{spec.input_dim}): past the int32 "
+            "rows of the JAX package's build_cell_table, which also "
+            "enumerates every cell of such a level with numpy and cannot "
+            "hold them in memory")
+    D = spec.input_dim
     dev = embeddings.device
-    bits = torch.as_tensor(_corner_bits(3).astype(np.int64), device=dev)
+    bits = torch.as_tensor(_corner_bits(D).astype(np.int64), device=dev)
     C = embeddings.shape[1]
-    table = torch.zeros((offsets[-1], 8 * C), dtype=embeddings.dtype,
+    table = torch.zeros((offsets[-1], 2 ** D * C), dtype=embeddings.dtype,
                         device=dev)
     for lvl in range(spec.num_levels):
         cells = torch.as_tensor(
@@ -370,12 +392,12 @@ def build_cell_table(embeddings, spec: HashGridSpec):
         last = torch.full((sizes[lvl],), -1, dtype=torch.int64, device=dev)
         last.scatter_reduce_(0, rows, order, reduce="amax")
         filled = torch.nonzero(last >= 0)[:, 0]
-        corners = cells[last[filled]][:, None, :] + bits      # [R, 8, 3]
+        corners = cells[last[filled]][:, None, :] + bits  # [R, 2^D, D]
         c = _level_constants(spec, lvl + 1, str(dev))
         corner_rows = _rows(corners, c["use_hash"][lvl], c["strides"][lvl],
                             c["sizes"][lvl], c["offsets"][lvl])
         table[offsets[lvl] + filled] = embeddings[corner_rows].reshape(
-            -1, 8 * C)
+            -1, 2 ** D * C)
     return table
 
 
@@ -401,13 +423,10 @@ def _encode_cell_chunk(cell_table, x, spec: HashGridSpec, bound: float,
 def hash_grid_encode_cell(cell_table, x, spec: HashGridSpec,
                           bound: float = 1.0, max_level=None):
     """`hash_grid_encode` through the cell layout (`build_cell_table`): one
-    row a sample and level, blended trilinearly as the corner encode
-    blends. Equal to the corner encode on dense levels; on hashed levels
-    it differs only in what collides. Levels >= max_level encode to zero
-    and are not gathered. x [..., D] -> [..., L * C] in the table's
-    dtype."""
-    if spec.input_dim != 3:
-        raise NotImplementedError("the port encodes 3-D positions only")
+    row a sample and level, blended as the corner encode blends. Equal to
+    the corner encode on dense levels; on hashed levels it differs only in
+    what collides. Levels >= max_level encode to zero and are not
+    gathered. x [..., D] -> [..., L * C] in the table's dtype."""
     prefix = x.shape[:-1]
     x = x.reshape(-1, spec.input_dim)
     n_active = _n_active(spec, max_level)

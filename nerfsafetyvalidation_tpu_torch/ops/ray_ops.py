@@ -1,8 +1,10 @@
-"""Slab test, morton codes and the occupancy bitfield
-(nerfsafetyvalidation_tpu/ops/ray_ops.py).
+"""Slab test, the background sphere's coordinates, morton codes and the
+occupancy bitfield (nerfsafetyvalidation_tpu/ops/ray_ops.py).
 
 Morton codes are computed in int64: every mask keeps only the low 32 bits,
 so the result equals the JAX package's uint32 arithmetic."""
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +25,21 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
     near = torch.where(miss, _F32_MAX, near)
     far = torch.where(miss, _F32_MAX, far)
     return near, far
+
+
+def sph_from_ray(rays_o, rays_d, radius: float):
+    """Where rays [..., 3] leave the background sphere of `radius`, as
+    (theta, phi) scaled to [-1, 1] [..., 2] (raymarching.cu:164-200; y is
+    up), in float32."""
+    A = torch.sum(rays_d * rays_d, dim=-1)
+    B = torch.sum(rays_o * rays_d, dim=-1)
+    C = torch.sum(rays_o * rays_o, dim=-1) - radius * radius
+    t = (-B + torch.sqrt(B * B - A * C)) / A
+    p = rays_o + t[..., None] * rays_d
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)      # [0, pi)
+    phi = torch.atan2(z, x)                                 # [-pi, pi)
+    return torch.stack([2.0 * theta / math.pi - 1.0, phi / math.pi], dim=-1)
 
 
 def _expand_bits(v):

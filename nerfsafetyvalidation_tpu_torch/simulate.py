@@ -117,11 +117,10 @@ def main(argv=None, device="cuda"):
     """Returns the true states (see `simulate`)."""
     opt = apply_O_flag(build_parser("simulate").parse_args(argv),
                        "simulate")
-    if opt.ff or opt.tcnn:
+    if opt.ff:
         raise SystemExit(
-            "simulate: --ff/--tcnn: the estimator's Hessian through the "
-            "fused MLP raises ValueError in the JAX package; run it "
-            "without --ff (--tcnn is not ported: ROADMAP Queue 1 item 9)")
+            "simulate: --ff: the estimator's Hessian through the fused MLP "
+            "raises ValueError in the JAX package; run it without --ff")
     env = EnvConfig.load("envConfig.json")
     seed_everything(opt.seed, device)
     dev = torch.device(device)

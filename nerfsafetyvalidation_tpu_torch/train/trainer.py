@@ -1,31 +1,40 @@
 """The training loop of the port (nerfsafetyvalidation_tpu/train/
 trainer.py, `Trainer`), for any net with `param_list()`: the mip-fold
-teacher and the hash-grid `NeRFNetwork`.
+teacher, `NeRFNetwork` (any encoding, with or without the background net),
+`NeRFNetworkFF` and `NeRFNetworkTCNN`.
 
 One iteration: with cfg.grid_ray, the occupancy refresh on its schedule
 (every `update_extra_interval` steps; full probes while the grid still
 carves, then one of 4 morton-strided blocks in rotation; a mip-fold net
 probes through a freshly folded table), then one step: the pixel-wise
-random background for RGBA targets, the render (with cfg.grid_ray the
+random background for RGBA targets (white where the net has a background
+net), the render (with cfg.grid_ray the
 marched `run_grid` with the phased sample budget; else the uniform `run`
 with jittered samples and, with `upsample_steps`, samples drawn from the
-pdf), the MSE, the backward, the Adam update, the learning-rate decay and,
-where `ema_decay` is set, the per-step EMA. `train` runs epochs over a
+pdf), the MSE (the mean of the per-ray means), the backward, the Adam
+update, the learning-rate decay, where `ema_decay` is set the per-step EMA
+and, where the training split keeps an error map (`--error_map`), its
+update on the host: 0.1 * old + 0.9 * the rays' errors at their coarse
+cells, the last of duplicate cells winning, as numpy's put_along_axis in
+the JAX trainer (trainer.py:330-337). `train` runs epochs over a
 loader, saves a checkpoint every `ckpt_interval` epochs and the last, and
 evaluates every `eval_interval` epochs, keeping the best file.
 Evaluation (`eval_step`, `evaluate_one_epoch`, `evaluate`) renders whole
 views through the staged uniform-sampling render, on the EMA parameters
 where there are some, scores them with the PSNR meter and, with a
-workspace, writes each view's PNG; `test` renders a split's views staged
-and writes their RGB and depth PNGs, as the JAX package's PNG fallback
-does (no video).
+workspace, writes each view's PNG; `test` renders a split's views in
+`--render_mode` staged, fast, guided or scout with the JAX trainer's
+settings (trainer.py:627-705; the last three need the occupancy state,
+and without it fall back to staged with JAX's warning) and writes mp4s
+through imageio where it has a backend, else RGB and depth PNGs, as the
+JAX trainer does; `save_mesh` writes the density's iso-surface as a .ply
+(`mesh_export`, the density probed on the net's device).
 
 The JAX trainer jits the step; here it runs eagerly. Its random draws
 (background, march jitter or sample jitter and pdf draws, refresh jitter)
 come from a torch.Generator seeded `opt.seed + 1`, or are handed in, as
-the tests hand in the JAX trainer's own draws. Not ported: the error map,
-CLIP guidance, data parallelism, the fused multi-step scan,
-`fold_warmup_scale`, `save_mesh` and the other `--render_mode`s of `test`.
+the tests hand in the JAX trainer's own draws. Not ported: CLIP guidance,
+data parallelism, the fused multi-step scan and `fold_warmup_scale`.
 """
 
 import os
@@ -36,9 +45,12 @@ import torch
 
 from ..data.png import write_png
 from ..data.rays import linear_to_srgb, srgb_to_linear
+from ..models.network import mlp_leaves
 from ..models.renderer import (RendererState, mark_untrained_grid, render,
-                               run, run_grid, update_extra_state)
+                               render_frame_fast, render_frame_guided, run,
+                               run_grid, update_extra_state)
 from .checkpoint import CheckpointManager
+from .mesh_export import extract_geometry, write_ply
 from .metrics import PSNRMeter
 
 
@@ -60,12 +72,30 @@ def default_optimizer(params, opt):
 def param_leaves(tree):
     """A params pytree's tensors in the nets' `param_list` order: the
     encoder's (pyramid grids and hash table, or the table), the sigma net,
-    the color net."""
+    the color net (a biased layer {'w', 'b'} as w then b), the background
+    table and the background net."""
     enc = tree.get("encoder", {})
     leaves = list(enc.get("pyramid", [])) + [enc[k] for k in
                                              ("hash", "embeddings")
                                              if k in enc]
-    return leaves + list(tree["sigma_net"]) + list(tree["color_net"])
+    leaves += mlp_leaves(tree["sigma_net"]) + mlp_leaves(tree["color_net"])
+    if "encoder_bg" in tree:
+        leaves += [tree["encoder_bg"]["embeddings"], *tree["bg_net"]]
+    return leaves
+
+
+def update_error_map(error_map, index, inds_coarse, per_ray):
+    """The JAX trainer's error-map EMA (trainer.py:330-337), on the host:
+    error_map [V, cells] float32 numpy, updated in place at the views
+    `index` [B] and cells inds_coarse [B, N] to 0.1 * old + 0.9 * per_ray
+    ([B * N], each ray's mean squared error); where a cell repeats, the
+    last of its rays is kept, as numpy's put_along_axis keeps it."""
+    inds = np.asarray(inds_coarse)
+    err = np.asarray(per_ray, dtype=np.float32).reshape(inds.shape)
+    emap = error_map[index]
+    ema_error = 0.1 * np.take_along_axis(emap, inds, axis=1) + 0.9 * err
+    np.put_along_axis(emap, inds, ema_error, axis=1)
+    error_map[index] = emap
 
 
 def _png8(img):
@@ -85,8 +115,6 @@ class Trainer:
                  eval_interval: int = 1, max_keep_ckpt: int = 2,
                  ckpt_interval: int = 1, mute: bool = False):
         cfg = net.cfg
-        if cfg.bg_radius > 0:
-            raise NotImplementedError("the background net is not ported")
         self.name = name
         self.opt = opt
         self.net = net
@@ -112,6 +140,8 @@ class Trainer:
         self.global_step = 0
         self.local_step = 0
         self._grid_block = 0
+        # the training split's error map [V, cells] (numpy), set by `start`
+        self.error_map = None
         # the epochs' mean losses, every step's loss, each evaluation's
         # mean loss and PSNR (floats), the checkpoints written
         self.stats = {"loss": [], "step_loss": [], "valid_loss": [],
@@ -176,13 +206,16 @@ class Trainer:
         unless handed in: bg ([B, N, 3] uniforms for an RGBA target);
         with cfg.grid_ray perturb ([B * N] march jitter), else draws
         ({'perturb': [B * N, num_steps], 'pdf': [B * N, upsample_steps]},
-        see `run`). Returns (pred [B * N, 3], loss []), both detached."""
+        see `run`). With an error map and a batch that carries 'index' and
+        'inds_coarse', the map is updated. Returns (pred [B * N, 3], loss
+        []), both detached."""
         opt = self.opt
         images = data["images"]
         img_rgb = images[..., :3]
         if getattr(opt, "color_space", "srgb") == "linear":
             img_rgb = srgb_to_linear(img_rgb)
-        if images.shape[-1] == 4:
+        if images.shape[-1] == 4 and self.net.cfg.bg_radius <= 0:
+            # pixel-wise random background (utils.py:439-442)
             if bg is None:
                 bg = torch.rand(img_rgb.shape, generator=self.generator,
                                 device=self.device)
@@ -190,7 +223,8 @@ class Trainer:
             gt = img_rgb * alpha + bg * (1 - alpha)
         else:
             bg = torch.ones_like(img_rgb)
-            gt = img_rgb
+            gt = img_rgb if images.shape[-1] == 3 else \
+                img_rgb * images[..., 3:] + (1 - images[..., 3:])
         flat_o = data["rays_o"].reshape(-1, 3)
         flat_d = data["rays_d"].reshape(-1, 3)
         if self.net.cfg.grid_ray:
@@ -210,7 +244,8 @@ class Trainer:
                       bg_color=bg.reshape(-1, 3), perturb=True,
                       generator=self.generator, training=True, draws=draws)
         pred = out["image"]
-        loss = torch.mean((pred - gt.reshape(-1, 3)) ** 2)
+        per_ray = torch.mean((pred - gt.reshape(-1, 3)) ** 2, dim=-1)
+        loss = torch.mean(per_ray)
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -221,6 +256,10 @@ class Trainer:
             with torch.no_grad():
                 for e, p in zip(self.ema_params, self.params):
                     e.mul_(d).add_(p, alpha=1.0 - d)
+        if self.error_map is not None and "index" in data:
+            update_error_map(self.error_map, data["index"],
+                             data["inds_coarse"].cpu(),
+                             per_ray.detach().cpu())
         return pred.detach(), loss.detach()
 
     def _maybe_refresh(self, jitter=None):
@@ -280,7 +319,9 @@ class Trainer:
 
     def start(self, dataset):
         """With cfg.grid_ray, mark the cells no training camera sees (once,
-        before the first epoch, as the JAX `train` does)."""
+        before the first epoch, as the JAX `train` does); take the
+        dataset's error map (None without `--error_map`)."""
+        self.error_map = getattr(dataset, "error_map", None)
         if self.renderer_state is not None:
             self.renderer_state = mark_untrained_grid(
                 self.net.cfg, self.renderer_state, dataset.poses,
@@ -384,37 +425,118 @@ class Trainer:
     def evaluate(self, loader, name=None):
         return self.evaluate_one_epoch(loader, name)
 
-    def test(self, loader, save_path=None, name=None):
-        """Render the views of `loader` (trainer.py:627-716) through the
-        staged render (opt's max_ray_batch, num_steps, upsample_steps; no
-        background colour given, so white) and write each one's RGB and
-        depth PNGs, `{name}_{i:04d}_rgb.png` and `_depth.png`, as the JAX
-        package does where it has no video writer. Returns the paths."""
+    def _render_test_view(self, net, data, mode):
+        """One test view in `mode` (trainer.py:641-671)."""
+        opt = self.opt
+        H, W = data["H"], data["W"]
+        o, d = data["rays_o"].reshape(-1, 3), data["rays_d"].reshape(-1, 3)
+        march = dict(max_steps=getattr(opt, "max_steps", 1024),
+                     dt_gamma=getattr(opt, "dt_gamma", 0.0))
+        with torch.no_grad():
+            if mode == "fast":
+                return render_frame_fast(
+                    net, self.renderer_state, o, d,
+                    tile=min(131072, -(-(H * W) // 1024) * 1024),
+                    max_samples=16, samples_per_hit=2, **march)
+            if mode in ("guided", "scout"):
+                return render_frame_guided(
+                    net, self.renderer_state, o, d, H, W, prepass_factor=8,
+                    max_samples=16, prepass_mode="scout" if mode == "scout"
+                    else "march", **march)
+        return self._render_views(net, data)
+
+    def test(self, loader, save_path=None, name=None, write_video=True):
+        """Render the views of `loader` (trainer.py:627-705) in
+        opt.render_mode: 'staged' (the staged render: max_ray_batch,
+        num_steps, upsample_steps; no background colour given, so white or
+        the background net), 'fast' (`render_frame_fast`: a tile of
+        min(131072, H * W rounded up to 1024) rays, 16 samples, paired
+        emission) or 'guided' / 'scout' (`render_frame_guided`, prepass
+        factor 8, 16 samples, a marched or a scout prepass), the marched
+        modes with opt's max_steps and dt_gamma on the occupancy state;
+        without one they fall back to 'staged' with JAX's warning. With
+        `write_video` the frames go to `{name}_rgb.mp4` and
+        `{name}_depth.mp4` through imageio; where imageio or its mp4
+        backend is missing, and without `write_video`, to PNGs
+        `{name}_{i:04d}_rgb.png` and `_depth.png`. Returns the paths."""
         mode = getattr(self.opt, "render_mode", "staged")
-        if mode != "staged":
-            raise NotImplementedError(f"render_mode {mode!r} is not ported "
-                                      "to the trainer's test; use 'staged'")
         if save_path is None:
             save_path = os.path.join(self.workspace or ".", "results")
         if name is None:
             name = f"{self.name}_ep{self.epoch:04d}"
         os.makedirs(save_path, exist_ok=True)
         self.log(f"==> Start Test, save results to {save_path}")
+        if mode != "staged" and self.renderer_state is None:
+            self.log(f"[WARN] render_mode={mode} needs the occupancy grid "
+                     "(grid-ray training); falling back to staged")
+            mode = "staged"
         net = self.eval_net()
-        paths = []
-        for i, data in enumerate(loader):
+        frames = []
+        for data in loader:
             H, W = data["H"], data["W"]
-            out = self._render_views(net, data)
+            out = self._render_test_view(net, data, mode)
             pred = out["image"].reshape(H, W, 3)
             if getattr(self.opt, "color_space", "srgb") == "linear":
                 pred = linear_to_srgb(pred)
             depth = out["depth"].reshape(H, W)
-            for kind, img in (("rgb", pred), ("depth", depth)):
+            frames.append((_png8(pred.cpu()), _png8(depth.cpu())))
+        paths = []
+        if write_video and frames:
+            try:
+                import imageio
+                for k, kind in enumerate(("rgb", "depth")):
+                    path = os.path.join(save_path, f"{name}_{kind}.mp4")
+                    imageio.mimwrite(path, np.stack([f[k] for f in frames]),
+                                     fps=25, quality=8, macro_block_size=1)
+                    paths.append(path)
+                frames = []
+            except (ValueError, ImportError):
+                # no mp4 backend: PNG frames instead
+                self.log("[WARN] no mp4 backend; writing PNG frames instead")
+        for i, imgs in enumerate(frames):
+            for kind, img in zip(("rgb", "depth"), imgs):
                 path = os.path.join(save_path, f"{name}_{i:04d}_{kind}.png")
-                write_png(path, _png8(img.cpu()))
+                write_png(path, img)
                 paths.append(path)
         self.log("==> Finished Test.")
         return paths
+
+    def save_mesh(self, save_path=None, resolution=256, threshold=10):
+        """The density's `threshold` iso-surface over the box [-bound,
+        bound]^3 as an ASCII .ply (trainer.py:707-724): the density of the
+        trained parameters (not the EMA) probed on a resolution^3 grid in
+        blocks of 128^3 points on the net's device, polygonised on the
+        host (`mesh_export`). Default path `<workspace>/meshes/
+        {name}_{epoch}.ply`. Returns (path, stats): stats holds the
+        vertex and face counts and the seconds of the probe (each block
+        ends waiting for the card), of the polygonisation and of the
+        file."""
+        if save_path is None:
+            save_path = os.path.join(self.workspace or ".", "meshes",
+                                     f"{self.name}_{self.epoch}.ply")
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        bound = self.net.cfg.bound
+        probe = [0.0]
+
+        def query(pts):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                sigma = self.net.density(torch.as_tensor(
+                    pts, device=self.device))["sigma"].cpu().numpy()
+            probe[0] += time.perf_counter() - t0
+            return sigma
+
+        t0 = time.perf_counter()
+        verts, faces = extract_geometry(
+            np.asarray([-bound] * 3), np.asarray([bound] * 3), resolution,
+            threshold, query)
+        t1 = time.perf_counter()
+        write_ply(save_path, verts, faces)
+        stats = {"vertices": len(verts), "faces": len(faces),
+                 "probe_s": probe[0], "surface_s": t1 - t0 - probe[0],
+                 "file_s": time.perf_counter() - t1}
+        self.log(f"==> Saved mesh to {save_path}")
+        return save_path, stats
 
     # ---------------------------------------------------------- checkpoint
     def _optimizer_state(self):

@@ -52,8 +52,13 @@ method `--k`) on; the step and trajectory confusion matrices go to
 results/confusion_matrix_{step,traj}.{png,json}, the tallies to
 counts.pkl.
 
+`--tcnn` builds the biased `NeRFNetworkTCNN`, whose MLPs are plain
+chains (no kernel): the estimator's Hessian, the Gaussian UQ and the
+Laplace fits (its flatpack holds the biases) go through it on every path,
+as the JAX CLI's do.
+
 Refused, with a message and a non-zero exit, before anything is loaded:
-`--tcnn` (ROADMAP Queue 1 item 9), a uq_method other than the two, `--r
+a uq_method other than the two, `--r
 --ff` (the JAX replay's estimator raises ValueError from jax.hessian
 through the fused kernel, with no loop around it: a traceback), and
 three combinations on which the JAX CLI restarts forever: `--ff` on the
@@ -108,10 +113,6 @@ def refusal(opt, env):
         return f"Unrecognized simulator {env.simulator}"
     if env.stress_test not in ("Monte Carlo", "Cross Entropy Method"):
         return f"Unrecognized stress test {env.stress_test}"
-    if opt.tcnn:
-        return ("--tcnn builds the JAX package's NeRFNetworkTCNN "
-                "(models/network_tcnn.py), which is not ported yet (ROADMAP "
-                "Queue 1 item 9)")
     if opt.r and opt.ff:
         return ("--r --ff: the replay's estimator takes the Hessian through "
                 "the fused MLP, where jax.hessian raises ValueError in the "

@@ -24,7 +24,13 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "nerfsafetyvalidation_tpu_torch"
 CKPT = ROOT / "bench_assets" / "flagship.ckpt"
 STUDENT = ROOT / "bench_assets" / "bench_student_h160x6.pkl"
-FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "optax", "nerfsafetyvalidation_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "optax", "nerfsafetyvalidation_tpu",
+             "cv2"}
+# imports the port may make only optionally (inside a try whose handler
+# takes ImportError, with a fallback): the estimator's SIFT interest points
+# and the Blender camera's half-size resize read cv2 where it is installed,
+# as the JAX package's estimator does
+OPTIONAL = {"cv2"}
 
 _CHILD = r"""
 import hashlib, json, sys
@@ -154,20 +160,40 @@ def test_unpickler_refuses_other_classes():
         assets._Unpickler(io.BytesIO(blob)).load()
 
 
+def _guarded(tree):
+    """The import nodes that sit in the body of a try whose handlers take
+    ImportError (or Exception, or everything)."""
+    out = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        names = {getattr(h.type, "id", None) for h in node.handlers}
+        if names & {None, "ImportError", "Exception"}:
+            out.update(id(n) for stmt in node.body for n in ast.walk(stmt)
+                       if isinstance(n, (ast.Import, ast.ImportFrom)))
+    return out
+
+
 def _imports(path):
+    """(module, optional) of every absolute import in the file."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    guarded = _guarded(tree)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, id(node) in guarded) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, id(node) in guarded
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    """No JAX, optax or JAX-package import anywhere in the port, and cv2
+    only as an optional import with a fallback."""
+    bad = [m for m, optional in _imports(path)
+           if m.split(".")[0] in FORBIDDEN
+           and not (optional and m.split(".")[0] in OPTIONAL)]
     assert bad == [], f"{path.name} imports {bad}"
 
 

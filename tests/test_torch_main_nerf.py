@@ -167,18 +167,24 @@ def test_colmap_directory_matches_jax(tmp_path, jax_dir):
     assert "images" not in ds_t.collate([1])
 
 
-def test_a_resize_raises(tmp_path, jax_dir):
-    """An image whose size differs from the split's (cv2.resize in JAX)
-    is not resized: the port raises."""
+@pytest.mark.parametrize("side", [RES // 2, 17, 40])
+def test_a_resize_raises(tmp_path, jax_dir, side):
+    """An image whose size differs from the split's: JAX resizes it with
+    cv2's INTER_AREA on its uint8 pixels, and so does the port
+    (data/resize.py, without cv2): halved, shrunk by a non-integer factor
+    and enlarged, the dataset equals JAX's bit for bit. (The port raised
+    here before it had the resize; the name stayed.)"""
     with open(os.path.join(jax_dir, "transforms_val.json")) as f:
         t = json.load(f)
     for fr in t["frames"]:
         fr["file_path"] = os.path.join(jax_dir, fr["file_path"])
-    t.update(h=RES // 2, w=RES // 2)
+    t.update(h=side, w=side)
     with open(tmp_path / "transforms_train.json", "w") as f:
         json.dump(t, f)
-    with pytest.raises(NotImplementedError, match="resiz"):
-        TP.NeRFDataset(_opt(str(tmp_path)), type="train", device="cpu")
+    opt = _opt(str(tmp_path))
+    ds_t = TP.NeRFDataset(opt, type="train", device="cpu")
+    assert (ds_t.H, ds_t.W) == (side, side)
+    _same_dataset(ds_t, JP.NeRFDataset(opt, type="train"))
 
 
 # ------------------------------------------------------------ checkpoints
@@ -303,14 +309,16 @@ def test_ff_checkpoints(tmp_path, test):
 # --------------------------------------------------------------- main_nerf
 
 
-def test_main_trains_tests_and_reloads(tmp_path):
+def test_main_trains_tests_and_reloads(tmp_path, monkeypatch):
     """`main` on a 4-view 24x24 directory written by the port, `--ff`
     (NeRFNetworkFF in bfloat16, uniform samples through K4's plain
     version and its recomputed backward): one whole
     epoch of 4 steps for `--iters 3`, a checkpoint, the test split's frames
     as PNGs; then `--test` loads the checkpoint into a fresh net (the EMA
     parameters are not the evaluated ones there: JAX's `--test` trainer
-    keeps none either) and writes the frames again."""
+    keeps none either), writes the frames again and the density's mesh
+    (its grid cut to 24^3 here from the CLI's 256^3: a full-size net on
+    the CPU)."""
     TS.write_dataset(str(tmp_path / "data"), TS.generate_dataset(
         n_train=4, n_val=1, n_test=1, H=RES, W=RES))
     argv = [str(tmp_path / "data"), "--workspace", str(tmp_path / "ws"),
@@ -327,7 +335,11 @@ def test_main_trains_tests_and_reloads(tmp_path):
     frames = sorted(os.listdir(ws / "results"))
     assert frames == ["ngp_ep0001_0000_depth.png", "ngp_ep0001_0000_rgb.png"]
     assert read_png(ws / "results" / frames[1]).shape == (RES, RES, 3)
+    monkeypatch.setattr(main_nerf, "MESH_RESOLUTION", 24)
     tested = main_nerf.main(argv + ["--test"], device="cpu")
     assert tested.epoch == 1 and tested.global_step == 4
     for a, b in zip(tested.net.param_list(), tr.net.param_list()):
         assert torch.equal(a, b)
+    assert os.listdir(ws / "meshes") == ["ngp_1.ply"]
+    with open(ws / "meshes" / "ngp_1.ply") as f:
+        assert f.readline() == "ply\n"

@@ -267,18 +267,17 @@ def test_reference_backbone_full_width_matches_jax(refbb, fused):
 
 
 def test_hashgrid_weights_must_match_the_config():
-    """A table or MLP of another shape is refused, not run; so are the
-    background net and the aligned spec, which are not ported."""
+    """A table or MLP of another shape is refused, not run; so are weights
+    without the background net the config asks for (bg_radius > 0), and
+    the aligned spec, which is not ported."""
     p = _grid_params(JConfig(**GRID))
     cfg = TConfig(**GRID)
     p_t = params_from_jax(p, device="cpu")
     make_network(cfg, p_t, device="cpu")
     for bad in (replace(cfg, log2_hashmap_size=9),
                 replace(cfg, num_levels=5), replace(cfg, level_dim=4),
-                replace(cfg, hidden_dim=32)):
+                replace(cfg, hidden_dim=32), replace(cfg, bg_radius=2.0)):
         with pytest.raises(ValueError):
             make_network(bad, p_t, device="cpu")
-    for bad in (replace(cfg, bg_radius=2.0),
-                replace(cfg, aligned_levels=True)):
-        with pytest.raises(NotImplementedError):
-            make_network(bad, p_t, device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_network(replace(cfg, aligned_levels=True), p_t, device="cpu")

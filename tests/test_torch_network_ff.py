@@ -3,8 +3,8 @@
 against the JAX package's on the CPU.
 
 The dispatch gives JAX's class, compute dtype and parameter shapes for
-the default flags, `-O`, `--ff` and `-O --ff`, and raises for `--tcnn`,
-whose net is not ported. The FF net's `density`, `color` (its input
+the default flags, `-O`, `--ff` and `-O --ff`, and builds JAX's class for
+`--tcnn`. The FF net's `density`, `color` (its input
 zero-padded to 32), forward and gradients are held to JAX's
 `NeRFNetworkFF` (its K4 in interpret mode, the port's K4 plain version and
 recomputed backward) on weights carried across; a JAX `--ff` checkpoint
@@ -76,13 +76,19 @@ def test_make_network_matches_jax(flags):
 @pytest.mark.parametrize("flags", [["--tcnn"], ["-O", "--tcnn"]],
                          ids=["tcnn", "O_tcnn"])
 def test_tcnn_raises(flags):
-    """JAX builds `NeRFNetworkTCNN` for --tcnn; the port has no such net
-    yet and says so, rather than training another one."""
+    """--tcnn builds `NeRFNetworkTCNN` in both packages (the port raised
+    here before it had the net; the name stayed): JAX's compute dtype and
+    `fused`, and its parameters (weight then bias a layer) in shape and
+    order, at the CLI's default widths."""
     opt_t, opt_j = _opts(["data", *flags])
-    assert type(j_make(j_config_from_opt(opt_j), opt_j)).__name__ == \
-        "NeRFNetworkTCNN"
-    with pytest.raises(NotImplementedError, match="network_tcnn"):
-        t_make(t_config_from_opt(opt_t), None, device="cpu", opt=opt_t)
+    net_j = j_make(j_config_from_opt(opt_j), opt_j)
+    net_t = t_make(t_config_from_opt(opt_t), None, device="cpu", opt=opt_t)
+    assert type(net_j).__name__ == type(net_t).__name__ == "NeRFNetworkTCNN"
+    assert net_t.cfg.compute_dtype == net_j.cfg.compute_dtype
+    assert net_t.cfg.fused and net_j.cfg.fused
+    shapes = jax.eval_shape(net_j.init, jax.random.PRNGKey(0))
+    assert [tuple(w.shape) for w in net_t.param_list()] == \
+        [tuple(s.shape) for s in TT.param_leaves(shapes)]
 
 
 def test_ff_refuses_what_jax_refuses():

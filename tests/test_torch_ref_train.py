@@ -101,7 +101,9 @@ def test_network_init_shapes_and_ranges():
     """`NeRFNetwork.init` (the reference's default net: 16 levels x 2, a
     32 -> 64 -> 16 sigma net, a 31 -> 64 -> 64 -> 3 color net) gives the
     JAX init's shapes in its order, each [in, out] weight uniform in
-    +-1/sqrt(in); the net is trainable, and one seed gives one net."""
+    +-1/sqrt(in); the net is trainable, and one seed gives one net. The
+    tiled grid, no encoding and the background net (refused here before
+    they were ported) draw the JAX init's shapes too."""
     cfg = dict(encoding="hashgrid", bound=1.0)
     shapes = jax.eval_shape(j_make(JConfig(**cfg)).init,
                             jax.random.PRNGKey(0))
@@ -122,10 +124,15 @@ def test_network_init_shapes_and_ranges():
                   generator=torch.Generator().manual_seed(3))
     assert all(torch.equal(a, b) for a, b in zip(leaves, twin.param_list()))
     assert not any(w.requires_grad for w in twin.param_list())
-    for bad in (dict(encoding="tiledgrid"), dict(encoding="None"),
-                dict(bg_radius=1.5)):
-        with pytest.raises(NotImplementedError):
-            t_make(TConfig(**dict(cfg, **bad)), None, device="cpu")
+    # the other encodings and the background net draw JAX's shapes too
+    for other in (dict(encoding="tiledgrid"), dict(encoding="None"),
+                  dict(bg_radius=1.5)):
+        net = t_make(TConfig(**dict(cfg, **other)), None, device="cpu",
+                     generator=torch.Generator().manual_seed(3))
+        shapes = jax.eval_shape(j_make(JConfig(**dict(cfg, **other))).init,
+                                jax.random.PRNGKey(0))
+        assert [tuple(w.shape) for w in net.param_list()] == \
+            [tuple(s.shape) for s in TT.param_leaves(shapes)]
 
 
 # ------------------------------------------------------------- gradients

@@ -10,7 +10,8 @@ validate.py without --batched_rollouts, simulate.py) on the CPU:
     (tests/test_torch_validate.py's `_workdir`, on a fixed start and goal
     whose plan has more knots than the run has steps), with device='cpu';
     the cross-entropy method resumed at its last iteration with `--k`;
-  * `simulate --ff` refused before anything loads."""
+  * `simulate --ff` refused before anything loads; `simulate --tcnn` and
+    sequential `validate --tcnn` run."""
 
 import csv
 import json
@@ -226,14 +227,41 @@ def test_simulate_main(seq_dir, capsys):
     assert len(os.listdir("paths/ws/replan_poses")) == states.shape[0] - 6
 
 
-@pytest.mark.parametrize("flag", ["--ff", "--tcnn"])
+@pytest.mark.parametrize("flag", ["--ff"])
 def test_simulate_refuses_fused(flag, tmp_path, monkeypatch):
     """simulate --ff (the JAX estimator's Hessian through the fused
-    kernel raises) and --tcnn (not ported) exit before anything loads."""
+    kernel raises) exits before anything loads."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="--ff/--tcnn"):
+    with pytest.raises(SystemExit, match="--ff"):
         TSimulate.main(["data", flag], device="cpu")
     assert os.listdir(".") == []
+
+
+@pytest.mark.parametrize("entry", ["simulate", "validate"])
+def test_sequential_tcnn_runs(entry, seq_dir, capsys):
+    """simulate --tcnn and sequential validate --tcnn (Gaussian UQ): the
+    estimator's Hessian through the biased NeRFNetworkTCNN, whose MLPs
+    are plain chains; JAX's sequential validate --tcnn runs to its end on
+    the CPU (its root simulate.py stops at a NameError for every flag,
+    ROADMAP Queue 3). Here on the raw position (`--encoding None`, see
+    test_torch_validate.TCNN); both were refused before the net was
+    ported."""
+    from test_torch_validate import TCNN, _tcnn_workdir
+    _tcnn_workdir(seq_dir, "Gaussian Approximation", sims=1)
+    env = json.loads(Path("envConfig.json").read_text())
+    env["estimator_cfg"]["batch_size"] = 64
+    Path("envConfig.json").write_text(json.dumps(env))
+    argv = [a for a in TCNN if a != "--batched_rollouts"] + [
+        "--camera", "nerf"]
+    if entry == "simulate":
+        states = TSimulate.main(argv, device="cpu")
+        assert states.shape[1] == 12 and np.isfinite(states).all()
+        return
+    V.main(argv, device="cpu")
+    out = capsys.readouterr().out
+    assert ".End of validation.." in out
+    rows = _rows("results/collisionValuesBlenderMC_n1.csv")
+    assert rows and all(len(r) == 24 for r in rows)
 
 
 def test_jax_sequential_ff_hessian_raises():

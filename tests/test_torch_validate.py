@@ -240,7 +240,6 @@ REFUSALS = {
                               "restart loop", True),
     "sequential": (["--ff"], {}, "--ff on the sequential path", False),
     "replay_ff": (["--r", "--ff"], {}, "--r --ff", True),
-    "tcnn": (["--tcnn"], {}, "NeRFNetworkTCNN", False),
 }
 
 
@@ -258,6 +257,52 @@ def test_refusals_exit_before_loading(name, tmp_path, monkeypatch):
         V.main(argv + flags, device="cpu")
     assert msg in str(e.value)
     assert os.listdir(".") == ["envConfig.json"]
+
+
+# `--tcnn`: the biased MLPs of NeRFNetworkTCNN at the CLI's widths, on the
+# raw position (`--encoding None`: a hash grid at the CLI's 16 levels of
+# 2^19 rows makes A*'s density probe take half a minute on the CPU)
+TCNN = [{"frequency": "None"}.get(a, a) for a in BASE] + ["--tcnn"]
+
+
+def _tcnn_workdir(root, uq_method, sims=3):
+    """_workdir's directory with envConfig's uq_method and a `--tcnn`
+    checkpoint instead (sigma pushed down through the last layer's weight
+    column and bias, so that A* finds free space)."""
+    _workdir(root, sims=sims)
+    raw = json.loads(Path("envConfig.json").read_text())
+    raw["uq_method"] = uq_method
+    Path("envConfig.json").write_text(json.dumps(raw))
+    opt = apply_O_flag(build_parser("validate").parse_args(TCNN),
+                       "validate")
+    net = make_network(network_config_from_opt(opt), None, device="cpu",
+                       opt=opt)
+    tree = net.params_tree()
+    rng = np.random.default_rng(0)
+    for layer in tree["sigma_net"]:
+        layer["w"] = torch.from_numpy(rng.normal(
+            0, 1, tuple(layer["w"].shape)).astype(np.float32))
+    tree["sigma_net"][-1]["w"][:, 0] = -5.0
+    tree["sigma_net"][-1]["b"][0] = -5.0
+    CheckpointManager("ws/checkpoints").save(1, 1, tree)
+
+
+def test_tcnn_batched_runs(cwd, capsys):
+    """validate --batched_rollouts --tcnn with the Laplace UQ, which the
+    JAX CLI runs to its end (its TCNN net never calls the fused kernel, so
+    its jax.hessian and jax.grad go through): the port loads the biased
+    net and runs the Monte Carlo, the in-scan Laplace fits through the
+    biased flatpack; the reference CSV and finite uncertainties. (It was
+    refused before NeRFNetworkTCNN was ported.)"""
+    _tcnn_workdir(cwd, "Bayesian Laplace Approximation", sims=1)
+    random.seed(0)
+    res = V.main(TCNN, device="cpu")
+    out = capsys.readouterr().out
+    assert ".End of validation.." in out
+    assert "in-scan Bayesian-Laplace UQ" in out
+    rows = _rows("results/collisionValuesBatchedMC_n1.csv")
+    assert rows and all(len(r) == 23 for r in rows)
+    assert np.isfinite(res["sigma_d"]).any()
 
 
 @pytest.mark.parametrize("flags", [["--batched_rollouts"], [],
