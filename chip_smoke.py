@@ -7,7 +7,8 @@ CUDA card.
 (`--closed-loop-intrinsics` runs only the probe of that name, below;
 `--sequential` phases 22-24 alone, `--laplace` phases 25-28 alone,
 `--fast-render` phases 29-32 alone, each on freshly trained nets;
-`--distill` phase 33 alone; `--cli-options` phase 11d alone.)
+`--distill` phase 33 alone; `--cli-options` phase 11d alone; `--f32`
+phase 34 alone, after the bf16 frames it compares with.)
 Phases, each printing its elapsed seconds:
   1. device: the card's name, and its power limit from nvidia-smi;
   2. build: kernels K1 and K2 (csrc/points_mlp.cu), K3
@@ -79,12 +80,12 @@ Phases, each printing its elapsed seconds:
      ref_backbone's, K4 launched twice a chunk, and a central chunk and
      the padded last one (its rgbs and sigmas too) again through the plain
      field, compared;
- 10b. gradients: K1 on a CUDA tensor returns the plain chain's gradients;
-     K3, which has no backward yet, raises where autograd would need one;
-     K4 in bf16 and in f32, on both nets of the ref backbone at 98,304 and
-     2,097,152 rows (a marched training step's rows and a uniform one's),
-     launches its kernel once and returns the gradients of its recompute
-     (the VJP of the JAX package's _xla_mlp) bit for bit;
+ 10b. gradients: K1 on a CUDA tensor returns the plain chain's gradients
+     (K3's are phase 34's); K4 in bf16 and in f32, on both nets of the
+     ref backbone at 98,304 and 2,097,152 rows (a marched training step's
+     rows and a uniform one's), launches its kernel once and returns the
+     gradients of its recompute (the VJP of the JAX package's _xla_mlp)
+     bit for bit;
  11. train: the teacher trained from a seeded init at full width
      (flagship.TRAIN_CFG, train_gather="foldrow_pallas") on the in-memory
      48-view 200x200 spheres set, 144 steps with the schedule cut (see
@@ -222,8 +223,9 @@ Phases, each printing its elapsed seconds:
  24. simulate: `simulate.main` as a user runs it (envConfig.json as
      shipped, --camera nerf, 64 samples a ray; when A* finds no path
      between envConfig's start and goal in this net, the MC phase's path,
-     said so): the seconds per step of the capture, the fit, the Hessian
-     and the replan, the estimate's distance from the truth a step;
+     said so), A*'s knots thinned to SIM_KNOTS: the seconds per step of
+     the capture, the fit, the Hessian and the replan, the estimate's
+     distance from the truth a step;
  25. kernel K4 grouped: the in-scan Laplace fits' mode (one weight set a
      group) against its plain version at 16 groups x 256 rows of the FF
      sigma net 32-64-64-16 (seeded), at a ragged 5 x 200, and at 3 x 40
@@ -299,20 +301,46 @@ Phases, each printing its elapsed seconds:
      trained unfused chain (TOL_K1), pose 0 at 800x800 in baked_h160_ak8
      through K1 (its PSNR printed, no bar: a cut schedule), s/step and
      the share of the teacher's rows whose s0 K3 clipped at +-15.
-     `--distill` runs it alone.
+     `--distill` runs it alone;
+ 34. f32: the float32 kernels and K3's backward (`--f32` runs it alone):
+     K3 f32 (csrc/sigma_color.cu's FFMA kernel) on phase 5's two tiles
+     (262,144 and 2,097,152 rows) of the committed teacher in float32
+     against its plain version at TOL_F32 (TF32 off), 20 reruns
+     bit-identical, with kernel (warm and cold), plain, library (the f32
+     torch.matmul chain) and bound times; K3's backward in bf16 and f32 at
+     262,144 rows with a seeded cotangent, outside inference mode and with
+     anomaly detection off: one forward launch, and the gradients of enc,
+     sh and the five weights equal to the plain recompute's VJP bit for
+     bit; the f32 teacher's fast and guided frames on the four poses (K3
+     f32 in every frame, K3 bf16 never, mean PSNR at the 28-dB bar, the
+     gap to phase 6's bf16 frames, pose 0 against its plain frame); K1 f32
+     on phase 4's 131,072 rows through the committed 160-, 192- and
+     256-wide students in float32 at TOL_F32, the same four times; the f32
+     160x6 student's baked_h160_ak8 frames (K1 f32 in every frame, K1 bf16
+     never, the bar, the gap to phase 7's, pose 0 against its plain
+     frame); then the teacher trained fused (fused=True) from a seeded init
+     at TRAIN_CFG's widths on phase 11's 48-view set, F32_TRAIN_STEPS steps
+     in bf16 and in f32, the f32 run with fold_warmup_scale F32_FOLD_WARMUP
+     before F32_WARMUP: K3 of the run's dtype launched every step and the
+     other never, K5 once forward and once backward a step (every launch's
+     fold scale recorded: the warm-up steps' at F32_FOLD_WARMUP), the loss
+     finite and falling; and one step through K3 against one through its
+     plain forward from the trained parameters and the same draws
+     (TOL_K3_STEP).
 Phase 22's population is cut to 1 sim (SEQ_SIMS), the sequential phases
-(22, 23, 28) to each sim's first SEQ_STEPS steps, phase 31 to
-FR_SEQ_STEPS, the closed-loop ones (20, 28) to CL_STEPS, phase 27 to
-LAPLACE_MC_STEPS, phase 26 to UNCERTAIN_VIEWS views and phase 32's
-cross-entropy replay to its second simulation, to make room for 25-33
-and 11d within the time limit on a slower host.
+(22, 23, 28) to each sim's first SEQ_STEPS steps, phase 24's plan to
+SIM_KNOTS knots, phase 31 to FR_SEQ_STEPS, the closed-loop ones (20,
+28) to CL_STEPS, phase 27 to LAPLACE_MC_STEPS, phase 26 to UNCERTAIN_VIEWS
+views and phase 32's cross-entropy replay to its second simulation, to
+make room for 25-34 and 11d within the time limit on a slower host.
 Every mode's mean and min PSNR must lie within 0.15 dB of its BENCH_r05
 anchor (the staged modes have no JAX record; their PSNR is printed).
 Every launch count is set to 0 just before each frame phase, the refresh,
 the training, each main_nerf run (in 11d each test frame and mesh probe
 too), K2's path, the probe, the bench, each
-rollout phase, each validate run and the distillation (K3 before it,
-K1 before its frame), and read just after. The
+rollout phase, each validate run, the distillation (K3 before it,
+K1 before its frame), and in phase 34 each kernel check, frame, training
+run and step, and read just after. The
 configurations are `nerfsafetyvalidation_tpu_torch/flagship.py`'s. Then one JSON line listing
 every kernel, the nvidia-smi line, and the result line.
 
@@ -619,6 +647,85 @@ def compare(torch, name, got, want, tol):
               f"{name} {what} disagrees with the plain version (tolerance "
               f"max {t_max}, mean {t_mean})")
     return max(float(rgb_err.max()), float(sig_abs.max()))
+
+
+def spheres_views(dev):
+    """The four held-out poses of the spheres scene at 800 x 800 (F.RES):
+    [(rays_o, rays_d, ground truth [RES, RES, 3] on white)]."""
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.data.synthetic import (camera_rays,
+                                                               trace_scene)
+    views = []
+    for pose in F.holdout_poses():
+        o_np, d_np = camera_rays(pose, F.intrinsics(), F.RES, F.RES)
+        gt_rgb, gt_alpha, _ = trace_scene(o_np, d_np, scene="spheres")
+        gt = gt_rgb * gt_alpha[..., None] + (1.0 - gt_alpha[..., None])
+        views.append(F.pose_rays(pose, dev) + (gt,))
+    return views
+
+
+def k1_points(torch, scfg, dev):
+    """Phase 4's K1 rows: K1_ROWS points on pose 0's rays, spread over the
+    frame, uniform in depth over each ray's [near, far] inside the box.
+    Returns (x [K1_ROWS, 3], the rays' directions [K1_ROWS, 3])."""
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.models.renderer import aabb_of
+    from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
+    o, d = F.pose_rays(F.holdout_poses()[0], dev)
+    pick = torch.arange(K1_ROWS, device=dev) * (o.shape[0] // K1_ROWS)
+    o, d = o[pick], d[pick]
+    near, far = near_far_from_aabb(o, d, aabb_of(scfg, dev), scfg.min_near)
+    inside = far > near
+    near = torch.where(inside, near, scfg.min_near)
+    far = torch.where(inside, far, 4.0)
+    g1 = torch.Generator(device=dev).manual_seed(0)
+    u = torch.rand(K1_ROWS, generator=g1, device=dev)
+    x = torch.clamp(o + (near + u * (far - near))[:, None] * d,
+                    -scfg.bound, scfg.bound).contiguous()
+    return x, d
+
+
+def k3_points(torch, teacher, state, views):
+    """Phase 5's two K3 tiles as (points [R, 3], directions [R, 3]):
+    "guided", one guided fine tile: the 16,384 rays at the centre of pose 0,
+    16 uniform samples in [t_hit -/+ 6 cells] around the surface the
+    marched frame finds (the ray's [near, far] where it finds none); and
+    "fast", the samples pose 0's marched frame hands the teacher in its
+    first K=16 tile. "hit": the guided tile's rays that hit."""
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.models.renderer import (
+        aabb_of, render_frame_fast)
+    from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
+    tcfg, dev = teacher.cfg, views[0][0].device
+    o, d, _ = views[0]
+    mid = o.shape[0] // 2 - K3_RAYS // 2
+    o, d = o[mid:mid + K3_RAYS], d[mid:mid + K3_RAYS]
+    pre = render_frame_fast(teacher, state, o, d,
+                            **dict(F.MODES["fast"]["frame"], tile=K3_RAYS))
+    near, far = near_far_from_aabb(o, d, aabb_of(tcfg, dev), tcfg.min_near)
+    hit = pre["weights_sum"] > 0.1
+    t_hit = pre["depth_abs"] / pre["weights_sum"].clamp(min=0.1)
+    margin = 6.0 * 2.0 * tcfg.bound / tcfg.grid_size
+    ta = torch.where(hit, torch.maximum(t_hit - margin, near), near)
+    tb = torch.where(hit, torch.minimum(t_hit + margin, far), far)
+    jj = torch.arange(K3_K, device=dev) + 0.5
+    z = ta[:, None] + (tb - ta)[:, None] / K3_K * jj[None, :]
+    xyz = torch.clamp(o[:, None] + z[..., None] * d[:, None], -1, 1)
+    seen = []
+
+    class Capture:
+        cfg = tcfg
+
+        def __call__(self, x, d, plain=False):
+            seen.append((x, d))
+            return teacher(x, d, plain=plain)
+
+    F.render("fast", {"teacher": Capture()}, state, *views[0][:2])
+    tiles = [xd for xd in seen if xd[0].shape[0] == K4_RAYS * K4_K]
+    check(len(tiles) > 0, "pose 0's fast frame has no K=16 tile")
+    return {"guided": (xyz.reshape(-1, 3),
+                       d[:, None].expand(K3_RAYS, K3_K, 3).reshape(-1, 3)),
+            "fast": tiles[0], "hit": int(hit.sum())}
 
 
 def popcount(torch, bytes_u8):
@@ -1235,6 +1342,13 @@ def validate_refusal(V, data_dir, extra, msg, batched=True):
 SEQ_SIMS = 1
 SEQ_CEM = dict(m=2, m_elite=1, kmax=1)
 SEQ_STEPS = 2
+# simulate (phase 24) thins A*'s knots to SIM_KNOTS, evenly spaced from
+# start to goal, before learn_init: a plan of SIM_KNOTS + 3 actions, so it
+# flies 7 steps in place of the whole path's (11 on the MC phase's path):
+# the first 2 with their estimate and replan, the last 5 on the plan
+# (simulate's tail branch, no replan), each on the step before's estimate;
+# cut to make room for phase 34 on a slower host
+SIM_KNOTS = 4
 # measurement_fn at the last fit's optimum, its value and its gradient in
 # the state, on the card and on the CPU from the same inputs (the net's
 # weights copied to the CPU). float32 on both, other summation orders
@@ -1569,6 +1683,19 @@ def simulate_phase(torch, data_dir, ckpt, fallback_path, smi):
         watch = FitWatch(E)
         places = sequential_places(torch, fused_mlp)
         places.hooks["estimate"] = (None, watch.after_estimate)
+        replans, knots = [], []
+
+        def thin(planner):
+            # A*'s knots, SIM_KNOTS of them kept (first and last included)
+            n_astar = planner.states.shape[0]
+            keep = np.unique(np.linspace(0, n_astar - 1, SIM_KNOTS).round()
+                             .astype(np.int64))
+            planner.states = planner.states[torch.as_tensor(
+                keep, device=planner.states.device)]
+            knots[:] = [n_astar, planner.states.shape[0]]
+
+        places.hooks["astar"] = (None, thin)
+        places.hooks["replan"] = (None, replans.append)
         fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_F32 = 0
         path = "envConfig's"
         t0 = time.perf_counter()
@@ -1585,6 +1712,7 @@ def simulate_phase(torch, data_dir, ckpt, fallback_path, smi):
             for k in places.s:
                 places.s[k] = 0.0
             watch.err.clear()
+            replans.clear()
             t0 = time.perf_counter()
             states = S.main(argv, device="cuda")
         torch.cuda.synchronize()
@@ -1600,7 +1728,9 @@ def simulate_phase(torch, data_dir, ckpt, fallback_path, smi):
                   replans=len(os.listdir("paths/ws/replan_poses")),
                   k4=fused_mlp.LAUNCHES + fused_mlp.LAUNCHES_F32)
         per = {k: round(v, 4) for k, v in st["s_per_sim_step"].items()}
-        print(f"simulate ({path} path): {n} steps in {t_all:.2f} s "
+        print(f"simulate ({path} path): A* knots {knots[0]} thinned to "
+              f"{knots[1]}; {n} steps ({len(replans)} with a replan) in "
+              f"{t_all:.2f} s "
               f"(learn_init {st['learn_init_s']:.2f} s); seconds per step "
               f"{per}; the estimate off the true position (m) at each "
               f"step {[round(e, 4) for e in st['est_err_m']]}; replan "
@@ -1611,6 +1741,9 @@ def simulate_phase(torch, data_dir, ckpt, fallback_path, smi):
         check(not watch.off_card, "simulate: a tensor of the fit is not on "
               "cuda")
         check(len(watch.err) == n, "simulate: not one estimate a step")
+        check(n == knots[1] + 3 and len(replans) == n - 5 > 0,
+              f"simulate flew {n} steps, {len(replans)} with a replan, not "
+              f"{knots[1] + 3} with the last 5 on the plan")
         check(st["k4"] == 0, "simulate launched K4")
         return st
     finally:
@@ -2761,10 +2894,8 @@ def main():
                          "this smoke runs on a CUDA card only")
     sys.path.insert(0, str(ROOT))
     from nerfsafetyvalidation_tpu_torch import flagship as F
-    from nerfsafetyvalidation_tpu_torch.data.synthetic import (camera_rays,
-                                                               trace_scene)
     from nerfsafetyvalidation_tpu_torch.models.renderer import (
-        aabb_of, render_frame_fast)
+        render_frame_fast)
     from nerfsafetyvalidation_tpu_torch.ops.freq_encoding import freq_encode
     from nerfsafetyvalidation_tpu_torch.models import make_network
     from nerfsafetyvalidation_tpu_torch.ops.hopper import (fold_build,
@@ -2782,7 +2913,6 @@ def main():
         NeRFNetworkFF)
     from nerfsafetyvalidation_tpu_torch.data.png import read_png
     from nerfsafetyvalidation_tpu_torch.data.synthetic import write_dataset
-    from nerfsafetyvalidation_tpu_torch.ops.ray_ops import near_far_from_aabb
     from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
     from nerfsafetyvalidation_tpu_torch import bench_rollouts
     from nerfsafetyvalidation_tpu_torch.models.renderer import (
@@ -2804,8 +2934,10 @@ def main():
     builds = {"K1, K2": points_mlp, "K3": sigma_color, "K4": fused_mlp,
               "K5": fold_build, "K6, K7": gather,
               "K7 variants": k7_variants}
-    counters = {"K2": (points_mlp, "LAUNCHES_DEEP"),
+    counters = {"K1 f32": (points_mlp, "LAUNCHES_F32"),
+                "K2": (points_mlp, "LAUNCHES_DEEP"),
                 "K3": (sigma_color, "LAUNCHES"),
+                "K3 f32": (sigma_color, "LAUNCHES_F32"),
                 "K4": (fused_mlp, "LAUNCHES"),
                 "K4 f32": (fused_mlp, "LAUNCHES_F32"),
                 "K5": (fold_build, "LAUNCHES"),
@@ -2866,7 +2998,6 @@ def main():
                       f"ptxas spills or serialises a {name} kernel")
 
     RES = F.RES
-    poses = F.holdout_poses()
 
     def psnr(img, gt, name):
         """PSNR of a frame [RES^2, 3] against the ground truth."""
@@ -2982,25 +3113,12 @@ def main():
 
     student = F.load_student_net(dev)
     nets = {"teacher": teacher, "student_h160": student}
-    tcfg, scfg = teacher.cfg, student.cfg
+    scfg = student.cfg
     sn, cn = list(student.sigma_net), list(student.color_net)
     bf = torch.bfloat16
 
     with Phase("kernel K1"), torch.inference_mode():
-        # points on pose 0's rays, spread over the frame, uniform in depth
-        # over each ray's [near, far] inside the box
-        o, d = F.pose_rays(poses[0], dev)
-        pick = torch.arange(K1_ROWS, device=dev) * (o.shape[0] // K1_ROWS)
-        o, d = o[pick], d[pick]
-        near, far = near_far_from_aabb(o, d, aabb_of(scfg, dev),
-                                       scfg.min_near)
-        inside = far > near
-        near = torch.where(inside, near, scfg.min_near)
-        far = torch.where(inside, far, 4.0)
-        g1 = torch.Generator(device=dev).manual_seed(0)
-        u = torch.rand(K1_ROWS, generator=g1, device=dev)
-        x = torch.clamp(o + (near + u * (far - near))[:, None] * d,
-                        -scfg.bound, scfg.bound).contiguous()
+        x, d = k1_pts = k1_points(torch, scfg, dev)
         sh = sh_encode(d).to(bf).contiguous()
 
         def k1():
@@ -3224,38 +3342,14 @@ def main():
               f"{k2_bound32:.4f} ({k2_by32}, 67 TFLOP/s f32); {smi}")
         del enc, enc_bf, sh32, g_k2, g_plain, sn32, cn32, got_l
 
-    views = []
-    for pose in poses:
-        o_np, d_np = camera_rays(pose, F.intrinsics(), RES, RES)
-        gt_rgb, gt_alpha, _ = trace_scene(o_np, d_np, scene="spheres")
-        gt = gt_rgb * gt_alpha[..., None] + (1.0 - gt_alpha[..., None])
-        views.append(F.pose_rays(pose, dev) + (gt,))
+    views = spheres_views(dev)
 
     with Phase("kernel K3"), torch.inference_mode():
-        # one guided fine tile: the 16,384 rays at the centre of pose 0,
-        # 16 uniform samples in [t_hit -/+ 6 cells] around the surface the
-        # marched frame finds (the ray's [near, far] where it finds none)
-        o, d, _ = views[0]
-        mid = o.shape[0] // 2 - K3_RAYS // 2
-        o, d = o[mid:mid + K3_RAYS], d[mid:mid + K3_RAYS]
-        pre = render_frame_fast(teacher, state, o, d,
-                                **dict(F.MODES["fast"]["frame"],
-                                       tile=K3_RAYS))
-        near, far = near_far_from_aabb(o, d, aabb_of(tcfg, dev),
-                                       tcfg.min_near)
-        hit = pre["weights_sum"] > 0.1
-        t_hit = pre["depth_abs"] / pre["weights_sum"].clamp(min=0.1)
-        margin = 6.0 * 2.0 * tcfg.bound / tcfg.grid_size
-        ta = torch.where(hit, torch.maximum(t_hit - margin, near), near)
-        tb = torch.where(hit, torch.minimum(t_hit + margin, far), far)
-        jj = torch.arange(K3_K, device=dev) + 0.5
-        z = ta[:, None] + (tb - ta)[:, None] / K3_K * jj[None, :]
-        xyz = torch.clamp(o[:, None] + z[..., None] * d[:, None], -1, 1)
-        enc = teacher.encode_pos(xyz.reshape(-1, 3)).contiguous()
-        sh3 = sh_encode(d[:, None].expand(K3_RAYS, K3_K, 3)
-                        .reshape(-1, 3)).to(bf).contiguous()
+        k3_pts = k3_points(torch, teacher, state, views)
+        enc = teacher.encode_pos(k3_pts["guided"][0]).contiguous()
+        sh3 = sh_encode(k3_pts["guided"][1]).to(bf).contiguous()
         rows = enc.shape[0]
-        print(f"K3 tile: {rows} rows, {int(hit.sum())} of {K3_RAYS} rays "
+        print(f"K3 tile: {rows} rows, {k3_pts['hit']} of {K3_RAYS} rays "
               f"hit; enc {tuple(enc.shape)} {enc.dtype}")
         tsn, tcn = list(teacher.sigma_net), list(teacher.color_net)
 
@@ -3298,12 +3392,11 @@ def main():
               f"{float((want[1] - c64).abs().max()):.3e} mean "
               f"{float((want[1] - c64).abs().mean()):.3e}; sigma max rel "
               f"{float(((want[0] - s64).abs() / s64.abs().clamp(min=1.0)).max()):.3e}")
-        macs3 = sum(m.shape[0] * m.shape[1] for m in (w1, w2, c1s, c1g, c2,
-                                                      c3))
+        # the function's own products, W1, W2, C1 (31 rows), C2 and C3 (3
+        # columns): not the padded mats of the kernel's layout
+        macs3 = sum(w.numel() for w in tsn + tcn)
         k3_bound, k3_by = bound_ms(
-            2.0 * rows * macs3,
-            rows * (32 * 2 + 16 * 2 + 4 * 4)
-            + 2 * sum(m.numel() for m in (w1, w2, c1s, c1g, c2, c3)))
+            2.0 * rows * macs3, rows * (32 * 2 + 16 * 2 + 4 * 4) + 2 * macs3)
         k3_ms = cuda_ms(torch, k3, 50)
         k3_plain_ms = cuda_ms(torch, k3_plain, 10)
         k3_lib_ms = cuda_ms(torch, k3_library, 20)
@@ -3331,24 +3424,11 @@ def main():
 
         # one fast tile of pose 0: the samples the marched frame hands the
         # teacher in its first K=16 tile, encoded as the teacher encodes them
-        seen = []
-
-        class Capture:
-            cfg = tcfg
-
-            def __call__(self, x, d, plain=False):
-                seen.append((x, d))
-                return teacher(x, d, plain=plain)
-
-        F.render("fast", {"teacher": Capture()}, state, *views[0][:2])
-        tiles = [xd for xd in seen if xd[0].shape[0] == K4_RAYS * K4_K]
-        check(len(tiles) > 0, "pose 0's fast frame has no K=16 tile")
-        xyz, dirs = tiles[0]
+        xyz, dirs = k3_pts["fast"]
         enc = teacher.encode_pos(xyz).reshape(xyz.shape[0], -1).contiguous()
         sh3 = teacher.encode_dir(dirs).reshape(enc.shape[0], -1).to(bf) \
             .contiguous()
         rows2 = enc.shape[0]
-        del seen, tiles
         got = k3()
         torch.cuda.synchronize()
         want = k3_plain()
@@ -3360,9 +3440,7 @@ def main():
         check(same == RERUNS, "K3 gives other values on a rerun of the same "
               "rows")
         bound2, by2 = bound_ms(
-            2.0 * rows2 * macs3,
-            rows2 * (32 * 2 + 16 * 2 + 4 * 4)
-            + 2 * sum(m.numel() for m in (w1, w2, c1s, c1g, c2, c3)))
+            2.0 * rows2 * macs3, rows2 * (32 * 2 + 16 * 2 + 4 * 4) + 2 * macs3)
         ms2 = cuda_ms(torch, k3, 20)
         plain2 = cuda_ms(torch, k3_plain, 5)
         lib2 = cuda_ms(torch, k3_library, 10)
@@ -3407,6 +3485,7 @@ def main():
         psnrs = [psnr(out["image"], gt, name)
                  for out, (_, _, gt) in zip(first, views)]
         mean, low = float(np.mean(psnrs)), float(np.min(psnrs))
+        mode_psnr[name] = mean
         ref_mean, ref_min = BENCH_R05[name]
         buckets = [np.bincount(o["tile_bucket"], minlength=n_buckets)
                    .tolist() for o in first]
@@ -3447,6 +3526,7 @@ def main():
         return n_launch[kernel], first[0]
 
     launches = {"K1": 0, "K3": 0, "K4": 0}
+    mode_psnr = {}          # each mode's mean PSNR (phase 34's bf16 frames)
     for name, n_buckets in (("fast", 4), ("guided", 3),
                             ("baked_h160_ak8", 3)):
         with Phase(name), torch.inference_mode():
@@ -3848,9 +3928,8 @@ def main():
     launches["K4"] += staged["staged_bf16"]["launches"]
 
     with Phase("gradients"):
-        # outside inference mode, with weights that require grad: K1 returns
-        # the plain chain's gradients; K3 and K4 have no backward yet and
-        # must raise rather than hand back a result without one
+        # outside inference mode, with weights that require grad: K1 and K4
+        # return the plain chain's gradients (K3's: phase 34)
         sn1 = [w.detach().clone().requires_grad_()
                for w in student.sigma_net]
         cn1 = [w.detach().clone().requires_grad_()
@@ -3871,19 +3950,6 @@ def main():
         print(f"K1 with gradients: (x, sigma net, color net) equal to the "
               f"plain chain's: {same}")
         check(all(same), "K1's gradients differ from the plain chain's")
-        tsn_g = [w.detach().clone().requires_grad_() for w in tsn]
-        enc3 = torch.zeros((64, tsn_g[0].shape[0]), dtype=bf, device=dev)
-        before = counts()["K3"]
-        try:
-            sigma_color.fused_sigma_color(enc3, enc3[:, :16].contiguous(),
-                                          tsn_g, tcn)
-            raised = None
-        except RuntimeError as e:          # the guard under test
-            raised = str(e)
-        print(f"K3 with a weight that requires grad: raised {raised!r}")
-        check(raised is not None and "no backward" in raised,
-              "K3 did not refuse a call that needs its backward")
-        check(counts()["K3"] == before, "K3 launched anyway")
         # K4's backward: the VJP of fused_mlp_reference (the JAX
         # package's _xla_mlp), recomputed; the forward launches the
         # kernel. At a marched training step's rows and a uniform one's,
@@ -3965,7 +4031,7 @@ def main():
                     del ws, x4, cot, out, plain, got, want
         del ff
         torch.cuda.empty_cache()
-        del sn1, cn1, x1, g_k1, tsn_g
+        del sn1, cn1, x1, g_k1
 
     with Phase("train"):
         t0 = time.perf_counter()
@@ -4640,6 +4706,12 @@ def main():
         dist = distill_phase(torch, teacher, state, smi)
     print("distill: " + json.dumps(dist))
 
+    # ---- float32: K3 and K1 in f32, K3's backward, the fused teacher
+    with Phase("f32"):
+        f32 = f32_phase(torch, teacher, state, views, k1_pts, k3_pts,
+                        mode_psnr, smi)
+    print("f32: " + json.dumps(f32))
+
     print(f"total {time.perf_counter() - t_start:.2f} s")
     pallas = "nerfsafetyvalidation_tpu/ops/pallas/render_mlp.py"
     kernel_line = {"kernels": [
@@ -4668,7 +4740,9 @@ def main():
          "launches_bench": bench_launches["K3"],
          "launches_rollouts": rollout_launches["K3"],
          "launches_distill": {p: dist[p]["k3_launches"]
-                              for p in ("distill", "finetune")}},
+                              for p in ("distill", "finetune")},
+         "launches_train_fused": f32["k3_bf16_train"],
+         "backward": f32["backward"]["bfloat16"]},
         {"name": "fused_mlp", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "nerfsafetyvalidation_tpu/ops/pallas/fused_mlp.py:91",
@@ -4725,14 +4799,37 @@ def main():
          "bound_by": rec["by"], "library_ms": rec["lib"]}
         for name, line, key, rec in (("pallas_vmem_gather", 147, "K6", k6),
                                      ("pallas_dma_gather", 190, "K7", k7))
+    ] + [
+        {"name": "fused_points_sigma_color_f32", "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/points_mlp.cu",
+         "replaces": f"{pallas}:480", "launches": f32["k1_launches"],
+         "max_abs_err": f32["k1"]["max_abs_err"], "ms": f32["k1"]["ms"],
+         "plain_ms": f32["k1"]["plain_ms"], "bound_ms": f32["k1"]["bound_ms"],
+         "bound_by": f32["k1"]["bound_by"],
+         "library_ms": f32["k1"]["library_ms"],
+         "shapes": f32["k1"]["shapes"]},
+        {"name": "fused_sigma_color_f32", "route": "cuda",
+         "source": "nerfsafetyvalidation_tpu_torch/csrc/sigma_color.cu",
+         "replaces": f"{pallas}:164", "launches": f32["k3_launches"],
+         "max_abs_err": f32["k3"]["max_abs_err"], "ms": f32["k3"]["ms"],
+         "plain_ms": f32["k3"]["plain_ms"], "bound_ms": f32["k3"]["bound_ms"],
+         "bound_by": f32["k3"]["bound_by"],
+         "library_ms": f32["k3"]["library_ms"],
+         "ms_cold": f32["k3"]["ms_cold"], "shapes": f32["k3"]["shapes"],
+         "launches_frames": f32["k3_launches_frames"],
+         "launches_train_fused": f32["train"]["float32"]["launches"][
+             "K3 f32"],
+         "backward": f32["backward"]["float32"]},
     ]}
-    check(len(kernel_line["kernels"]) == 9 and all(
+    check(len(kernel_line["kernels"]) == 11 and all(
               k["launches"] > 0 for k in kernel_line["kernels"])
           and kernel_line["kernels"][3]["launches_f32"] > 0
           and all(kernel_line["kernels"][i]["launches_rollouts"] > 0
                   for i in (0, 2, 3))
           and kernel_line["kernels"][0]["launches_distill"] > 0
           and all(kernel_line["kernels"][2]["launches_distill"].values())
+          and kernel_line["kernels"][2]["launches_train_fused"] > 0
+          and kernel_line["kernels"][10]["launches_train_fused"] > 0
           and all(k4_validate.values())
           and all(v > 0 for k, v in cli["k4"].items() if k != "tcnn")
           and cli["k4"]["tcnn"] == 0,
@@ -4742,6 +4839,530 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,
                                              "count": count}}))
+
+
+# ---- float32 (phase 34): K3 and K1 in f32, K3's backward, the f32 frames,
+# the fused mip-fold teacher trained -------------------------------------
+# Each f32 kernel against its plain version in f32 (TF32 off): JAX's own
+# kernel-vs-XLA tolerance in float32 (tests/test_fused_mlp.py:263-269), on
+# sigma and rgb. The kernels sum in order with FFMA, cuBLAS in its own
+# order: ~1e-6 relative expected.
+TOL_F32 = dict(rtol=5e-4, atol=1e-5)
+# the fused training runs: TRAIN_CFG's widths with fused=True, on phase
+# 11's 48-view 200x200 set, one epoch each (bf16, then f32), the budget
+# switch at F32_WARMUP; the f32 run folds its warm-up steps at
+# F32_FOLD_WARMUP (fold_warmup_scale; the native F is 128). The mean loss
+# of the last F32_LOSS_STEPS steps must lie under the first's.
+F32_TRAIN_STEPS, F32_WARMUP, F32_FOLD_WARMUP = 48, 24, 64
+F32_LOSS_STEPS = 8
+# One step through K3 against one through its plain forward from the
+# trained parameters, state and the same draws. The backward is the same
+# recompute on both routes; the forwards differ by the sum order (f32:
+# ~1e-6 relative a row; bf16: now and then an activation on the
+# neighbouring bf16 value, 2^-8 = 3.9e-3 of it), which moves the loss and
+# the gradients a little. Bounds: the loss within `loss` relative; each
+# tensor's gradients within `grad` of its largest gradient (f32: ten
+# times the sum order's spread; bf16: 2.5 bf16 steps). A fresh Trainer's
+# Adam step is lr * g / (|g| + 1e-15), about lr * sign(g), so two updates
+# more than 1e-6 apart mean that the gradient changed sign or left zero:
+# each such entry's gradient must lie within `grad` of zero, and at most
+# `apart` entries in all tensors may be so. Measured (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6): f32 loss and gradients bit-equal, no
+# entry apart; bf16 loss bit-equal, gradients up to 1.14e-3 of their
+# largest apart, 19 entries of the hash table apart (2.8e-7 of it), each
+# at a gradient near zero.
+TOL_K3_STEP = {"float32": dict(loss=1e-5, grad=1e-5, apart=10),
+               "bfloat16": dict(loss=1e-3, grad=1e-2, apart=200)}
+
+
+def f32_phase(torch, teacher, state, views, k1_pts, k3_pts, bf16_psnr, smi):
+    """Phase 34 (see the module docstring): K3 and K1 in float32 against
+    their plain versions, K3's backward in both dtypes, the f32 teacher's
+    and student's frames, and the fused teacher trained in bf16 and f32.
+    `bf16_psnr` maps fast, guided and baked_h160_ak8 to the mean PSNR of
+    their bf16 frames. Returns its numbers."""
+    import functools
+
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.models import make_network
+    from nerfsafetyvalidation_tpu_torch.ops.freq_encoding import freq_encode
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import (fold_build,
+                                                           points_mlp,
+                                                           sigma_color)
+    from nerfsafetyvalidation_tpu_torch.ops.sh_encoding import sh_encode
+    from nerfsafetyvalidation_tpu_torch.train.trainer import Trainer
+    f32, bf = torch.float32, torch.bfloat16
+    dev = views[0][0].device
+    framed = {}
+
+    def zero():
+        points_mlp.LAUNCHES_BY_WIDTH.clear()
+        points_mlp.LAUNCHES_F32 = 0
+        sigma_color.LAUNCHES = sigma_color.LAUNCHES_F32 = 0
+        fold_build.LAUNCHES = fold_build.LAUNCHES_BWD = 0
+
+    def launched():
+        return {"K1": sum(points_mlp.LAUNCHES_BY_WIDTH.values()),
+                "K1 f32": points_mlp.LAUNCHES_F32,
+                "K3": sigma_color.LAUNCHES,
+                "K3 f32": sigma_color.LAUNCHES_F32,
+                "K5": fold_build.LAUNCHES, "K5 bwd": fold_build.LAUNCHES_BWD}
+
+    def hold(name, got, want):
+        """Kernel (sigma, rgb) against plain at TOL_F32; returns the
+        largest absolute error."""
+        n = want[0].shape[0]
+        check(got[0].shape == (n,) and got[1].shape == (n, 3)
+              and bool(torch.isfinite(got[0]).all()
+                       and torch.isfinite(got[1]).all()),
+              f"{name}: outputs not finite [N], [N, 3]")
+        errs = []
+        for what, a, b in (("sigma", got[0], want[0]),
+                           ("rgb", got[1], want[1])):
+            err = (a - b).abs()
+            rel = err / b.abs().clamp(min=1e-30)
+            errs.append(float(err.max()))
+            print(f"{name} vs plain on {n} rows: {what} max abs "
+                  f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}, "
+                  f"max rel {float(rel.max()):.3e} (rtol {TOL_F32['rtol']}"
+                  f", atol {TOL_F32['atol']})")
+            check(torch.allclose(a, b, **TOL_F32),
+                  f"{name} {what} disagrees with the plain version")
+        return max(errs)
+
+    with torch.inference_mode():
+        teacher32 = F.load_teacher_net(dev, compute_dtype="float32")[0]
+    tsn, tcn = list(teacher32.sigma_net), list(teacher32.color_net)
+    mats32 = sigma_color._prepare(tsn, tcn, f32)["mats"]
+    # the function's own products (W1, W2, C1's 31 rows, C2, C3's 3 columns)
+    macs3 = sum(w.numel() for w in tsn + tcn)
+
+    # ---- K3 f32 at the guided tile (262,144 rows) and the fast tile
+    k3 = dict(shapes=[])
+    with torch.inference_mode():
+        for tile, (xyz, dirs) in (("guided", k3_pts["guided"]),
+                                  ("fast", k3_pts["fast"])):
+            enc = teacher32.encode_pos(xyz).contiguous()
+            sh = sh_encode(dirs).contiguous()
+            rows = enc.shape[0]
+
+            def kern(enc=enc, sh=sh):
+                return sigma_color.fused_sigma_color(enc, sh, tsn, tcn, f32)
+
+            def plain(enc=enc, sh=sh):
+                return sigma_color.fused_sigma_color_plain(enc, sh, tsn,
+                                                           tcn, f32)
+
+            def library(enc=enc, sh=sh):
+                # the six products as f32 torch.matmul calls, TF32 off
+                w1, w2, c1s, c1g, c2, c3 = mats32
+                h = torch.relu(enc @ w1)
+                s = h @ w2
+                g = torch.relu(sh @ c1s + s @ c1g)
+                g = torch.relu(g @ c2)
+                return (torch.exp(torch.clamp(s[:, 0], -15.0, 15.0)),
+                        torch.sigmoid((g @ c3)[:, :3]))
+
+            zero()
+            got = kern()
+            torch.cuda.synchronize()
+            check(launched()["K3 f32"] == 1 and launched()["K3"] == 0,
+                  "K3 f32 did not launch its kernel once")
+            err = hold(f"K3 f32 {tile} tile", got, plain())
+            hold(f"K3 f32 {tile} tile, library chain", library(), plain())
+            same = reruns_equal(torch, kern, got)
+            print(f"K3 f32 {tile} tile: {same} of {RERUNS} reruns "
+                  f"bit-identical to the first")
+            check(same == RERUNS, "K3 f32 gives other values on a rerun")
+            nbytes = rows * (32 * 4 + 16 * 4 + 4 * 4) + 4 * macs3
+            bound, by = bound_ms(2.0 * rows * macs3, nbytes, PEAK_F32_FLOPS)
+            bound_tf32 = bound_ms(3 * 2.0 * rows * macs3, nbytes,
+                                  PEAK_TF32_FLOPS)[0]
+            ms = cuda_ms(torch, kern, 20)
+            plain_ms = cuda_ms(torch, plain, 5)
+            lib_ms = cuda_ms(torch, library, 10)
+            in_bytes = rows * (32 * 4 + 16 * 4)
+
+            def copy(enc=enc, sh=sh):
+                e, s_ = enc.clone(), sh.clone()
+                return lambda: sigma_color.fused_sigma_color(e, s_, tsn, tcn,
+                                                             f32)
+            cold, copies = cold_ms(torch, copy, in_bytes, 20)
+            print(f"K3 f32 at {rows} rows ({tile} tile, {macs3} MAC/row): "
+                  f"kernel_ms {ms:.4f} (warm), cold {cold:.4f} ({copies} "
+                  f"copies of {in_bytes / 1e6:.1f} MB in turn), plain_ms "
+                  f"{plain_ms:.4f}, library_ms {lib_ms:.4f} (f32 "
+                  f"torch.matmul, TF32 "
+                  f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
+                  f"{bound:.4f} ({by}, 67 TFLOP/s f32; as three TF32 "
+                  f"products {bound_tf32:.4f}); {smi}")
+            k3["shapes"].append(dict(rows=rows, ms=ms, ms_cold=cold,
+                                     plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound, bound_by=by,
+                                     bound_ms_tf32=bound_tf32,
+                                     max_abs_err=err))
+            del enc, sh, got
+    k3.update({k: k3["shapes"][0][k] for k in ("ms", "ms_cold", "plain_ms",
+                                               "library_ms", "bound_ms",
+                                               "bound_by")})
+    k3["max_abs_err"] = max(r["max_abs_err"] for r in k3["shapes"])
+
+    # ---- K3's backward at the guided tile, bf16 and f32
+    backward = {}
+    g3 = torch.Generator(device=dev).manual_seed(34)
+    xyz, dirs = (t.clone() for t in k3_pts["guided"])
+    for name, dt, net in (("bfloat16", bf, teacher), ("float32", f32,
+                                                        teacher32)):
+        with torch.no_grad():
+            enc0 = net.encode_pos(xyz).contiguous()
+            sh0 = sh_encode(dirs).to(dt).contiguous()
+        leaves = [enc0.clone().requires_grad_(), sh0.clone().requires_grad_()]
+        leaves += [w.detach().clone().requires_grad_()
+                   for w in list(net.sigma_net) + list(net.color_net)]
+        cot = torch.randn((enc0.shape[0], 4), generator=g3, device=dev)
+        key = "K3" if dt is bf else "K3 f32"
+
+        def grads(fn, leaves=leaves, cot=cot, dt=dt):
+            s, c = fn(leaves[0], leaves[1], leaves[2:4], leaves[4:], dt)
+            loss = (s * cot[:, 0]).sum() + (c * cot[:, 1:]).sum()
+            return torch.autograd.grad(loss, leaves)
+
+        with torch.autograd.set_detect_anomaly(False):
+            zero()
+            got = grads(sigma_color.fused_sigma_color)
+            n_fwd = launched()
+            want = grads(sigma_color.fused_sigma_color_plain)
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            ms = cuda_ms(torch, lambda: grads(sigma_color.fused_sigma_color),
+                         5)
+            plain_ms = cuda_ms(torch, lambda: grads(
+                sigma_color.fused_sigma_color_plain), 5)
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"K3 {name} backward at {enc0.shape[0]} rows: launches "
+              f"{n_fwd}; (enc, sh, W1, W2, C1, C2, C3) gradients equal to "
+              f"the plain recompute's VJP: {same}; finite {finite}; forward "
+              f"and backward {ms:.4f} ms (kernel forward, recompute "
+              f"backward), {plain_ms:.4f} ms (plain forward and backward); "
+              f"{smi}")
+        check(n_fwd[key] == 1 and sum(n_fwd.values()) == 1,
+              f"K3 {name} with gradients did not launch its kernel once")
+        check(all(same) and finite, f"K3 {name}'s gradients differ from "
+              "the plain recompute's")
+        backward[name] = dict(rows=enc0.shape[0], grads_bit_equal=all(same),
+                              ms_fwd_bwd=ms, plain_ms_fwd_bwd=plain_ms)
+        del leaves, cot, got, want, enc0, sh0
+    torch.cuda.empty_cache()
+
+    def frames(mode, nets, key, other, barred=True):
+        """The four poses through `nets` in `mode`, counts at 0 before each
+        frame: `key` launched in every frame and `other` never; mean PSNR
+        at the bar; pose 0 again through the plain field, compared."""
+        kind = F.MODES[mode]["kernel"]
+        per, psnrs, outs = [], [], []
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for o, d, gt_ in views:
+                zero()
+                out = F.render(mode, nets, state, o, d)
+                per.append(launched())
+                outs.append(out)
+            torch.cuda.synchronize()
+            t_frames = time.perf_counter() - t0
+            for out, (_, _, gt_) in zip(outs, views):
+                img = out["image"]
+                check(img.shape == (F.RES * F.RES, 3)
+                      and bool(torch.isfinite(img).all()),
+                      f"{mode} f32 image is not finite")
+                pred = img.cpu().numpy().reshape(gt_.shape).astype(
+                    np.float64)
+                psnrs.append(float(-10.0 * np.log10(max(
+                    np.mean((pred - gt_) ** 2), 1e-10))))
+            zero()
+            plain = F.render(mode, nets, state, *views[0][:2],
+                             plain_field=True)
+            plain_launches = launched()
+        err = (plain["image"] - outs[0]["image"]).abs()
+        mean = float(np.mean(psnrs))
+        print(f"{mode} f32 ({kind} f32): PSNR per pose "
+              f"{[round(p, 3) for p in psnrs]}, mean {mean:.3f} (bar "
+              f"{PSNR_BAR if barred else None}), the bf16 frames' "
+              f"{bf16_psnr[mode]:.3f}, gap {mean - bf16_psnr[mode]:+.4f} dB;"
+              f" launches per frame {[p[key] for p in per]} ({other} "
+              f"{[p[other] for p in per]}); 4 frames {t_frames:.3f} s "
+              f"(first pass); pose 0 vs its plain frame: image max abs "
+              f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}; {smi}")
+        check(all(p[key] > 0 and p[other] == 0 for p in per),
+              f"{mode} f32 did not launch {key} in every frame, or "
+              f"launched {other}")
+        check(sum(plain_launches.values()) == 0,
+              f"the plain {mode} f32 frame launched a kernel")
+        check(mean >= PSNR_BAR, f"{mode} f32 mean PSNR {mean:.3f} dB under "
+              f"{PSNR_BAR}")
+        check(float(err.max()) <= TOL_IMG_MAX
+              and float(err.mean()) <= TOL_IMG_MEAN,
+              f"{mode} f32 kernel frame disagrees with the plain frame")
+        framed[mode] = dict(psnr=psnrs, mean=mean, gap_bf16=mean
+                        - bf16_psnr[mode], launches=[p[key] for p in per],
+                        s_4frames=t_frames, plain_max_abs=float(err.max()))
+        return sum(p[key] for p in per)
+
+    # ---- the f32 teacher's frames
+    k3_frames = sum(frames(m, {"teacher": teacher32}, "K3 f32", "K3")
+                    for m in ("fast", "guided"))
+
+    # ---- K1 f32 at phase 4's rows, the committed students
+    x, d = k1_pts
+    sh = sh_encode(d).contiguous()
+    k1 = dict(shapes=[])
+    students = {}
+    with torch.inference_mode():
+        for hid in (160, 192, 256):
+            net = F.load_student_net(dev, hidden=hid, compute_dtype="float32")
+            students[hid] = net
+            sn, cn = list(net.sigma_net), list(net.color_net)
+
+            def kern(sn=sn, cn=cn):
+                return points_mlp.fused_points_sigma_color(x, sh, sn, cn, 12,
+                                                           f32)
+
+            def plain(sn=sn, cn=cn):
+                return points_mlp.fused_points_sigma_color_plain(
+                    x, sh, sn, cn, 12, f32)
+
+            def library(sn=sn, cn=cn):
+                # the chain as f32 torch.matmul calls, TF32 off
+                h = freq_encode(x, 12)
+                for i, w in enumerate(sn):
+                    h = h @ w
+                    if i != len(sn) - 1:
+                        h = torch.relu(h)
+                g = torch.cat([sh, h[:, 1:]], dim=-1)
+                for i, w in enumerate(cn):
+                    g = g @ w
+                    if i != len(cn) - 1:
+                        g = torch.relu(g)
+                return (torch.exp(torch.clamp(h[:, 0], -15.0, 15.0)),
+                        torch.sigmoid(g[:, :3]))
+
+            zero()
+            got = kern()
+            torch.cuda.synchronize()
+            check(launched()["K1 f32"] == 1 and launched()["K1"] == 0,
+                  "K1 f32 did not launch its kernel once")
+            err = hold(f"K1 f32 H={hid}", got, plain())
+            hold(f"K1 f32 H={hid}, library chain", library(), plain())
+            macs = sum(w.shape[0] * w.shape[1] for w in sn + cn)
+            bound, by = bound_ms(
+                2.0 * K1_ROWS * macs, K1_ROWS * (3 * 4 + 16 * 4 + 4 * 4)
+                + 4 * sum(w.numel() for w in sn + cn), PEAK_F32_FLOPS)
+            ms = cuda_ms(torch, kern, 10)
+            plain_ms = cuda_ms(torch, plain, 5)
+            lib_ms = cuda_ms(torch, library, 5)
+            print(f"K1 f32 H={hid} at {K1_ROWS} rows ({macs} MAC/row): "
+                  f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
+                  f"{lib_ms:.4f} (f32 torch.matmul, TF32 "
+                  f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
+                  f"{bound:.4f} ({by}, 67 TFLOP/s f32); {smi}")
+            k1["shapes"].append(dict(hidden=hid, rows=K1_ROWS, ms=ms,
+                                     plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound, bound_by=by,
+                                     max_abs_err=err))
+            del got
+    k1.update({k: k1["shapes"][0][k] for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms",
+                                               "bound_by")})
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["shapes"])
+
+    # ---- the f32 student's frames
+    k1_frames = frames("baked_h160_ak8", {"student_h160": students[160]},
+                       "K1 f32", "K1")
+    del students
+    torch.cuda.empty_cache()
+
+    # ---- the fused teacher trained, bf16 then f32 (fold warm-up)
+    opts = {"bfloat16": F.train_opt(iters=F32_TRAIN_STEPS,
+                                    grid_warmup_steps=F32_WARMUP),
+            "float32": F.train_opt(iters=F32_TRAIN_STEPS,
+                                   grid_warmup_steps=F32_WARMUP,
+                                   fold_warmup_scale=F32_FOLD_WARMUP)}
+    dataset = F.train_dataset(dev, opt=opts["bfloat16"])
+    folds = []
+    real_fwd = fold_build.fold_build_forward
+
+    def recording_fwd(V, Fk, Cd):
+        folds.append(Fk)
+        return real_fwd(V, Fk, Cd)
+
+    train = {}
+    for name, opt in opts.items():
+        dt = bf if name == "bfloat16" else f32
+        key, other = ("K3", "K3 f32") if dt is bf else ("K3 f32", "K3")
+        epoch_end = []
+        folds.clear()
+        zero()
+        fold_build.fold_build_forward = recording_fwd
+        try:
+            t0 = time.perf_counter()
+            net, t_state, trainer = F.train_flagship(
+                dev, iters=F32_TRAIN_STEPS, opt=opt, dataset=dataset,
+                on_epoch=lambda tr: epoch_end.append(time.perf_counter()),
+                fused=True, compute_dtype=name)
+            torch.cuda.synchronize()
+        finally:
+            fold_build.fold_build_forward = real_fwd
+        n = launched()
+        steps = trainer.global_step
+        t_train = epoch_end[-1] - t0
+        losses = np.asarray(trainer.stats["step_loss"])
+        first = float(losses[:F32_LOSS_STEPS].mean())
+        last = float(losses[-F32_LOSS_STEPS:].mean())
+        # the steps before grid_warmup_steps (global_step 1 .. 23) fold at
+        # the warm-up scale
+        warm = F32_WARMUP - 1 if getattr(opt, "fold_warmup_scale", 0) else 0
+        want_folds = [F32_FOLD_WARMUP] * warm + [trainer.net.mip_spec.F] * (
+            steps - warm)
+        print(f"train fused {name}: {steps} steps in {t_train:.2f} s = "
+              f"{t_train / steps:.5f} s/step; launches {n}; fold scales "
+              f"of the K5 launches {sorted(set(folds))} "
+              f"({folds.count(F32_FOLD_WARMUP)} at {F32_FOLD_WARMUP}); loss "
+              f"first {F32_LOSS_STEPS} steps "
+              f"{first:.6f}, last {last:.6f}; {smi}")
+        check(steps == F32_TRAIN_STEPS, f"trained {steps} steps")
+        check(n[key] >= steps and n[other] == 0,
+              f"the fused {name} run did not launch {key} every step, or "
+              f"launched {other}")
+        check(n["K5"] == steps and n["K5 bwd"] == steps,
+              f"K5 launched {n['K5']} / {n['K5 bwd']} times in {steps} "
+              "steps, not once forward and once backward a step")
+        check(folds == want_folds, f"the {name} run's K5 folds at "
+              f"{folds}, not {want_folds}")
+        check(bool(np.isfinite(losses).all()) and last < first,
+              f"the fused {name} loss is not finite or did not fall")
+
+        # one step through K3 and one through its plain forward, from the
+        # trained parameters and state, with the same batch and draws
+        g = torch.Generator(device=dev).manual_seed(11)
+        batch = dataset.collate([0], g)
+        bg = torch.rand((1, batch["rays_o"].shape[1], 3), generator=g,
+                        device=dev)
+        jit = torch.rand((batch["rays_o"].shape[1],), generator=g,
+                         device=dev)
+        stepped = []
+        for route in ("kernel", "plain", "kernel"):
+            twin = make_network(replace(F.TRAIN_CFG, fused=True,
+                                        compute_dtype=name),
+                                net.params_tree(), device=dev,
+                                trainable=True)
+            if route == "plain":
+                twin.forward = functools.partial(type(twin).forward, twin,
+                                                 plain=True)
+            tr = Trainer(opt, twin, mute=True)
+            tr.renderer_state, tr.global_step = t_state, steps
+            zero()
+            _, loss = tr.train_step(batch, bg=bg, perturb=jit)
+            stepped.append((float(loss), launched()[key],
+                            [w.detach().clone() for w in twin.param_list()],
+                            [w.grad.clone() for w in twin.param_list()]))
+            del tr, twin
+        (l_k, n_k, p_k, g_k), (l_p, n_p, p_p, g_p) = stepped[:2]
+        tol = TOL_K3_STEP[name]
+        rel = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(g_k, g_p)]
+        moved = [float((a - b).abs().max()) for a, b in zip(p_k, p_p)]
+        apart = [(a - b).abs() > 1e-6 for a, b in zip(p_k, p_p)]
+        n_apart = [int(m.sum()) for m in apart]
+        # an update apart only where the gradient is within `grad` of zero
+        flips = all(bool((g[m].abs() <= tol["grad"] * g.abs().max()).all())
+                    for g, m in zip(g_p, apart))
+        twice = all(torch.equal(a, b) for a, b in zip(g_k, stepped[2][3]))
+        print(f"train fused {name}, one step through K3 vs its plain "
+              f"forward: loss {l_k:.8f} / {l_p:.8f} (rel "
+              f"{abs(l_k - l_p) / abs(l_p):.3e}); K3 launches {n_k} / "
+              f"{n_p}; gradient max |diff| / max |grad| per tensor "
+              f"{['%.2e' % v for v in rel]}; updated parameters max |diff| "
+              f"{['%.2e' % v for v in moved]}, entries apart by > 1e-6 "
+              f"{n_apart} (each where the gradient is within the gradient "
+              f"bound of zero: {flips}) (pyramid grids, hash table, sigma "
+              f"net, color net; bounds: loss {tol['loss']}, gradients "
+              f"{tol['grad']}, entries apart {tol['apart']}); the kernel "
+              f"route twice equal: {twice}")
+        check(n_k >= 1 and n_p == 0, "the step routes' K3 launches")
+        check(twice, "the K3 route's gradients differ between two runs")
+        check(abs(l_k - l_p) <= tol["loss"] * abs(l_p)
+              and max(rel) <= tol["grad"] and flips
+              and sum(n_apart) <= tol["apart"],
+              f"the fused {name} step through K3 and through its plain "
+              "forward differ by more than the stated tolerance")
+        train[name] = dict(steps=steps, s_per_step=t_train / steps,
+                           launches=n, loss_first=first, loss_last=last,
+                           folds={f: folds.count(f) for f in set(folds)},
+                           step_loss_rel=abs(l_k - l_p) / abs(l_p),
+                           step_grad_rel=max(rel),
+                           step_max_moved=max(moved),
+                           step_entries_apart=sum(n_apart))
+        del net, t_state, trainer, stepped, p_k, g_k, p_p, g_p
+        torch.cuda.empty_cache()
+    del dataset
+    return dict(k3=k3, k1=k1, backward=backward, frames=framed, train=train,
+                k3_launches=k3_frames + train["float32"]["launches"][
+                    "K3 f32"], k3_launches_frames=k3_frames,
+                k1_launches=k1_frames,
+                k3_bf16_train=train["bfloat16"]["launches"]["K3"])
+
+
+def f32_only():
+    """`python3 chip_smoke.py --f32`: phase 34 alone, on the committed
+    teacher refreshed 4x, with the bf16 frames it compares with rendered
+    first. Not part of the smoke."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nerfsafetyvalidation_tpu_torch import flagship as F
+    from nerfsafetyvalidation_tpu_torch.ops.hopper import (fold_build,
+                                                           points_mlp,
+                                                           sigma_color)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    with Phase("build"):
+        mods = (points_mlp, sigma_color, fold_build)
+        with ThreadPoolExecutor(len(mods)) as pool:
+            list(pool.map(lambda m: m.build(), mods))
+        for m in mods:
+            for line in m.BUILD_LOG.splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Compiling entry" in line:
+                    print("  ptxas:", line.strip())
+    with Phase("teacher"), torch.inference_mode():
+        teacher, stored = F.load_teacher_net(dev)
+        state = F.refresh(teacher, stored)
+        views = spheres_views(dev)
+        student = F.load_student_net(dev)
+        k1_pts = k1_points(torch, student.cfg, dev)
+        k3_pts = k3_points(torch, teacher, state, views)
+        bf16_psnr = {}
+        for mode, nets in (("fast", {"teacher": teacher}),
+                           ("guided", {"teacher": teacher}),
+                           ("baked_h160_ak8", {"student_h160": student})):
+            ps = []
+            for o, d, gt in views:
+                img = F.render(mode, nets, state, o, d)["image"]
+                pred = img.cpu().numpy().reshape(gt.shape).astype(np.float64)
+                ps.append(float(-10.0 * np.log10(max(
+                    np.mean((pred - gt) ** 2), 1e-10))))
+            bf16_psnr[mode] = float(np.mean(ps))
+        print(f"bf16 frames' mean PSNR: {bf16_psnr}")
+    with Phase("f32"):
+        st = f32_phase(torch, teacher, state, views, k1_pts, k3_pts,
+                       bf16_psnr, smi)
+    print("f32: " + json.dumps(st))
+    print(f"total {time.perf_counter() - t_start:.2f} s; {smi}", flush=True)
 
 
 def distill_phase(torch, teacher, state, smi):
@@ -5415,5 +6036,7 @@ if __name__ == "__main__":
         distill_only()
     elif sys.argv[1:] == ["--cli-options"]:
         cli_options_only()
+    elif sys.argv[1:] == ["--f32"]:
+        f32_only()
     else:
         main()

@@ -22,11 +22,11 @@
 //   g    = relu(sh @ C1s + bf16(s) @ C1g)                 C1g row 0 is zero
 //   g    = relu(g @ C2) ...                               rounded to bf16
 //   rgb  = sigmoid((g @ C_last)[:, :3])
-//   out  = [sigma, rgb] (K2, [N, 4] f32), [sigma, rgb, 0, 0, 0, 0] (K1,
-//          [N, 8] f32)
+//   out  = [sigma, rgb] (K2, and K1 in float32: [N, 4] f32),
+//          [sigma, rgb, 0, 0, 0, 0] (K1 in bf16, [N, 8] f32)
 //
 // The bf16 rounding points are the TPU kernels': the encoding, every ReLU
-// output, and the sigma-net output before C1g. In float32 (K2 only) nothing
+// output, and the sigma-net output before C1g. In float32 (K1 and K2) nothing
 // is rounded.
 //
 // What bounds it on this card: the tensor cores. At the 160 x 6 student a
@@ -75,16 +75,22 @@
 //     warpgroup (the 256-wide layer's alone is 128 registers a thread), and
 //     a 2-block cluster multicast is later work.
 //
-// Design of the f32 kernel (K2 in float32, which the JAX package's K2 also
-// computes): plain FFMA on the CUDA cores, no tensor cores (a TF32 product
-// would not be float32). A block of 256 threads takes 128 rows, held as one
-// f32 activation tile in shared memory that each layer overwrites in
-// place once its outputs are in registers. Each thread owns an output
-// micro-tile (8 rows x H/16 columns for the H-wide layers, 4 x 8 for the
+// Design of the f32 kernel (K2 in float32, and K1 in float32, which the JAX
+// package's kernels also compute): plain FFMA on the CUDA cores, no tensor
+// cores (a TF32 product would not be float32). A block of 256 threads takes 128
+// rows, held as one f32 activation tile in shared memory that each layer
+// overwrites in place once its outputs are in registers. Each thread owns an
+// output micro-tile (8 rows x H/16 columns for the H-wide layers, 4 x 8 for the
 // others). The weights, packed by the wrapper as the layers' row-major f32
-// matrices one after another, stream through two shared-memory buffers of
-// 16 input rows each (cp.async, the next chunk in flight while this one is
-// used). Each sum runs over the input columns in order.
+// matrices one after another, stream through two shared-memory buffers of 16
+// input rows each (cp.async, the next chunk in flight while this one is used).
+// Each sum runs over the input columns in order. K1 builds the encoding in the
+// tile in place of reading it: x, then sin(2^k x) and cos(2^k x) by the
+// accurate sinf and cosf (the argument reaches 2^11 rad), nothing rounded. The
+// TPU kernel computes the cosine as sin(t + pi / 2) (render_mlp.py
+// _make_points_kernel); in float32 that shift loses up to half an ulp of t
+// (3e-5 at t = 512), so the kernel, like the JAX package's XLA reference and
+// the port's plain version, takes cos(t).
 //
 // Interface: plain C launchers, bound from Python with ctypes. They launch
 // on the caller's stream, do not synchronise and allocate nothing, and
@@ -496,7 +502,7 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
 }
 
 // ---------------------------------------------------------------------------
-// K2 in float32: FFMA on the CUDA cores
+// K1 and K2 in float32: FFMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Rows = 128;      // rows per block
@@ -624,9 +630,11 @@ __device__ __forceinline__ void f32_store_relu(float* act,
 
 template <int H>
 __global__ void __launch_bounds__(kF32Threads, 1)
-deep_mlp_f32_kernel(const float* __restrict__ enc, const float* __restrict__ sh,
+deep_mlp_f32_kernel(const float* __restrict__ enc, const float* __restrict__ x,
+                    const float* __restrict__ sh,
                     const float* __restrict__ image, float* __restrict__ out,
-                    int64_t n, int enc_dim, int n_hidden, int n_color_mid) {
+                    int64_t n, int enc_dim, int multires, int n_hidden,
+                    int n_color_mid) {
   extern __shared__ __align__(16) float smem_f32[];
   float* act = smem_f32;                          // [128][kF32Pitch]
   F32Stream s{image, smem_f32 + kF32Rows * kF32Pitch, H, n_hidden,
@@ -635,11 +643,33 @@ deep_mlp_f32_kernel(const float* __restrict__ enc, const float* __restrict__ sh,
   const int64_t row0 = (int64_t)blockIdx.x * kF32Rows;
 
   f32_issue(s);        // chunk 0 flies while the encoding is loaded
-  for (int i = tid; i < kF32Rows * kEncCols; i += kF32Threads) {
-    const int r = i / kEncCols;
-    const int c = i - r * kEncCols;
-    act[r * kF32Pitch + c] = (c < enc_dim && row0 + r < n)
-                                 ? enc[(row0 + r) * enc_dim + c] : 0.0f;
+  if (x == nullptr) {
+    for (int i = tid; i < kF32Rows * kEncCols; i += kF32Threads) {
+      const int r = i / kEncCols;
+      const int c = i - r * kEncCols;
+      act[r * kF32Pitch + c] = (c < enc_dim && row0 + r < n)
+                                   ? enc[(row0 + r) * enc_dim + c] : 0.0f;
+    }
+  } else {
+    // column 3 + 6 k + m: sin(2^k x_m) for m < 3, cos(2^k x_{m-3}) after
+    const int used = 3 + 6 * multires;
+    for (int i = tid; i < kF32Rows * kEncCols; i += kF32Threads) {
+      const int r = i / kEncCols;
+      const int c = i - r * kEncCols;
+      float v = 0.0f;
+      if (c < used && row0 + r < n) {
+        if (c < 3) {
+          v = x[(row0 + r) * 3 + c];
+        } else {
+          const int k = (c - 3) / 6;
+          const int m = c - 3 - 6 * k;
+          const float t = x[(row0 + r) * 3 + (m < 3 ? m : m - 3)]
+                          * (float)(1 << k);
+          v = m < 3 ? sinf(t) : cosf(t);
+        }
+      }
+      act[r * kF32Pitch + c] = v;
+    }
   }
 
   // sigma net: 8 x H/16 micro-tiles on the H-wide layers
@@ -766,8 +796,9 @@ int run_bf16(const float* x, const bf16* enc, const void* sh,
 }
 
 template <int H>
-cudaError_t launch_f32(const float* enc, const float* sh, const float* image,
-                       float* out, int64_t n, int enc_dim, int n_hidden,
+cudaError_t launch_f32(const float* enc, const float* x, const float* sh,
+                       const float* image, float* out, int64_t n,
+                       int enc_dim, int multires, int n_hidden,
                        int n_color_mid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       deep_mlp_f32_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -775,9 +806,33 @@ cudaError_t launch_f32(const float* enc, const float* sh, const float* image,
   if (err != cudaSuccess) return err;
   const int64_t blocks = (n + kF32Rows - 1) / kF32Rows;
   deep_mlp_f32_kernel<H><<<(unsigned)blocks, kF32Threads, kF32Smem,
-                           stream>>>(enc, sh, image, out, n, enc_dim,
-                                     n_hidden, n_color_mid);
+                           stream>>>(enc, x, sh, image, out, n, enc_dim,
+                                     multires, n_hidden, n_color_mid);
   return cudaGetLastError();
+}
+
+// the f32 kernel for either input, by hidden width
+int run_f32(const float* enc, const float* x, const void* sh,
+            const void* image, void* out, int64_t n, int enc_dim,
+            int multires, int hidden, int n_hidden, int n_color_mid,
+            void* stream) {
+  const float* s = static_cast<const float*>(sh);
+  const float* im = static_cast<const float*>(image);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 160:
+      return (int)launch_f32<160>(enc, x, s, im, o, n, enc_dim, multires,
+                                  n_hidden, n_color_mid, st);
+    case 192:
+      return (int)launch_f32<192>(enc, x, s, im, o, n, enc_dim, multires,
+                                  n_hidden, n_color_mid, st);
+    case 256:
+      return (int)launch_f32<256>(enc, x, s, im, o, n, enc_dim, multires,
+                                  n_hidden, n_color_mid, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 bool bad_counts(int64_t n, int n_hidden, int n_color_mid, int rows) {
@@ -835,22 +890,23 @@ extern "C" int deep_mlp_forward_f32(const void* enc, const void* sh,
       bad_counts(n, n_hidden, n_color_mid, kF32Rows)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* e = static_cast<const float*>(enc);
-  const float* s = static_cast<const float*>(sh);
-  const float* im = static_cast<const float*>(image);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hidden) {
-    case 160:
-      return (int)launch_f32<160>(e, s, im, o, n, enc_dim, n_hidden,
-                                  n_color_mid, st);
-    case 192:
-      return (int)launch_f32<192>(e, s, im, o, n, enc_dim, n_hidden,
-                                  n_color_mid, st);
-    case 256:
-      return (int)launch_f32<256>(e, s, im, o, n, enc_dim, n_hidden,
-                                  n_color_mid, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  return run_f32(static_cast<const float*>(enc), nullptr, sh, image, out, n,
+                 enc_dim, 0, hidden, n_hidden, n_color_mid, stream);
+}
+
+// K1 in f32. x [n,3] f32; sh [n,16] f32; the f32 image; out [n,4] f32.
+// hidden: 160, 192 or 256.
+extern "C" int points_mlp_forward_f32(const void* x, const void* sh,
+                                      const void* image, void* out,
+                                      int64_t n, int multires, int hidden,
+                                      int n_hidden, int n_color_mid,
+                                      void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (multires < 0 || 3 + 6 * multires > kEncCols ||
+      bad_counts(n, n_hidden, n_color_mid, kF32Rows)) {
+    return (int)cudaErrorInvalidValue;
   }
+  return run_f32(nullptr, static_cast<const float*>(x), sh, image, out, n,
+                 3 + 6 * multires, multires, hidden, n_hidden, n_color_mid,
+                 stream);
 }

@@ -64,6 +64,28 @@
 //
 // The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
 //
+// K3 in float32 (the TPU kernel's compute_dtype=float32, which the
+// mip-fold teacher with fused=True runs by default): the same chain with
+// nothing rounded, f32 operands and f32 sums, on the CUDA cores (FFMA; a
+// TF32 product would not be float32). What bounds it: operations. A row
+// costs 9,728 multiply-adds in the TPU layout and moves 208 bytes (enc
+// 128, sh 64, out 16), 94 FLOP per byte, so the f32 cores' 67 TFLOP/s
+// bound it (0.609 ms at 2,097,152 rows against 0.130 ms of HBM time).
+// Design (sigma_color_f32_kernel), one row a thread:
+//   * the weights, packed by the wrapper as W1 [32,64], W2 [64,16],
+//     C1 = [C1s; C1g] [32,64] (C1g's row 0 zero), C2 [64,64] and C3
+//     [64,4] (column 3 zero), row-major f32, one after another (37,888
+//     bytes), are loaded into shared memory once a block; persistent
+//     blocks then walk the rows, each thread its own, with no barrier;
+//   * each thread keeps its row's activations as a column of a shared
+//     [64][kF32Threads] tile (neighbouring threads on neighbouring banks)
+//     and a layer's N outputs in registers: for each input k in order, one
+//     load of its activation, N / 4 broadcast 16-byte loads of weight row
+//     k, N FFMAs. The outputs overwrite the column once the layer has read
+//     it; no other thread reads it, so no barrier is needed;
+//   * enc and sh rows come in 16-byte loads, each row's 4 outputs leave in
+//     one 16-byte store; sigma and rgb as in the bf16 kernel.
+//
 // Interface: a plain C launcher, bound from Python with ctypes. It launches
 // on the caller's stream, does not synchronise and allocates nothing, and
 // returns cudaGetLastError() after the launch.
@@ -303,6 +325,107 @@ sigma_color_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ sh,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3 in float32: FFMA on the CUDA cores, one row a thread
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 128;
+constexpr int kF32Last = 4;                        // C3: 3 columns + a zero
+constexpr int kF32OffW2 = kEnc * kHid;             // offsets in floats
+constexpr int kF32OffC1 = kF32OffW2 + kHid * kGeo;
+constexpr int kF32OffC2 = kF32OffC1 + (kSh + kGeo) * kColor;
+constexpr int kF32OffC3 = kF32OffC2 + kColor * kColor;
+constexpr int kF32Weights = kF32OffC3 + kColor * kF32Last;
+constexpr int kF32Act = 64;                        // the widest layer
+constexpr int kF32Smem =
+    (kF32Weights + kF32Act * kF32Threads) * (int)sizeof(float);
+static_assert(kF32Weights == 9472, "the wrapper's f32 image size");
+static_assert(kF32Weights % 4 == 0, "16-byte weight rows");
+
+// acc[j] = the sum over k < K, in order, of act[k] * w[k][j]; act is this
+// thread's column (stride kF32Threads), w row-major [K][N] in shared memory
+template <int K, int N>
+__device__ __forceinline__ void f32_layer(const float* act, const float* w,
+                                          float (&acc)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float a = act[k * kF32Threads];
+    const float4* wk = reinterpret_cast<const float4*>(w + k * N);
+#pragma unroll
+    for (int j4 = 0; j4 < N / 4; ++j4) {
+      const float4 v = wk[j4];
+      acc[4 * j4] = fmaf(a, v.x, acc[4 * j4]);
+      acc[4 * j4 + 1] = fmaf(a, v.y, acc[4 * j4 + 1]);
+      acc[4 * j4 + 2] = fmaf(a, v.z, acc[4 * j4 + 2]);
+      acc[4 * j4 + 3] = fmaf(a, v.w, acc[4 * j4 + 3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void f32_store_relu(float* act,
+                                               const float (&acc)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) act[j * kF32Threads] = fmaxf(acc[j], 0.0f);
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+sigma_color_f32_kernel(const float* __restrict__ enc,
+                       const float* __restrict__ sh,
+                       const float* __restrict__ image,
+                       float* __restrict__ out, int64_t n) {
+  extern __shared__ __align__(16) float smem_f32[];
+  float* wts = smem_f32;
+  for (int i = threadIdx.x; i < kF32Weights / 4; i += kF32Threads) {
+    reinterpret_cast<float4*>(wts)[i] =
+        __ldg(reinterpret_cast<const float4*>(image) + i);
+  }
+  __syncthreads();
+  float* act = smem_f32 + kF32Weights + threadIdx.x;   // this thread's column
+
+  for (int64_t r = (int64_t)blockIdx.x * kF32Threads + threadIdx.x; r < n;
+       r += (int64_t)gridDim.x * kF32Threads) {
+    const float4* e = reinterpret_cast<const float4*>(enc + r * kEnc);
+#pragma unroll
+    for (int q = 0; q < kEnc / 4; ++q) {
+      const float4 v = __ldg(e + q);
+      act[(4 * q) * kF32Threads] = v.x;
+      act[(4 * q + 1) * kF32Threads] = v.y;
+      act[(4 * q + 2) * kF32Threads] = v.z;
+      act[(4 * q + 3) * kF32Threads] = v.w;
+    }
+    float h[kHid];
+    f32_layer<kEnc, kHid>(act, wts, h);
+    f32_store_relu<kHid>(act, h);
+    float s[kGeo];
+    f32_layer<kHid, kGeo>(act, wts + kF32OffW2, s);
+    const float sigma = expf(fminf(fmaxf(s[0], -15.0f), 15.0f));
+    // C1's input: [sh | s], s whole (C1g's row 0 is zero)
+    const float4* d = reinterpret_cast<const float4*>(sh + r * kSh);
+#pragma unroll
+    for (int q = 0; q < kSh / 4; ++q) {
+      const float4 v = __ldg(d + q);
+      act[(4 * q) * kF32Threads] = v.x;
+      act[(4 * q + 1) * kF32Threads] = v.y;
+      act[(4 * q + 2) * kF32Threads] = v.z;
+      act[(4 * q + 3) * kF32Threads] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kGeo; ++j) act[(kSh + j) * kF32Threads] = s[j];
+    float c[kColor];
+    f32_layer<kSh + kGeo, kColor>(act, wts + kF32OffC1, c);
+    f32_store_relu<kColor>(act, c);
+    f32_layer<kColor, kColor>(act, wts + kF32OffC2, c);
+    f32_store_relu<kColor>(act, c);
+    float o[kF32Last];
+    f32_layer<kColor, kF32Last>(act, wts + kF32OffC3, o);
+    reinterpret_cast<float4*>(out)[r] =
+        make_float4(sigma, sigmoid(o[0]), sigmoid(o[1]), sigmoid(o[2]));
+  }
+}
+
 }  // namespace
 
 // enc [n,32] bf16; sh [n,16] bf16; image the six weight matrices' wgmma B
@@ -356,4 +479,39 @@ extern "C" int sigma_color_plan(int* plan) {
   plan[1] = per_sm;
   plan[2] = kSmem;
   return (int)err;
+}
+
+// K3 in float32. enc [n,32] f32; sh [n,16] f32; image the f32 weights
+// row-major, one after another (W1 [32,64], W2 [64,16], C1 = [C1s; C1g]
+// [32,64] with C1g's row 0 zero, C2 [64,64], C3 [64,4] with column 3 zero;
+// 9,472 floats, see ops/hopper/sigma_color.py); out [n,4] f32. enc, sh,
+// image and out start on 16-byte boundaries.
+extern "C" int sigma_color_forward_f32(const void* enc, const void* sh,
+                                       const void* image, void* out,
+                                       int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_color_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kF32Smem);
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sigma_color_f32_kernel, kF32Threads, kF32Smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = (n + kF32Threads - 1) / kF32Threads;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
+  sigma_color_f32_kernel<<<blocks, kF32Threads, kF32Smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(enc), static_cast<const float*>(sh),
+      static_cast<const float*>(image), static_cast<float*>(out), n);
+  return (int)cudaGetLastError();
 }

@@ -23,7 +23,15 @@ seeded init and refreshes the trained occupancy 4x. `REF_TRAIN_CFG` and
 `REF_TRAIN_OPT` are bench.py's `_train_ref_backbone` (bench.py:354-426),
 the schedule `refbb.ckpt` was trained with; `train_ref` runs it, through
 kernel K4 (`fused`) or the plain chain (bench.py's own route), and
-refreshes the occupancy 4x with seeds 100-103.
+refreshes the occupancy 4x with seeds 100-103. `train_flagship` also takes
+config overrides: with `fused=True` the teacher trains through kernel K3
+forward and backward (JAX's NetworkConfig(encoding="mipfold", fused=True)
+computes in float32 by default), and the options' `fold_warmup_scale`
+folds the warm-up steps at a reduced scale.
+
+Float32: `load_teacher_net`, `load_student_net` and `student_cfg` take a
+`compute_dtype`. The committed teacher and students in "float32" run K3's
+and K1's float32 kernels; bench.py serves both in bfloat16.
 
 Distillation: `STUDENT_SCHEDULES` and `student_schedule` are bench.py's
 per-width (distill, fine-tune) step counts (bench.py:253-264),
@@ -90,10 +98,10 @@ TEACHER_CFG = NetworkConfig(
     log2_hashmap_size=19, density_thresh=10.0, grid_size=128, fused=True)
 
 
-def student_cfg(hidden: int = 160):
+def student_cfg(hidden: int = 160, compute_dtype: str = "bfloat16"):
     """The 6-layer student of width `hidden`, through K1."""
     return replace(student_config(
-        NetworkConfig(bound=1.0, compute_dtype="bfloat16", grid_size=128),
+        NetworkConfig(bound=1.0, compute_dtype=compute_dtype, grid_size=128),
         multires=12, hidden_dim=hidden, num_layers=6), fused=True)
 
 
@@ -242,12 +250,13 @@ def holdout_poses():
     return [orbit_pose(th, ph, 2.4) for th, ph in HOLDOUT]
 
 
-def load_teacher_net(device, scene: str = "spheres"):
+def load_teacher_net(device, scene: str = "spheres",
+                     compute_dtype: str = "bfloat16"):
     """(folded teacher, the checkpoint's stored RendererState)."""
     params, stored = load_checkpoint(scene_assets(scene)["teacher"],
                                      device=device)
-    return make_network(TEACHER_CFG, params, device=device).to_folded(), \
-        stored
+    cfg = replace(TEACHER_CFG, compute_dtype=compute_dtype)
+    return make_network(cfg, params, device=device).to_folded(), stored
 
 
 def load_ref_nets(device, scene: str = "spheres"):
@@ -351,10 +360,11 @@ def distill_student(teacher, state, hidden: int, layers: int = 6,
     return student, sparams, {"distill": d_loss, "finetune": f_loss}
 
 
-def load_student_net(device, scene: str = "spheres", hidden: int = 160):
+def load_student_net(device, scene: str = "spheres", hidden: int = 160,
+                     compute_dtype: str = "bfloat16"):
     """The committed student of width `hidden` of a scene."""
     path = scene_assets(scene)["students"][hidden]
-    return make_network(student_cfg(hidden), params_from_jax(
+    return make_network(student_cfg(hidden, compute_dtype), params_from_jax(
         load_student(path), device), device=device)
 
 
@@ -411,18 +421,20 @@ def train_dataset(device, res: int = TRAIN_RES, n_views: int = N_TRAIN_VIEWS,
 
 def train_flagship(device, iters: int = TRAIN_ITERS, opt=None, dataset=None,
                    seed: int = 0, on_epoch=None,
-                   train_gather: str = "foldrow_pallas"):
+                   train_gather: str = "foldrow_pallas", **cfg):
     """Train the teacher from a seeded init for `iters` steps (whole epochs
     of the dataset, as bench.py's ceil(iters / views)), then refresh its
     occupancy 4x through the trained field. `train_gather` is the dense
     fetch's route: "foldrow_pallas" (the fold through kernel K5) or
-    "foldrow" (the same fold as a slice stack under autograd). Returns
-    (net, state, trainer); `on_epoch(trainer)` runs after every epoch."""
+    "foldrow" (the same fold as a slice stack under autograd); `cfg`
+    overrides other fields of TRAIN_CFG (fused=True: through K3; its
+    compute_dtype). Returns (net, state, trainer); `on_epoch(trainer)` runs
+    after every epoch."""
     opt = opt or train_opt(iters=iters, seed=seed)
     dataset = dataset or train_dataset(device, opt=opt)
     gen = torch.Generator(device=device).manual_seed(seed)
-    net = make_network(replace(TRAIN_CFG, train_gather=train_gather), None,
-                       device=device, trainable=True, generator=gen)
+    net = make_network(replace(TRAIN_CFG, train_gather=train_gather, **cfg),
+                       None, device=device, trainable=True, generator=gen)
     trainer = Trainer(opt, net, mute=True)
     loader = dataset.dataloader(torch.Generator(
         device=device).manual_seed(seed))

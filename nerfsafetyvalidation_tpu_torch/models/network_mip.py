@@ -19,8 +19,20 @@ is the only route (on a CPU tensor K3's plain version runs, with the same
 rounding points); without it `density` then `color`, plain matmul chains
 (under autograd in training, as the JAX trainer runs them). The two differ
 only where sigma's pre-activation passes +-15, which K3 clips and
-`trunc_exp` does not.
+`trunc_exp` does not. Under autograd on the card K3's backward is the
+plain chain's VJP (ops/hopper/sigma_color.py), so a fused net trains
+through K3, as the JAX net trains through its `custom_vjp`.
+
+The sigma-net flatpack (`get_sigma_net_flat` / `set_sigma_net_flat`, which
+the Bayesian-Laplace UQ fits) is the one the JAX net inherits from
+`NeRFNetwork` (network.py:304-315): each [in, out] weight as [out, in],
+flattened, one after another. `at_fold_scale(w)` is the same net, on the
+same parameter tensors, folding its dense levels at scale w: the trainer's
+`fold_warmup_scale` (trainer.py `_phase_net`).
 """
+
+import copy
+from dataclasses import replace
 
 import torch
 from torch import nn
@@ -187,14 +199,49 @@ class NeRFNetworkMip(nn.Module):
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
     def get_sigma_net_flat(self):
-        """The Bayesian-Laplace UQ's sigma-net flatpack is not ported for
-        the mip-fold teacher: raises."""
-        raise NotImplementedError(
-            "the mip-fold teacher has no sigma-net flatpack; the "
-            "Bayesian-Laplace UQ fits a NeRFNetwork or NeRFNetworkFF")
+        """The sigma net's weights as one flat float32 vector (detached) in
+        the JAX layout: each [in, out] weight as [out, in], flattened, one
+        after another (network.py:304-307, which the JAX mip-fold net
+        inherits)."""
+        return torch.cat([w.detach().t().reshape(-1) for w in self.sigma_net])
 
     def set_sigma_net_flat(self, theta):
-        return self.get_sigma_net_flat()
+        """The sigma net's weights made of theta [..., n] (the JAX layout):
+        [..., in, out] views of it, differentiable in theta; the net's own
+        weights stay as they are (network.py:309-315 returns a new
+        pytree)."""
+        ws, start = [], 0
+        lead = theta.shape[:-1]
+        for w in self.sigma_net:
+            i, o = w.shape
+            ws.append(theta[..., start:start + i * o].reshape(
+                lead + (o, i)).transpose(-1, -2))
+            start += i * o
+        if start != theta.shape[-1]:
+            raise ValueError(f"theta has {theta.shape[-1]} entries, the "
+                             f"sigma net {start}")
+        return ws
+
+    def sigma_of_encoding(self, h, sigma_ws):
+        """`density`'s sigma [...] of the position encoding h [..., D]
+        through the sigma net `sigma_ws` (`set_sigma_net_flat`'s; with a
+        leading group axis, h is [G, ..., D]): the plain matmul chain, as
+        `density` runs it."""
+        return trunc_exp(fused_mlp_reference(h, list(sigma_ws),
+                                             self.compute_dtype)[..., 0])
+
+    def at_fold_scale(self, scale: int):
+        """This net, on the same parameter tensors (a step through it
+        trains them), with its dense levels materialised, folded and
+        encoded at `scale` (MipFoldSpec.fold_scale; 0 is the native scale):
+        the JAX trainer's warm-up net, `make_network(replace(cfg,
+        fold_scale=scale))` on the same params. It has no fold table of
+        its own until `to_folded`."""
+        net = copy.copy(self)       # shares the parameter lists
+        net.cfg = replace(self.cfg, fold_scale=scale)
+        net.mip_spec = mip_spec_of(net.cfg)
+        net.fold_table = net.hash_table = net._folded_from = None
+        return net
 
     def color(self, d, geo_feat, mask=None):
         """rgb [..., 3], 0 where `mask` ([...] bool) is false."""

@@ -15,8 +15,6 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-import torch
-
 PKG = Path(__file__).resolve().parents[2]
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -83,16 +81,6 @@ def compile_source(source: Path, flags=NVCC_FLAGS):
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib, log
-
-
-def refuse_grad(kernel: str, tensors):
-    """Raises where autograd would need the backward of `kernel`, which the
-    port has not written: its wrapper returns a fresh tensor without a
-    gradient function, so the gradient would be lost without a word."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{kernel} has no backward on the card yet: call "
-                           "it under torch.no_grad() or inference_mode(), "
-                           "or with inputs that do not require grad")
 
 
 def weights_key(weights):

@@ -8,7 +8,8 @@ launches its hand-written kernel in `csrc/points_mlp.cu` or raises; on a
 CPU tensor each runs its plain PyTorch version
 (`fused_points_sigma_color_plain`, `fused_sigma_color_deep_plain`), which
 the tests compare with JAX. K2 in bfloat16 is K1's kernel reading the
-encoding in place of building it; K2 in float32 is a kernel of its own.
+encoding in place of building it; in float32 both run a kernel of their
+own, K1's building the encoding in place of reading it.
 
 Both are differentiable, as the JAX functions are: on the card through
 `_Chain`, an autograd Function whose forward launches the kernel and whose
@@ -56,9 +57,11 @@ LAYOUT = {torch.bfloat16: "wgmma-B-kmajor-noswizzle",
           torch.float32: "rowmajor-f32"}
 
 # launches of each CUDA kernel since the last reset (never the plain path):
-# K1's by the sigma net's hidden width (their sum is K1's count), and K2's
-# in either dtype; and the calls of the plain chain (K1's and K2's)
+# K1's in bf16 by the sigma net's hidden width (their sum is K1's count),
+# K1's in float32, and K2's in either dtype; and the calls of the plain
+# chain (K1's and K2's)
 LAUNCHES_BY_WIDTH = {}
+LAUNCHES_F32 = 0
 LAUNCHES_DEEP = 0
 PLAIN_CALLS = 0
 # nvcc's report (registers, shared memory, spills) of the last build
@@ -82,8 +85,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name in ("points_mlp_forward", "deep_mlp_forward",
-                     "deep_mlp_forward_f32"):
+        for name in ("points_mlp_forward", "points_mlp_forward_f32",
+                     "deep_mlp_forward", "deep_mlp_forward_f32"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -286,30 +289,37 @@ def fused_points_sigma_color(x, sh, sigma_net, color_net, multires,
     directions; sigma_net / color_net lists of [in, out] weights.
     Returns (sigma [N] f32, rgb [N, 3] f32), differentiable.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel,
-    which takes x float32 and sh bfloat16, both contiguous, and bf16
-    compute; anything else raises."""
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    of `compute_dtype` (bfloat16 or float32), which takes x float32 and sh
+    in the compute dtype, both contiguous, sh on a 16-byte boundary;
+    anything else raises."""
     if x.device.type == "cpu":
         return fused_points_sigma_color_plain(x, sh, sigma_net, color_net,
                                               multires, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {x.device}")
     n = x.shape[0]
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernel computes in bfloat16 only")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K1 computes in bfloat16 or float32, not "
+                         f"{compute_dtype}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"x must be float32 [N, 3], got {x.dtype} "
                          f"{tuple(x.shape)}")
-    _check_sh(sh, n, torch.bfloat16)
+    _check_sh(sh, n, compute_dtype)
     if 3 + 6 * multires != sigma_net[0].shape[0]:
         raise ValueError("multires does not match the first sigma layer")
     n_sig = len(sigma_net)
     hidden = sigma_net[0].shape[1]
+    f32 = compute_dtype == torch.float32
 
     def launch(*args):
-        out = _run("points_mlp_forward", *_split(args, n_sig),
-                   torch.bfloat16, 8, multires)
-        if n:
+        global LAUNCHES_F32
+        out = _run("points_mlp_forward_f32" if f32 else "points_mlp_forward",
+                   *_split(args, n_sig), compute_dtype, 4 if f32 else 8,
+                   multires)
+        if n and f32:
+            LAUNCHES_F32 += 1
+        elif n:
             LAUNCHES_BY_WIDTH[hidden] = LAUNCHES_BY_WIDTH.get(hidden, 0) + 1
         return out
 

@@ -33,8 +33,14 @@ JAX trainer does; `save_mesh` writes the density's iso-surface as a .ply
 The JAX trainer jits the step; here it runs eagerly. Its random draws
 (background, march jitter or sample jitter and pdf draws, refresh jitter)
 come from a torch.Generator seeded `opt.seed + 1`, or are handed in, as
-the tests hand in the JAX trainer's own draws. Not ported: CLIP guidance,
-data parallelism, the fused multi-step scan and `fold_warmup_scale`.
+the tests hand in the JAX trainer's own draws. With `fold_warmup_scale` w
+on a mip-fold net, the steps before `grid_warmup_steps` train the same
+parameters through the net folding its dense levels at w
+(`NeRFNetworkMip.at_fold_scale`; JAX's `_phase_net`), chosen again at
+every step for a net with cfg.grid_ray and once, when the trainer is built,
+for any other, as the JAX trainer rebuilds its jitted step (trainer.py:
+300-304). A fused mip-fold net trains through K3 forward and backward. Not
+ported: CLIP guidance, data parallelism and the fused multi-step scan.
 """
 
 import os
@@ -142,6 +148,8 @@ class Trainer:
         self._grid_block = 0
         # the training split's error map [V, cells] (numpy), set by `start`
         self.error_map = None
+        # the fold_warmup_scale net (`_phase_net`), made at first use
+        self._net_warm = None
         # the epochs' mean losses, every step's loss, each evaluation's
         # mean loss and PSNR (floats), the checkpoints written
         self.stats = {"loss": [], "step_loss": [], "valid_loss": [],
@@ -176,6 +184,8 @@ class Trainer:
                     self.log(f"[INFO] Loading {path} ...")
                     self.load_checkpoint(
                         path, model_only=use_checkpoint == "latest_model")
+        # the net the steps train through (see train_step)
+        self._step_net = self._phase_net()
 
     def log(self, *args):
         if not self.mute:
@@ -190,6 +200,20 @@ class Trainer:
         if warmup and self.global_step >= warmup:
             return getattr(self.opt, "grid_max_samples_after_warmup", 32)
         return getattr(self.opt, "grid_max_samples", 64)
+
+    def _phase_net(self):
+        """The net of the current phase (trainer.py:229-250): with
+        opt.fold_warmup_scale w on a mip-fold net, while global_step <
+        grid_warmup_steps, the same net folding at w; else the net."""
+        w = int(getattr(self.opt, "fold_warmup_scale", 0) or 0)
+        if not w or self.net.cfg.encoding != "mipfold":
+            return self.net
+        warmup = getattr(self.opt, "grid_warmup_steps", 0)
+        if warmup and self.global_step >= warmup:
+            return self.net
+        if self._net_warm is None:
+            self._net_warm = self.net.at_fold_scale(w)
+        return self._net_warm
 
     def _budget_per_ray(self):
         """Samples a ray may query: a wide budget while the grid carves,
@@ -228,8 +252,9 @@ class Trainer:
         flat_o = data["rays_o"].reshape(-1, 3)
         flat_d = data["rays_d"].reshape(-1, 3)
         if self.net.cfg.grid_ray:
+            self._step_net = self._phase_net()
             out = run_grid(
-                self.net, self.renderer_state, flat_o, flat_d,
+                self._step_net, self.renderer_state, flat_o, flat_d,
                 max_samples=self._grid_max_samples(),
                 max_steps=getattr(opt, "max_steps", 1024),
                 dt_gamma=getattr(opt, "dt_gamma", 0.0),
@@ -238,7 +263,7 @@ class Trainer:
                 samples_per_hit=getattr(opt, "grid_samples_per_hit", 1),
                 sample_budget=flat_o.shape[0] * self._budget_per_ray())
         else:
-            out = run(self.net, flat_o, flat_d,
+            out = run(self._step_net, flat_o, flat_d,
                       num_steps=getattr(opt, "num_steps", 128),
                       upsample_steps=getattr(opt, "upsample_steps", 128),
                       bg_color=bg.reshape(-1, 3), perturb=True,

@@ -391,15 +391,12 @@ class FullBatchedRolloutEngine(BatchedRolloutEngine):
         UQ moments), "guided" (`render_frame_guided`, march prepass),
         "scout" (`render_frame_guided`, scout prepass).
         uq_method: "gaussian", or "laplace" (the laplace_* knobs, the JAX
-        version's defaults; the net must have the sigma-net flatpack, which
-        the mip-fold teacher has not: it raises)."""
+        version's defaults, on the net's sigma-net flatpack)."""
         _no_mesh(mesh)
         if net is None:
             raise ValueError("FullBatchedRolloutEngine renders through a "
                              "net; the core engine is BatchedRolloutEngine")
-        if uq_method == "laplace":
-            net.get_sigma_net_flat()
-        elif uq_method != "gaussian":
+        if uq_method not in ("gaussian", "laplace"):
             raise ValueError(f"unknown in-scan uq_method {uq_method!r}")
         if obs_render not in ("uniform", "fast", "guided", "scout"):
             raise ValueError(f"unknown obs_render {obs_render!r}")

@@ -3,9 +3,11 @@ the encoding-in mode of K1's kernel) and the gradients of K1 and K2, on the
 CPU: K2's plain version against the JAX package's Pallas kernel
 `fused_sigma_color_deep` (interpret mode on the CPU) and `_xla_ref_deep`;
 both plain versions' gradients against `jax.vjp` of the JAX functions; the
-autograd Function the card's path goes through; the guard that keeps K3,
-which has no backward yet, from losing a gradient on the card; and K4's
-autograd Function, whose backward is the VJP of the JAX `_xla_mlp`."""
+autograd Function the card's path goes through; and the autograd
+Functions of K3 and K4, whose backwards are the VJPs of the JAX `_xla_ref`
+and `_xla_mlp`."""
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -231,15 +233,13 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 
 @pytest.mark.parametrize("kernel", ["K3", "K4"])
 def test_k3_k4_refuse_a_gradient_off_the_cpu(kernel):
-    """K3 has no backward on the card: where autograd would need one it
-    raises (RuntimeError) before anything else; without a weight that
-    requires grad, or under no_grad, it goes on to the device check
-    (ValueError for the meta device). K1 and K2 have a backward and never
-    refuse. K4 has one now (the VJP of `fused_mlp_reference`, the JAX
-    `_xla_mlp`): with weights that require grad it goes on to the device
-    check too, and its autograd Function, launched by the plain forward
-    on the CPU as on the card, returns that VJP bit for bit, for x and
-    every weight."""
+    """K3 and K4 take a gradient: with weights that require grad, without,
+    and under no_grad, each goes on to the device check (ValueError for
+    the meta device); and each autograd Function, launched by the plain
+    forward on the CPU as on the card, returns the VJP of its plain chain
+    (the JAX `_xla_ref` and `_xla_mlp`) bit for bit, in float32 and
+    bfloat16, for every input and weight. (The name predates their
+    backward.)"""
     def meta(shape, grad=False):
         return torch.empty(shape, device="meta", requires_grad=grad)
 
@@ -264,14 +264,35 @@ def test_k3_k4_refuse_a_gradient_off_the_cpu(kernel):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
         return
     w3 = [(32, 64), (64, 16), (31, 64), (64, 64), (64, 3)]
-    for grad, exc in ((True, RuntimeError), (False, ValueError)):
+    for grad in (True, False):
         ws = [meta(s, grad) for s in w3]
-        with pytest.raises(exc):
+        with pytest.raises(ValueError):
             k3.fused_sigma_color(meta((8, 32)), meta((8, 16)), ws[:2],
                                  ws[2:])
     ws = [meta(s, True) for s in w3]
     with torch.no_grad(), pytest.raises(ValueError):
         k3.fused_sigma_color(meta((8, 32)), meta((8, 16)), ws[:2], ws[2:])
+    rng = np.random.default_rng(9)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [torch.tensor(rng.normal(0, 0.5, s).astype(np.float32))
+               for s in ((40, 32), (40, 16))]
+        ws = [torch.tensor(rng.normal(0, 0.2, s).astype(np.float32))
+              for s in w3]
+        g = torch.tensor(rng.normal(size=(40, 4)).astype(np.float32))
+
+        def launch(enc, sh, *w, dt=dt):
+            s_, c_ = k3.fused_sigma_color_plain(enc, sh, w[:2], w[2:], dt)
+            return torch.cat([s_[:, None], c_], 1)
+
+        leaves = [t.clone().requires_grad_() for t in ins + ws]
+        got = torch.autograd.grad(
+            pm._Chain.apply(launch, partial(k3._chain, dt), *leaves), leaves,
+            g)
+        leaves = [t.clone().requires_grad_() for t in ins + ws]
+        s_, c_ = k3.fused_sigma_color_plain(leaves[0], leaves[1],
+                                            leaves[2:4], leaves[4:], dt)
+        want = torch.autograd.grad((s_, c_), leaves, (g[:, 0], g[:, 1:]))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     _, _, sn, cn, _ = _nets(hidden=160, rows=1)
     ws = [meta(w.shape, True) for w in sn + cn]
     with pytest.raises(ValueError):

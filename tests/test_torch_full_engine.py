@@ -353,8 +353,9 @@ def test_obs_group_equals_single(nets):
 
 @pytest.mark.parametrize("what", ["laplace", "mesh", "no_state", "no_net"])
 def test_engine_refuses(what, nets):
-    """laplace: the Laplace UQ on a net without the sigma-net flatpack
-    (the mip-fold teacher)."""
+    """laplace: an unknown uq_method. The Laplace UQ itself is taken on
+    the mip-fold teacher, which has the sigma-net flatpack (the case once
+    checked that it refused it): its draws are the sigma net's size."""
     kw = dict(_engine_kw(), net=nets[2], device="cpu")
     err = NotImplementedError
     if what == "laplace":
@@ -364,13 +365,20 @@ def test_engine_refuses(what, nets):
             base_resolution=4, fold_max_scale=16, log2_hashmap_size=10,
             grid_size=16, grid_ray=True), None, device="cpu", trainable=True,
             generator=torch.Generator().manual_seed(1))
+        eng = TB.FullBatchedRolloutEngine(**kw)
+        theta0, perts = eng._laplace_draws(torch.Generator().manual_seed(0),
+                                           3)
+        n = sum(w.numel() for w in kw["net"].sigma_net)
+        assert theta0.shape == (3, n) and perts.shape == (
+            3, eng.laplace_perturbations, eng.laplace_points, 3)
+        kw["uq_method"], err = "bayes", ValueError
     elif what == "mesh":
         kw["mesh"] = object()
     elif what == "no_state":
         kw["obs_render"], err = "fast", ValueError
     else:
         kw["net"], err = None, ValueError
-    match = {"laplace": "flatpack", "mesh": "slice G",
+    match = {"laplace": "uq_method", "mesh": "slice G",
              "no_state": "renderer_state", "no_net": "net"}[what]
     with pytest.raises(err, match=match):
         TB.FullBatchedRolloutEngine(**kw)

@@ -32,6 +32,7 @@ from nerfsafetyvalidation_tpu.validation.stresstests import (
     CrossEntropyMethod as JCEM, MonteCarlo as JMC)
 from nerfsafetyvalidation_tpu_torch import simulate as TSimulate
 from nerfsafetyvalidation_tpu_torch import validate as V
+from nerfsafetyvalidation_tpu_torch.nav.planner import Planner as TPlanner
 from nerfsafetyvalidation_tpu_torch.validation.distributions import \
     SeedableMultivariateNormal as TMVN
 from nerfsafetyvalidation_tpu_torch.validation.simulators import \
@@ -225,6 +226,29 @@ def test_simulate_main(seq_dir, capsys):
                                atol=1e-6)
     assert len(os.listdir("paths/ws/estimator_data")) == states.shape[0] - 1
     assert len(os.listdir("paths/ws/replan_poses")) == states.shape[0] - 6
+
+
+def test_simulate_main_short_plan(seq_dir, monkeypatch):
+    """A plan of 4 knots (A*'s thinned, first and last kept) flies its 7
+    actions: the first 2 steps with a replan, the last 5 on the plan
+    without one."""
+    _seq_workdir(seq_dir)
+    astar = TPlanner.a_star_init
+
+    def thinned(self, *a, **k):
+        astar(self, *a, **k)
+        keep = np.unique(np.linspace(0, self.states.shape[0] - 1, 4)
+                         .round().astype(np.int64))
+        self.states = self.states[torch.as_tensor(keep)]
+
+    monkeypatch.setattr(TPlanner, "a_star_init", thinned)
+    argv = ["data", "--workspace", "ws", "--bound", "1", "--scale", "1",
+            "--seed", "3", "--num_steps", "8", "--encoding", "frequency",
+            "--camera", "nerf"]
+    states = TSimulate.main(argv, device="cpu")
+    assert states.shape == (8, 12) and np.isfinite(states).all()
+    assert len(os.listdir("paths/ws/estimator_data")) == 7
+    assert len(os.listdir("paths/ws/replan_poses")) == 2
 
 
 @pytest.mark.parametrize("flag", ["--ff"])

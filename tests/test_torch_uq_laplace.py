@@ -3,8 +3,9 @@ bayesian_laplace.py, orchestrator.py) and the nets' sigma-net flatpack
 against the JAX package's on the CPU.
 
   * the flatpack: a JAX `get_sigma_net_flat` vector and the port's are the
-    same bits, both ways, for `NeRFNetwork` (float32 hash grid) and
-    `NeRFNetworkFF` (bf16, K4); the mip-fold teacher refuses;
+    same bits, both ways, for `NeRFNetwork` (float32 hash grid),
+    `NeRFNetworkFF` (bf16, K4) and the mip-fold teacher (float32, the
+    flatpack JAX's inherits from `NeRFNetwork`);
   * BayesianLaplace's log-prior, log-likelihood and gradient at one theta;
     `fit` (10 Adam steps, 2 perturbations, 32 points) with the JAX fit's
     own draws handed in: the posterior mean, and the covariance with the
@@ -67,13 +68,27 @@ def _ff(seed=3):
     return net_j, jax.tree_util.tree_map(jnp.asarray, p), net_t
 
 
+def _mip(seed=4):
+    """(JAX NeRFNetworkMip, its params, the port's, folded): weights N(0,
+    0.3), the pyramid grids and hash table N(0, 0.05)."""
+    net_j = j_make(JConfig(**NET_MIP))
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(net_j.init, jax.random.PRNGKey(0))
+    p = jax.tree_util.tree_map(
+        lambda s: rng.normal(0, 0.3, s.shape).astype(np.float32), shapes)
+    p["encoder"] = jax.tree_util.tree_map(lambda a: a / 6, p["encoder"])
+    net_t = t_make(TConfig(**NET_MIP), params_from_jax(p, device="cpu"),
+                   device="cpu").to_folded()
+    return net_j, jax.tree_util.tree_map(jnp.asarray, p), net_t
+
+
 @pytest.fixture(scope="module")
 def nets():
-    return {"f32": S.nets(), "ff": _ff()}
+    return {"f32": S.nets(), "ff": _ff(), "mip": _mip()}
 
 
 # ------------------------------------------------------------ the flatpack
-@pytest.mark.parametrize("which", ["f32", "ff"])
+@pytest.mark.parametrize("which", ["f32", "ff", "mip"])
 def test_flatpack_bit_exact_both_ways(nets, which):
     net_j, p_j, net_t = nets[which]
     flat_j = np.asarray(net_j.get_sigma_net_flat(p_j))
@@ -103,17 +118,23 @@ def test_flatpack_bit_exact_both_ways(nets, which):
 
 
 def test_mip_teacher_has_no_flatpack():
-    """The Laplace UQ on the mip-fold teacher raises, in the fit and in
-    `uncertainty`."""
+    """The mip-fold teacher's sigma-net flatpack: a theta of the wrong
+    size raises as on the other nets, the flatpack of the weights gives
+    them back, and the Laplace UQ's `uncertainty` runs on the teacher to
+    finite stats. (The name predates the flatpack.)"""
     net = t_make(TConfig(**NET_MIP), None, device="cpu", trainable=True,
                  generator=torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError, match="flatpack"):
-        net.set_sigma_net_flat(torch.zeros(4))
+    flat = net.get_sigma_net_flat()
+    assert flat.shape == (sum(w.numel() for w in net.sigma_net),)
+    with pytest.raises(ValueError, match="entries"):
+        net.set_sigma_net_flat(torch.zeros(flat.numel() + 1))
+    for a, b in zip(net.set_sigma_net_flat(flat), net.sigma_net):
+        assert torch.equal(a, b.detach())
     rays = torch.zeros((1, 4, 3))
-    with pytest.raises(NotImplementedError, match="flatpack"):
-        TO.uncertainty(LAPLACE, rendered_output=(
-            {"aggregated_density": torch.zeros(1, 4)}, rays, rays),
-            net=net, lr=1e-2, H=2, W=2)
+    trace, rmv = TO.uncertainty(LAPLACE, rendered_output=(
+        {"aggregated_density": torch.zeros(1, 4)}, rays, rays),
+        net=net.to_folded(), lr=1e-2, H=2, W=2, laplace_fit_steps=5)
+    assert np.isfinite(trace) and np.isfinite(rmv)
 
 
 # ----------------------------------------------------------- the posterior
@@ -134,7 +155,7 @@ def _jax_draws(n_theta, x_shape, n_pert, seed=0):
                     s2, (n_pert,) + tuple(x_shape))))
 
 
-@pytest.mark.parametrize("which", ["f32", "ff"])
+@pytest.mark.parametrize("which", ["f32", "ff", "mip"])
 def test_posterior_terms_match_jax(nets, which):
     """log-prior, log-likelihood and the -log posterior's gradient at one
     random theta: the log terms within 1e-6 relative (float32 sums), the
