@@ -314,8 +314,13 @@ Phases, each printing its elapsed seconds:
      bit; the f32 teacher's fast and guided frames on the four poses (K3
      f32 in every frame, K3 bf16 never, mean PSNR at the 28-dB bar, the
      gap to phase 6's bf16 frames, pose 0 against its plain frame); K1 f32
-     on phase 4's 131,072 rows through the committed 160-, 192- and
-     256-wide students in float32 at TOL_F32, the same four times; the f32
+     (csrc/points_mlp.cu's 3xTF32 kernel) on phase 4's 131,072 rows
+     through the committed 160-, 192- and 256-wide students in float32 at
+     TOL_F32, 20 reruns bit-identical, and at TOL_F32 of its 3xTF32
+     arithmetic in plain PyTorch, which a 2xTF32 control must miss (K2 f32
+     on the 160-wide student's rows at TOL_K2_F32 of both), the same four
+     times and both bounds, with the weight stream's modelled L2 bytes a
+     launch; the f32
      160x6 student's baked_h160_ak8 frames (K1 f32 in every frame, K1 bf16
      never, the bar, the gap to phase 7's, pose 0 against its plain
      frame); then the teacher trained fused (fused=True) from a seeded init
@@ -417,13 +422,15 @@ BARRED = ("fast", "guided", "baked_h160_ak8")
 # average). The bounds below are about 3x those maxima and 15x those
 # means; a wrong kernel misses the means by orders of magnitude.
 TOL_K1 = dict(rgb=(0.15, 2e-4), sigma=(0.4, 1e-4))
-# K2 in f32 against its plain version in f32 (FFMA in order against
-# cuBLAS's f32 products, TF32 off): every layer sums up to 256 products in
-# another order, each rounding at most 2^-24 of the running sum, and the
-# ReLU chain carries the difference on; sigma = exp(s) turns s's absolute
-# error into a relative one. Stated before the first run on the card: rgb
+# K2 in f32 against its plain version in f32 (cuBLAS's f32 products, TF32
+# off): every layer sums up to 256 products in another order, each rounding
+# at most 2^-24 of the running sum, and the ReLU chain carries the
+# difference on; sigma = exp(s) turns s's absolute error into a relative
+# one. Stated before the first run on the card, for an FFMA kernel: rgb
 # (max 1e-4, mean 1e-6), sigma relative (max 1e-3, mean 1e-5), some 10x
-# above a 6-layer random walk of 2^-24 steps at these widths.
+# above a 6-layer random walk of 2^-24 steps at these widths. The 3xTF32
+# kernel is held to the same bounds: each of its products is within about
+# 2^-21 of f32's.
 TOL_K2_F32 = dict(rgb=(1e-4, 1e-6), sigma=(1e-3, 1e-5))
 # K3 (bounds: max, mean): the same f32 -> f64 experiment on its plain chain
 # at its 262,144-row tile, printed beside its errors, moved rgb by 8.3e-4 at
@@ -3318,10 +3325,14 @@ def main():
             2.0 * K1_ROWS * macs2,
             K1_ROWS * (75 * 2 + 16 * 2 + 4 * 4)
             + 2 * sum(w.numel() for w in sn + cn))
-        k2_bound32, k2_by32 = bound_ms(
-            2.0 * K1_ROWS * macs2,
-            K1_ROWS * (75 * 4 + 16 * 4 + 4 * 4)
-            + 4 * sum(w.numel() for w in sn + cn), PEAK_F32_FLOPS)
+        # f32: the 3xTF32 route's bound (three tf32 products a
+        # multiply-add), and the FFMA bound (67 TFLOP/s f32)
+        k2_bytes32 = K1_ROWS * (75 * 4 + 16 * 4 + 4 * 4) \
+            + 4 * sum(w.numel() for w in sn + cn)
+        k2_bound32, k2_by32 = bound_ms(3 * 2.0 * K1_ROWS * macs2, k2_bytes32,
+                                       PEAK_TF32_FLOPS)
+        k2_bound32_ffma = bound_ms(2.0 * K1_ROWS * macs2, k2_bytes32,
+                                   PEAK_F32_FLOPS)[0]
         with torch.inference_mode():
             k2_ms = cuda_ms(torch, k2, 50)
             k2_plain_ms = cuda_ms(torch, k2_plain, 10)
@@ -3339,7 +3350,10 @@ def main():
               f"kernel_ms {k2_ms32:.4f}, plain_ms {k2_plain_ms32:.4f}, "
               f"library_ms {k2_lib_ms32:.4f} (f32 torch.matmul, TF32 "
               f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
-              f"{k2_bound32:.4f} ({k2_by32}, 67 TFLOP/s f32); {smi}")
+              f"{k2_bound32:.4f} ({k2_by32}, three TF32 products at 495 "
+              f"TFLOP/s; {100 * k2_bound32 / k2_ms32:.0f}%), FFMA bound "
+              f"{k2_bound32_ffma:.4f} (67 TFLOP/s f32; "
+              f"{100 * k2_bound32_ffma / k2_ms32:.0f}%); {smi}")
         del enc, enc_bf, sh32, g_k2, g_plain, sn32, cn32, got_l
 
     views = spheres_views(dev)
@@ -4730,7 +4744,9 @@ def main():
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
          "ms_f32": k2_ms32, "plain_ms_f32": k2_plain_ms32,
-         "bound_ms_f32": k2_bound32, "library_ms_f32": k2_lib_ms32},
+         "bound_ms_f32": k2_bound32, "bound_by_f32": k2_by32,
+         "bound_ms_f32_ffma": k2_bound32_ffma,
+         "library_ms_f32": k2_lib_ms32},
         {"name": "fused_sigma_color", "route": "cuda",
          "source": "nerfsafetyvalidation_tpu_torch/csrc/sigma_color.cu",
          "replaces": f"{pallas}:164", "launches": launches["K3"],
@@ -4806,6 +4822,7 @@ def main():
          "max_abs_err": f32["k1"]["max_abs_err"], "ms": f32["k1"]["ms"],
          "plain_ms": f32["k1"]["plain_ms"], "bound_ms": f32["k1"]["bound_ms"],
          "bound_by": f32["k1"]["bound_by"],
+         "bound_ms_ffma": f32["k1"]["bound_ms_ffma"],
          "library_ms": f32["k1"]["library_ms"],
          "shapes": f32["k1"]["shapes"]},
         {"name": "fused_sigma_color_f32", "route": "cuda",
@@ -4845,8 +4862,9 @@ def main():
 # the fused mip-fold teacher trained -------------------------------------
 # Each f32 kernel against its plain version in f32 (TF32 off): JAX's own
 # kernel-vs-XLA tolerance in float32 (tests/test_fused_mlp.py:263-269), on
-# sigma and rgb. The kernels sum in order with FFMA, cuBLAS in its own
-# order: ~1e-6 relative expected.
+# sigma and rgb. K3 f32 sums in order with FFMA, cuBLAS in its own order;
+# K1 f32 takes three tf32 products a multiply-add (each about 2^-21 of
+# it): ~1e-6 relative expected.
 TOL_F32 = dict(rtol=5e-4, atol=1e-5)
 # the fused training runs: TRAIN_CFG's widths with fused=True, on phase
 # 11's 48-view 200x200 set, one epoch each (bf16, then f32), the budget
@@ -4908,9 +4926,9 @@ def f32_phase(torch, teacher, state, views, k1_pts, k3_pts, bf16_psnr, smi):
                 "K3 f32": sigma_color.LAUNCHES_F32,
                 "K5": fold_build.LAUNCHES, "K5 bwd": fold_build.LAUNCHES_BWD}
 
-    def hold(name, got, want):
-        """Kernel (sigma, rgb) against plain at TOL_F32; returns the
-        largest absolute error."""
+    def hold(name, got, want, against="plain"):
+        """Kernel (sigma, rgb) against plain (or `against`) at TOL_F32;
+        returns the largest absolute error."""
         n = want[0].shape[0]
         check(got[0].shape == (n,) and got[1].shape == (n, 3)
               and bool(torch.isfinite(got[0]).all()
@@ -4922,12 +4940,12 @@ def f32_phase(torch, teacher, state, views, k1_pts, k3_pts, bf16_psnr, smi):
             err = (a - b).abs()
             rel = err / b.abs().clamp(min=1e-30)
             errs.append(float(err.max()))
-            print(f"{name} vs plain on {n} rows: {what} max abs "
+            print(f"{name} vs {against} on {n} rows: {what} max abs "
                   f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}, "
                   f"max rel {float(rel.max()):.3e} (rtol {TOL_F32['rtol']}"
                   f", atol {TOL_F32['atol']})")
             check(torch.allclose(a, b, **TOL_F32),
-                  f"{name} {what} disagrees with the plain version")
+                  f"{name} {what} disagrees with the {against} version")
         return max(errs)
 
     with torch.inference_mode():
@@ -5151,10 +5169,56 @@ def f32_phase(torch, teacher, state, views, k1_pts, k3_pts, bf16_psnr, smi):
                   "K1 f32 did not launch its kernel once")
             err = hold(f"K1 f32 H={hid}", got, plain())
             hold(f"K1 f32 H={hid}, library chain", library(), plain())
+            same = reruns_equal(torch, kern, got)
+            print(f"K1 f32 H={hid}: {same} of {RERUNS} reruns bit-identical "
+                  f"to the first")
+            check(same == RERUNS, f"K1 f32 H={hid} gives other values on a "
+                  "rerun")
+            # its arithmetic in plain PyTorch on the same inputs (3xTF32,
+            # each sum rounded to nearest in f32, as the tensor cores'
+            # sums need not be), and a control: lo @ W_hi left out in every
+            # layer, the fault of a dropped product, which TOL_F32 must see
+            enc = freq_encode(x, 12)
+            emu = points_mlp.fused_sigma_color_deep_tf32_emulated(enc, sh,
+                                                                  sn, cn)
+            hold(f"K1 f32 H={hid}", got, emu, "3xTF32 emulation")
+            hold(f"K1 f32 H={hid}, 3xTF32 emulation", emu, plain())
+            ctl = points_mlp.fused_sigma_color_deep_tf32_emulated(
+                enc, sh, sn, cn, products=2)
+            want = plain()
+            ctl_rel = float(((ctl[0] - want[0]).abs() / want[0]).max())
+            print(f"K1 f32 H={hid}, control (2xTF32: lo @ W_hi left out): "
+                  f"sigma max rel {ctl_rel:.3e} vs plain, rgb max abs "
+                  f"{float((ctl[1] - want[1]).abs().max()):.3e}")
+            check(not (torch.allclose(ctl[0], want[0], **TOL_F32)
+                       and torch.allclose(ctl[1], want[1], **TOL_F32)),
+                  f"TOL_F32 cannot tell a dropped tf32 product at H={hid}")
+            if hid == 160:
+                # K2 f32 (the kernel reading enc) on phase 4's K2 probe's
+                # rows and weights, against its plain version and its
+                # arithmetic
+                got2 = points_mlp.fused_sigma_color_deep(enc, sh, sn, cn,
+                                                         f32)
+                compare(torch, "K2 f32 H=160", got2,
+                        points_mlp.fused_sigma_color_deep_plain(
+                            enc, sh, sn, cn, f32), TOL_K2_F32)
+                print("K2 f32 H=160 against its 3xTF32 emulation:")
+                compare(torch, "K2 f32 H=160", got2, emu, TOL_K2_F32)
+                del got2
+            del enc, emu, ctl, want
             macs = sum(w.shape[0] * w.shape[1] for w in sn + cn)
-            bound, by = bound_ms(
-                2.0 * K1_ROWS * macs, K1_ROWS * (3 * 4 + 16 * 4 + 4 * 4)
-                + 4 * sum(w.numel() for w in sn + cn), PEAK_F32_FLOPS)
+            nbytes = K1_ROWS * (3 * 4 + 16 * 4 + 4 * 4) \
+                + 4 * sum(w.numel() for w in sn + cn)
+            # the route's bound: three tf32 products a multiply-add; and
+            # the FFMA bound (67 TFLOP/s f32) as bound_ms_ffma
+            bound, by = bound_ms(3 * 2.0 * K1_ROWS * macs, nbytes,
+                                 PEAK_TF32_FLOPS)
+            bound_ffma = bound_ms(2.0 * K1_ROWS * macs, nbytes,
+                                  PEAK_F32_FLOPS)[0]
+            # the weight image, streamed from L2 once per 128-row tile, as
+            # the design counts it (modelled, not measured)
+            l2 = points_mlp.f32_stream_bytes(hid, len(sn) - 2,
+                                             len(cn) - 2) * -(-K1_ROWS // 128)
             ms = cuda_ms(torch, kern, 10)
             plain_ms = cuda_ms(torch, plain, 5)
             lib_ms = cuda_ms(torch, library, 5)
@@ -5162,15 +5226,20 @@ def f32_phase(torch, teacher, state, views, k1_pts, k3_pts, bf16_psnr, smi):
                   f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
                   f"{lib_ms:.4f} (f32 torch.matmul, TF32 "
                   f"{torch.backends.cuda.matmul.allow_tf32}), bound_ms "
-                  f"{bound:.4f} ({by}, 67 TFLOP/s f32); {smi}")
+                  f"{bound:.4f} ({by}, three TF32 products at 495 TFLOP/s; "
+                  f"{100 * bound / ms:.0f}%), FFMA bound {bound_ffma:.4f} (67"
+                  f" TFLOP/s f32; {100 * bound_ffma / ms:.0f}%); the weight "
+                  f"stream, modelled: {l2 / 1e9:.3f} GB from L2 a launch, "
+                  f"{l2 / ms / 1e9:.2f} TB/s over kernel_ms; {smi}")
             k1["shapes"].append(dict(hidden=hid, rows=K1_ROWS, ms=ms,
                                      plain_ms=plain_ms, library_ms=lib_ms,
                                      bound_ms=bound, bound_by=by,
+                                     bound_ms_ffma=bound_ffma,
                                      max_abs_err=err))
             del got
     k1.update({k: k1["shapes"][0][k] for k in ("ms", "plain_ms",
                                                "library_ms", "bound_ms",
-                                               "bound_by")})
+                                               "bound_by", "bound_ms_ffma")})
     k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["shapes"])
 
     # ---- the f32 student's frames

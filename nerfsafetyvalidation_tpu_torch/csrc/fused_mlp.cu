@@ -36,7 +36,7 @@
 //     kConsumers consumer warpgroups takes 64 rows of a tile (the wgmma M),
 //     one producer warp issues the copies;
 //   * the wrapper packs every layer, zero-padded to [16k, 16m], into wgmma's
-//     B image (ops/hopper/points_mlp.py wgmma_b), the layers one after
+//     B image (ops/hopper/wgmma_image.py wgmma_b), the layers one after
 //     another in one buffer; each block loads it into shared memory with one
 //     bulk copy at its start (6 KB for the sigma net, 14 KB for the color
 //     net);
@@ -84,7 +84,8 @@
 //     wait. The image's values and the body are the single mode's, so each
 //     group's output is the single mode's on its own weights, bit for bit.
 //
-// The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh).
+// The mbarrier, bulk-copy and wgmma helpers are shared (sm90.cuh), and the
+// f32 kernel's 3xTF32 layers with K1's f32 kernel (sm90.cuh).
 //
 // The same function in float32 (the TPU kernel run on f32 operands, the
 // JAX package's default compute dtype) is a second kernel further down,
@@ -169,7 +170,7 @@ __device__ __forceinline__ void consumers_sync() {
 // shared memory at img: each layer zero-padded to [pad16(D_l),
 // pad16(D_l+1)] and laid out as wgmma's B image (the k-steps of 16, then
 // the column groups of 8, then the two 8-deep halves, then 8 columns x 8
-// depths; points_mlp.py wgmma_b), rounded to bf16, the layers one after
+// depths; wgmma_image.py wgmma_b), rounded to bf16, the layers one after
 // another. A thread takes runs of 4 image elements (one column, 4 depths)
 // in turn, neighbouring threads the two halves of a core-matrix row: in the
 // f32 views of the fits' flat vectors (set_sigma_net_flat: [in, out] as the
@@ -588,12 +589,8 @@ cudaError_t run(const void* x, const Weights& weights, const int* widths,
 // operands, f32 sums, every layer kept in f32, no rounding between layers),
 // on the tensor cores as 3xTF32, and a narrow last layer on the CUDA cores.
 //
-// One TF32 product keeps 10 bits of each operand's mantissa, and the JAX
-// package holds its f32 kernel to rtol 5e-4 of the f32 chain. So every
-// operand is split in two tf32 values, a = a_hi + a_lo with a_hi = tf32(a)
-// and a_lo = tf32(a - a_hi) (cvt.rna), and each product is summed in f32 as
-// a_lo b_hi + a_hi b_lo + a_hi b_hi: about 21 bits of it (the a_lo b_lo term
-// left out is 2^-22 of it, below an f32 sum's own rounding of a few terms).
+// Every product is three tf32 products of split operands summed in f32
+// (sm90.cuh, which this kernel shares with K1's f32 kernel).
 //
 // What bounds it on this card: operations. The hash-grid pair is 9,344
 // multiply-adds a row against 328 bytes (x in and out, f32); three tf32
@@ -646,7 +643,6 @@ cudaError_t run(const void* x, const Weights& weights, const int* widths,
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxStagesF32 = 4;
-constexpr int kFmaOut = 4;
 // consumer warpgroups of a block in the narrow build (the wrapper reads
 // this line: ops/hopper/fused_mlp.py F32_CONSUMERS), and k-steps of one
 // wgmma group there
@@ -761,13 +757,10 @@ __device__ __forceinline__ int64_t first_row(int t, int rows) {
          ((tid & 31) >> 2);
 }
 
-// One layer on 3xTF32 products: acc = v[0 .. KIN k-steps) @ W, the hi image
-// at shared address w and the lo image right after it, N columns; then
-// either relu(acc) as the next layer's v or, for the last layer, acc
-// written to out at columns < d_out of the thread's rows. v[4 s + q] is
-// register q of k-step s's A fragment: rows g, g + 8, g, g + 8 and columns
-// 8 s + 2 t4, 8 s + 2 t4, 8 s + 2 t4 + 1, 8 s + 2 t4 + 1 of the layer's
-// input.
+// One layer on 3xTF32 products (sm90.cuh): acc = v[0 .. KIN k-steps) @ W,
+// the hi image at shared address w and the lo image right after it, N
+// columns; then either relu(acc) as the next layer's v or, for the last
+// layer, acc written to out at columns < d_out of the thread's rows.
 template <int KIN, int N, int KA>
 __device__ __forceinline__ void tf32_layer(float (&v)[4 * KA], uint32_t w,
                                            bool last,
@@ -779,49 +772,10 @@ __device__ __forceinline__ void tf32_layer(float (&v)[4 * KA], uint32_t w,
   // activations and accumulator take twice the registers)
   constexpr int KCAP = KA > 8 ? 2 : kF32KSteps;
   constexpr int KC = KIN < KCAP ? KIN : KCAP;
-  const uint32_t lo_w = w + KIN * slab_bytes(N);
   float acc[N / 2];
-  zero(acc);
-#pragma unroll
-  for (int c0 = 0; c0 < KIN; c0 += KC) {
-    uint32_t hi[KC][4], lo[KC][4];
-#pragma unroll
-    for (int s = 0; s < KC; ++s) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float a = v[4 * (c0 + s) + q];
-        hi[s][q] = tf32_rna(a);
-        lo[s][q] = tf32_rna(a - __uint_as_float(hi[s][q]));
-      }
-    }
-    // this group's images; in the wide build made at the group, so that
-    // the layer's descriptors are not all made ahead and held (ptxas
-    // spilled)
-    uint32_t wc = w + c0 * slab_bytes(N);
-    if constexpr (KA > 8) asm volatile("" : "+r"(wc));
-    const uint32_t lc = wc + (lo_w - w);
-    fence_acc(acc);
-    wg_fence();
-#pragma unroll
-    for (int s = 0; s < KC; ++s) {
-      const uint32_t off = s * slab_bytes(N);
-      wgmma_tf32(acc, lo[s], b_desc(wc + off), c0 + s > 0);
-      wgmma_tf32(acc, hi[s], b_desc(lc + off), 1);
-      wgmma_tf32(acc, hi[s], b_desc(wc + off), 1);
-    }
-    wg_commit();
-    wg_wait<0>();
-    fence_acc(acc);
-  }
+  tf32_products<KIN, N, KC, KA>(v, w, acc);
   if (!last) {
-    // accumulator 4 s + 2 h + c: row g + 8 h, column 8 s + 2 t4 + c
-#pragma unroll
-    for (int s = 0; s < N / 8; ++s) {
-      v[4 * s + 0] = fmaxf(acc[4 * s + 0], 0.0f);
-      v[4 * s + 1] = fmaxf(acc[4 * s + 2], 0.0f);
-      v[4 * s + 2] = fmaxf(acc[4 * s + 1], 0.0f);
-      v[4 * s + 3] = fmaxf(acc[4 * s + 3], 0.0f);
-    }
+    acc_to_v<N, true, KA>(acc, v, 0);
     return;
   }
   const int64_t r0 = first_row(t, rows);
@@ -879,44 +833,16 @@ __device__ __forceinline__ void tf32_layer_nk(float (&v)[4 * KA], int nsteps,
 }
 
 // The last layer on the CUDA cores, at most kFmaOut (4) outputs: out[r, n] =
-// sum_k v[r, k] wf[k, n] in f32, wf [8 KIN, 4] row-major in shared memory.
-// Thread t4 of a quad holds columns 8 s + 2 t4 and 8 s + 2 t4 + 1 of rows
-// g and g + 8 (v's order, see tf32_layer): its partial sums over them, then
-// over the quad (lanes xor 1, 2); thread 0 of the quad writes both rows.
-// The quad's four 16-byte loads of an input step are rows 2 t4 apart: 32
-// bytes, on distinct banks.
+// sum_k v[r, k] wf[k, n] in f32, wf [8 KIN, 4] row-major in shared memory
+// (sm90.cuh fma_quad); thread 0 of the quad writes both rows.
 template <int KIN, int KA>
 __device__ __forceinline__ void fma_last(const float (&v)[4 * KA],
                                          const float* wf,
                                          float* __restrict__ out,
                                          int t, int rows, int64_t n, int d_out,
                                          int t4) {
-  static_assert(KIN <= KA && kFmaOut == 4, "fma_last");
-  float p[2][4] = {};
-#pragma unroll
-  for (int s = 0; s < KIN; ++s) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float4 w4 = *reinterpret_cast<const float4*>(
-          wf + 4 * (8 * s + 2 * t4 + c));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float a = v[4 * s + 2 * c + h];
-        p[h][0] = fmaf(a, w4.x, p[h][0]);
-        p[h][1] = fmaf(a, w4.y, p[h][1]);
-        p[h][2] = fmaf(a, w4.z, p[h][2]);
-        p[h][3] = fmaf(a, w4.w, p[h][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      p[h][n] += __shfl_xor_sync(0xffffffffu, p[h][n], 1);
-      p[h][n] += __shfl_xor_sync(0xffffffffu, p[h][n], 2);
-    }
-  }
+  float p[2][kFmaOut];
+  fma_quad<KIN, KA>(v, wf, t4, p);
   if (t4 != 0) return;
   const int64_t r0 = first_row(t, rows);
 #pragma unroll

@@ -8,9 +8,8 @@
 //      _make_points_kernel): the frequency encoding is built in the kernel;
 //   K2 fused_sigma_color_deep (pallas_call in _forward_deep, body
 //      _make_deep_kernel): the encoding enc [N, D_enc <= 80] is read from
-//      device memory; in bfloat16 it is K1's kernel with the encoding read
-//      in place of built ("encoding-in mode"), in float32 a kernel of its
-//      own (below).
+//      device memory: in either dtype K1's kernel with the encoding read in
+//      place of built ("encoding-in mode").
 // They compute the same function:
 //
 //   enc  = [x, sin(2^k x), cos(2^k x) for k < multires]  f32, rounded to bf16
@@ -75,22 +74,44 @@
 //     warpgroup (the 256-wide layer's alone is 128 registers a thread), and
 //     a 2-block cluster multicast is later work.
 //
-// Design of the f32 kernel (K2 in float32, and K1 in float32, which the JAX
-// package's kernels also compute): plain FFMA on the CUDA cores, no tensor
-// cores (a TF32 product would not be float32). A block of 256 threads takes 128
-// rows, held as one f32 activation tile in shared memory that each layer
-// overwrites in place once its outputs are in registers. Each thread owns an
-// output micro-tile (8 rows x H/16 columns for the H-wide layers, 4 x 8 for the
-// others). The weights, packed by the wrapper as the layers' row-major f32
-// matrices one after another, stream through two shared-memory buffers of 16
-// input rows each (cp.async, the next chunk in flight while this one is used).
-// Each sum runs over the input columns in order. K1 builds the encoding in the
-// tile in place of reading it: x, then sin(2^k x) and cos(2^k x) by the
-// accurate sinf and cosf (the argument reaches 2^11 rad), nothing rounded. The
-// TPU kernel computes the cosine as sin(t + pi / 2) (render_mlp.py
-// _make_points_kernel); in float32 that shift loses up to half an ulp of t
-// (3e-5 at t = 512), so the kernel, like the JAX package's XLA reference and
-// the port's plain version, takes cos(t).
+// Design of the f32 kernel (K1 and K2 in float32, which the JAX package's
+// kernels also compute; points_mlp_tf32_kernel): the bf16 kernel's skeleton
+// (persistent blocks, a producer warpgroup streaming the weights through a
+// ring of bulk copies, two consumer warpgroups of 64 rows, setmaxnreg) on
+// 3xTF32 wgmma products (sm90.cuh: each operand split into tf32 hi and lo,
+// three products a term, f32 sums; one TF32 product would not be float32),
+// bound by the tensor cores' TF32 rate three times over (0.196 ms at
+// 131,072 rows and H = 160):
+//   * the wrapper splits every layer once a set into hi and lo tf32 B
+//     images, each 8-deep k-step's rows in K_ORDER, and cuts it into the
+//     ring's chunks, each chunk its hi image, then its lo image: W1 (80 rows)
+//     in 5 chunks of 2 k-steps, each hidden layer in chunks of 2 k-steps
+//     (4 k-steps of 128 columns at H = 256), W_L whole, C1 and the middle
+//     color layers in chunks of 4 k-steps, C_last as its exact f32 [64, 4];
+//     a stage holds one chunk of an H-wide layer (128 H bytes);
+//   * each consumer warpgroup writes its 64 rows' encoding in f32, zero-padded
+//     to 80 columns, into a shared tile whose 88-float rows put a warp's
+//     8-byte reads on distinct banks, and reads layer 1's input from it in
+//     K_ORDER; the cosine is cos(t), not the TPU kernel's sin(t + pi / 2),
+//     which in float32 loses up to half an ulp of t (3e-5 at t = 512), as the
+//     JAX package's XLA reference and the port's plain version take it;
+//   * the activations stay in registers from layer to layer (H / 2 floats a
+//     thread, and the accumulator as many). At H = 256 input and
+//     accumulator would take every register a thread has, so the hidden
+//     layers run in two parts of 128 columns: the first part's output waits
+//     in the warpgroup's shared scratch (over the encoding tile, each thread
+//     its own column) until the second part's products are done;
+//   * sigma comes from W_L's accumulator, which as it stands is C1's k-steps
+//     2-3 (C1g's zero row takes s0), after sh's two k-steps read from device
+//     memory; C_last (3 columns) runs as FFMA with a quad butterfly;
+//   * the weights cross L2 once per 128 rows: by the design's count 8
+//     bytes a multiply-add, 0.99 MB a tile at H = 160 (1.37 MB at 192, 2.33
+//     MB at 256), 1.0-2.4 GB a 131,072-row launch; those modelled bytes
+//     over the measured time come to 3.7-4.1 TB/s with the kernel at 71-78%
+//     of its tensor-core bound (NVIDIA H100 80GB HBM3, 700 W; no trace of
+//     the L2 traffic was taken). Neither more rows a stage (more
+//     accumulators a warpgroup than its registers hold) nor a 2-block
+//     cluster multicasting each stage is taken.
 //
 // Interface: plain C launchers, bound from Python with ctypes. They launch
 // on the caller's stream, do not synchronise and allocate nothing, and
@@ -160,18 +181,19 @@ struct Pipe {
   uint32_t phase;
 };
 
-// waits for the next chunk; returns its stage's shared address
-template <int H>
+// waits for the next chunk of ring R (Ring<H> or RingF32<H>); returns its
+// stage's shared address
+template <class R>
 __device__ __forceinline__ uint32_t pipe_acquire(Pipe& p) {
   mbar_wait(&p.full[p.stage], p.phase);
-  return p.base + p.stage * Ring<H>::kStage;
+  return p.base + p.stage * R::kStage;
 }
 
 // moves on to the next stage; returns the one left
-template <int H>
+template <class R>
 __device__ __forceinline__ int pipe_advance(Pipe& p) {
   const int s = p.stage;
-  if (++p.stage == Ring<H>::kStages) {
+  if (++p.stage == R::kStages) {
     p.stage = 0;
     p.phase ^= 1;
   }
@@ -194,7 +216,7 @@ __device__ __forceinline__ void hidden_layer(float (&acc)[H / 2],
   fence_acc(acc);
 #pragma unroll
   for (int c = 0; c < H / 16 / kSpc; ++c) {
-    const uint32_t b = pipe_acquire<H>(p);
+    const uint32_t b = pipe_acquire<Ring<H>>(p);
     wg_fence();
 #pragma unroll
     for (int i = 0; i < kSpc; ++i) {
@@ -206,7 +228,7 @@ __device__ __forceinline__ void hidden_layer(float (&acc)[H / 2],
       wg_wait<1>();
       pipe_release(p, prev);
     }
-    prev = pipe_advance<H>(p);
+    prev = pipe_advance<Ring<H>>(p);
   }
   wg_wait<0>();
   fence_acc(acc);
@@ -404,7 +426,7 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
     float acc[H / 2];
     zero(acc);
     {
-      const uint32_t b = pipe_acquire<H>(p);
+      const uint32_t b = pipe_acquire<Ring<H>>(p);
       fence_acc(acc);
       wg_fence();
 #pragma unroll
@@ -414,7 +436,7 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
       wg_commit();
       wg_wait<0>();
       fence_acc(acc);
-      pipe_release(p, pipe_advance<H>(p));
+      pipe_release(p, pipe_advance<Ring<H>>(p));
     }
     uint32_t a[KS][4];
     acc_to_a<KS, true>(acc, a);
@@ -424,7 +446,7 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
     }
 
     // the tail chunk: W_L, then the color net
-    const uint32_t b = pipe_acquire<H>(p);
+    const uint32_t b = pipe_acquire<Ring<H>>(p);
     float s[8];
     zero(s);
     fence_acc(s);
@@ -479,7 +501,7 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
     wg_commit();
     wg_wait<0>();
     fence_acc(o);
-    pipe_release(p, pipe_advance<H>(p));
+    pipe_release(p, pipe_advance<Ring<H>>(p));
 
     // rgb: columns 0, 1 in this lane (c2 == 0), column 2 in the next
     const float blue[2] = {__shfl_down_sync(0xffffffffu, o[0], 1),
@@ -502,237 +524,341 @@ points_mlp_kernel(const float* __restrict__ x, const bf16* __restrict__ enc,
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K2 in float32: FFMA on the CUDA cores
+// K1 and K2 in float32: 3xTF32 wgmma (sm90.cuh) on the bf16 kernel's
+// skeleton
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 128;      // rows per block
-constexpr int kF32Threads = 256;
-constexpr int kF32Pitch = 260;     // activation row: the widest layer + 4
-constexpr int kF32Kc = 16;         // input rows of a weight chunk
-constexpr int kF32Wmax = 256;      // the widest layer
-constexpr int kF32Smem =
-    (kF32Rows * kF32Pitch + 2 * kF32Kc * kF32Wmax) * (int)sizeof(float);
+constexpr int kF32EncPitch = kEncCols + 8;   // f32 encoding tile row, floats
+constexpr int kF32EncTileBytes = kWgRows * kF32EncPitch * 4;
+// a split layer's first part, parked: 64 rows x 128 columns, each thread's
+// values a column of its own (value i at float i * 128)
+constexpr int kF32ParkBytes = kWgRows * 128 * 4;
+// a chunk of a 64-wide color layer: 4 k-steps, hi and lo; C_last's weights
+constexpr int kF32ColorChunk = 4 * 2 * slab_bytes(kColor);
+constexpr int kF32LastBytes = kColor * kFmaOut * 4;
+// setmaxnreg of the f32 kernel, a thread: the producer keeps 24 (its loop
+// of bulk copies fits), so the consumers can take 240, the most that the
+// producer's release covers (setmaxnreg.inc draws only on the registers a
+// block's setmaxnreg.dec gave back; the launch gives every thread
+// kLaunchRegs); at H = 256 a split layer's input and accumulator part take
+// 192 of them, and 232 left ptxas spilling
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kF32ProducerRegs = 24;
+constexpr int kF32ConsumerRegs = 240;
+static_assert(128 * (kLaunchRegs - kF32ProducerRegs) >=
+                  128 * kConsumers * (kF32ConsumerRegs - kLaunchRegs),
+              "the consumers take more registers than the producer gives");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-// The weight stream: the packed f32 layers (row-major [in, out], one after
-// another) cut into chunks of 16 input rows, in order. Chunk g + 1 is
-// copied into one buffer while chunk g is read from the other.
-struct F32Stream {
-  const float* image;
-  float* buf;          // [2][16][kF32Wmax]
-  int hid, n_hidden, n_color_mid;
-  int g;               // the chunk being read
-  int next;            // the next chunk to copy
-  int64_t next_off;    // its offset in the image, in floats
+// The f32 weight ring per hidden width: kParts, the column parts the
+// hidden layers are computed in (their accumulator is H / kParts wide: at
+// H = 256 the layer's input and a whole accumulator would take the 256
+// registers a thread has); kStage, bytes of a stage: one chunk of an H-wide
+// layer, 2 kParts k-steps of H / kParts columns, hi and lo, 128 H bytes
+// (W1 in chunks of 2 k-steps, W_L whole); kStages, as many as fit.
+template <int H> struct RingF32;
+template <> struct RingF32<160> {
+  static constexpr int kParts = 1, kStage = 20480, kStages = 8;
+};
+template <> struct RingF32<192> {
+  static constexpr int kParts = 1, kStage = 24576, kStages = 7;
+};
+template <> struct RingF32<256> {
+  static constexpr int kParts = 2, kStage = 32768, kStages = 5;
 };
 
-// columns of chunk g's layer: W1 (5 chunks), the hidden layers, W_L (each
-// H / 16 chunks), C1 (2), the middle color layers (4 each), C_last (4)
-__device__ __forceinline__ int f32_chunk_cols(const F32Stream& s, int g) {
-  int end = kEncSteps + s.n_hidden * (s.hid / 16);
-  if (g < end) return s.hid;
-  end += s.hid / 16;
-  if (g < end) return 16;
-  end += 2 + 4 * s.n_color_mid;
-  if (g < end) return kColor;
-  return end + 4 > g ? 16 : 0;
-}
-
-// copies the next chunk, if any, and commits a cp.async group either way
-__device__ __forceinline__ void f32_issue(F32Stream& s) {
-  const int cols = f32_chunk_cols(s, s.next);
-  if (cols > 0) {
-    const float* src = s.image + s.next_off;
-    float* dst = s.buf + (s.next & 1) * kF32Kc * kF32Wmax;
-    for (int i = threadIdx.x * 4; i < kF32Kc * cols; i += kF32Threads * 4) {
-      cp_async16(dst + i, src + i);
-    }
-    s.next_off += (int64_t)kF32Kc * cols;
-    ++s.next;
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// acc[i][j] = the sum over k < K, in order, of act[rg + RG i][k] *
-// W[k][cg + CG j]: the thread's output micro-tile (TM rows x TN columns of
-// the CG * TN); threads past RG * CG only keep the block's barriers
-template <int TM, int TN, int RG, int CG>
-__device__ __forceinline__ void f32_layer(const float* act, int K,
-                                          F32Stream& s,
-                                          float (&acc)[TM][TN]) {
-  constexpr int N = CG * TN;
-  const int t = threadIdx.x;
-  const bool on = t < RG * CG;
-  const int rg = t / CG;
-  const int cg = t - rg * CG;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  }
-  for (int kc = 0; kc < K; kc += kF32Kc) {
-    f32_issue(s);                                   // the next chunk
-    asm volatile("cp.async.wait_group 1;" ::: "memory");  // this one, mine
-    __syncthreads();                                // ... and everyone's
-    const float* w = s.buf + (s.g & 1) * kF32Kc * kF32Wmax;
-    if (on) {
-#pragma unroll
-      for (int k4 = 0; k4 < kF32Kc; k4 += 4) {
-        float4 av[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          av[i] = *reinterpret_cast<const float4*>(
-              act + (rg + RG * i) * kF32Pitch + kc + k4);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float wv[TN];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) wv[j] = w[(k4 + kk) * N + cg + CG * j];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            const float v = kk == 0 ? av[i].x
-                            : kk == 1 ? av[i].y
-                            : kk == 2 ? av[i].z : av[i].w;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(v, wv[j], acc[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();                                // done with the buffer
-    ++s.g;
-  }
-}
-
-// relu(acc) over the layer's input, in place (every read of it is done)
-template <int TM, int TN, int RG, int CG>
-__device__ __forceinline__ void f32_store_relu(float* act,
-                                               const float (&acc)[TM][TN]) {
-  const int t = threadIdx.x;
-  if (t < RG * CG) {
-    const int rg = t / CG;
-    const int cg = t - rg * CG;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        act[(rg + RG * i) * kF32Pitch + cg + CG * j] = fmaxf(acc[i][j], 0.0f);
-      }
-    }
-  }
-  __syncthreads();
+// a consumer warpgroup's shared scratch: its encoding tile (or, where the
+// hidden layers are split, the parked part over it), then its positions
+template <int H>
+__host__ __device__ constexpr int f32_scratch_bytes() {
+  return (RingF32<H>::kParts > 1 && kF32ParkBytes > kF32EncTileBytes
+              ? kF32ParkBytes : kF32EncTileBytes) + kXsBytes;
 }
 
 template <int H>
-__global__ void __launch_bounds__(kF32Threads, 1)
-deep_mlp_f32_kernel(const float* __restrict__ enc, const float* __restrict__ x,
-                    const float* __restrict__ sh,
-                    const float* __restrict__ image, float* __restrict__ out,
-                    int64_t n, int enc_dim, int multires, int n_hidden,
-                    int n_color_mid) {
-  extern __shared__ __align__(16) float smem_f32[];
-  float* act = smem_f32;                          // [128][kF32Pitch]
-  F32Stream s{image, smem_f32 + kF32Rows * kF32Pitch, H, n_hidden,
-              n_color_mid, 0, 0, 0};
-  const int tid = threadIdx.x;
-  const int64_t row0 = (int64_t)blockIdx.x * kF32Rows;
+__host__ __device__ constexpr int f32_ring_offset() {
+  return kBarBytes + kConsumers * f32_scratch_bytes<H>();
+}
 
-  f32_issue(s);        // chunk 0 flies while the encoding is loaded
-  if (x == nullptr) {
-    for (int i = tid; i < kF32Rows * kEncCols; i += kF32Threads) {
+template <int H>
+__host__ __device__ constexpr int f32_smem() {
+  return f32_ring_offset<H>() + RingF32<H>::kStages * RingF32<H>::kStage;
+}
+
+// The warpgroup's rows [row0, row0 + 64) of layer 1's input, in f32, into
+// its tile [64][kF32EncPitch]: enc's columns (K2), or the frequency
+// encoding of x (K1) in the column order of ops/freq_encoding.py, x then
+// for each k the sines of 2^k x and their cosines (the accurate sincosf:
+// the argument reaches 2^11 rad); zero past the input and for rows past n.
+__device__ __forceinline__ void fill_encoding_f32(
+    float* tile, float* xs, const float* __restrict__ x,
+    const float* __restrict__ enc, int64_t row0, int64_t n, int multires,
+    int enc_dim, int wg, int wt) {
+  const int rows = (int)max((int64_t)0, min((int64_t)kWgRows, n - row0));
+  if (enc != nullptr) {
+    const float* src = enc + row0 * enc_dim;
+    for (int i = wt; i < kWgRows * kEncCols; i += 128) {
       const int r = i / kEncCols;
       const int c = i - r * kEncCols;
-      act[r * kF32Pitch + c] = (c < enc_dim && row0 + r < n)
-                                   ? enc[(row0 + r) * enc_dim + c] : 0.0f;
+      tile[r * kF32EncPitch + c] =
+          r < rows && c < enc_dim ? __ldg(src + r * enc_dim + c) : 0.0f;
     }
-  } else {
-    // column 3 + 6 k + m: sin(2^k x_m) for m < 3, cos(2^k x_{m-3}) after
-    const int used = 3 + 6 * multires;
-    for (int i = tid; i < kF32Rows * kEncCols; i += kF32Threads) {
-      const int r = i / kEncCols;
-      const int c = i - r * kEncCols;
-      float v = 0.0f;
-      if (c < used && row0 + r < n) {
-        if (c < 3) {
-          v = x[(row0 + r) * 3 + c];
-        } else {
-          const int k = (c - 3) / 6;
-          const int m = c - 3 - 6 * k;
-          const float t = x[(row0 + r) * 3 + (m < 3 ? m : m - 3)]
-                          * (float)(1 << k);
-          v = m < 3 ? sinf(t) : cosf(t);
-        }
-      }
-      act[r * kF32Pitch + c] = v;
-    }
+    return;
   }
+  for (int i = wt; i < kWgRows * 3; i += 128) {
+    xs[i] = i < 3 * rows ? __ldg(x + row0 * 3 + i) : 0.0f;
+  }
+  wg_sync(wg);
+  const int used = 3 + 6 * multires;
+  for (int i = wt; i < kWgRows * 3; i += 128) {
+    const int r = i / 3;
+    tile[r * kF32EncPitch + (i - 3 * r)] = xs[i];
+  }
+#pragma unroll 2
+  for (int i = wt; i < kWgRows * 3 * multires; i += 128) {
+    const int r = i / (3 * multires);
+    const int j = i - r * 3 * multires;
+    const int k = j / 3;
+    const int d = j - 3 * k;
+    float sv, cv;
+    sincosf(xs[3 * r + d] * (float)(1 << k), &sv, &cv);
+    tile[r * kF32EncPitch + 3 + 6 * k + d] = sv;
+    tile[r * kF32EncPitch + 6 + 6 * k + d] = cv;
+  }
+  for (int i = wt; i < kWgRows * (kEncCols - used); i += 128) {
+    const int r = i / (kEncCols - used);
+    tile[r * kF32EncPitch + used + (i - r * (kEncCols - used))] = 0.0f;
+  }
+}
 
-  // sigma net: 8 x H/16 micro-tiles on the H-wide layers
-  {
-    float acc[8][H / 16];
-    f32_layer<8, H / 16, 16, 16>(act, kEncCols, s, acc);
-    f32_store_relu<8, H / 16, 16, 16>(act, acc);
-    for (int l = 0; l < n_hidden; ++l) {
-      f32_layer<8, H / 16, 16, 16>(act, H, s, acc);
-      f32_store_relu<8, H / 16, 16, 16>(act, acc);
+// acc = v[0 .. KIN k-steps) @ W on 3xTF32 products (sm90.cuh), N columns:
+// W's chunks of KCH k-steps (each chunk its hi image, then its lo image)
+// taken from the ring in order, KG k-steps a wgmma group; a stage is
+// released once the products reading it are done
+template <int KIN, int N, int KCH, int KG, class R, int KA>
+__device__ __forceinline__ void ring_products(const float (&v)[4 * KA],
+                                              float (&acc)[N / 2], Pipe& p) {
+  static_assert(KIN <= KA && KIN % KCH == 0 && KCH % KG == 0 &&
+                    2 * KCH * slab_bytes(N) <= R::kStage,
+                "a chunk of the layer");
+  zero(acc);
+#pragma unroll
+  for (int c = 0; c < KIN / KCH; ++c) {
+    const uint32_t b = pipe_acquire<R>(p);
+#pragma unroll
+    for (int k = 0; k < KCH; k += KG) {
+      // made at each group, not all ahead and held
+      uint32_t wh = b + k * slab_bytes(N);
+      asm volatile("" : "+r"(wh));
+      tf32_group<KG, N, KA>(v, c * KCH + k, wh, wh + KCH * slab_bytes(N),
+                            acc);
     }
+    pipe_release(p, pipe_advance<R>(p));
   }
-  float acc[4][8];
-  f32_layer<4, 8, 32, 2>(act, H, s, acc);         // s = h @ W_L, [128, 16]
-  // C1's input [sh | s]: s to columns 16-31 (sigma from its column 0), sh
-  // to columns 0-15
-  if (tid < 64) {
-    const int rg = tid / 2;
-    const int cg = tid - 2 * rg;
+}
+
+// v = relu(v[0 .. KIN k-steps) @ W) for an N-wide layer whose chunks are
+// KCH k-steps of N / P columns, computed in P column parts; every part but
+// the last waits, relu'd, in the thread's own column of its warpgroup's
+// scratch (SCRATCH bytes a warpgroup after the barriers of `smem`) until
+// the last part's products (which read all of v) are done
+template <int KIN, int N, int P, int KCH, class R, int KA, int SCRATCH>
+__device__ __forceinline__ void wide_layer(float (&v)[4 * KA], Pipe& p,
+                                           unsigned char* smem) {
+  constexpr int NP = N / P;
+  // the thread's column, made where it is used (held across the layers, it
+  // took registers the products need)
+  int tid = threadIdx.x;
+  asm volatile("" : "+r"(tid));
+  float* park = reinterpret_cast<float*>(smem + kBarBytes +
+                                         (tid >> 7) * SCRATCH) + (tid & 127);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int part = 0; part < P; ++part) {
+    float acc[NP / 2];
+    ring_products<KIN, NP, KCH, 2, R, KA>(v, acc, p);
+    if (part + 1 < P) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = rg + 32 * i;
-        const int c = cg + 2 * j;
-        act[r * kF32Pitch + kSh + c] = acc[i][j];
-        if (c == 0 && row0 + r < n) {
-          out[(row0 + r) * kOutK2] =
-              expf(fminf(fmaxf(acc[i][j], -15.0f), 15.0f));
-        }
+      for (int i = 0; i < NP / 2; ++i) {
+        park[(part * NP / 2 + i) * 128] = fmaxf(acc[i], 0.0f);
       }
+    } else {
+      acc_to_v<NP, true, KA>(acc, v, part * NP / 8);
     }
   }
-  for (int i = tid; i < kF32Rows * kSh; i += kF32Threads) {
-    const int r = i / kSh;
-    act[r * kF32Pitch + (i - r * kSh)] =
-        row0 + r < n ? sh[row0 * kSh + i] : 0.0f;
+#pragma unroll
+  for (int part = 0; part + 1 < P; ++part) {
+    float acc[NP / 2];
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] = park[(part * NP / 2 + i) * 128];
+    acc_to_v<NP, false, KA>(acc, v, part * NP / 8);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+points_mlp_tf32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ enc,
+                       const float* __restrict__ sh,
+                       const unsigned char* __restrict__ image,
+                       float* __restrict__ out, int64_t n, int multires,
+                       int enc_dim, int n_hidden, int n_color_mid) {
+  using R = RingF32<H>;
+  constexpr int KA = H / 8;
+  constexpr int P = R::kParts;
+  constexpr int kScratch = f32_scratch_bytes<H>();
+  constexpr int kRing = f32_ring_offset<H>();
+  static_assert(2 * R::kStages * 8 <= kBarBytes, "barriers");
+  static_assert(kRing % 128 == 0, "stage alignment");
+  static_assert(R::kStage == 128 * H && kF32ColorChunk <= R::kStage,
+                "a stage is one chunk of an H-wide layer");
+  static_assert(f32_smem<H>() <= kMaxSmem, "a block's shared memory");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + R::kStages;
+  const uint32_t stages = smem_addr(smem + kRing);
+  const int64_t ntiles = (n + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    // make the initialised barriers visible to the copy engine
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // color net: 4 x 8 micro-tiles
-  {
-    float g[4][8];
-    f32_layer<4, 8, 32, 8>(act, 2 * kSh, s, g);     // [sh | s] @ [C1s; C1g]
-    f32_store_relu<4, 8, 32, 8>(act, g);
-    for (int l = 0; l < n_color_mid; ++l) {
-      f32_layer<4, 8, 32, 8>(act, kColor, s, g);
-      f32_store_relu<4, 8, 32, 8>(act, g);
-    }
-  }
-  f32_layer<4, 8, 32, 2>(act, kColor, s, acc);    // C_last, [128, 16]
-  if (tid < 64) {
-    const int rg = tid / 2;
-    const int cg = tid - 2 * rg;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {               // columns cg, cg + 2 < 3
-        const int r = rg + 32 * i;
-        const int c = cg + 2 * j;
-        if (c < 3 && row0 + r < n) {
-          out[(row0 + r) * kOutK2 + 1 + c] = 1.0f / (1.0f + expf(-acc[i][j]));
+  if (warp >= 4 * kConsumers) {
+    // producer: every tile's chunks in order (ring_products' and the
+    // consumers' order below), the k-th use of a stage after its (k-1)-th
+    // use was released by both consumer warpgroups
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kF32ProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      int64_t off = 0;
+      auto put = [&](int bytes) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], (uint32_t)bytes);
+        bulk_copy_g2s(stages + stage * R::kStage, image + off,
+                      (uint32_t)bytes, &full[stage]);
+        off += bytes;
+        if (++stage == R::kStages) {
+          stage = 0;
+          phase ^= 1;
         }
+      };
+      for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        off = 0;
+        for (int c = 0; c < kEncCols / 16; ++c) put(R::kStage);     // W1
+        for (int l = 0; l < n_hidden; ++l) {
+          for (int c = 0; c < H / 16; ++c) put(R::kStage);
+        }
+        put(R::kStage);                                            // W_L
+        put(kF32ColorChunk);                                       // C1
+        for (int l = 0; l < 2 * n_color_mid; ++l) put(kF32ColorChunk);
+        put(kF32LastBytes);                                        // C_last
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile; a
+  // thread holds rows wr and wr + 8 of them, its activations in v's order
+  // (sm90.cuh)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kF32ConsumerRegs));
+  const int wg = warp >> 2;
+  const int wt = threadIdx.x & 127;
+  const int t4 = lane & 3;
+  const int wr = (warp & 3) * 16 + (lane >> 2);
+  unsigned char* scratch = smem + kBarBytes + wg * kScratch;
+  Pipe p{full, empty, stages, 0, 0u};
+
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    // layer 1's input from the warpgroup's encoding tile (the barriers:
+    // every warp has read the last tile's, and its parked parts, before it
+    // is overwritten, and has written this one before it is read)
+    const float* tile = reinterpret_cast<const float*>(scratch);
+    wg_sync(wg);
+    fill_encoding_f32(reinterpret_cast<float*>(scratch),
+                      reinterpret_cast<float*>(scratch + kScratch - kXsBytes),
+                      x, enc, t * kTileRows + wg * kWgRows, n, multires,
+                      enc_dim, wg, wt);
+    wg_sync(wg);
+    float v[4 * KA];
+#pragma unroll
+    for (int s = 0; s < kEncCols / 8; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 q = *reinterpret_cast<const float2*>(
+            tile + (wr + 8 * h) * kF32EncPitch + 8 * s + 2 * t4);
+        v[4 * s + h] = q.x;
+        v[4 * s + 2 + h] = q.y;
+      }
+    }
+
+    // sigma net
+    wide_layer<kEncCols / 8, H, 1, 2, R, KA, kScratch>(v, p, smem);
+    for (int l = 0; l < n_hidden; ++l) {
+      wide_layer<KA, H, P, 2 * P, R, KA, kScratch>(v, p, smem);
+    }
+    // the thread's rows, made here (held across the layers, they took
+    // registers the products need)
+    const int64_t row0 = t * kTileRows + wg * kWgRows;
+    const int64_t row[2] = {row0 + wr, row0 + wr + 8};
+    const bool ok[2] = {row[0] < n, row[1] < n};
+    // C1's first two k-steps, sh, in flight during W_L's products
+    float shv[8];
+#pragma unroll
+    for (int s = 0; s < kSh / 8; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 q = make_float2(0.0f, 0.0f);
+        if (ok[h]) {
+          q = __ldg(reinterpret_cast<const float2*>(sh + row[h] * kSh) +
+                    4 * s + t4);
+        }
+        shv[4 * s + h] = q.x;
+        shv[4 * s + 2 + h] = q.y;
+      }
+    }
+    float sacc[8];
+    ring_products<KA, 16, KA, 4, R, KA>(v, sacc, p);
+    // column 0 (lanes with t4 == 0: sacc[0] row wr, sacc[2] row wr + 8)
+    const float sigma[2] = {expf(fminf(fmaxf(sacc[0], -15.0f), 15.0f)),
+                            expf(fminf(fmaxf(sacc[2], -15.0f), 15.0f))};
+
+    // color net: C1's input [sh | s], s whole (C1g's row 0 is zero)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = shv[i];
+    acc_to_v<16, false, KA>(sacc, v, kSh / 8);
+    float gacc[kColor / 2];
+    ring_products<4, kColor, 4, 4, R, KA>(v, gacc, p);
+    acc_to_v<kColor, true, KA>(gacc, v, 0);
+    for (int l = 0; l < n_color_mid; ++l) {
+      ring_products<kColor / 8, kColor, 4, 4, R, KA>(v, gacc, p);
+      acc_to_v<kColor, true, KA>(gacc, v, 0);
+    }
+    // C_last on the CUDA cores, from its stage: every warp's reads fenced
+    // against the stage's next bulk copy and done before the release
+    const int last = p.stage;
+    pipe_acquire<R>(p);
+    float o[2][kFmaOut];
+    fma_quad<kColor / 8, KA>(
+        v, reinterpret_cast<const float*>(smem + kRing + last * R::kStage),
+        t4, o);
+    fence_proxy_async();
+    wg_sync(wg);
+    pipe_release(p, pipe_advance<R>(p));
+
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!ok[h]) continue;
+        *reinterpret_cast<float4*>(out + row[h] * kOutK2) = make_float4(
+            sigma[h], 1.0f / (1.0f + expf(-o[h][0])),
+            1.0f / (1.0f + expf(-o[h][1])), 1.0f / (1.0f + expf(-o[h][2])));
       }
     }
   }
@@ -796,39 +922,47 @@ int run_bf16(const float* x, const bf16* enc, const void* sh,
 }
 
 template <int H>
-cudaError_t launch_f32(const float* enc, const float* x, const float* sh,
-                       const float* image, float* out, int64_t n,
-                       int enc_dim, int multires, int n_hidden,
+cudaError_t launch_f32(const float* x, const float* enc, const float* sh,
+                       const unsigned char* image, float* out, int64_t n,
+                       int multires, int enc_dim, int n_hidden,
                        int n_color_mid, cudaStream_t stream) {
+  constexpr int smem = f32_smem<H>();
   cudaError_t err = cudaFuncSetAttribute(
-      deep_mlp_f32_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kF32Smem);
+      points_mlp_tf32_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (n + kF32Rows - 1) / kF32Rows;
-  deep_mlp_f32_kernel<H><<<(unsigned)blocks, kF32Threads, kF32Smem,
-                           stream>>>(enc, x, sh, image, out, n, enc_dim,
-                                     multires, n_hidden, n_color_mid);
+  int dev = 0;
+  int sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (n + kTileRows - 1) / kTileRows;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  points_mlp_tf32_kernel<H><<<grid, kThreads, smem, stream>>>(
+      x, enc, sh, image, out, n, multires, enc_dim, n_hidden, n_color_mid);
   return cudaGetLastError();
 }
 
 // the f32 kernel for either input, by hidden width
-int run_f32(const float* enc, const float* x, const void* sh,
-            const void* image, void* out, int64_t n, int enc_dim,
-            int multires, int hidden, int n_hidden, int n_color_mid,
+int run_f32(const float* x, const float* enc, const void* sh,
+            const void* image, void* out, int64_t n, int multires,
+            int enc_dim, int hidden, int n_hidden, int n_color_mid,
             void* stream) {
   const float* s = static_cast<const float*>(sh);
-  const float* im = static_cast<const float*>(image);
+  const unsigned char* im = static_cast<const unsigned char*>(image);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hidden) {
     case 160:
-      return (int)launch_f32<160>(enc, x, s, im, o, n, enc_dim, multires,
+      return (int)launch_f32<160>(x, enc, s, im, o, n, multires, enc_dim,
                                   n_hidden, n_color_mid, st);
     case 192:
-      return (int)launch_f32<192>(enc, x, s, im, o, n, enc_dim, multires,
+      return (int)launch_f32<192>(x, enc, s, im, o, n, multires, enc_dim,
                                   n_hidden, n_color_mid, st);
     case 256:
-      return (int)launch_f32<256>(enc, x, s, im, o, n, enc_dim, multires,
+      return (int)launch_f32<256>(x, enc, s, im, o, n, multires, enc_dim,
                                   n_hidden, n_color_mid, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -846,7 +980,8 @@ bool bad_counts(int64_t n, int n_hidden, int n_color_mid, int rows) {
 // ops/hopper/points_mlp.py): W1 [80, H] (rows past the encoding zero), the
 // n_hidden [H, H], W_L [H, 16], C1 = [C1s; C1g] [32, 64] (C1g's row 0
 // zero), the n_color_mid [64, 64] and C_last [64, 16] (columns past 3 zero),
-// one after another; bf16 in wgmma's B layout, f32 row-major.
+// one after another; bf16 in wgmma's B layout; f32 as the tf32 images'
+// chunks (see the f32 kernel's design above) and C_last [64, 4] f32.
 
 // K1. x [n,3] f32; sh [n,16] bf16; the bf16 image; out [n,8] f32. H is
 // 160, 192 or 256 (the repo's students h160x6, h192x6 and the 256 x 6
@@ -880,18 +1015,19 @@ extern "C" int deep_mlp_forward(const void* enc, const void* sh,
 }
 
 // K2 in f32. enc [n, enc_dim <= 80] f32; sh [n,16] f32; the f32 image;
-// out [n,4] f32. hidden: 160, 192 or 256.
+// out [n,4] f32. hidden: 160, 192 or 256. K1's f32 kernel with the
+// encoding read in place of built.
 extern "C" int deep_mlp_forward_f32(const void* enc, const void* sh,
                                     const void* image, void* out, int64_t n,
                                     int enc_dim, int hidden, int n_hidden,
                                     int n_color_mid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (enc_dim <= 0 || enc_dim > kEncCols ||
-      bad_counts(n, n_hidden, n_color_mid, kF32Rows)) {
+      bad_counts(n, n_hidden, n_color_mid, kTileRows)) {
     return (int)cudaErrorInvalidValue;
   }
-  return run_f32(static_cast<const float*>(enc), nullptr, sh, image, out, n,
-                 enc_dim, 0, hidden, n_hidden, n_color_mid, stream);
+  return run_f32(nullptr, static_cast<const float*>(enc), sh, image, out, n,
+                 0, enc_dim, hidden, n_hidden, n_color_mid, stream);
 }
 
 // K1 in f32. x [n,3] f32; sh [n,16] f32; the f32 image; out [n,4] f32.
@@ -903,10 +1039,9 @@ extern "C" int points_mlp_forward_f32(const void* x, const void* sh,
                                       void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (multires < 0 || 3 + 6 * multires > kEncCols ||
-      bad_counts(n, n_hidden, n_color_mid, kF32Rows)) {
+      bad_counts(n, n_hidden, n_color_mid, kTileRows)) {
     return (int)cudaErrorInvalidValue;
   }
-  return run_f32(nullptr, static_cast<const float*>(x), sh, image, out, n,
-                 3 + 6 * multires, multires, hidden, n_hidden, n_color_mid,
-                 stream);
+  return run_f32(static_cast<const float*>(x), nullptr, sh, image, out, n,
+                 multires, 0, hidden, n_hidden, n_color_mid, stream);
 }

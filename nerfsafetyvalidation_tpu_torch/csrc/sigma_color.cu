@@ -36,7 +36,7 @@
 //     (the launcher sizes the grid by the occupancy the card reports): four
 //     consumer warpgroups an SM, whose chains of dependent products overlap;
 //   * the wrapper packs the six matrices once into wgmma's B images (ops/
-//     hopper/points_mlp.py wgmma_b; C3 padded to 16 columns), one buffer of
+//     hopper/wgmma_image.py wgmma_b; C3 padded to 16 columns), one buffer of
 //     20,480 bytes, which each block loads into shared memory with one bulk
 //     copy at its start: nothing streams the weights after that;
 //   * each tile's enc rows (64 B each) and sh rows (32 B each) are two

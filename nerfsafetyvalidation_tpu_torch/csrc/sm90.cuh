@@ -6,12 +6,14 @@
 //   * wgmma m64nNk16, bf16 in, f32 accumulator, A from registers, B from
 //     shared memory through a descriptor: one overload per N (the
 //     accumulator's size, N / 2 floats a thread); and m64nNk8 on tf32
-//     operands (wgmma_tf32, N a power of two from 8 to 128);
+//     operands (wgmma_tf32, N 8, 16, 32, 64, 128, 160, 192 or 256);
 //   * the B descriptor of the layout every kernel's wrapper packs
-//     (ops/hopper/points_mlp.py wgmma_b: K-major, no swizzle, 8 x 8 core
+//     (ops/hopper/wgmma_image.py wgmma_b: K-major, no swizzle, 8 x 8 core
 //     matrices of 128 contiguous bytes, the two 8-deep halves of a 16-deep
 //     k-step 128 bytes apart, neighbouring 8-column groups 256 bytes apart);
-//   * an accumulator turned into the next layer's A fragments in registers.
+//   * an accumulator turned into the next layer's A fragments in registers;
+//   * the f32 kernels' 3xTF32 layers (tf32_group, tf32_products, acc_to_v,
+//     fma_quad), shared by K1, K2 and K4 in float32.
 //
 // The build (ops/hopper/_nvcc.py) hashes this header with every source
 // that includes it, so an edit here rebuilds all three libraries.
@@ -430,7 +432,7 @@ __device__ __forceinline__ void wgmma(float (&d)[128], const uint32_t (&a)[4],
 }
 
 // ---------------------------------------------------------------------------
-// wgmma m64nNk8 on tf32 operands (K4 in float32, fused_mlp.cu): D[64 x N]
+// wgmma m64nNk8 on tf32 operands (the f32 kernels, below): D[64 x N]
 // (+)= A[64 x 8] from registers @ B[8 x N] from shared memory, f32
 // accumulator; no transposed operands in this form, so B is K-major like the
 // bf16 images (8 x 4 core matrices of 128 contiguous bytes, the two 4-deep
@@ -547,6 +549,145 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d[80] (+)= A[64 x 8] (registers, tf32) @ B[8 x 160] (descriptor, tf32)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[80],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[96] (+)= A[64 x 8] (registers, tf32) @ B[8 x 192] (descriptor, tf32)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[128] (+)= A[64 x 8] (registers, tf32) @ B[8 x 256] (descriptor, tf32)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // x rounded to tf32 (nearest, ties away from zero), as the tensor cores
 // read it: the f32 bit pattern with its 13 low bits zero
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -651,6 +792,151 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// float32 MLP layers on the tensor cores as 3xTF32, shared by the f32
+// kernels: K4 (fused_mlp.cu fused_mlp_tf32_kernel) and K1 / K2 (points_mlp.cu
+// points_mlp_tf32_kernel).
+//
+// One TF32 product keeps 10 bits of each operand's mantissa, and the JAX
+// package holds its f32 kernels to rtol 5e-4 of the f32 chain. So every
+// operand is split in two tf32 values, a = a_hi + a_lo with a_hi = tf32(a)
+// and a_lo = tf32(a - a_hi) (cvt.rna), and each product is summed in f32 as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi: about 21 bits of it (the a_lo b_lo term
+// left out is 2^-22 of it, below an f32 sum's own rounding of a few terms).
+//
+// The weights come split by the wrapper (ops/hopper/wgmma_image.py
+// tf32_split, wgmma_b_tf32): a layer's hi and lo B images, K-major like
+// the bf16 ones (b_desc above), each 8-deep k-step's rows in K_ORDER (0,
+// 2, 4, 6, 1, 3, 5, 7). A thread's activations stay in registers from layer to layer, in
+// f32: v[4 s + q] holds rows g, g + 8, g, g + 8 and columns 8 s + 2 t4,
+// 8 s + 2 t4, 8 s + 2 t4 + 1, 8 s + 2 t4 + 1 of the layer's input (g the
+// lane / 4, t4 the lane % 4, rows of the warp's 16). With the rows in
+// K_ORDER, A column t4 of a k-step is its column 2 t4 and A column t4 + 4
+// its column 2 t4 + 1, so the accumulator of a layer (register 4 s + 2 h + c:
+// row g + 8 h, column 8 s + 2 t4 + c) is the next layer's A with no shuffle
+// and no trip through shared memory (acc_to_v).
+// ---------------------------------------------------------------------------
+
+
+// a last layer at most this wide runs as f32 FFMA on the CUDA cores
+// (fma_quad), from its exact weights [K, kFmaOut] row-major
+constexpr int kFmaOut = 4;
+
+// acc (+)= the k-steps [c0, c0 + KC) of v @ W in one wgmma group, then
+// waits for it: each k-step's activations split into hi and lo, then
+// lo W_hi, hi W_lo and hi W_hi into one accumulator. W's hi image of these
+// k-steps at shared address wh, its lo image at wl (k-steps slab_bytes(N)
+// apart in both); N columns. The first product overwrites acc when c0 is 0.
+template <int KC, int N, int KA>
+__device__ __forceinline__ void tf32_group(const float (&v)[4 * KA], int c0,
+                                           uint32_t wh, uint32_t wl,
+                                           float (&acc)[N / 2]) {
+  uint32_t hi[KC][4], lo[KC][4];
+#pragma unroll
+  for (int s = 0; s < KC; ++s) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float a = v[4 * (c0 + s) + q];
+      hi[s][q] = tf32_rna(a);
+      lo[s][q] = tf32_rna(a - __uint_as_float(hi[s][q]));
+    }
+  }
+  fence_acc(acc);
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < KC; ++s) {
+    const uint32_t off = s * slab_bytes(N);
+    wgmma_tf32(acc, lo[s], b_desc(wh + off), c0 + s > 0);
+    wgmma_tf32(acc, hi[s], b_desc(wl + off), 1);
+    wgmma_tf32(acc, hi[s], b_desc(wh + off), 1);
+  }
+  wg_commit();
+  wg_wait<0>();
+  fence_acc(acc);
+}
+
+// acc = v[0 .. KIN k-steps) @ W, all of W in shared memory: the hi image at
+// w and the lo image right after it; KC k-steps a wgmma group. Where the
+// activations are wide (KA > 8) each group's address is made at the group,
+// so that the layer's descriptors are not all made ahead and held (ptxas
+// spilled).
+template <int KIN, int N, int KC, int KA>
+__device__ __forceinline__ void tf32_products(const float (&v)[4 * KA],
+                                              uint32_t w,
+                                              float (&acc)[N / 2]) {
+  static_assert(KIN <= KA && KIN % KC == 0, "tf32_products");
+  zero(acc);
+#pragma unroll
+  for (int c0 = 0; c0 < KIN; c0 += KC) {
+    uint32_t wc = w + c0 * slab_bytes(N);
+    if constexpr (KA > 8) asm volatile("" : "+r"(wc));
+    tf32_group<KC, N, KA>(v, c0, wc, wc + KIN * slab_bytes(N), acc);
+  }
+}
+
+// the accumulator of an N-column layer (register 4 s + 2 h + c: row g + 8 h,
+// column 8 s + 2 t4 + c) as k-steps [s0, s0 + N / 8) of the next layer's
+// activations, through the ReLU if RELU
+template <int N, bool RELU, int KA>
+__device__ __forceinline__ void acc_to_v(const float (&acc)[N / 2],
+                                         float (&v)[4 * KA], int s0) {
+  static_assert(N / 8 <= KA, "v holds too few k-steps");
+#pragma unroll
+  for (int s = 0; s < N / 8; ++s) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // register q of v's k-step: row g + 8 (q & 1), column 2 t4 + (q >> 1)
+      const float a = acc[4 * s + 2 * (q & 1) + (q >> 1)];
+      v[4 * (s0 + s) + q] = RELU ? fmaxf(a, 0.0f) : a;
+    }
+  }
+}
+
+// The last layer on the CUDA cores: p[h][j] = sum_k v[row g + 8 h, k]
+// wf[k, j] in f32 for j < kFmaOut, wf [8 KIN, 4] row-major in shared memory
+// (rows in their own order). Each thread sums its 2 KIN columns of its two
+// rows, then a butterfly over the quad (the four threads that hold a row,
+// lanes xor 1, 2) completes the sums in every thread of the quad. The
+// quad's four 16-byte loads of an input step are rows 2 t4 apart: 32 bytes,
+// on distinct banks. (The TPU kernels' narrow last layers, 3 columns, would
+// take 3 K / 8 tensor-core instructions padded to 8 outputs for a few FFMA
+// a thread.)
+template <int KIN, int KA>
+__device__ __forceinline__ void fma_quad(const float (&v)[4 * KA],
+                                         const float* wf, int t4,
+                                         float (&p)[2][kFmaOut]) {
+  static_assert(KIN <= KA && kFmaOut == 4, "fma_quad");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < kFmaOut; ++j) p[h][j] = 0.0f;
+  }
+#pragma unroll
+  for (int s = 0; s < KIN; ++s) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 w4 = *reinterpret_cast<const float4*>(
+          wf + 4 * (8 * s + 2 * t4 + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a = v[4 * s + 2 * c + h];
+        p[h][0] = fmaf(a, w4.x, p[h][0]);
+        p[h][1] = fmaf(a, w4.y, p[h][1]);
+        p[h][2] = fmaf(a, w4.z, p[h][2]);
+        p[h][3] = fmaf(a, w4.w, p[h][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < kFmaOut; ++j) {
+      p[h][j] += __shfl_xor_sync(0xffffffffu, p[h][j], 1);
+      p[h][j] += __shfl_xor_sync(0xffffffffu, p[h][j], 2);
+    }
+  }
 }
 
 }  // namespace

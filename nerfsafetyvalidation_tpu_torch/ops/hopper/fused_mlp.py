@@ -15,7 +15,7 @@ The kernel is built at first use with `nvcc` into `_build/` beside the
 package and bound with ctypes. Its weights are one operand: every layer,
 zero-padded to [16k, 16m], packed once per set of weights into the
 shared-memory image that `wgmma` reads as its B operand
-(`points_mlp.wgmma_b`), the layers one after another; each block of the
+(`wgmma_image.wgmma_b`), the layers one after another; each block of the
 kernel loads it whole, and the rows of x stream through a ring of bulk
 copies (csrc/fused_mlp.cu, `_plan`).
 
@@ -67,7 +67,8 @@ from pathlib import Path
 import torch
 
 from ._nvcc import WeightCache, compile_source
-from .points_mlp import _dot, wgmma_b
+from .wgmma_image import (K_ORDER, dot, tf32_chunks, tf32_dot, tf32_round,
+                          tf32_split, wgmma_b, wgmma_b_tf32)
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_mlp.cu"
 
@@ -87,10 +88,6 @@ MAX_STAGES_F32 = 4    # the f32 kernel's ring
 FMA_OUT = 4
 F32_CONSUMERS = int(re.search(r"constexpr int kF32Consumers = (\d+);",
                               SOURCE.read_text()).group(1))
-# the order of an 8-deep k-step's rows in the f32 images: A column t4 of
-# thread t4's tf32 fragment is column 2 t4 of its accumulator, A column
-# t4 + 4 column 2 t4 + 1 (csrc/fused_mlp.cu, tf32_layer)
-K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 # launches of the CUDA kernels since the last reset (never the plain
 # path): the bf16 kernel, the f32 one, and the grouped mode; and the calls
@@ -151,7 +148,7 @@ def fused_mlp_reference(x, weights, compute_dtype=torch.bfloat16):
     between layers, the last layer kept in f32 (the kernel rounds it)."""
     h = x
     for i, w in enumerate(weights):
-        h = _dot(h, w, compute_dtype)
+        h = dot(h, w, compute_dtype)
         if i != len(weights) - 1:
             h = torch.relu(h)
     return h
@@ -284,33 +281,6 @@ def _plan_f32(widths):
                 stage=stage, stages=stages, total=total)
 
 
-def tf32_round(x):
-    """x (f32) rounded to tf32 as `cvt.rna.tf32.f32` rounds it: to the
-    nearest value with 10 mantissa bits, ties away from zero; the f32 bit
-    pattern with its 13 low bits zero. Finite inputs."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_split(x):
-    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), so that hi + lo keeps
-    about 21 bits of x's 24."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x.float() - hi)
-
-
-def wgmma_b_tf32(w):
-    """w [K, N] f32 (K and N multiples of 8) as the f32 kernel's B image,
-    flat: for each 8-deep k-step, its rows taken in K_ORDER, the column
-    groups of 8 (256 bytes apart), each two 8 x 4 core matrices (depths 0-3
-    and 4-7, 128 bytes apart) of 8 columns x 4 depths, column n of the group
-    at 16 n bytes and depth k at 4 k bytes."""
-    k, n = w.shape
-    w = w.reshape(k // 8, 8, n)[:, list(K_ORDER)]
-    return w.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 1, 4, 2) \
-        .reshape(-1)
-
-
 def fused_mlp_tf32_emulated(x, weights, products=3):
     """The f32 kernel's arithmetic in plain PyTorch: each tensor-core
     layer's operands split into tf32 values (`tf32_split`) and summed in f32
@@ -322,8 +292,7 @@ def fused_mlp_tf32_emulated(x, weights, products=3):
     for i, w in enumerate(weights):
         if i == len(weights) - 1 and w.shape[1] <= FMA_OUT:
             return h @ w.float()
-        (ah, al), (wh, wl) = tf32_split(h), tf32_split(w)
-        h = ah @ wh if products == 1 else al @ wh + ah @ wl + ah @ wh
+        h = tf32_dot(h, w, products)
         if i != len(weights) - 1:
             h = torch.relu(h)
     return h
@@ -392,7 +361,7 @@ def _pack_f32(weights):
         if kind == "fma":
             parts.append(p.reshape(-1))
         else:
-            parts.extend(wgmma_b_tf32(half) for half in tf32_split(p))
+            parts.extend(tf32_chunks(p))
     return widths, torch.cat(parts).contiguous()
 
 

@@ -7,9 +7,11 @@ counterparts of the JAX package's Pallas kernels of the same names
 launches its hand-written kernel in `csrc/points_mlp.cu` or raises; on a
 CPU tensor each runs its plain PyTorch version
 (`fused_points_sigma_color_plain`, `fused_sigma_color_deep_plain`), which
-the tests compare with JAX. K2 in bfloat16 is K1's kernel reading the
-encoding in place of building it; in float32 both run a kernel of their
-own, K1's building the encoding in place of reading it.
+the tests compare with JAX. K2 is K1's kernel reading the encoding in
+place of building it, in either dtype. In float32 the kernel runs on the
+tensor cores as 3xTF32 (csrc/sm90.cuh: each operand split into tf32 hi and
+lo, three products a term, f32 sums), as K4's f32 kernel does;
+`fused_sigma_color_deep_tf32_emulated` is its arithmetic in plain PyTorch.
 
 Both are differentiable, as the JAX functions are: on the card through
 `_Chain`, an autograd Function whose forward launches the kernel and whose
@@ -22,7 +24,9 @@ package (one shared library per source hash) and bound with ctypes. Their
 weights come as one packed image per set of weights and dtype
 (`_prepare`): in bfloat16 the shared-memory image that `wgmma` reads as
 its B operand, which the kernel streams through a ring of stages with bulk
-copies; in float32 the row-major layers one after another.
+copies; in float32 the layers as hi and lo tf32 B images, each k-step's
+rows in K_ORDER, cut into the f32 ring's chunks (`tf32_layers`,
+`pack_image_tf32`), and C_last as its exact f32 weights.
 """
 
 import ctypes
@@ -33,6 +37,8 @@ import torch
 
 from ..freq_encoding import freq_encode
 from ._nvcc import NVCC_FLAGS, WeightCache, compile_source
+from .fused_mlp import FMA_OUT
+from .wgmma_image import dot, tf32_chunks, tf32_dot, wgmma_b
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "points_mlp.cu"
 
@@ -51,10 +57,14 @@ B_LBO, B_SBO = 128, 256
 RING = {160: (5, 32768, 6), 192: (6, 36864, 5), 256: (4, 40960, 5)}
 RING_BARRIER_BYTES = 128
 RING_OFFSET = RING_BARRIER_BYTES + 2 * (64 * (ENC_COLS + 8) * 2 + 64 * 3 * 4)
+# the f32 kernel's weight ring per hidden width (csrc/points_mlp.cu
+# RingF32<H>): column parts of a hidden layer, bytes of a stage (one chunk
+# of an H-wide layer: 128 H), stages
+RING_F32 = {160: (1, 20480, 8), 192: (1, 24576, 7), 256: (2, 32768, 5)}
 # what each dtype's image holds (the weight cache's tag: one set of weights
 # packed two ways must never be taken for the other)
 LAYOUT = {torch.bfloat16: "wgmma-B-kmajor-noswizzle",
-          torch.float32: "rowmajor-f32"}
+          torch.float32: "tf32-hi-lo-korder-chunks"}
 
 # launches of each CUDA kernel since the last reset (never the plain path):
 # K1's in bf16 by the sigma net's hidden width (their sum is K1's count),
@@ -95,11 +105,6 @@ def _library():
     return _lib
 
 
-def _dot(h, w, dtype):
-    """bf16 (or f32) operands, f32 sum: JAX's preferred_element_type=f32."""
-    return torch.matmul(h.to(dtype).float(), w.to(dtype).float())
-
-
 def fused_sigma_color_deep_plain(enc, sh, sigma_net, color_net,
                                  compute_dtype=torch.bfloat16):
     """K2's function in plain PyTorch: the JAX package's `_xla_ref_deep`
@@ -110,16 +115,41 @@ def fused_sigma_color_deep_plain(enc, sh, sigma_net, color_net,
     h = enc
     n_sig = len(sigma_net)
     for i, w in enumerate(sigma_net):
-        h = _dot(h, w, compute_dtype)
+        h = dot(h, w, compute_dtype)
         if i != n_sig - 1:
             h = torch.relu(h)
     sigma = torch.exp(torch.clamp(h[..., 0], -15.0, 15.0))
     g = torch.cat([sh.to(compute_dtype), h[..., 1:].to(compute_dtype)], -1)
     for i, w in enumerate(color_net):
-        g = _dot(g, w, compute_dtype)
+        g = dot(g, w, compute_dtype)
         if i != len(color_net) - 1:
             g = torch.relu(g)
     return sigma, torch.sigmoid(g[..., :3])
+
+
+def fused_sigma_color_deep_tf32_emulated(enc, sh, sigma_net, color_net,
+                                         products=3):
+    """The float32 kernel's arithmetic in plain PyTorch: every layer but
+    C_last as three tf32 products a term summed in f32
+    (`wgmma_image.tf32_dot`; `products` 2 or 1 leave products out, which
+    the kernel does not), C_last (3 columns, the kernel's FFMA) in f32;
+    C1's input [sh | s] with C1g's zero row taking s0, as the kernel does.
+    Returns (sigma [N], rgb [N, 3])."""
+    h = enc.float()
+    for i, w in enumerate(sigma_net):
+        h = tf32_dot(h, w.float(), products)
+        if i != len(sigma_net) - 1:
+            h = torch.relu(h)
+    sigma = torch.exp(torch.clamp(h[..., 0], -15.0, 15.0))
+    c1 = color_net[0].float()
+    c1 = torch.cat([c1[:SH], torch.zeros_like(c1[:1]), c1[SH:]])
+    g = torch.cat([sh.float(), h], -1)
+    for i, w in enumerate([c1] + list(color_net[1:])):
+        g = tf32_dot(g, w.float(), products) if i != len(color_net) - 1 \
+            else g @ w.float()
+        if i != len(color_net) - 1:
+            g = torch.relu(g)
+    return sigma, torch.sigmoid(g)
 
 
 def fused_points_sigma_color_plain(x, sh, sigma_net, color_net, multires,
@@ -160,22 +190,50 @@ def image_layers(m):
             + list(m["cmid"][:m["n_color_mid"]]) + [m["clast"]])
 
 
-def wgmma_b(w):
-    """w [K, N] (K a multiple of 16, N of 8) as wgmma's B operand image,
-    flat: for each 16-deep k-step, the column groups of 8 (B_SBO bytes
-    apart), each two 8 x 8 core matrices (depths 0-7 and 8-15, B_LBO bytes
-    apart) of 8 columns x 8 depths, column n of the group at 16 n bytes and
-    depth k at 2 k bytes."""
-    k, n = w.shape
-    return w.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2) \
-        .reshape(-1)
-
-
 def pack_image(m, dtype):
-    """The kernel's one weight operand: the layers of `image_layers`, one
-    after another, in wgmma's B layout (bf16) or row-major (float32)."""
-    pack = wgmma_b if dtype == torch.bfloat16 else (lambda w: w.reshape(-1))
-    return torch.cat([pack(w) for w in image_layers(m)]).contiguous()
+    """The kernel's one weight operand: in bf16 the layers of
+    `image_layers`, one after another, in wgmma's B layout; in float32
+    `pack_image_tf32`."""
+    if dtype == torch.float32:
+        return pack_image_tf32(m)
+    return torch.cat([wgmma_b(w) for w in image_layers(m)]).contiguous()
+
+
+def tf32_layers(m):
+    """The f32 image's layers in the order the kernel streams them, each
+    (weights [in, out], column parts, k-steps a chunk): W1 in chunks of 2
+    k-steps; each hidden layer in RING_F32's parts, chunks of 2 k-steps a
+    part; W_L whole; C1 and the middle color layers in chunks of 4
+    k-steps; and last C_last's first FMA_OUT columns (f32, the FFMA
+    layer), with parts and k-steps None. Every chunk of an H-wide layer is
+    one stage of the ring, 128 H bytes."""
+    layers = image_layers(m)
+    hid, n_hidden = m["hidden"], m["n_hidden"]
+    parts = RING_F32[hid][0]
+    plan = ([(1, 2)] + [(parts, 2 * parts)] * n_hidden + [(1, hid // 8)]
+            + [(1, 4)] * (1 + m["n_color_mid"]))
+    return [(w, p, k) for w, (p, k) in zip(layers[:-1], plan)] + [
+        (layers[-1][:, :FMA_OUT], None, None)]
+
+
+def pack_image_tf32(m):
+    """The f32 kernel's one weight operand: every layer of `tf32_layers`
+    but the last as `wgmma_image.tf32_chunks` (each chunk its hi, then its lo
+    tf32 B image, each k-step's rows in K_ORDER), C_last's f32 weights
+    row-major, one after another."""
+    parts = []
+    for w, p, k in tf32_layers(m):
+        parts += [w.reshape(-1)] if p is None else tf32_chunks(w, k, p)
+    return torch.cat(parts).contiguous()
+
+
+def f32_stream_bytes(hidden, n_hidden, n_color_mid):
+    """Bytes of the f32 image, which every 128-row tile of the f32 kernel
+    streams from L2: 8 a multiply-add of the padded layers, and C_last's
+    [64, FMA_OUT] f32."""
+    macs = ENC_COLS * hidden + n_hidden * hidden * hidden + hidden * GEO \
+        + (SH + GEO) * COLOR + n_color_mid * COLOR * COLOR
+    return 8 * macs + 4 * COLOR * FMA_OUT
 
 
 def _pad(sigma_net, color_net, dtype=torch.bfloat16):

@@ -19,7 +19,7 @@ package and bound with ctypes. Their weights are one operand, `image`,
 packed once per set of weights and dtype (and again after an in-place
 update, which the weight cache's key sees): in bfloat16 the six matrices of
 `_prep_mats` (the last one padded to 16 columns) as the shared-memory image
-that `wgmma` reads as its B operand (`points_mlp.wgmma_b`), which each
+that `wgmma` reads as its B operand (`wgmma_image.wgmma_b`), which each
 block of the kernel loads whole, the rows streaming through a ring of bulk
 copies; in float32 the five layers row-major (`pack_image_f32`), which each
 block of the FFMA kernel loads into shared memory once.
@@ -32,7 +32,8 @@ from pathlib import Path
 import torch
 
 from ._nvcc import WeightCache, compile_source
-from .points_mlp import _Chain, _dot, wgmma_b
+from .points_mlp import _Chain
+from .wgmma_image import dot, wgmma_b
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sigma_color.cu"
 
@@ -109,13 +110,13 @@ def fused_sigma_color_plain(enc, sh, sigma_net, color_net,
 def _chain(dt, enc, sh, w1, w2, c1, c2, c3):
     """`fused_sigma_color_plain`'s arithmetic, uncounted (the backward's
     recompute)."""
-    h = torch.relu(_dot(enc, w1, dt))
-    s = _dot(h, w2, dt)
+    h = torch.relu(dot(enc, w1, dt))
+    s = dot(h, w2, dt)
     sigma = torch.exp(torch.clamp(s[..., 0], -15.0, 15.0))
     hin = torch.cat([sh.to(dt), s[..., 1:].to(dt)], dim=-1)
-    g = torch.relu(_dot(hin, c1, dt))
-    g = torch.relu(_dot(g, c2, dt))
-    return sigma, torch.sigmoid(_dot(g, c3, dt))
+    g = torch.relu(dot(hin, c1, dt))
+    g = torch.relu(dot(g, c2, dt))
+    return sigma, torch.sigmoid(dot(g, c3, dt))
 
 
 def _prep_mats(sigma_net, color_net, sh_dim, dtype):
@@ -156,7 +157,7 @@ def launch_plan():
 
 def pack_image(mats):
     """The six matrices of `_prep_mats`, C3 padded to IMAGE_LAST columns,
-    each as wgmma's B image (`points_mlp.wgmma_b`), one after another."""
+    each as wgmma's B image (`wgmma_image.wgmma_b`), one after another."""
     *head, c3 = mats
     c3p = torch.zeros((c3.shape[0], IMAGE_LAST), dtype=c3.dtype,
                       device=c3.device)

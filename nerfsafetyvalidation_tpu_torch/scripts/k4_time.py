@@ -1,5 +1,6 @@
-"""K4's kernels timed on one CUDA card at chip_smoke.py's shapes, for the
-port at a given root, so that two commits can be timed in one call.
+"""K4's kernels, and K1's and K3's float32 kernels, timed on one CUDA card
+at chip_smoke.py's shapes, for the port at a given root, so that two
+commits can be timed in one call.
 
     python3 nerfsafetyvalidation_tpu_torch/scripts/k4_time.py [--root DIR]
 
@@ -9,7 +10,11 @@ the card kept busy while the calls are queued):
     and color net [31, 64, 64, 3] at the smoke's tile of 2,097,152 rows
     (4,096 rays x 512 samples), as phases 10 and 10c time them;
   * the grouped mode at chip_smoke.K4G_SHAPES[0] (16 x 256 rows of the FF
-    sigma net), its weights strided views of flat vectors, as phase 25.
+    sigma net), its weights strided views of flat vectors, as phase 25;
+  * K1 in float32 at 131,072 rows (chip_smoke.K1_ROWS) for the
+    students' widths H = 160, 192 and 256, 6 sigma layers and 3 color
+    layers as the committed students have, and K3 in float32 at the guided
+    and fast tiles' 262,144 and 2,097,152 rows, as phase 34 times them.
 Inputs and weights come from a seeded generator (the smoke's tile holds
 a real frame's features), and each part is timed REPEATS times in turn.
 Prints one JSON line with the card's name and power limit. It checks
@@ -33,6 +38,8 @@ CHECKOUT = Path(__file__).resolve().parents[2]
 SIGMA, COLOR = [32, 64, 16], [31, 64, 64, 3]
 ROWS = 4096 * 512
 REPEATS = 3
+K1_WIDTHS = (160, 192, 256)
+K3_ROWS = (262144, 2097152)
 
 
 def chain(torch, widths, rows, gen, dev):
@@ -40,6 +47,43 @@ def chain(torch, widths, rows, gen, dev):
     ws = [torch.randn((a, b), generator=gen, device=dev) * (2.0 / a) ** 0.5
           for a, b in zip(widths, widths[1:])]
     return x, ws
+
+
+def f32_parts(torch, S, gen, dev):
+    """(name, call, reps) for K1 f32 at each width and K3 f32 at each tile,
+    seeded inputs and weights (N(0, 1 / fan_in))."""
+    pm = importlib.import_module(
+        "nerfsafetyvalidation_tpu_torch.ops.hopper.points_mlp")
+    sc = importlib.import_module(
+        "nerfsafetyvalidation_tpu_torch.ops.hopper.sigma_color")
+    pm.build()
+    sc.build()
+    f32 = torch.float32
+
+    def mat(a, b):
+        return torch.randn((a, b), generator=gen, device=dev) / a ** 0.5
+
+    rows = S.K1_ROWS
+    x = torch.rand((rows, 3), generator=gen, device=dev) * 2 - 1
+    d = torch.randn((rows, 16), generator=gen, device=dev)
+    sh = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    parts = []
+    for hid in K1_WIDTHS:
+        sn = [mat(75, hid)] + [mat(hid, hid) for _ in range(4)] + [
+            mat(hid, 16)]
+        cn = [mat(31, 64), mat(64, 64), mat(64, 3)]
+        parts.append((f"k1_f32_h{hid}_ms",
+                      lambda sn=sn, cn=cn: pm.fused_points_sigma_color(
+                          x, sh, sn, cn, 12, f32), 10))
+    w3 = [mat(a, b) for a, b in ((32, 64), (64, 16), (31, 64), (64, 64),
+                                 (64, 3))]
+    for n in K3_ROWS:
+        enc = torch.randn((n, 32), generator=gen, device=dev) * 0.5
+        sh3 = torch.randn((n, 16), generator=gen, device=dev) * 0.5
+        parts.append((f"k3_f32_{n}_ms",
+                      lambda enc=enc, sh3=sh3: sc.fused_sigma_color(
+                          enc, sh3, w3[:2], w3[2:], f32), 20))
+    return parts
 
 
 def main(argv=None):
@@ -82,8 +126,8 @@ def main(argv=None):
     def grouped():
         return K.fused_mlp_grouped(xg, wg)
 
-    parts = (("bf16_pair_ms", pair_bf16, 20), ("f32_pair_ms", pair_f32, 10),
-             ("grouped_ms", grouped, 50))
+    parts = [("bf16_pair_ms", pair_bf16, 20), ("f32_pair_ms", pair_f32, 10),
+             ("grouped_ms", grouped, 50)] + f32_parts(torch, S, gen, dev)
     out = {name: [] for name, _, _ in parts}
     for _ in range(REPEATS):
         for name, fn, reps in parts:

@@ -305,30 +305,43 @@ def test_k3_k4_refuse_a_gradient_off_the_cpu(kernel):
 
 @pytest.mark.parametrize("hidden", pm.HIDDEN_WIDTHS)
 def test_f32_image_is_the_layers_row_major_in_order(hidden):
-    """K2's f32 kernel streams its weights in chunks of 16 input rows from
-    one image: the padded layers, row-major, one after another (W1, the
-    hidden layers, W_L, C1 = [C1s; C1g], the middle color layers, C_last),
-    every layer a whole number of chunks; and its cache entry is not the
-    bf16 one."""
+    """K1's and K2's f32 kernel streams its weights in chunks from one
+    image (the name predates the 3xTF32 kernel, whose image replaced the
+    row-major one): the padded layers in order (W1, the hidden layers, W_L,
+    C1 = [C1s; C1g], the middle color layers, C_last), each as
+    `fused_mlp.tf32_chunks` in the parts and chunks of `tf32_layers`: every
+    chunk of an H-wide layer fills one stage of the ring (128 H bytes), the
+    color layers' chunks 16 KB, C_last's first 4 columns f32 row-major at
+    the end; and its cache entry is not the bf16 one. (tests/
+    test_torch_tf32_chain.py reads every weight back.)"""
     _, _, sn, cn, _ = _nets(hidden=hidden, n_sig=4, rows=1)
     sn_t, cn_t = _t(sn), _t(cn)
     m = pm._prepare(sn_t, cn_t, torch.float32)
     image = m["image"]
     assert image.dtype == torch.float32 and image.dim() == 1
-    layers = pm.image_layers(m)
-    assert [tuple(w.shape) for w in layers] == [
-        (80, hidden), (hidden, hidden), (hidden, hidden), (hidden, 16),
-        (32, 64), (64, 64), (64, 16)]
+    layers = pm.tf32_layers(m)
+    parts = pm.RING_F32[hidden][0]
+    assert [(tuple(w.shape), p, k) for w, p, k in layers] == [
+        ((80, hidden), 1, 2), ((hidden, hidden), parts, 2 * parts),
+        ((hidden, hidden), parts, 2 * parts), ((hidden, 16), 1, hidden // 8),
+        ((32, 64), 1, 4), ((64, 64), 1, 4), ((64, 4), None, None)]
     off = 0
-    for w in layers:
-        k_in, cols = w.shape
-        assert k_in % 16 == 0
-        got = image[off:off + k_in * cols].view(k_in, cols)
-        assert torch.equal(got.view(torch.int32), w.view(torch.int32))
-        off += k_in * cols
+    for w, p, k in layers:
+        if p is None:
+            assert torch.equal(image[off:], w.reshape(-1))
+            off += w.numel()
+            continue
+        chunk = 2 * 8 * k * (w.shape[1] // p)        # floats: hi and lo
+        assert 4 * chunk == (128 * hidden if w.shape[1] in (hidden, 16)
+                             else 16384)
+        got = torch.cat(k4.tf32_chunks(w, k, p))
+        assert got.numel() % chunk == 0
+        assert torch.equal(image[off:off + got.numel()], got)
+        off += got.numel()
     assert off == image.numel()
-    torch.testing.assert_close(layers[4][16 + 1:], cn_t[0][16:], rtol=0,
+    assert 4 * off == pm.f32_stream_bytes(hidden, 2, 1)
+    torch.testing.assert_close(layers[4][0][16 + 1:], cn_t[0][16:], rtol=0,
                                atol=0)
-    assert not layers[4][16].any()
+    assert not layers[4][0][16].any()
     assert pm._prepare(sn_t, cn_t)["image"].dtype == torch.bfloat16
     assert pm.LAYOUT[torch.float32] != pm.LAYOUT[torch.bfloat16]
